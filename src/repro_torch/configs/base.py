@@ -1,0 +1,96 @@
+# Trimmed copy of repro/configs/base.py: ModelConfig with the fields and derived values the port reads.
+"""Model/config schema shared by all assigned architectures.
+
+One frozen dataclass describes any member of the five families (dense / MoE / VLM /
+hybrid / SSM / encoder-audio). Heterogeneous layer stacks (gemma3 local:global,
+recurrentgemma RG-LRU:attention, llama-vision cross-attention interleave) are
+expressed as a repeating ``block_pattern`` so the model can scan over pattern
+*periods* (HLO size ∝ period length, compile time independent of depth).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | vlm | hybrid | ssm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 → d_model // num_heads
+
+    # --- attention ---------------------------------------------------------
+    # per-layer block types, cycled: "attn" | "sliding" | "cross" | "rglru" | "ssd"
+    block_pattern: tuple[str, ...] = ("attn",)
+    sliding_window: int = 4096
+    rope_style: str = "standard"     # standard | partial2d | none
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0       # chatglm: rotary on half the head dim
+    qk_norm: bool = False
+    causal: bool = True              # False for encoder-only (hubert)
+
+    # --- mlp / moe ----------------------------------------------------------
+    mlp_kind: str = "swiglu"         # swiglu | geglu | gelu
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    expert_capacity_factor: float = 1.25
+
+    # --- ssm (mamba2 SSD) ----------------------------------------------------
+    ssm_state_dim: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128             # SSD chunk length
+
+    # --- rglru (griffin) ------------------------------------------------------
+    lru_width: int = 0               # 0 → d_model
+    lru_heads: int = 0               # block-diagonal gate blocks; 0 → num_heads
+
+    # --- vlm -----------------------------------------------------------------
+    img_tokens: int = 0              # stubbed frontend sequence length
+
+    # --- misc ----------------------------------------------------------------
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: str = "nothing_saveable"  # none | nothing_saveable | dots_saveable
+    logit_softcap: float = 0.0
+    embed_scale: float = 1.0         # gemma: sqrt(d_model)
+    scan_layers: bool = True         # lax.scan over periods (False: unrolled)
+
+    # ------------------------------------------------------------------ derived
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def pattern_layers(self) -> tuple[str, ...]:
+        """Full per-layer block-type list (pattern cycled to num_layers)."""
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    @property
+    def period(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def num_periods(self) -> int:
+        return self.num_layers // self.period
+
+    @property
+    def remainder_layers(self) -> tuple[str, ...]:
+        return self.pattern_layers[self.num_periods * self.period:]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,41 @@
+# Trimmed copy of repro/configs/registry.py: the architectures the port serves.
+"""Architecture registry: full configs and reduced smoke configs."""
+from __future__ import annotations
+
+import math
+
+from .base import ModelConfig
+from .qwen3_1_7b import CONFIG as qwen3_1_7b
+
+ARCHS: dict[str, ModelConfig] = {
+    "qwen3-1.7b": qwen3_1_7b,
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; the port knows {sorted(ARCHS)} "
+                       "(other architectures: ROADMAP Queue 1, Slice B onward)")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config: small widths, tiny vocab — the same
+    overrides as the JAX package's ``smoke_config``, so both packages build
+    the same smoke model."""
+    cfg = get_config(name)
+    common = dict(
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=max(1, 4 * cfg.num_kv_heads // cfg.num_heads),
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=512,
+        sliding_window=16,
+        remat="none",
+        dtype="float32",
+        embed_scale=math.sqrt(64.0) if cfg.embed_scale != 1.0 else 1.0,
+    )
+    rem = len(cfg.remainder_layers)
+    layers = 2 * cfg.period + rem
+    return cfg.replace(num_layers=layers, **common)

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, each with its plain PyTorch
+version and a launch counter on its wrapper (``<wrapper>.launches``)."""
+from .fault_probe import probe_rows  # noqa: F401
+from .flash_attention import flash_attention  # noqa: F401
+
+WRAPPERS = (flash_attention, probe_rows)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0

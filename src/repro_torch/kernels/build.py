@@ -1,0 +1,128 @@
+"""Build and load the port's hand-written Hopper kernels.
+
+Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` — one
+``nvcc -c`` per source, all started together — and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds, not minutes). The library
+lands in ``build/repro_torch_kernels/`` at the root of the checkout, named by
+a hash of the sources and flags, so an edited source is never served a stale
+build. Nothing is built when this module is imported: the first kernel
+launch (or an explicit :func:`build`) does it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each exported launcher; every one returns cudaGetLastError()
+SIGNATURES = {
+    # q, k, v, q_offset, out, B, S, T, Hq, Hkv, D, causal, window, seq_kv,
+    # dtype, stream
+    "repro_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P),
+    # x, rows, cols, dtype, threshold, nonfinite_code, overflow_code, out,
+    # stream
+    "repro_probe_rows": (_P, _I, _I, _I, _F, _I, _I, _P, _P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list[Path]:
+    return sorted(_KERNELS.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(found, os.X_OK):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+            "kernels are built on the machine with the card")
+    return found
+
+
+def build() -> Path:
+    """Compile every kernel source into one ``.so`` (cached by content)."""
+    nvcc = _nvcc()
+    srcs = sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    so = BUILD_DIR / f"libreprokernels-{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = [BUILD_DIR / f"{s.stem}-{digest.hexdigest()[:16]}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(srcs, objs)]
+    errors = []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        if p.returncode:
+            errors.append(f"{s.name}:\n{out}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
+                           "-o", str(tmp)], capture_output=True, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if a launcher reported a CUDA error (a refused launch never
+    runs, and no later synchronise would report it)."""
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+# element types the kernels take, by the code their C interface expects
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_device(name: str, *tensors: torch.Tensor) -> str:
+    """All ``tensors`` on one device, which is the CPU (plain version) or a
+    CUDA device (the kernel); returns that device's type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
+    kind = tensors[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    return kind

@@ -1,0 +1,99 @@
+"""Common layers: rms norm, rotary embeddings, SwiGLU MLP, embeddings.
+
+The port of ``repro/models/layers.py`` for the dense qwen3 path. Each
+function keeps the JAX package's arithmetic and dtype casts (norm and rope in
+fp32, cast back to the activation dtype; logits in fp32), so the two
+packages agree to float tolerance on the same weights.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(shape, *, generator: torch.Generator, device, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """Normal draw times ``scale`` (default ``1/sqrt(fan_in)``), made in fp32
+    and cast — the same distribution as the JAX package's ``_dense_init``
+    (the numbers differ: another generator)."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """Pre-norm of the residual stream (rmsnorm only in this slice)."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {kind!r}: the port has rmsnorm only (ROADMAP Queue 1, "
+            "item 14: remaining architectures)")
+    return rms_norm_vec(x, scale, eps)
+
+
+def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis with an explicit scale vector."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, *, head_dim: int, theta: float,
+                style: str = "standard"):
+    """``(cos, sin)``, each fp32 ``(B, S, 1, head_dim/2)``, for positions
+    (B, S) — or None for ``style="none"``. Every layer rotates at the same
+    positions, so a step computes the tables once for all layers."""
+    if style == "none":
+        return None
+    if style != "standard":
+        raise NotImplementedError(
+            f"rope style {style!r}: the port has 'standard' only (ROADMAP "
+            "Queue 1, item 14: remaining architectures)")
+    rot = head_dim // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                        device=positions.device) / rot
+    ang = positions.float()[..., None] * (1.0 / (theta ** exps))
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
+    """x (B, S, H, D) rotated by ``rope = rope_tables(...)`` (half-split
+    rotation in fp32, the JAX package's ``standard`` style)."""
+    if rope is None:
+        return x
+    cos, sin = rope
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    """SwiGLU: ``(silu(x wg) * (x wi)) wo``; ``p`` has ``wi``, ``wg``, ``wo``."""
+    if kind != "swiglu":
+        raise NotImplementedError(
+            f"mlp {kind!r}: the port has swiglu only (ROADMAP Queue 1, item "
+            "14: remaining architectures)")
+    h = x @ p.wi
+    h = F.silu(x @ p.wg) * h
+    return h @ p.wo
+
+
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    return embedding[tokens].to(dtype)
+
+
+def unembed(x: torch.Tensor, embed_f32: torch.Tensor, *,
+            softcap: float = 0.0) -> torch.Tensor:
+    """fp32 logits against the tied embedding. ``embed_f32`` is the fp32
+    copy the model keeps (made once, instead of a full-vocab cast every
+    step: the same arithmetic as the JAX package's per-call cast)."""
+    logits = x.float() @ embed_f32.t()
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits

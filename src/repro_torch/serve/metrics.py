@@ -1,0 +1,185 @@
+# Trimmed copy of repro/serve/metrics.py: the counters the window+overlap replica records.
+"""Serving metrics: per-request latency, throughput, fault counters.
+
+Feeds the same :class:`~repro_torch.core.resilient.EventLog` record the
+training executor uses, so one post-mortem tool reads both kinds of run.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from ..core.errors import ErrorCode
+from ..core.resilient import Event, EventLog
+from .queue import OK, Response
+
+
+@dataclass
+class FaultRecord:
+    step: int
+    code: int
+    action: str
+    slots: tuple[int, ...] = ()
+    t: float = 0.0               # wall clock (metrics clock) of detection
+
+
+class ServeMetrics:
+    """Thread-safe accumulator for one replica."""
+
+    def __init__(self, clock=time.monotonic):
+        self._lock = threading.Lock()
+        self.clock = clock
+        self.responses: list[Response] = []
+        self._resp_t: list[float] = []       # completion wall time per response
+        self.faults: list[FaultRecord] = []
+        self.decode_steps = 0
+        self.decode_tokens = 0               # all committed tokens
+        self._t0: Optional[float] = None
+        self._t_last: Optional[float] = None
+        self.windows = 0                     # decode windows retired
+        self.discarded_tokens = 0            # trailing tokens dropped at window
+                                             # boundaries (EOS/budget/fault)
+        self.prefill_chunks = 0              # prompt chunks fused into windows
+        self.prefill_chunk_tokens = 0        # prompt tokens fed via chunks
+        self.window_waits = 0                # windows not yet done at retire
+                                             # (device-bound, host keeping up)
+        self.peak_active_slots = 0           # most lanes concurrently serving
+
+    # ------------------------------------------------------------- recording
+    def record_window(self, committed_tokens: int, discarded_tokens: int,
+                      window: int) -> None:
+        """One retired decode window: K deferred device steps, one host sync."""
+        with self._lock:
+            self._tick()
+            self.windows += 1
+            self.decode_steps += window
+            self.decode_tokens += committed_tokens
+            self.discarded_tokens += discarded_tokens
+
+    def record_chunk(self, tokens_fed: int) -> None:
+        """A prompt chunk fused into a decode window (overlapped prefill)."""
+        with self._lock:
+            self._tick()
+            self.prefill_chunks += 1
+            self.prefill_chunk_tokens += tokens_fed
+
+    def record_window_wait(self) -> None:
+        """A window that was still computing when the host came to retire it."""
+        with self._lock:
+            self.window_waits += 1
+
+    def record_active_slots(self, n: int) -> None:
+        with self._lock:
+            self.peak_active_slots = max(self.peak_active_slots, n)
+
+    def _tick(self) -> None:
+        now = self.clock()
+        if self._t0 is None:
+            self._t0 = now
+        self._t_last = now
+
+    def record_response(self, resp: Response) -> None:
+        with self._lock:
+            self.responses.append(resp)
+            self._resp_t.append(self.clock())
+
+    def record_fault(self, step: int, code: int | ErrorCode, action: str,
+                     slots: tuple[int, ...] = ()) -> None:
+        with self._lock:
+            self.faults.append(FaultRecord(step, int(code), action, slots,
+                                           t=self.clock()))
+
+    # --------------------------------------------------------------- queries
+    def by_status(self) -> dict[str, int]:
+        with self._lock:
+            out: dict[str, int] = {}
+            for r in self.responses:
+                out[r.status] = out.get(r.status, 0) + 1
+            return out
+
+    def fault_counts(self) -> dict[str, int]:
+        """Faults keyed by ErrorCode class name."""
+        with self._lock:
+            out: dict[str, int] = {}
+            for f in self.faults:
+                for cls in ErrorCode(f.code).classes() or [ErrorCode.OK]:
+                    out[cls.name] = out.get(cls.name, 0) + 1
+            return out
+
+    def tokens_per_s(self) -> float:
+        """Committed tokens per wall second, first to last retired window."""
+        with self._lock:
+            if self._t0 is None or self._t_last is None or self._t_last <= self._t0:
+                return 0.0
+            return self.decode_tokens / (self._t_last - self._t0)
+
+    def tokens_per_step(self) -> float:
+        with self._lock:
+            if not self.decode_steps:
+                return 0.0
+            return self.decode_tokens / self.decode_steps
+
+    def _percentiles(self, values, ps) -> dict[str, float]:
+        if not values:
+            return {f"p{p}": float("nan") for p in ps}
+        arr = np.asarray(values)
+        return {f"p{p}": float(np.percentile(arr, p)) for p in ps}
+
+    def latency_percentiles(self, ps=(50, 99)) -> dict[str, float]:
+        with self._lock:
+            lats = [r.latency_s for r in self.responses if r.status == OK]
+        return self._percentiles(lats, ps)
+
+    def ttft_percentiles(self, ps=(50, 99)) -> dict[str, float]:
+        with self._lock:
+            tt = [r.ttft_s for r in self.responses
+                  if r.status == OK and r.ttft_s is not None]
+        return self._percentiles(tt, ps)
+
+    def summary(self) -> dict:
+        out = {
+            "requests": len(self.responses),
+            "statuses": self.by_status(),
+            "decode_steps": self.decode_steps,
+            "decode_tokens": self.decode_tokens,
+            "windows": self.windows,
+            "discarded_tokens": self.discarded_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "window_waits": self.window_waits,
+            "peak_active_slots": self.peak_active_slots,
+            "tokens_per_step": self.tokens_per_step(),
+            "tokens_per_s": self.tokens_per_s(),
+            "faults": self.fault_counts(),
+            "retries": sum(r.retries for r in self.responses),
+        }
+        out.update({f"latency_{k}_s": v
+                    for k, v in self.latency_percentiles().items()})
+        out.update({f"ttft_{k}_s": v
+                    for k, v in self.ttft_percentiles().items()})
+        return out
+
+    # --------------------------------------------------------------- export
+    def to_event_log(self) -> EventLog:
+        """EventLog record: requests as ok/fault events, faults with the
+        recovery action taken, in wall order."""
+        log = EventLog()
+        with self._lock:
+            entries = [(f.t, Event(step=f.step, kind="fault", code=f.code,
+                                   action=f.action,
+                                   detail=f"slots={list(f.slots)}", t=f.t))
+                       for f in self.faults]
+            resp_order = sorted(zip(self._resp_t, self.responses),
+                                key=lambda p: p[0])
+            entries += [(t, Event(step=i,
+                                  kind="ok" if r.status == OK else "fault",
+                                  detail=f"request {r.id}: {r.status}",
+                                  duration_s=r.latency_s, t=t))
+                        for i, (t, r) in enumerate(resp_order)]
+        for _, ev in sorted(entries, key=lambda p: p[0]):
+            log.add(ev)
+        return log

@@ -1,0 +1,163 @@
+"""Weight and cache bridge between the JAX package's pytrees and the port.
+
+The JAX model stacks the parameters of each block-pattern position over
+periods (``periods["b<pos>"]`` leaves carry a leading ``n_per`` axis;
+layer ``l`` is period ``l // period``, position ``l % period``) and keeps
+remainder layers in ``rest``; the port keeps one module per layer. Trees
+cross as numpy arrays — the bridge imports nothing of JAX, so the tests hand
+it ``jax.device_get(params)``.
+
+Caches cross both ways, so mid-run states can be compared: the JAX decode
+cache (leaves ``(n_per, B, cap, Hkv, D)``) or the slot-stacked serve cache
+(leaves ``(S, n_per, 1, cap, Hkv, D)``, ``slots=True``), against the port's
+``{"k", "v"}`` tensors of shape ``(layers, B, cap, Hkv, D)``.
+
+bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays and go back as
+float32 arrays (exact: every bfloat16 is a float32).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .configs.base import ModelConfig
+from .models.model import Model, resolve_device
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_QK_NORM = ("q_norm", "k_norm")
+_MLP = ("wi", "wg", "wo")
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _fill(param: torch.Tensor, arr, name: str) -> None:
+    src = _to_tensor(arr)
+    if tuple(src.shape) != tuple(param.shape) or src.dtype != param.dtype:
+        raise ValueError(f"{name}: got {src.dtype} {tuple(src.shape)}, the "
+                         f"model holds {param.dtype} {tuple(param.shape)}")
+    param.copy_(src.to(param.device))
+
+
+def _layer_paths(cfg: ModelConfig) -> list[tuple]:
+    """Where layer ``l`` lives in the JAX tree: ``("periods", key, c)`` or
+    ``("rest", i)``."""
+    n_scan = cfg.num_periods * cfg.period
+    return [("periods", f"b{l % cfg.period}", l // cfg.period) if l < n_scan
+            else ("rest", l - n_scan) for l in range(cfg.num_layers)]
+
+
+def _layer(tree: dict, path: tuple, select) -> Any:
+    """The sub-tree of one layer; ``select(leaf, c)`` cuts period ``c`` out
+    of a period-stacked leaf."""
+    if path[0] == "rest":
+        return tree["rest"][path[1]]
+    sub = tree["periods"][path[1]]
+    return _map(sub, lambda leaf: select(leaf, path[2]))
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
+    """A port model on ``device`` holding the JAX params ``tree`` (numpy)."""
+    model = Model(cfg, device=device, seed=None)
+    with torch.no_grad():
+        _fill(model.embed, tree["embed"]["embedding"], "embed")
+        _fill(model.final_norm, tree["final_norm"]["scale"], "final_norm")
+        for l, path in enumerate(_layer_paths(cfg)):
+            lp = _layer(tree["stack"], path, lambda leaf, c: np.asarray(leaf)[c])
+            blk = model.blocks[l]
+            _fill(blk.norm1, lp["norm1"]["scale"], f"layer {l} norm1")
+            _fill(blk.norm2, lp["norm2"]["scale"], f"layer {l} norm2")
+            names = _ATTN + (_QK_NORM if cfg.qk_norm else ())
+            for name in names:
+                _fill(getattr(blk.attn, name), lp["attn"][name],
+                      f"layer {l} attn.{name}")
+            for name in _MLP:
+                _fill(getattr(blk.mlp, name), lp["mlp"][name],
+                      f"layer {l} mlp.{name}")
+    model.tie_unembed()
+    return model
+
+
+def params_to_numpy(model: Model) -> dict:
+    """The JAX param tree layout of ``model``'s weights, as numpy."""
+    cfg = model.cfg
+    layers = []
+    for blk in model.blocks:
+        attn = {n: _to_numpy(getattr(blk.attn, n)) for n in _ATTN}
+        if cfg.qk_norm:
+            attn.update({n: _to_numpy(getattr(blk.attn, n)) for n in _QK_NORM})
+        layers.append({"norm1": {"scale": _to_numpy(blk.norm1)},
+                       "norm2": {"scale": _to_numpy(blk.norm2)},
+                       "attn": attn,
+                       "mlp": {n: _to_numpy(getattr(blk.mlp, n)) for n in _MLP}})
+    return {"embed": {"embedding": _to_numpy(model.embed)},
+            "stack": _stack(layers, cfg, lambda xs: np.stack(xs)),
+            "final_norm": {"scale": _to_numpy(model.final_norm)}}
+
+
+def _stack(layers: list, cfg: ModelConfig, stack) -> dict:
+    """Regroup per-layer trees into the JAX period-stacked layout."""
+    periods: dict = {}
+    rest = []
+    for l, path in enumerate(_layer_paths(cfg)):
+        if path[0] == "rest":
+            rest.append(layers[l])
+        else:
+            periods.setdefault(path[1], []).append(layers[l])
+    return {"periods": {key: _zip(group, stack) for key, group in periods.items()},
+            "rest": rest}
+
+
+def _zip(trees: list, stack):
+    if isinstance(trees[0], dict):
+        return {k: _zip([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
+
+
+def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
+                   device=None) -> dict:
+    """Port cache ``{"k", "v"}`` from a JAX decode cache tree (numpy);
+    ``slots=True`` for the serve engines' slot-stacked caches."""
+    if slots:
+        select = lambda leaf, c: np.asarray(leaf)[:, c, 0]  # noqa: E731
+    else:
+        select = lambda leaf, c: np.asarray(leaf)[c]  # noqa: E731
+    per_layer = []
+    for path in _layer_paths(cfg):
+        lc = _layer(tree, path, select)
+        if path[0] == "rest" and slots:
+            lc = {k: np.asarray(v)[:, 0] for k, v in lc.items()}
+        per_layer.append(lc)
+    dev = resolve_device(device)
+    return {name: torch.stack([_to_tensor(lc[name]) for lc in per_layer]).to(dev)
+            for name in ("k", "v")}
+
+
+def cache_to_numpy(cache: dict, cfg: ModelConfig, *, slots: bool = False) -> dict:
+    """Inverse of :func:`cache_from_jax`: the JAX cache tree, as numpy."""
+    k, v = _to_numpy(cache["k"]), _to_numpy(cache["v"])
+    layers = []
+    for l in range(cfg.num_layers):
+        kl, vl = k[l], v[l]
+        if slots:
+            kl, vl = kl[:, None], vl[:, None]     # per-slot batch of one
+        layers.append({"k": kl, "v": vl})
+    axis = 1 if slots else 0
+    return _stack(layers, cfg, lambda xs: np.stack(xs, axis=axis))

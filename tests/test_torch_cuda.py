@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (Hopper, sm_90a) and skips
+without one; run them on the card with
+``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.errors import ErrorCode
+from repro_torch.kernels import flash_attention, probe_rows
+from repro_torch.kernels.fault_probe import probe_rows_ref
+from repro_torch.kernels.flash_attention import sdpa_ref
+
+NF, OV = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+
+
+# (B, S, T, Hq, Hkv, D, causal, window, offsets)
+FLASH_CASES = [
+    (1, 16, 16, 2, 2, 128, True, 0, (0,)),
+    (2, 32, 32, 4, 2, 128, True, 0, (0, 0)),
+    (1, 32, 32, 4, 1, 128, True, 8, (0,)),
+    (1, 24, 24, 2, 2, 128, False, 0, (0,)),
+    (1, 20, 20, 2, 1, 128, True, 0, (0,)),
+    (2, 33, 70, 4, 2, 16, True, 0, (0, 37)),            # smoke head_dim
+    (3, 1, 300, 8, 2, 64, True, 0, (0, 150, 299)),      # decode, group 4
+    (2, 1, 200, 4, 4, 32, True, 16, (5, 190)),          # decode, window
+    (1, 40, 90, 12, 4, 128, True, 0, (7,)),             # group 3, 15 rows
+    (8, 1, 1024, 16, 8, 128, True, 0,                   # serving decode
+     (0, 1, 31, 32, 500, 1023, 1024, 1500)),
+    (1, 512, 512, 16, 8, 128, True, 0, (0,)),           # full-width forward
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, S, T, Hq, Hkv, D, causal, window, offsets = case
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, S, Hq, D), dtype, cuda)
+    k = _randn(rng, (B, T, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, T, Hkv, D), dtype, cuda)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, off, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = sdpa_ref(q, k, v, q_offset=off, causal=causal, window=window)
+    # fp32: summation order differs (online softmax, 32-key tiles);
+    # bf16: both round an fp32 result to bf16, so 2 ulp at |x| < 2
+    tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_is_deterministic_per_row(cuda):
+    """A slot's output does not depend on the other slots' data — the LFLR
+    bit-exactness contract rests on it."""
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (4, 1, 16, 128), torch.bfloat16, cuda)
+    k = _randn(rng, (4, 256, 8, 128), torch.bfloat16, cuda)
+    v = _randn(rng, (4, 256, 8, 128), torch.bfloat16, cuda)
+    off = torch.tensor([5, 100, 255, 300], dtype=torch.int32, device=cuda)
+    a = flash_attention(q, k, v, off, causal=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[1:] = _randn(rng, (3, 256, 8, 128), torch.bfloat16, cuda)
+    v2[1:] = _randn(rng, (3, 256, 8, 128), torch.bfloat16, cuda)
+    b = flash_attention(q, k2, v2, off, causal=True)
+    assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_kernel_matches_plain(cuda, dtype):
+    x = torch.zeros((6, 151936), dtype=dtype, device=cuda)
+    x[1, 7] = float("nan")
+    x[2, 151935] = float("inf")
+    x[3, 70000] = float("-inf")
+    x[4, 3] = 2e4
+    x[5, 9], x[5, 10] = float("nan"), -3e4
+    for threshold in (1e4, float("inf")):
+        before = probe_rows.launches
+        got = probe_rows(x, threshold, nonfinite_code=NF, overflow_code=OV)
+        torch.cuda.synchronize()
+        assert probe_rows.launches == before + 1
+        want = probe_rows_ref(x, threshold, nonfinite_code=NF, overflow_code=OV)
+        assert torch.equal(got, want), (got, want)
+    assert got.tolist() == [0, NF, NF, NF, 0, NF]

@@ -1,0 +1,131 @@
+"""The port's dense model against the JAX package on the smoke qwen3-1.7b
+config (2 layers, d_model 64, float32), with the JAX weights carried over by
+the bridge: full-forward logits, eight decode steps (logits and caches), the
+slot-batched decode step at mixed positions, and the error words.
+
+Tolerance 1e-4 (absolute, on logits of magnitude ~50 and caches of ~1):
+both sides compute in float32 and differ only in reduction order.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.launch.steps import make_slot_decode_step as jax_slot_step
+from repro.models import build_model
+from repro_torch.configs import smoke_config
+from repro_torch.launch.steps import make_slot_decode_step
+from repro_torch.weights import cache_from_jax, cache_to_numpy, params_from_jax
+
+torch.set_num_threads(2)
+
+TOL = 1e-4
+ARCH = "qwen3-1.7b"
+
+
+@pytest.fixture(scope="module")
+def env():
+    jcfg = jax_smoke_config(ARCH)
+    cfg = smoke_config(ARCH)
+    jmodel = build_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0))
+    model = params_from_jax(jax.device_get(params), cfg, device="cpu")
+    return jcfg, cfg, jmodel, params, model
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=TOL, atol=TOL)
+
+
+def test_smoke_configs_agree():
+    """Both packages build the same smoke model."""
+    assert (dataclasses.asdict(smoke_config(ARCH))
+            == dataclasses.asdict(jax_smoke_config(ARCH)))
+
+
+def test_forward_logits_match_jax(env):
+    jcfg, cfg, jmodel, params, model = env
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 19)).astype(np.int32)
+    want, _ = jmodel.forward(params, jnp.asarray(toks), impl="ref")
+    with torch.no_grad():
+        got = model(torch.from_numpy(toks))
+    assert got.dtype == torch.float32 and got.shape == (2, 19, cfg.vocab_size)
+    _close(got.numpy(), want)
+
+
+def test_decode_steps_match_jax(env):
+    """Eight decode steps from an empty cache: logits and the whole cache
+    after every step."""
+    jcfg, cfg, jmodel, params, model = env
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    jcache = jmodel.init_cache(2, 12)
+    cache = model.init_cache(2, 12)
+    for p in range(8):
+        tok = toks[:, p:p + 1]
+        want, jcache = jmodel.decode_step(params, jnp.asarray(tok), jcache, p)
+        got = model.decode_step(torch.from_numpy(tok), cache, p)
+        _close(got.numpy(), want)
+        for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(jcache)),
+                        jax.tree_util.tree_leaves(cache_to_numpy(cache, cfg))):
+            _close(b, a)
+
+
+def _slot_inputs(cfg, jcfg, cap, positions, seed=2):
+    """Random slot-stacked caches (as the serve engines hold them) and one
+    token per slot."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.tree_util.tree_map(
+        lambda s: s.shape, build_model(jcfg).cache_shapes(1, cap))
+    tree = jax.tree_util.tree_map(
+        lambda shape: rng.standard_normal((len(positions), *shape)).astype(np.float32),
+        shapes, is_leaf=lambda x: isinstance(x, tuple))
+    toks = rng.integers(0, cfg.vocab_size, len(positions)).astype(np.int32)
+    return tree, toks
+
+
+@pytest.mark.parametrize("poison", [None, "nan", "inf"])
+def test_slot_step_matches_jax(env, poison):
+    """The slot-batched step at mixed per-slot positions — including the
+    capacity clamp (positions >= cap write at cap-1 and read everything) —
+    against the JAX vmapped ``make_slot_decode_step``: logits and caches to
+    tolerance, error words bit-equal (a NaN or inf planted in slot 1's cache
+    at a position it reads must latch NONFINITE_LOSS there and only there)."""
+    jcfg, cfg, jmodel, params, model = env
+    cap = 16
+    positions = np.asarray([0, 5, cap - 1, cap + 3], np.int32)
+    tree, toks = _slot_inputs(cfg, jcfg, cap, positions)
+    if poison is not None:
+        tree["periods"]["b0"]["v"][1, 0, 0, 2, 1, 3] = float(poison)
+    jlogits, jcaches, jwords = jax_slot_step(jcfg)(
+        params, jax.tree_util.tree_map(jnp.asarray, tree),
+        jnp.asarray(toks)[:, None, None], jnp.asarray(positions))
+    caches = cache_from_jax(tree, cfg, slots=True, device="cpu")
+    step = make_slot_decode_step(model)
+    logits, words = step(caches, torch.from_numpy(toks),
+                         torch.from_numpy(positions))
+    assert words.dtype == torch.int32
+    assert words.numpy().astype(np.uint32).tolist() == np.asarray(jwords).tolist()
+    assert words.tolist() == ([0, 1, 0, 0] if poison else [0, 0, 0, 0])
+    finite = np.isfinite(np.asarray(jlogits[:, 0, 0]))
+    np.testing.assert_array_equal(np.isfinite(logits.numpy()), finite)
+    _close(logits.numpy()[finite], np.asarray(jlogits[:, 0, 0])[finite])
+    if poison is None:
+        for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(jcaches)),
+                        jax.tree_util.tree_leaves(cache_to_numpy(caches, cfg,
+                                                                 slots=True))):
+            _close(b, a)
+
+
+def test_cache_write_positions(env):
+    """Decode writes each slot's K/V at min(pos, cap-1) and nowhere else."""
+    _, cfg, _, _, model = env
+    cap = 8
+    cache = model.init_cache(3, cap)
+    pos = torch.tensor([0, 3, cap + 2], dtype=torch.int32)
+    make_slot_decode_step(model)(cache, torch.tensor([1, 2, 3], dtype=torch.int32), pos)
+    written = (cache["k"][0].abs().sum(dim=(-1, -2)) != 0)
+    assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, cap - 1]]
