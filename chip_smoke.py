@@ -38,6 +38,9 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20             # H100 L2 cache
+ROTATE_BYTES = 2 * L2_BYTES         # inputs rotated through per timing run
+SPIN_CYCLES = 5 * 10 ** 7           # ~25 ms at 1.98 GHz: the host's head start
 NUM_SLOTS, MAX_LEN, WINDOW = 8, 1024, 8
 NUM_REQUESTS, MAX_NEW = 16, 64
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
@@ -53,24 +56,41 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(torch, fn, *, iters: int = 50, flush=None) -> float:
-    """Mean device time of ``fn`` by CUDA events, one event pair per launch;
-    ``flush`` (a large tensor) is overwritten before each launch so the
-    inputs come from device memory, not the 50 MB L2, as on the serve path."""
+def copies(make, nbytes: int) -> list:
+    """Enough independent copies of one call's inputs (``make()`` builds one,
+    of ``nbytes``) that a timing run rotating through them outgrows the L2
+    cache: each copy is evicted before its next use, so the inputs come from
+    device memory, as on the serve path."""
+    return [make() for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+
+
+def time_ms(torch, fn, inputs: list, *, launches: int = 32) -> float:
+    """Mean device time of ``fn(*args)`` over one run of at least
+    ``launches`` calls between one CUDA event pair, rotating over ``inputs``.
+
+    A spin kernel queued ahead of the start event holds the device while the
+    host queues the whole run, so the wrapper's host work never lands
+    between launches. If the device has already passed the start event when
+    the last call is queued, the run is repeated with a longer spin."""
+    for args in inputs:
+        fn(*args)
+    n = max(launches, len(inputs))
+    spin = SPIN_CYCLES
     for _ in range(3):
-        fn()
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
-        fn()
+        for i in range(n):
+            fn(*inputs[i % len(inputs)])
         end.record()
+        queued_ahead = not start.query()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        if queued_ahead:
+            return start.elapsed_time(end) / n
+        spin *= 4
+    fail(f"timing: the host could not queue {n} calls ahead of the device")
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -120,7 +140,6 @@ def phase_kernels(torch, card: str) -> dict:
     rng = np.random.default_rng(SEED)
     randn = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     out = {}
 
     # -- flash decode: one query row per slot at its own position, whole cache
@@ -135,23 +154,27 @@ def phase_kernels(torch, card: str) -> dict:
         fail(f"flash decode disagrees with its plain version: {err}")
     kpos = torch.arange(MAX_LEN, device=dev)
     mask = (kpos[None, :] <= off[:, None])[:, None, None, :]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+    heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
+    lib = F.scaled_dot_product_attention(*heads_first(q, k, v), attn_mask=mask,
                                          enable_gqa=True).transpose(1, 2)
     lib_err = (lib.float() - want.float()).abs().max().item()
     ctx = [min(p + 1, MAX_LEN) for p in pos]
     nbytes = 2 * B * Hq * D * 2 + 2 * sum(ctx) * Hkv * D * 2 + 4 * B
     flops = sum(4 * Hq * c * D for c in ctx)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(B, 1, Hq, D), randn(B, MAX_LEN, Hkv, D),
+                          randn(B, MAX_LEN, Hkv, D)),
+                 (B * Hq + 2 * B * MAX_LEN * Hkv) * D * 2)
     out["flash_decode"] = {
         "shape": f"q {B}x1x{Hq}x{D}, kv {B}x{MAX_LEN}x{Hkv}x{D} bf16, pos {pos}",
         "max_abs_err": err, "tol": FLASH_TOL, "library_err": lib_err,
-        "kernel_ms": time_ms(torch, lambda: flash_attention(
-            q, k, v, off, causal=True, seq_kv=MAX_LEN), flush=flush),
-        "plain_ms": time_ms(torch, lambda: sdpa_ref(
-            q, k, v, q_offset=off, causal=True, seq_kv=MAX_LEN), flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), flush=flush),
+        "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, off, causal=True, seq_kv=MAX_LEN), qkv),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
+            q, k, v, q_offset=off, causal=True, seq_kv=MAX_LEN), qkv),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
 
     # -- flash forward: B 1, S 512, causal (Model.forward's shape)
@@ -163,19 +186,20 @@ def phase_kernels(torch, card: str) -> dict:
     err = (got.float() - want.float()).abs().max().item()
     if not err <= FLASH_TOL:
         fail(f"flash forward disagrees with its plain version: {err}")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     nbytes = 2 * S * Hq * D * 2 + 2 * S * Hkv * D * 2 + 4
     flops = 4 * Hq * D * S * (S + 1) // 2
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(1, S, Hq, D), randn(1, S, Hkv, D),
+                          randn(1, S, Hkv, D)), S * (Hq + 2 * Hkv) * D * 2)
     out["flash_forward"] = {
         "shape": f"q 1x{S}x{Hq}x{D}, kv 1x{S}x{Hkv}x{D} bf16, causal",
-        "max_abs_err": err, "tol": FLASH_TOL,
-        "kernel_ms": time_ms(torch, lambda: flash_attention(q, k, v, zero, causal=True),
-                      flush=flush),
-        "plain_ms": time_ms(torch, lambda: sdpa_ref(q, k, v, q_offset=zero,
-                                                    causal=True), flush=flush),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush),
+        "max_abs_err": err, "tol": FLASH_TOL, "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, zero, causal=True), qkv),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
+            q, k, v, q_offset=zero, causal=True), qkv),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, is_causal=True, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
 
     # -- probe: one word per row of (slots, vocab) fp32 logits
@@ -186,26 +210,28 @@ def phase_kernels(torch, card: str) -> dict:
     x[2, V - 1] = float("inf")
     x[3, V // 2] = float("-inf")
     x[4, 3] = 2e4                                   # over a 1e4 threshold
-    words = {}
+    words, err = {}, 0
     for thr in (1e4, math.inf):
         got = probe_rows(x, thr, nonfinite_code=nf, overflow_code=ov)
         want = probe_rows_ref(x, thr, nonfinite_code=nf, overflow_code=ov)
+        err = max(err, (got - want).abs().max().item())
         if not torch.equal(got, want):
             fail(f"probe_rows disagrees with its plain version at threshold "
                  f"{thr}: {got.tolist()} vs {want.tolist()}")
         words[str(thr)] = got.tolist()
     if words["10000.0"] != [0, nf, nf, nf, ov, 0, 0, 0]:
         fail(f"probe_rows words wrong: {words}")
-    clean = torch.from_numpy(rng.standard_normal((NUM_SLOTS, V)).astype(np.float32)).to(dev)
     b_ms, b_by = bound(NUM_SLOTS * V * 4 + NUM_SLOTS * 4, 3 * NUM_SLOTS * V,
                        PEAK_FP32_FLOPS)
+    clean = copies(lambda: (torch.from_numpy(rng.standard_normal(
+        (NUM_SLOTS, V)).astype(np.float32)).to(dev),), NUM_SLOTS * V * 4)
     out["probe_rows"] = {
         "shape": f"{NUM_SLOTS}x{V} fp32, threshold inf", "words": words,
-        "max_abs_err": 0,
-        "kernel_ms": time_ms(torch, lambda: probe_rows(
-            clean, math.inf, nonfinite_code=nf, overflow_code=ov), flush=flush),
-        "plain_ms": time_ms(torch, lambda: probe_rows_ref(
-            clean, math.inf, nonfinite_code=nf, overflow_code=ov), flush=flush),
+        "max_abs_err": err, "timing_copies": len(clean),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), clean),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), clean),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernels", "card": card, **out})
     return out
@@ -236,34 +262,32 @@ def drive(rep, reqs, inject=None):
     return out, inject is None
 
 
-def phase_serve(torch, card: str, cfg, device: str = "cuda") -> dict:
+def phase_serve(torch, card: str, cfg) -> dict:
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import flash_attention, probe_rows, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.serve import EngineConfig, Replica, Request, ServeMetrics
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    model = Model(cfg, device=device, seed=SEED)
-    sync()
+    model = Model(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     rep = Replica(cfg, model, config=EngineConfig(
         window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN))
     t0 = time.perf_counter()
     rep.warmup()
-    sync()
+    torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
     # ---- phase 4: the main path, counts from 0
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     readback.count = 0
     t0 = time.perf_counter()
     clean, _ = drive(rep, make_requests(cfg, Request))
-    sync()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches,
                 "probe_rows": probe_rows.launches}
@@ -274,7 +298,7 @@ def phase_serve(torch, card: str, cfg, device: str = "cuda") -> dict:
         fail(f"serve: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
     expected = {"flash_attention": cfg.num_layers * steps, "probe_rows": steps}
-    if device == "cuda" and launches != expected:
+    if launches != expected:
         fail(f"kernel launches {launches} != {expected} "
              f"({cfg.num_layers} layers x {steps} window steps)")
     if m.faults:
@@ -290,8 +314,7 @@ def phase_serve(torch, card: str, cfg, device: str = "cuda") -> dict:
           "syncs": syncs, "window_waits": m.window_waits, "launches": launches,
           "ttft_p50_s": m.ttft_percentiles()["p50"],
           "latency_p99_s": m.latency_percentiles()["p99"],
-          "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                          if device == "cuda" else None),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "forward_check": forward})
 
     # ---- phase 5: same traffic, a NaN in an active slot's KV mid-run
@@ -312,7 +335,7 @@ def phase_serve(torch, card: str, cfg, device: str = "cuda") -> dict:
 
     t0 = time.perf_counter()
     faulted, injected = drive(rep, make_requests(cfg, Request), inject)
-    sync()
+    torch.cuda.synchronize()
     lflr_wall = time.perf_counter() - t0
     fm = rep.metrics
     if not injected:

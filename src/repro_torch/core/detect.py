@@ -20,18 +20,17 @@ from .errors import ErrorCode
 
 @dataclass(frozen=True)
 class ProbeConfig:
-    loss_divergence_threshold: float = 1e3
+    loss_divergence_threshold: float
 
 
 # the serving word: non-finite logits only (the JAX serve steps' threshold)
 SERVE_PROBES = ProbeConfig(loss_divergence_threshold=math.inf)
 
 
-def logits_probe(logits: torch.Tensor,
-                 cfg: ProbeConfig = SERVE_PROBES) -> torch.Tensor:
-    """Per-row word over ``logits (rows, vocab)``: NONFINITE_LOSS for a row
-    with a NaN/±inf, DIVERGENCE for a finite ``|logit|`` above the
-    threshold. int32 ``(rows,)`` on the logits' device."""
-    return probe_rows(logits, cfg.loss_divergence_threshold,
+def logits_probe(logits: torch.Tensor) -> torch.Tensor:
+    """Per-row serving word over ``logits (rows, vocab)``: NONFINITE_LOSS for
+    a row with a NaN/±inf (DIVERGENCE cannot fire at the infinite threshold
+    of :data:`SERVE_PROBES`). int32 ``(rows,)`` on the logits' device."""
+    return probe_rows(logits, SERVE_PROBES.loss_divergence_threshold,
                       nonfinite_code=int(ErrorCode.NONFINITE_LOSS),
                       overflow_code=int(ErrorCode.DIVERGENCE))

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import torch
 
-from ..core.detect import SERVE_PROBES, ProbeConfig, logits_probe
+from ..core.detect import logits_probe
 from ..models.model import Model
 
 
-def make_slot_decode_step(model: Model, probe_cfg: ProbeConfig = SERVE_PROBES):
+def make_slot_decode_step(model: Model):
     """Per-slot decode for continuous batching::
 
       step(caches, tokens, pos)
@@ -32,13 +32,12 @@ def make_slot_decode_step(model: Model, probe_cfg: ProbeConfig = SERVE_PROBES):
 
     def step(caches, tokens, pos):
         logits = model.decode_step(tokens[:, None], caches, pos)[:, 0]
-        return logits, logits_probe(logits, probe_cfg)
+        return logits, logits_probe(logits)
 
     return step
 
 
-def make_prefill_decode_window(model: Model, *, window: int,
-                               probe_cfg: ProbeConfig = SERVE_PROBES):
+def make_prefill_decode_window(model: Model, *, window: int):
     """Fused decode+prefill window: K slot-decode steps with the greedy
     token fed back on the device and prompt chunks fed in per slot::
 
@@ -57,7 +56,7 @@ def make_prefill_decode_window(model: Model, *, window: int,
     """
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    slot_step = make_slot_decode_step(model, probe_cfg)
+    slot_step = make_slot_decode_step(model)
 
     def window_step(caches, tokens, pos, chunk, rem):
         toks, words = [], []

@@ -34,7 +34,6 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.detect import SERVE_PROBES, ProbeConfig
 from ..core.device_channel import (
     DeviceFuture,
     enumerate_errors_ref,
@@ -112,7 +111,6 @@ class Replica:
                  queue: RequestQueue | None = None,
                  policy: RecoveryPolicy | None = None,
                  metrics: ServeMetrics | None = None,
-                 probe_cfg: ProbeConfig = SERVE_PROBES,
                  rank: int = 0,
                  clock: Callable[[], float] = time.monotonic,
                  tracer: Any = None,
@@ -147,7 +145,7 @@ class Replica:
             clock=clock, prefill_budget=config.prefill_budget)
         self.caches = self.model.init_cache(num_slots, config.max_len)
         self._decode_window = make_prefill_decode_window(
-            self.model, window=self.window, probe_cfg=probe_cfg)
+            self.model, window=self.window)
         self._step_count = 0
         self._pending: Optional[_WindowInFlight] = None
         # the device-resident chain window N+1 consumes: next input token and

@@ -198,6 +198,16 @@ def test_unported_modes_raise(env):
         Replica(cfg, model, config=EngineConfig(window=4), tracer=object())
 
 
+def test_default_config_serves(env):
+    """``EngineConfig()`` is a mode the port runs (window 8, overlap)."""
+    _, cfg, _, _, model = env
+    rep = Replica(cfg, model)
+    assert (rep.window, rep.config.overlap) == (8, True)
+    rep.submit(Request(id=0, prompt=(1, 2, 3), max_new_tokens=4))
+    (resp,) = rep.run()
+    assert resp.status == OK and len(resp.tokens) == 4
+
+
 def test_injector_words_are_validated(env):
     rep = _port_replica(env, fault_injector=lambda step, shape: np.full(
         shape, int(ErrorCode.RANK_FAILED), np.uint32))
