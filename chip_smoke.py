@@ -7,25 +7,40 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each printing one JSON line (``"phase": ...``):
 
-1. device  — the card, its capability (Hopper, 9.0 required) and the
+1. device     — the card, its capability (Hopper, 9.0 required) and the
    ``nvidia-smi`` name and power limit (also printed raw on a line of its own);
-2. build   — builds every kernel of the port from the checkout's sources;
-3. kernels — holds each kernel against its plain PyTorch version on the card
-   at the serve path's shapes, with the stated tolerances, and times the
-   kernel, the plain version and (where one exists) one PyTorch library call
-   computing the same function, beside the least time the card could take;
-4. serve   — full-width qwen3-1.7b (28 layers, bf16, seeded random weights)
-   served by ``Replica(window=8, overlap=True, num_slots=8, max_len=1024)``:
-   16 requests with 16–256-token prompts and 64 new tokens each. Every
-   request must be answered OK, the kernels' launch counts must show the path
-   went through them, and one answer is held against a full forward;
-5. lflr    — the same traffic again with a NaN injected into an active slot's
-   KV cache mid-run: the probe kernel must latch NONFINITE_LOSS, and every
-   stream must be bit-equal to phase 4.
+2. build      — builds every kernel of the port from the checkout's sources;
+3. kernels    — holds each kernel against its plain PyTorch version on the
+   card at the qwen3 serve path's shapes, with the stated tolerances, and
+   times the kernel, the plain version and (where one exists) one PyTorch
+   library call computing the same function, beside the least time the card
+   could take;
+4. serve      — full-width qwen3-1.7b (28 layers, bf16, seeded random
+   weights) served by ``Replica(window=8, overlap=True, num_slots=8,
+   max_len=1024)``: 16 requests with 16–256-token prompts and 64 new tokens
+   each. Every request must be answered OK, the kernels' launch counts must
+   show the path went through them, and one answer is held against the
+   prefill step's forward;
+5. lflr       — the same traffic again with a NaN injected into an active
+   slot's KV cache mid-run: the probe kernel must latch NONFINITE_LOSS, and
+   every stream must be bit-equal to phase 4;
+6. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
+   the RG-LRU scan at (2, 4096, 2560), flash decode over ring caches that
+   wrap, the sliding-window flash forward at S 4096, the probe over the
+   recurrent state and over the prefill logits;
+7. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
+   RG-LRU, 8 sliding-window attention; bf16, seeded random weights), the
+   qwen3 model freed first;
+8. lflr_rg    — phase 5 for recurrentgemma-2b: the NaN goes into the slots'
+   recurrent state and the state probe must latch STATE_FAULT;
+9. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
+   window): the scan kernel once per RG-LRU layer, flash once per sliding
+   layer, one probe, a clean word, its time and peak memory.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
 """
+import gc
 import json
 import math
 import os
@@ -40,11 +55,23 @@ PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20             # H100 L2 cache
 ROTATE_BYTES = 2 * L2_BYTES         # inputs rotated through per timing run
+MAX_COPIES = 48                     # keeps a plain run's launches under the
+                                    # device's launch queue (~1000 pending)
 SPIN_CYCLES = 5 * 10 ** 7           # ~25 ms at 1.98 GHz: the host's head start
 NUM_SLOTS, MAX_LEN, WINDOW = 8, 1024, 8
 NUM_REQUESTS, MAX_NEW = 16, 64
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
-FORWARD_GAP_TOL = 2.0               # decode vs forward logits, bf16, 28 layers
+# recurrentgemma's flash outputs average over up to 2048 keys (|x| ~ 0.05):
+# each element is held to 2 bf16 ulps of itself, plus 1e-4 for values near
+# 0. Kernel and plain version both accumulate in fp32 and round once to
+# bf16, so they differ by about 1 ulp; a kernel off by one key at the window
+# or ring edge is run as a control and must exceed the limit
+FLASH_RG_TOL = (1e-4, 2.0 ** -6)    # abs, rel
+# fp32 scan: exp/sqrt ulps and FMA contraction differ from the plain
+# version's and compound through the recurrence over ~1/(1-a) steps
+SCAN_TOL = 1e-4
+FORWARD_GAP_TOL = 2.0               # decode vs forward logits, bf16, 26-28 layers
+PREFILL_B, PREFILL_S = 2, 4096      # prefill_32k cut to 1 card: 2x the window
 
 
 def fail(msg: str) -> None:
@@ -61,22 +88,38 @@ def copies(make, nbytes: int) -> list:
     of ``nbytes``) that a timing run rotating through them outgrows the L2
     cache: each copy is evicted before its next use, so the inputs come from
     device memory, as on the serve path."""
-    return [make() for _ in range(max(2, math.ceil(ROTATE_BYTES / nbytes)))]
+    n = min(MAX_COPIES, max(2, math.ceil(ROTATE_BYTES / nbytes)))
+    return [make() for _ in range(n)]
 
 
-def time_ms(torch, fn, inputs: list, *, launches: int = 32) -> float:
+def time_ms(torch, fn, inputs: list, *, launches: int = 32,
+            queued: bool = True) -> float:
     """Mean device time of ``fn(*args)`` over one run of at least
     ``launches`` calls between one CUDA event pair, rotating over ``inputs``.
 
     A spin kernel queued ahead of the start event holds the device while the
     host queues the whole run, so the wrapper's host work never lands
     between launches. If the device has already passed the start event when
-    the last call is queued, the run is repeated with a longer spin."""
+    the last call is queued, the run is repeated with a longer spin.
+
+    ``queued=False`` is for a function that launches more kernels than the
+    device queues (the plain scan: one per time step); it is timed without
+    the spin, so its time includes the host's launch gaps."""
     for args in inputs:
         fn(*args)
     n = max(launches, len(inputs))
+    if not queued:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
     spin = SPIN_CYCLES
-    for _ in range(3):
+    for _ in range(5):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -91,6 +134,14 @@ def time_ms(torch, fn, inputs: list, *, launches: int = 32) -> float:
             return start.elapsed_time(end) / n
         spin *= 4
     fail(f"timing: the host could not queue {n} calls ahead of the device")
+
+
+def flash_excess(got, want) -> float:
+    """Largest ``|got - want| / (abs + rel |want|)`` under ``FLASH_RG_TOL``:
+    at most 1 passes."""
+    atol, rtol = FLASH_RG_TOL
+    want = want.float()
+    return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -262,17 +313,24 @@ def drive(rep, reqs, inject=None):
     return out, inject is None
 
 
-def phase_serve(torch, card: str, cfg) -> dict:
-    from repro_torch.core.device_channel import readback
-    from repro_torch.core.errors import ErrorCode
-    from repro_torch.kernels import flash_attention, probe_rows, reset_launch_counts
+def build_model(torch, cfg):
     from repro_torch.models import Model
-    from repro_torch.serve import EngineConfig, Replica, Request, ServeMetrics
-
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
+
+
+def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr")) -> dict:
+    """Phases 4-5 (qwen3) and 7-8 (recurrentgemma): serve the traffic clean,
+    then again with an injected state fault. Returns the clean run's kernel
+    launches."""
+    from repro_torch.core.device_channel import readback
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import EngineConfig, Replica, Request, ServeMetrics
+
+    cfg = model.cfg
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     rep = Replica(cfg, model, config=EngineConfig(
         window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN))
@@ -281,7 +339,7 @@ def phase_serve(torch, card: str, cfg) -> dict:
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    # ---- phase 4: the main path, counts from 0
+    # ---- the main path, counts from 0
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     readback.count = 0
@@ -289,25 +347,33 @@ def phase_serve(torch, card: str, cfg) -> dict:
     clean, _ = drive(rep, make_requests(cfg, Request))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "probe_rows": probe_rows.launches}
+    launches = launch_counts()
     syncs = readback.count
     m = rep.metrics
     bad = [r.id for r in clean.values() if not r.ok or len(r.tokens) != MAX_NEW]
     if len(clean) != NUM_REQUESTS or bad:
-        fail(f"serve: {len(clean)} answers, not OK or short: {bad}")
+        fail(f"{names[0]}: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
-    expected = {"flash_attention": cfg.num_layers * steps, "probe_rows": steps}
+    recurrent = bool(model.rglru_layers)
+    # per window step: flash once per attention layer; the probe over the
+    # logits, and over the recurrent state where there is one; no scan
+    expected = {"flash_attention": len(model.attn_layers) * steps,
+                "probe_rows": (2 if recurrent else 1) * steps, "rglru_scan": 0}
     if launches != expected:
-        fail(f"kernel launches {launches} != {expected} "
-             f"({cfg.num_layers} layers x {steps} window steps)")
+        fail(f"{names[0]}: kernel launches {launches} != {expected} "
+             f"({len(model.attn_layers)} attention layers, "
+             f"{'2 probes' if recurrent else '1 probe'} x {steps} window steps)")
+    if syncs != 2 * m.windows:
+        fail(f"{names[0]}: {syncs} host syncs for {m.windows} windows (2 per "
+             "window expected)")
     if m.faults:
-        fail(f"clean run recorded faults: {m.faults}")
+        fail(f"{names[0]}: clean run recorded faults: {m.faults}")
     tokens = sum(len(r.tokens) for r in clean.values())
     forward = check_against_forward(torch, model, clean, make_requests(cfg, Request))
-    emit({"phase": "serve", "card": card, "model": cfg.name,
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab_size, "weight_gb": weight_bytes / 1e9,
+    emit({"phase": names[0], "card": card, "model": cfg.name,
+          "layers": cfg.num_layers, "pattern": list(cfg.block_pattern),
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "weight_gb": weight_bytes / 1e9,
           "init_s": init_s, "warmup_s": warmup_s, "requests": len(clean),
           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
           "windows": m.windows, "steps": steps, "ms_per_step": wall / steps * 1e3,
@@ -317,7 +383,7 @@ def phase_serve(torch, card: str, cfg) -> dict:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "forward_check": forward})
 
-    # ---- phase 5: same traffic, a NaN in an active slot's KV mid-run
+    # ---- same traffic, a NaN in an active slot's state mid-run
     rep.metrics = ServeMetrics()
     state = {"cycles": 0, "slot": None}
 
@@ -339,36 +405,40 @@ def phase_serve(torch, card: str, cfg) -> dict:
     lflr_wall = time.perf_counter() - t0
     fm = rep.metrics
     if not injected:
-        fail("lflr: no decoding slot to poison")
-    nonfinite = [f for f in fm.faults
-                 if f.code & int(ErrorCode.NONFINITE_LOSS)]
-    if not nonfinite or state["slot"] not in nonfinite[0].slots:
-        fail(f"lflr: the probe did not latch NONFINITE_LOSS on slot "
+        fail(f"{names[1]}: no decoding slot to poison")
+    # recurrent state: the state probe's STATE_FAULT; KV: non-finite logits
+    code = ErrorCode.STATE_FAULT if recurrent else ErrorCode.NONFINITE_LOSS
+    latched = [f for f in fm.faults if f.code & int(code)]
+    if not latched or state["slot"] not in latched[0].slots:
+        fail(f"{names[1]}: the probe did not latch {code.name} on slot "
              f"{state['slot']}: {fm.faults}")
     diff = [i for i in clean if faulted.get(i) is None
             or not faulted[i].ok or faulted[i].tokens != clean[i].tokens]
     if diff:
-        fail(f"lflr: streams differ from the clean run for requests {diff}")
-    emit({"phase": "lflr", "card": card, "poisoned_slot": state["slot"],
+        fail(f"{names[1]}: streams differ from the clean run for requests {diff}")
+    emit({"phase": names[1], "card": card, "model": cfg.name,
+          "poisoned_slot": state["slot"], "latched": code.name,
           "faults": [{"step": f.step, "code": f.code, "action": f.action,
                       "slots": list(f.slots)} for f in fm.faults],
-          "recovery_action": nonfinite[0].action,
+          "recovery_action": latched[0].action,
           "retries": sum(r.retries for r in faulted.values()),
           "streams_bit_equal": True, "wall_s": lflr_wall})
     return launches
 
 
 def check_against_forward(torch, model, answers, reqs) -> dict:
-    """Hold one served stream against a full forward (the flash kernel at
-    prefill shape): every served token must be the forward's argmax, or
-    within ``FORWARD_GAP_TOL`` of it (bf16 decode and forward round
-    differently over 28 layers)."""
+    """Hold one served stream against the prefill step's full forward (the
+    flash kernel at prefill shape; for recurrentgemma the scan kernel where
+    decode runs the one-step update): every served token must be the
+    forward's argmax, or within ``FORWARD_GAP_TOL`` of it (bf16 decode and
+    forward round differently over the layers)."""
+    from repro_torch.launch.steps import make_prefill_step
     req = min(reqs, key=lambda r: len(r.prompt))
     toks = list(req.prompt) + list(answers[req.id].tokens)
-    with torch.no_grad():
-        logits = model(torch.tensor([toks], device=model.device))[0]
-    if not bool(torch.isfinite(logits).all()):
-        fail("forward logits are not finite")
+    logits, word = make_prefill_step(model)(torch.tensor([toks], device=model.device))
+    logits = logits[0]
+    if int(word) != 0 or not bool(torch.isfinite(logits).all()):
+        fail(f"forward logits are not finite (word {int(word)})")
     n = len(req.prompt)
     rows = logits[n - 1:len(toks) - 1]
     served = torch.tensor(answers[req.id].tokens, device=model.device)
@@ -380,6 +450,248 @@ def check_against_forward(torch, model, answers, reqs) -> dict:
              f"(largest logit gap {worst})")
     return {"request": req.id, "positions": len(served), "argmax_agree": agree,
             "max_gap": worst, "tol": FORWARD_GAP_TOL}
+
+
+def phase_kernels_rg(torch, card: str) -> dict:
+    """Each kernel against its plain version at recurrentgemma-2b's shapes."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import flash_attention, probe_rows, rglru_scan
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+    from repro_torch.kernels.flash_attention import sdpa_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_ref
+
+    cfg = get_config("recurrentgemma-2b")
+    dev = torch.device("cuda")
+    # made on the card from a seed: the prefill logits alone are 2.1e9 values
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f32 = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device=dev, dtype=torch.float32)
+    randn = lambda *shape: f32(*shape).to(torch.bfloat16)  # noqa: E731
+    heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
+    out = {}
+
+    # -- RG-LRU scan at the prefill shape; log_a as the model makes it,
+    #    -8 softplus(lam) sigmoid(.), lam the Griffin init
+    B, S, W = PREFILL_B, PREFILL_S, cfg.resolved_lru_width
+    lam = torch.log(torch.expm1(torch.linspace(0.9, 4.0, W, device=dev)))
+    make = lambda: (f32(B, S, W),  # noqa: E731
+                    (-8.0 * F.softplus(lam) * torch.sigmoid(f32(B, S, W))).contiguous())
+    x_in, log_a = make()
+    got = rglru_scan(x_in, log_a)
+    want = rglru_scan_ref(x_in, log_a)
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if not bool((diff <= SCAN_TOL + SCAN_TOL * want.abs()).all()):
+        fail(f"rglru_scan disagrees with its plain version: max error {err}")
+    b_ms, b_by = bound(3 * B * S * W * 4, 10 * B * S * W, PEAK_FP32_FLOPS)
+    ins = copies(make, 2 * B * S * W * 4)
+    out["rglru_scan"] = {
+        "shape": f"x_in, log_a {B}x{S}x{W} fp32", "max_abs_err": err,
+        "tol": f"{SCAN_TOL} abs + {SCAN_TOL} rel", "timing_copies": len(ins),
+        "kernel_ms": time_ms(torch, rglru_scan, ins),
+        "plain_ms": time_ms(torch, rglru_scan_ref, ins, launches=4, queued=False),
+        "plain_timing": "unqueued: one launch per time step, more than the "
+                        "device queues; includes the host's launch gaps",
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del x_in, log_a, got, want, diff, ins
+
+    # -- flash decode over ring caches: one query row per slot, positions
+    #    past the ring's capacity (it has wrapped; the read is index < min(cap, pos+1))
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cap = cfg.sliding_window
+    pos = [0, 1, 700, cap - 1, cap, 3000, 4500, 6000]
+    q, k, v = randn(NUM_SLOTS, 1, Hq, D), randn(NUM_SLOTS, cap, Hkv, D), randn(NUM_SLOTS, cap, Hkv, D)
+    off = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = flash_attention(q, k, v, off, causal=True, seq_kv=cap)
+    want = sdpa_ref(q, k, v, q_offset=off, causal=True, seq_kv=cap)
+    err = (got.float() - want.float()).abs().max().item()
+    excess = flash_excess(got, want)
+    # control: the ring's last slot dropped, one key of 2048 for the rows
+    # whose ring is full
+    control = flash_excess(flash_attention(q, k, v, off, causal=True,
+                                           seq_kv=cap - 1), want)
+    if not excess <= 1 < control:
+        fail(f"flash ring decode: error {err}, {excess} x the limit; one "
+             f"key dropped reads {control} x (must exceed 1)")
+    kpos = torch.arange(cap, device=dev)
+    mask = (kpos[None, :] <= off[:, None])[:, None, None, :]
+    ctx = [min(p + 1, cap) for p in pos]
+    b_ms, b_by = bound(2 * NUM_SLOTS * Hq * D * 2 + 2 * sum(ctx) * Hkv * D * 2
+                       + 4 * NUM_SLOTS, sum(4 * Hq * c * D for c in ctx),
+                       PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(NUM_SLOTS, 1, Hq, D), randn(NUM_SLOTS, cap, Hkv, D),
+                          randn(NUM_SLOTS, cap, Hkv, D)),
+                 (NUM_SLOTS * Hq + 2 * NUM_SLOTS * cap * Hkv) * D * 2)
+    out["flash_ring_decode"] = {
+        "shape": f"q {NUM_SLOTS}x1x{Hq}x{D}, ring kv {NUM_SLOTS}x{cap}x{Hkv}x{D} "
+                 f"bf16, pos {pos}",
+        "max_abs_err": err, "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+        "err_over_tol": excess, "one_key_dropped_over_tol": control,
+        "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, off, causal=True, seq_kv=cap), qkv),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
+            q, k, v, q_offset=off, causal=True, seq_kv=cap), qkv),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, enable_gqa=True), [heads_first(*t) for t in qkv]),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v, got, want, qkv
+
+    # -- flash sliding forward at the prefill shape: S 2x the window, so the
+    #    window mask and the tile skip both act
+    Bp, Sp, win = PREFILL_B, PREFILL_S, cfg.sliding_window
+    q, k, v = randn(Bp, Sp, Hq, D), randn(Bp, Sp, Hkv, D), randn(Bp, Sp, Hkv, D)
+    zero = torch.zeros(Bp, dtype=torch.int32, device=dev)
+    got = flash_attention(q, k, v, zero, causal=True, window=win)
+    want = sdpa_ref(q, k, v, q_offset=zero, causal=True, window=win)
+    err = (got.float() - want.float()).abs().max().item()
+    excess = flash_excess(got, want)
+    # control: a window one short, the oldest key dropped from rows >= win - 1
+    control = flash_excess(flash_attention(q, k, v, zero, causal=True,
+                                           window=win - 1), want)
+    if not excess <= 1 < control:
+        fail(f"flash sliding forward: error {err}, {excess} x the limit; one "
+             f"key dropped reads {control} x (must exceed 1)")
+    del got, want
+    qp = torch.arange(Sp, device=dev)
+    mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - win)
+    keys = sum(min(s + 1, win) for s in range(Sp))          # per (batch, head)
+    b_ms, b_by = bound(2 * Bp * Sp * Hq * D * 2 + 2 * Bp * Sp * Hkv * D * 2 + 4 * Bp,
+                       4 * Bp * Hq * D * keys, PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(Bp, Sp, Hq, D), randn(Bp, Sp, Hkv, D),
+                          randn(Bp, Sp, Hkv, D)), Bp * Sp * (Hq + 2 * Hkv) * D * 2)
+    out["flash_sliding_forward"] = {
+        "shape": f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal, "
+                 f"window {win}",
+        "max_abs_err": err, "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+        "err_over_tol": excess, "one_key_dropped_over_tol": control,
+        "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, zero, causal=True, window=win), qkv),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
+            q, k, v, q_offset=zero, causal=True, window=win), qkv, launches=8),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, enable_gqa=True), [heads_first(*t) for t in qkv]),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v, qkv, mask
+
+    # -- the probe over the recurrent state h (slots, rglru layers * width)
+    n_rec = sum(b == "rglru" for b in cfg.pattern_layers)
+    cols = n_rec * W
+    sf = int(ErrorCode.STATE_FAULT)
+    h = f32(NUM_SLOTS, cols)
+    h[2, 5] = float("nan")
+    h[5, cols - 1] = float("inf")
+    got = probe_rows(h, math.inf, nonfinite_code=sf, overflow_code=sf)
+    want = probe_rows_ref(h, math.inf, nonfinite_code=sf, overflow_code=sf)
+    if not torch.equal(got, want) or got.tolist() != [0, 0, sf, 0, 0, sf, 0, 0]:
+        fail(f"probe_rows over h wrong: {got.tolist()} vs {want.tolist()}")
+    hs = copies(lambda: (f32(NUM_SLOTS, cols),), NUM_SLOTS * cols * 4)
+    b_ms, b_by = bound(NUM_SLOTS * cols * 4 + NUM_SLOTS * 4, 3 * NUM_SLOTS * cols,
+                       PEAK_FP32_FLOPS)
+    out["probe_state"] = {
+        "shape": f"h {NUM_SLOTS}x{cols} fp32, threshold inf", "words": got.tolist(),
+        "max_abs_err": (got - want).abs().max().item(), "timing_copies": len(hs),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=sf, overflow_code=sf), hs),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=sf, overflow_code=sf), hs),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del h, hs
+
+    # -- the probe over the prefill logits (B * S, vocab) fp32
+    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
+    rows, V = PREFILL_B * PREFILL_S, cfg.vocab_size
+    x = f32(rows, V)
+    x[rows - 1, V - 1] = float("nan")
+    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want) or int(got.amax()) != nf or int(got[:-1].amax()) != 0:
+        fail("probe_rows over the prefill logits disagrees with its plain version")
+    del x, got, want
+    xs = copies(lambda: (f32(rows, V),), rows * V * 4)
+    b_ms, b_by = bound(rows * V * 4 + rows * 4, 3 * rows * V, PEAK_FP32_FLOPS)
+    out["probe_prefill"] = {
+        "shape": f"logits {rows}x{V} fp32, threshold inf", "max_abs_err": err,
+        "timing_copies": len(xs),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del xs
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_rg", "card": card, **out})
+    return out
+
+
+def phase_prefill(torch, card: str, model) -> dict:
+    """Phase 9: the prefill step at (PREFILL_B, PREFILL_S), counts from 0."""
+    import numpy as np
+    from repro_torch.core.device_channel import readback
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = model.cfg
+    step = make_prefill_step(model)
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int64)).to(model.device)
+    logits, word = step(tokens)                      # warm-up (cuBLAS plans)
+    del logits, word
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, word = step(tokens)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"rglru_scan": len(model.rglru_layers),
+                "flash_attention": len(model.attn_layers), "probe_rows": 1}
+    if launches != expected:
+        fail(f"prefill_rg: kernel launches {launches} != {expected}")
+    shape = tuple(logits.shape)
+    if shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or logits.dtype != torch.float32:
+        fail(f"prefill_rg: logits {logits.dtype} {shape}")
+    w = int(readback(word))
+    if w != 0:
+        fail(f"prefill_rg: clean prefill raised word {w:#x}")
+    del logits, word
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, word = step(tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del logits, word
+    emit({"phase": "prefill_rg", "card": card, "model": cfg.name,
+          "batch": PREFILL_B, "seq": PREFILL_S, "launches": launches,
+          "word": w, "first_ms": first_ms, "ms_per_call": sum(times) / len(times),
+          "ms_calls": times, "tokens_per_s": PREFILL_B * PREFILL_S / (min(times) / 1e3),
+          "peak_mem_gb": peak, "logits_gb": PREFILL_B * PREFILL_S * cfg.vocab_size * 4 / 1e9})
+    return launches
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: dict,
+                 primary: dict, shapes: dict) -> dict:
+    """One kernel's row of the kernels line: launches summed over the main
+    paths (and by path), times from its ``primary`` shape, the largest
+    error over every shape it was held at, and every shape's numbers."""
+    keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "ms": primary["kernel_ms"],
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            **{k: primary[k] for k in keys[1:]},
+            "by_shape": {n: {k: v[k] for k in keys + ("max_abs_err", "shape")}
+                         for n, v in shapes.items()}}
 
 
 def main() -> None:
@@ -395,24 +707,43 @@ def main() -> None:
     sys.path.insert(0, src)
     card = phase_device(torch)
     phase_build()
-    kern = phase_kernels(torch, card)
     from repro_torch.configs import get_config
-    launches = phase_serve(torch, card, get_config("qwen3-1.7b"))
+
+    kern = phase_kernels(torch, card)
+    model, init_s = build_model(torch, get_config("qwen3-1.7b"))
+    serve_q = phase_serve(torch, card, model, init_s)
+    del model                                     # free qwen3 before rg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kern_rg = phase_kernels_rg(torch, card)
+    model, init_s = build_model(torch, get_config("recurrentgemma-2b"))
+    serve_rg = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"))
+    prefill_rg = phase_prefill(torch, card, model)
+    del model
+    paths = {"serve": serve_q, "serve_rg": serve_rg, "prefill_rg": prefill_rg}
+    by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
-         "launches": launches["flash_attention"],
-         "ms": kern["flash_decode"]["kernel_ms"],
-         **{k: kern["flash_decode"][k] for k in (
-             "max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
-        {"name": "probe_rows", "route": "cuda",
-         "source": "src/repro_torch/kernels/fault_probe/csrc/fault_probe.cu",
-         "replaces": "src/repro/kernels/fault_probe/kernel.py:44",
-         "launches": launches["probe_rows"],
-         "ms": kern["probe_rows"]["kernel_ms"],
-         **{k: kern["probe_rows"][k] for k in (
-             "max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        kernel_entry(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:81",
+            by_path("flash_attention"), kern["flash_decode"],
+            {"flash_decode": kern["flash_decode"],
+             "flash_forward": kern["flash_forward"],
+             "flash_ring_decode": kern_rg["flash_ring_decode"],
+             "flash_sliding_forward": kern_rg["flash_sliding_forward"]}),
+        kernel_entry(
+            "probe_rows", "src/repro_torch/kernels/fault_probe/csrc/fault_probe.cu",
+            "src/repro/kernels/fault_probe/kernel.py:44",
+            by_path("probe_rows"), kern["probe_rows"],
+            {"probe_rows": kern["probe_rows"], "probe_state": kern_rg["probe_state"],
+             "probe_prefill": kern_rg["probe_prefill"]}),
+        kernel_entry(
+            "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+            "src/repro/kernels/rglru_scan/kernel.py:36",
+            by_path("rglru_scan"), kern_rg["rglru_scan"],
+            {"rglru_scan": kern_rg["rglru_scan"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,10 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 

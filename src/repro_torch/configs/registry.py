@@ -6,9 +6,11 @@ import math
 
 from .base import ModelConfig
 from .qwen3_1_7b import CONFIG as qwen3_1_7b
+from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen3-1.7b": qwen3_1_7b,
+    "recurrentgemma-2b": recurrentgemma_2b,
 }
 
 
@@ -38,4 +40,7 @@ def smoke_config(name: str) -> ModelConfig:
     )
     rem = len(cfg.remainder_layers)
     layers = 2 * cfg.period + rem
-    return cfg.replace(num_layers=layers, **common)
+    overrides = dict(num_layers=layers, **common)
+    if cfg.family == "hybrid":
+        overrides.update(lru_width=64, lru_heads=4)
+    return cfg.replace(**overrides)

@@ -1,11 +1,13 @@
-"""Soft-fault probes (paper §II-A) for the serving step.
+"""Soft-fault probes (paper §II-A) for the serving and prefill steps.
 
 The port of ``repro/core/detect.py`` for the serve path. The JAX serving
 step probes ``loss_probe(max|logits|)`` with a divergence threshold of
 ``inf``: NONFINITE_LOSS exactly when some logit is NaN or ±inf. The port
 computes the same word per slot with the ``probe_rows`` kernel over the
 ``(slots, vocab)`` fp32 logits (its overflow branch, DIVERGENCE, cannot fire
-at an infinite threshold).
+at an infinite threshold). For recurrent architectures the JAX step also
+runs ``state_probe`` over the recurrent state ``h``; the port runs the same
+kernel over ``h`` viewed as ``(slots, layers * width)``.
 """
 from __future__ import annotations
 
@@ -34,3 +36,14 @@ def logits_probe(logits: torch.Tensor) -> torch.Tensor:
     return probe_rows(logits, SERVE_PROBES.loss_divergence_threshold,
                       nonfinite_code=int(ErrorCode.NONFINITE_LOSS),
                       overflow_code=int(ErrorCode.DIVERGENCE))
+
+
+def state_probe(h: torch.Tensor) -> torch.Tensor:
+    """Per-slot recurrent-state word over ``h (slots, ...)`` (every layer's
+    state of the slot): STATE_FAULT for a NaN/±inf — the JAX ``state_probe``
+    at threshold ``inf``, whose overflow code is STATE_FAULT too. Only ``h``
+    is probed, as the JAX step picks only the ``h``/``ssm`` leaves, not
+    ``conv``. int32 ``(slots,)`` on ``h``'s device."""
+    code = int(ErrorCode.STATE_FAULT)
+    return probe_rows(h.reshape(h.shape[0], -1), math.inf,
+                      nonfinite_code=code, overflow_code=code)

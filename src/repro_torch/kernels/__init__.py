@@ -2,10 +2,16 @@
 version and a launch counter on its wrapper (``<wrapper>.launches``)."""
 from .fault_probe import probe_rows  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
+from .rglru_scan import rglru_scan  # noqa: F401
 
-WRAPPERS = (flash_attention, probe_rows)
+WRAPPERS = (flash_attention, probe_rows, rglru_scan)
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` since the last reset."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

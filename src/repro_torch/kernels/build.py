@@ -26,7 +26,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each exported launcher; every one returns cudaGetLastError()
 SIGNATURES = {
     # q, k, v, q_offset, out, B, S, T, Hq, Hkv, D, causal, window, seq_kv,
@@ -35,7 +35,9 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _P),
     # x, rows, cols, dtype, threshold, nonfinite_code, overflow_code, out,
     # stream
-    "repro_probe_rows": (_P, _I, _I, _I, _F, _I, _I, _P, _P),
+    "repro_probe_rows": (_P, _I, _L, _I, _F, _I, _I, _P, _P),
+    # x_in, log_a, h_out, B, S, W, stream
+    "repro_rglru_scan": (_P, _P, _P, _L, _L, _L, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

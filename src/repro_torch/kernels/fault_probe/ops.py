@@ -11,6 +11,8 @@ from ..build import (DTYPE_CODES, check_device, check_launch, library,
                      stream_of)
 from .ref import probe_rows_ref
 
+MAX_ROWS = 2 ** 31 - 2 ** 16    # the kernel's row loop counts in int32
+
 
 def probe_rows(x: torch.Tensor, threshold: float, *, nonfinite_code: int,
                overflow_code: int) -> torch.Tensor:
@@ -18,10 +20,14 @@ def probe_rows(x: torch.Tensor, threshold: float, *, nonfinite_code: int,
 
     Each word is what the TPU kernel ``probe_rows`` computes over that row's
     values; with ``R = 1`` it is the TPU kernel's word over the whole stream.
+    Rows may hold more than 2^31 elements (the kernel indexes in 64 bits).
     """
     kind = check_device("probe_rows", x)
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"probe_rows: x must be (rows, cols), got {tuple(x.shape)}")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"probe_rows: {x.shape[0]} rows exceed the kernel's "
+                         f"{MAX_ROWS}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"probe_rows: unsupported dtype {x.dtype}")
     if not x.is_contiguous():

@@ -30,6 +30,10 @@
 // the first a sliding window can reach): the TPU kernel's fully-masked-block
 // skip.
 //
+// Shared memory is static: qs and accs hold kMaxRows x D floats each, 32 KB
+// together at D 256 (recurrentgemma's head_dim), under the 48 KB limit for
+// static shared memory.
+//
 // Determinism: no split across blocks, no atomics. A row's tiles, their
 // partition and the merge order depend only on the launch shape and the
 // row's own position, never on the other rows' data, so a serving slot
@@ -238,6 +242,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_offset, v
     case 32: return launch<T, 32>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     case 64: return launch<T, 64>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     case 128: return launch<T, 128>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 256: return launch<T, 256>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -246,7 +251,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_offset, v
 
 // dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
 // types, devices, contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and
-// D in {16, 32, 64, 128}.
+// D in {16, 32, 64, 128, 256}.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          const void* q_offset, void* out, int B, int S,
                                          int T, int Hq, int Hkv, int D, int causal,

@@ -11,7 +11,7 @@ from ..build import (DTYPE_CODES, check_device, check_launch, library,
                      stream_of)
 from .ref import sdpa_ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel is instantiated for these
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel is instantiated for these
 MAX_GROUP = 16                  # a block holds the group's query rows
 
 

@@ -1,19 +1,20 @@
-"""Serving step factories: the slot-batched decode step and the fused
-prefill+decode window.
+"""Step factories: the slot-batched decode step, the fused prefill+decode
+window, and the full-sequence prefill step.
 
-The port of ``repro/launch/steps.py:244 make_slot_decode_step`` and
-``:491 make_prefill_decode_window``. The JAX package vmaps a batch-1 decode
-step over slots and scans K of them in one jitted program; PyTorch runs
-eagerly, so the slots are the batch dimension of one decode step (each slot
-at its own position, held in a device tensor) and the window is a K-step
-Python loop whose token feedback, positions and word history never leave
-the device. Caches are updated in place (the JAX package donates them).
+The port of ``repro/launch/steps.py:244 make_slot_decode_step``,
+``:491 make_prefill_decode_window`` and ``:208 make_prefill_step``. The JAX
+package vmaps a batch-1 decode step over slots and scans K of them in one
+jitted program; PyTorch runs eagerly, so the slots are the batch dimension
+of one decode step (each slot at its own position, held in a device tensor)
+and the window is a K-step Python loop whose token feedback, positions and
+word history never leave the device. Caches are updated in place (the JAX
+package donates them).
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.detect import logits_probe
+from ..core.detect import logits_probe, state_probe
 from ..models.model import Model
 
 
@@ -27,14 +28,40 @@ def make_slot_decode_step(model: Model):
       → (logits (S, V) fp32, words (S,) int32)
 
     The word is per slot — the logits probe kernel reduces each slot's row —
-    which is what makes per-sequence LFLR possible.
+    which is what makes per-sequence LFLR possible. A model with recurrent
+    state ORs in the state word over the updated ``h`` (the JAX decode
+    step's ``state_probe``), one more probe launch per step.
     """
 
     def step(caches, tokens, pos):
         logits = model.decode_step(tokens[:, None], caches, pos)[:, 0]
-        return logits, logits_probe(logits)
+        words = logits_probe(logits)
+        if "h" in caches:
+            words = words | state_probe(caches["h"])
+        return logits, words
 
     return step
+
+
+def make_prefill_step(model: Model):
+    """Full-sequence prefill::
+
+      prefill_step(tokens (B, S) int) → (logits (B, S, V) fp32, word)
+
+    ``word`` is the JAX step's one word for the batch,
+    ``loss_probe(max|logits|)`` at threshold ``inf``: NONFINITE_LOSS iff
+    some logit is NaN or ±inf. The probe kernel gives one word per row of
+    ``logits.view(B * S, V)`` and the rows fold on the device; the row
+    words are 0 or that one code, so their max is their OR. ``word`` is an
+    int32 0-d tensor on the model's device (nothing is read back).
+    """
+
+    def prefill_step(tokens):
+        logits = model(tokens)
+        rows = logits.view(-1, logits.shape[-1])
+        return logits, logits_probe(rows).amax()
+
+    return prefill_step
 
 
 def make_prefill_decode_window(model: Model, *, window: int):

@@ -1,13 +1,19 @@
-"""Attention for the dense qwen3 path: GQA with qk-norm, full (causal) only.
+"""Self-attention: GQA with optional qk-norm, full (``attn``) and sliding
+(``sliding``) layers.
 
 The port of ``repro/models/attention.py``. Both paths run through the flash
 kernel (``repro_torch.kernels.flash_attention``): the full-sequence forward
-with ``q_offset = 0``, and slot decode with one query row per slot at that
-slot's runtime position over the whole cache capacity — which is exactly the
-JAX ``attention_decode``'s ``valid = slots <= pos`` mask after its write at
-``min(pos, cap - 1)``. Plain ``torch.matmul`` carries the projections, as
+with ``q_offset = 0`` (and the sliding window, for ``sliding`` layers), and
+slot decode with one query row per slot at that slot's runtime position over
+the whole cache capacity. Plain ``torch.matmul`` carries the projections, as
 the JAX package leaves them to XLA; the attention itself is never a library
 call on the card.
+
+Decode caches: a full layer writes at ``min(pos, cap - 1)`` (the JAX
+package's capacity clamp, :func:`cache_write_index`); a sliding layer keeps a
+ring of capacity ``cap = min(window, max_len)`` and writes at ``pos % cap``
+(:func:`ring_write_index`). Both then read with the same kernel mask — see
+:func:`attention_decode`.
 """
 from __future__ import annotations
 
@@ -59,22 +65,33 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
 
 
-def attention_train(p: Attention, x: torch.Tensor, rope, cfg) -> torch.Tensor:
+def attention_train(p: Attention, x: torch.Tensor, rope, cfg, *,
+                    window: int = 0) -> torch.Tensor:
     """Causal self-attention over a full sequence (x (B, S, d)); ``rope``
-    from :func:`~repro_torch.models.layers.rope_tables` at positions 0..S-1."""
+    from :func:`~repro_torch.models.layers.rope_tables` at positions 0..S-1;
+    ``window > 0`` masks keys ``window`` or more positions back (the kernel
+    also skips their tiles)."""
     q, k, v = _project_qkv(p, x, cfg)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
     zeros = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    out = flash_attention(q, k, v, zeros, causal=cfg.causal)
+    out = flash_attention(q, k, v, zeros, causal=cfg.causal, window=window)
     return _out_proj(p, out)
 
 
 def cache_write_index(pos: torch.Tensor, cap: int):
-    """``(rows, slots)`` index of each batch row's new K/V entry:
-    ``min(pos, cap - 1)``, the JAX package's capacity clamp. The same for
-    every layer, so a step computes it once."""
+    """``(rows, slots)`` index of each batch row's new K/V entry in a full
+    layer's cache: ``min(pos, cap - 1)``, the JAX package's capacity clamp.
+    The same for every full layer, so a step computes it once."""
     rows = torch.arange(pos.shape[0], device=pos.device)
     return rows, torch.clamp(pos, max=cap - 1).long()
+
+
+def ring_write_index(pos: torch.Tensor, cap: int):
+    """``(rows, slots)`` index of each batch row's new K/V entry in a
+    sliding layer's ring of capacity ``cap``: ``pos % cap``, as the JAX
+    package's ring. The same for every sliding layer."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return rows, torch.remainder(pos, cap).long()
 
 
 def attention_decode(p: Attention, x: torch.Tensor, k_cache: torch.Tensor,
@@ -82,10 +99,25 @@ def attention_decode(p: Attention, x: torch.Tensor, k_cache: torch.Tensor,
                      write_idx, cfg) -> torch.Tensor:
     """One new token per batch row (slot) at its own position.
 
-    x (B, 1, d); caches (B, cap, Hkv, hd), written IN PLACE at
-    ``write_idx = cache_write_index(pos, cap)``; pos (B,) int32 on x's
-    device; ``rope`` the tables at ``pos``. The write and the read stay on
-    the device: no host sync.
+    x (B, 1, d); caches (B, cap, Hkv, hd), written IN PLACE at ``write_idx``
+    (:func:`cache_write_index` for a full layer, :func:`ring_write_index`
+    for a sliding layer's ring); pos (B,) int32 on x's device; ``rope`` the
+    tables at ``pos``. The write and the read stay on the device: no host
+    sync.
+
+    Both cache kinds read through ONE kernel mask: ``causal`` with
+    ``q_offset = pos`` over ``seq_kv = cap`` and no window, i.e. slot
+    index ``< min(cap, pos + 1)``.
+    - Full layer: slot index = position up to the clamp, so this is the JAX
+      ``valid = slots <= pos``.
+    - Sliding ring: ``cap <= window`` by construction, so every slot written
+      so far holds a position inside the window, and the JAX ring mask
+      (``slot_pos >= 0 & slot_pos > pos - window``) keeps exactly the
+      written slots — slot index ``< min(cap, pos + 1)`` again. Passing the
+      sliding ``window`` to the kernel here would be WRONG: the kernel
+      compares key *indices* with ``qpos - window``, and ring indices are
+      not positions: from ``pos >= window`` on it would drop live slots,
+      and from ``pos >= window + cap - 1`` on every key.
     """
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q, k_new = apply_rope(q, rope), apply_rope(k_new, rope)

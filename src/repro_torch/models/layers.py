@@ -1,9 +1,10 @@
-"""Common layers: rms norm, rotary embeddings, SwiGLU MLP, embeddings.
+"""Common layers: rms norm, rotary embeddings, gated and plain MLPs,
+embeddings.
 
-The port of ``repro/models/layers.py`` for the dense qwen3 path. Each
-function keeps the JAX package's arithmetic and dtype casts (norm and rope in
-fp32, cast back to the activation dtype; logits in fp32), so the two
-packages agree to float tolerance on the same weights.
+The port of ``repro/models/layers.py`` for the qwen3 and recurrentgemma
+paths. Each function keeps the JAX package's arithmetic and dtype casts
+(norm and rope in fp32, cast back to the activation dtype; logits in fp32),
+so the two packages agree to float tolerance on the same weights.
 """
 from __future__ import annotations
 
@@ -72,14 +73,27 @@ def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+MLP_KINDS = ("swiglu", "geglu", "gelu")
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    """SwiGLU: ``(silu(x wg) * (x wi)) wo``; ``p`` has ``wi``, ``wg``, ``wo``."""
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp {kind!r}: the port has swiglu only (ROADMAP Queue 1, item "
-            "14: remaining architectures)")
+    """SwiGLU ``(silu(x wg) * (x wi)) wo``, GeGLU ``(gelu(x wg) * (x wi))
+    wo``, or plain ``gelu(x wi) wo``; ``p`` has ``wi``, ``wo`` and, for the
+    gated kinds, ``wg``."""
     h = x @ p.wi
-    h = F.silu(x @ p.wg) * h
+    if kind == "swiglu":
+        h = F.silu(x @ p.wg) * h
+    elif kind == "geglu":
+        h = gelu_tanh(x @ p.wg) * h
+    elif kind == "gelu":
+        h = gelu_tanh(h)
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r} (one of {MLP_KINDS})")
     return h @ p.wo
 
 

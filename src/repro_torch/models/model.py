@@ -1,22 +1,49 @@
 """Top-level model: seeded init, full forward, slot decode, caches.
 
-The port of ``repro/models/model.py`` for dense ``attn`` stacks (qwen3).
-Parameters live in an ``nn.Module`` on an explicit device; caches are two
-tensors ``k``/``v`` of shape ``(layers, batch, capacity, kv_heads,
-head_dim)`` updated in place by :meth:`Model.decode_step`.
+The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``
+and ``rglru`` blocks (qwen3, recurrentgemma). Parameters live in an
+``nn.Module`` on an explicit device. The decode cache is a dict of tensors
+updated in place by :meth:`Model.decode_step`:
+
+- ``k``/``v`` ``(attention layers, batch, cap, kv_heads, head_dim)`` in the
+  model dtype, ``cap = max_len`` for full layers and ``min(window,
+  max_len)`` for a sliding layer's ring;
+- ``h`` ``(batch, rglru layers, lru_width)`` fp32 and ``conv`` ``(batch,
+  rglru layers, 3, lru_width)`` in the model dtype. The recurrent state is
+  slot-major, so one probe launch over ``h.view(batch, -1)`` gives every
+  slot's state word over all its layers.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
 
 from ..configs.base import ModelConfig
-from .attention import cache_write_index
+from .attention import cache_write_index, ring_write_index
 from .layers import apply_norm, dense_init, embed_tokens, rope_tables, unembed
-from .transformer import (NOT_PORTED, Block, apply_block_decode,
-                          apply_block_train)
+from .rglru import CONV_WIDTH
+from .transformer import (ATTN_KINDS, Block, apply_block_decode,
+                          apply_block_train, check_block_kind)
+
+class CacheLeaf(NamedTuple):
+    slot_axis: int      # indexes the batch row (serving slot)
+    layer_axis: int     # indexes the layer, among the layers of its kind
+    recurrent: bool     # one row per rglru layer; else per attention layer
+
+
+# the layout of every decode cache tensor, read by the cache reset, the
+# weight bridge and the serve engine's fault injection
+CACHE_LAYOUT = {"k": CacheLeaf(1, 0, False), "v": CacheLeaf(1, 0, False),
+                "h": CacheLeaf(0, 1, True), "conv": CacheLeaf(0, 1, True)}
+
+
+def slot_layer_view(cache: dict, name: str) -> torch.Tensor:
+    """``cache[name]`` viewed with the slot axis first and the layer axis
+    second; writes through the view land in the cache."""
+    leaf = CACHE_LAYOUT[name]
+    return cache[name].movedim((leaf.slot_axis, leaf.layer_axis), (0, 1))
 
 
 def resolve_device(device) -> torch.device:
@@ -42,8 +69,16 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def reset_cache_slot(cache: dict, slot: int) -> None:
+    """Zero batch row ``slot`` of every cache tensor, in place — the fresh
+    cache of a new sequence (the JAX package's fresh template is all
+    zeros)."""
+    for name in cache:
+        slot_layer_view(cache, name)[slot].zero_()
+
+
 class Model(nn.Module):
-    """Dense decoder bound to a config, with its weights on ``device``.
+    """Decoder bound to a config, with its weights on ``device``.
 
     ``seed`` draws the weights with a ``torch.Generator`` on that device from
     the same distributions as the JAX package's init; ``seed=None`` leaves
@@ -55,16 +90,29 @@ class Model(nn.Module):
                  seed: Optional[int] = 0):
         super().__init__()
         for b in cfg.pattern_layers:
-            if b != "attn":
-                raise NotImplementedError(
-                    f"block type {b!r} is not ported yet: "
-                    f"{NOT_PORTED.get(b, 'ROADMAP Queue 1')}")
+            check_block_kind(b)
+        attn_kinds = {b for b in cfg.pattern_layers if b in ATTN_KINDS}
+        if len(attn_kinds) > 1:
+            raise NotImplementedError(
+                "full and sliding attention in one stack (two cache "
+                "capacities) is not ported yet: ROADMAP Queue 1, item 6 "
+                "(gemma3-1b)")
         if not cfg.tie_embeddings:
             raise NotImplementedError(
                 "untied unembedding is not ported yet: ROADMAP Queue 1, item "
                 "14 (remaining architectures)")
         pin_matmul_precision()
         self.cfg = cfg
+        self.attn_kind = next(iter(attn_kinds), None)
+        # layer l's decode cache: row cache_index[l] of k/v (attention) or of
+        # h/conv's layer axis (rglru)
+        self.attn_layers = [l for l, b in enumerate(cfg.pattern_layers)
+                            if b in ATTN_KINDS]
+        self.rglru_layers = [l for l, b in enumerate(cfg.pattern_layers)
+                             if b == "rglru"]
+        self.cache_index = [
+            (self.attn_layers if b in ATTN_KINDS else self.rglru_layers).index(l)
+            for l, b in enumerate(cfg.pattern_layers)]
         self.device = resolve_device(device)
         self.dtype = model_dtype(cfg)
         gen = None
@@ -109,10 +157,21 @@ class Model(nn.Module):
     # ------------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, device=self.device, dtype=self.dtype),
-                "v": torch.zeros(shape, device=self.device, dtype=self.dtype)}
+        zeros = lambda *shape, dtype=self.dtype: torch.zeros(  # noqa: E731
+            shape, device=self.device, dtype=dtype)
+        cache = {}
+        if self.attn_layers:
+            # a sliding layer's ring holds min(window, max_len) entries
+            cap = (min(cfg.sliding_window, max_len)
+                   if self.attn_kind == "sliding" else max_len)
+            shape = (len(self.attn_layers), batch, cap, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["k"], cache["v"] = zeros(*shape), zeros(*shape)
+        if self.rglru_layers:
+            n, w = len(self.rglru_layers), cfg.resolved_lru_width
+            cache["h"] = zeros(batch, n, w, dtype=torch.float32)
+            cache["conv"] = zeros(batch, n, CONV_WIDTH - 1, w)
+        return cache
 
     def decode_step(self, token: torch.Tensor, cache: dict,
                     pos: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -127,12 +186,19 @@ class Model(nn.Module):
         if isinstance(pos, int):
             pos = torch.full((B,), pos, dtype=torch.int32, device=self.device)
         x = self._embed(token)
-        # every layer rotates at, and writes its cache at, the same positions
+        # every attention layer rotates at, and writes its cache at, the
+        # same positions
         rope = self._rope(pos[:, None])
-        write_idx = cache_write_index(pos, cache["k"].shape[2])
-        for i, blk in enumerate(self.blocks):
-            x = apply_block_decode(blk, x, cache["k"][i], cache["v"][i], pos,
-                                   rope, write_idx, cfg)
+        write_idx = None
+        if self.attn_layers:
+            index = (ring_write_index if self.attn_kind == "sliding"
+                     else cache_write_index)
+            write_idx = index(pos, cache["k"].shape[2])
+        for blk, j in zip(self.blocks, self.cache_index):
+            state = ((cache["h"][:, j], cache["conv"][:, j])
+                     if blk.btype == "rglru" else
+                     (cache["k"][j], cache["v"][j], write_idx))
+            x = apply_block_decode(blk, x, state, pos, rope, cfg)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return unembed(x, self.embed_f32, softcap=cfg.logit_softcap)
 

@@ -45,7 +45,7 @@ from ..core.errors import PropagatedError
 from ..core.faults import INJECTABLE_CODE_MASK
 from ..core.recovery import Action, RecoveryPolicy
 from ..launch.steps import make_prefill_decode_window
-from ..models.model import Model
+from ..models.model import Model, reset_cache_slot, slot_layer_view
 from .config import EngineConfig
 from .metrics import ServeMetrics
 from .queue import EXPIRED, FAILED, AdmissionPolicy, Request, RequestQueue, Response
@@ -182,18 +182,37 @@ class Replica:
     def inject_state_fault(self, slot: Optional[int] = None, *,
                            rng: Optional[np.random.Generator] = None
                            ) -> Optional[int]:
-        """Simulated SDC: NaN the K entry at position 0 (layer 0, first KV
-        head, first feature) of a slot's cache, on the device — the next
-        window's logits for that slot go non-finite and the probe latches
-        NONFINITE_LOSS. ``slot=None`` picks the first active slot, or a
-        seeded-random one with ``rng``. Returns the slot, or None if no slot
-        is active."""
+        """Simulated SDC, on the device, where the JAX replica puts it:
+
+        - recurrent architectures: NaN element ``(slot, 0, …)`` of every
+          ``h`` leaf of the JAX cache tree — channel 0 of the period-0
+          layer of each ``rglru`` pattern position and of each remainder
+          ``rglru`` layer. The state probe then latches STATE_FAULT;
+        - attention-only architectures: NaN the K entry at position 0 (first
+          full-attention layer, first KV head, first feature); the next
+          window's logits for that slot go non-finite and the probe latches
+          NONFINITE_LOSS.
+
+        ``slot=None`` picks the first active slot, or a seeded-random one
+        with ``rng``. Returns the slot, or None if no slot is active."""
         if slot is None:
             active = self.sched.active_slots()
             if not active:
                 return None
             slot = int(rng.choice(active)) if rng is not None else active[0]
-        self.caches["k"][0, slot, 0, 0, 0] = float("nan")
+        model, cfg = self.model, self.cfg
+        if "h" in self.caches:
+            n_scan = cfg.num_periods * cfg.period
+            rows = [model.cache_index[l] for l in model.rglru_layers
+                    if l >= n_scan or (cfg.num_periods and l < cfg.period)]
+            slot_layer_view(self.caches, "h")[slot, rows, 0] = float("nan")
+            return slot
+        full = [l for l in model.attn_layers if cfg.pattern_layers[l] == "attn"]
+        if not full:
+            raise ValueError(f"{cfg.name}: no recurrent state or "
+                             "full-attention KV to poison")
+        k = slot_layer_view(self.caches, "k")
+        k[slot, model.cache_index[full[0]], 0, 0, 0] = float("nan")
         return slot
 
     def _inject_words(self, words: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -284,10 +303,10 @@ class Replica:
                 start[slot] = K
                 continue
             if cp.fresh:
-                # lane (re)start: fresh cache slice and position 0, queued on
-                # the device stream — never a host sync
-                self.caches["k"][:, slot].zero_()
-                self.caches["v"][:, slot].zero_()
+                # lane (re)start: the slot's row of EVERY cache tensor (K/V,
+                # recurrent state, conv history) back to the fresh zeros and
+                # position 0, queued on the device stream — never a host sync
+                reset_cache_slot(self.caches, slot)
                 self._dev_pos[slot] = 0
             chunk[:cp.rem, slot] = cp.tokens
             rem[slot] = cp.rem

@@ -8,9 +8,11 @@ cross as numpy arrays — the bridge imports nothing of JAX, so the tests hand
 it ``jax.device_get(params)``.
 
 Caches cross both ways, so mid-run states can be compared: the JAX decode
-cache (leaves ``(n_per, B, cap, Hkv, D)``) or the slot-stacked serve cache
-(leaves ``(S, n_per, 1, cap, Hkv, D)``, ``slots=True``), against the port's
-``{"k", "v"}`` tensors of shape ``(layers, B, cap, Hkv, D)``.
+cache (period leaves ``(n_per, B, ...)``, remainder leaves ``(B, ...)``) or
+the slot-stacked serve cache (``(S, n_per, 1, ...)`` and ``(S, 1, ...)``,
+``slots=True``), against the port's cache: ``k``/``v`` ``(attention layers,
+B, cap, Hkv, D)`` (full or ring), ``h`` ``(B, rglru layers, w)`` and
+``conv`` ``(B, rglru layers, 3, w)``.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays and go back as
 float32 arrays (exact: every bfloat16 is a float32).
@@ -23,11 +25,22 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
-from .models.model import Model, resolve_device
+from .models.model import CACHE_LAYOUT, Model, resolve_device
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _QK_NORM = ("q_norm", "k_norm")
-_MLP = ("wi", "wg", "wo")
+_RGLRU = ("wx", "wy", "conv_w", "gate_a", "gate_i", "lam", "out")
+
+
+def _mlp_names(cfg: ModelConfig) -> tuple:
+    return ("wi", "wg", "wo") if cfg.mlp_kind in ("swiglu", "geglu") else ("wi", "wo")
+
+
+def _mixer(cfg: ModelConfig, btype: str) -> tuple[str, tuple]:
+    """The block's mixer key in both trees and its leaves."""
+    if btype == "rglru":
+        return "rglru", _RGLRU
+    return "attn", _ATTN + (_QK_NORM if cfg.qk_norm else ())
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -84,11 +97,11 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
             blk = model.blocks[l]
             _fill(blk.norm1, lp["norm1"]["scale"], f"layer {l} norm1")
             _fill(blk.norm2, lp["norm2"]["scale"], f"layer {l} norm2")
-            names = _ATTN + (_QK_NORM if cfg.qk_norm else ())
+            key, names = _mixer(cfg, blk.btype)
             for name in names:
-                _fill(getattr(blk.attn, name), lp["attn"][name],
-                      f"layer {l} attn.{name}")
-            for name in _MLP:
+                _fill(getattr(getattr(blk, key), name), lp[key][name],
+                      f"layer {l} {key}.{name}")
+            for name in _mlp_names(cfg):
                 _fill(getattr(blk.mlp, name), lp["mlp"][name],
                       f"layer {l} mlp.{name}")
     model.tie_unembed()
@@ -100,13 +113,13 @@ def params_to_numpy(model: Model) -> dict:
     cfg = model.cfg
     layers = []
     for blk in model.blocks:
-        attn = {n: _to_numpy(getattr(blk.attn, n)) for n in _ATTN}
-        if cfg.qk_norm:
-            attn.update({n: _to_numpy(getattr(blk.attn, n)) for n in _QK_NORM})
+        key, names = _mixer(cfg, blk.btype)
+        mixer = getattr(blk, key)
         layers.append({"norm1": {"scale": _to_numpy(blk.norm1)},
                        "norm2": {"scale": _to_numpy(blk.norm2)},
-                       "attn": attn,
-                       "mlp": {n: _to_numpy(getattr(blk.mlp, n)) for n in _MLP}})
+                       key: {n: _to_numpy(getattr(mixer, n)) for n in names},
+                       "mlp": {n: _to_numpy(getattr(blk.mlp, n))
+                               for n in _mlp_names(cfg)}})
     return {"embed": {"embedding": _to_numpy(model.embed)},
             "stack": _stack(layers, cfg, lambda xs: np.stack(xs)),
             "final_norm": {"scale": _to_numpy(model.final_norm)}}
@@ -133,8 +146,9 @@ def _zip(trees: list, stack):
 
 def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
                    device=None) -> dict:
-    """Port cache ``{"k", "v"}`` from a JAX decode cache tree (numpy);
-    ``slots=True`` for the serve engines' slot-stacked caches."""
+    """Port cache from a JAX decode cache tree (numpy); ``slots=True`` for
+    the serve engines' slot-stacked caches."""
+    dev = resolve_device(device)
     if slots:
         select = lambda leaf, c: np.asarray(leaf)[:, c, 0]  # noqa: E731
     else:
@@ -144,20 +158,32 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
         lc = _layer(tree, path, select)
         if path[0] == "rest" and slots:
             lc = {k: np.asarray(v)[:, 0] for k, v in lc.items()}
-        per_layer.append(lc)
-    dev = resolve_device(device)
-    return {name: torch.stack([_to_tensor(lc[name]) for lc in per_layer]).to(dev)
-            for name in ("k", "v")}
+        per_layer.append(lc)        # every leaf (B, ...)
+    kinds = cfg.pattern_layers
+    cache = {}
+    for name, leaf in CACHE_LAYOUT.items():
+        rows = [_to_tensor(lc[name]) for lc, b in zip(per_layer, kinds)
+                if (b == "rglru") == leaf.recurrent]
+        if rows:
+            cache[name] = torch.stack(rows, dim=leaf.layer_axis).to(dev)
+    return cache
 
 
 def cache_to_numpy(cache: dict, cfg: ModelConfig, *, slots: bool = False) -> dict:
     """Inverse of :func:`cache_from_jax`: the JAX cache tree, as numpy."""
-    k, v = _to_numpy(cache["k"]), _to_numpy(cache["v"])
+    arrays = {name: _to_numpy(t) for name, t in cache.items()}
+    index = {False: 0, True: 0}
     layers = []
-    for l in range(cfg.num_layers):
-        kl, vl = k[l], v[l]
-        if slots:
-            kl, vl = kl[:, None], vl[:, None]     # per-slot batch of one
-        layers.append({"k": kl, "v": vl})
+    for b in cfg.pattern_layers:
+        rec = b == "rglru"
+        j = index[rec]
+        index[rec] += 1
+        lc = {}
+        for name, leaf in CACHE_LAYOUT.items():
+            if leaf.recurrent != rec:
+                continue
+            row = np.take(arrays[name], j, axis=leaf.layer_axis)
+            lc[name] = row[:, None] if slots else row   # per-slot batch of one
+        layers.append(lc)
     axis = 1 if slots else 0
     return _stack(layers, cfg, lambda xs: np.stack(xs, axis=axis))

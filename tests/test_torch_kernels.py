@@ -9,7 +9,8 @@ import torch
 from repro.kernels.fault_probe.kernel import probe_rows as jax_probe_rows
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import sdpa_ref as jax_sdpa_ref
-from repro_torch.kernels import build, flash_attention, probe_rows
+from repro_torch.kernels import (build, flash_attention, launch_counts,
+                                 probe_rows, rglru_scan)
 from repro_torch.kernels.flash_attention import sdpa_ref
 from test_kernels import FLASH_CASES
 
@@ -167,8 +168,8 @@ def test_flash_wrapper_rejects(bad):
 
 
 def test_flash_wrapper_rejects_big_head_dim_and_seq_kv():
-    q = torch.zeros((1, 1, 2, 256))
-    k = torch.zeros((1, 4, 2, 256))
+    q = torch.zeros((1, 1, 2, 512))        # the kernel stops at head_dim 256
+    k = torch.zeros((1, 4, 2, 512))
     with pytest.raises(ValueError):
         flash_attention(q, k, k, torch.zeros(1, dtype=torch.int32), causal=True)
     q, k, v, o = _qkv()
@@ -208,7 +209,46 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
 
 def test_kernel_sources_cover_both_kernels():
+    """Every kernel's source is built (the name predates the third)."""
     names = sorted(p.name for p in build.sources())
-    assert names == ["fault_probe.cu", "flash_attention.cu"]
-    for fn in (flash_attention, probe_rows):
+    assert names == ["fault_probe.cu", "flash_attention.cu", "rglru_scan.cu"]
+    for fn in (flash_attention, probe_rows, rglru_scan):
         assert isinstance(fn.launches, int)
+    assert set(launch_counts()) == {"flash_attention", "probe_rows", "rglru_scan"}
+
+
+def test_launch_signatures_are_64_bit_where_they_index():
+    """The probe's column count and the scan's sizes cross the C boundary
+    as 64-bit integers (a (B*S, V) prefill view may hold > 2^31 values)."""
+    import ctypes
+    assert build.SIGNATURES["repro_probe_rows"][2] is ctypes.c_longlong
+    assert build.SIGNATURES["repro_rglru_scan"][3:6] == (ctypes.c_longlong,) * 3
+
+
+def test_probe_wrapper_refuses_more_rows_than_the_kernel_counts(monkeypatch):
+    from repro_torch.kernels.fault_probe import ops
+    monkeypatch.setattr(ops, "MAX_ROWS", 4)
+    with pytest.raises(ValueError, match="rows"):
+        probe_rows(torch.zeros((5, 3)), 1.0, nonfinite_code=NF, overflow_code=OV)
+
+
+# (B, S, T, Hq, Hkv, D, causal, window, block_q, block_kv): recurrentgemma's
+# head_dim 256 and 10 query heads over 1 KV head, full and sliding
+FLASH_CASES_256 = [
+    (1, 32, 32, 10, 1, 256, True, 0, 16, 16),
+    (2, 48, 48, 10, 1, 256, True, 16, 16, 16),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES_256)
+def test_flash_plain_matches_jax_kernel_head_dim_256(case):
+    """As ``test_flash_plain_matches_jax_kernel`` at head_dim 256 (fp32,
+    2e-5 for the reduction order)."""
+    B, S, T, Hq, Hkv, D, causal, window, bq, bkv = case
+    q, k, v = _inputs(case, np.float32, seed=5)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, window=window, block_q=bq, block_kv=bkv)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          torch.zeros(B, dtype=torch.int32), causal=causal,
+                          window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)

@@ -1,9 +1,13 @@
-"""The port's dense model against the JAX package on the smoke qwen3-1.7b
-config (2 layers, d_model 64, float32), with the JAX weights carried over by
-the bridge: full-forward logits, eight decode steps (logits and caches), the
-slot-batched decode step at mixed positions, and the error words.
+"""The port's model against the JAX package on the smoke configs of each
+ported architecture (qwen3-1.7b: 2 layers, d_model 64; recurrentgemma-2b: 8
+layers — RG-LRU, RG-LRU, sliding — d_model 64, lru_width 64, window 16; all
+float32), with the JAX weights carried over by the bridge: full-forward
+logits (against the JAX forward with its reference paths and with its Pallas
+kernels in interpret mode), decode steps (logits and caches; for
+recurrentgemma across the ring's wrap), the slot-batched decode step at
+mixed positions, and the error words.
 
-Tolerance 1e-4 (absolute, on logits of magnitude ~50 and caches of ~1):
+Tolerance 1e-4 (absolute, on logits of magnitude ~50-80 and caches of ~1):
 both sides compute in float32 and differ only in reduction order.
 """
 import dataclasses
@@ -18,19 +22,20 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.launch.steps import make_slot_decode_step as jax_slot_step
 from repro.models import build_model
 from repro_torch.configs import smoke_config
+from repro_torch.core.errors import ErrorCode
 from repro_torch.launch.steps import make_slot_decode_step
 from repro_torch.weights import cache_from_jax, cache_to_numpy, params_from_jax
 
 torch.set_num_threads(2)
 
 TOL = 1e-4
-ARCH = "qwen3-1.7b"
+ARCHS = ["qwen3-1.7b", "recurrentgemma-2b"]
 
 
-@pytest.fixture(scope="module")
-def env():
-    jcfg = jax_smoke_config(ARCH)
-    cfg = smoke_config(ARCH)
+@pytest.fixture(scope="module", params=ARCHS)
+def env(request):
+    jcfg = jax_smoke_config(request.param)
+    cfg = smoke_config(request.param)
     jmodel = build_model(jcfg)
     params = jmodel.init(jax.random.PRNGKey(0))
     model = params_from_jax(jax.device_get(params), cfg, device="cpu")
@@ -41,16 +46,20 @@ def _close(a, b):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=TOL, atol=TOL)
 
 
-def test_smoke_configs_agree():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_configs_agree(arch):
     """Both packages build the same smoke model."""
-    assert (dataclasses.asdict(smoke_config(ARCH))
-            == dataclasses.asdict(jax_smoke_config(ARCH)))
+    assert (dataclasses.asdict(smoke_config(arch))
+            == dataclasses.asdict(jax_smoke_config(arch)))
 
 
-def test_forward_logits_match_jax(env):
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+def test_forward_logits_match_jax(env, impl):
+    """19 tokens: past the smoke sliding window (16), so the window mask
+    acts."""
     jcfg, cfg, jmodel, params, model = env
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 19)).astype(np.int32)
-    want, _ = jmodel.forward(params, jnp.asarray(toks), impl="ref")
+    want, _ = jmodel.forward(params, jnp.asarray(toks), impl=impl)
     with torch.no_grad():
         got = model(torch.from_numpy(toks))
     assert got.dtype == torch.float32 and got.shape == (2, 19, cfg.vocab_size)
@@ -74,6 +83,30 @@ def test_decode_steps_match_jax(env):
             _close(b, a)
 
 
+def test_decode_across_the_ring_wrap():
+    """recurrentgemma: 41 decode steps with a ring of capacity 16 (the smoke
+    window; max_len 24), so every sliding layer's ring wraps twice — logits
+    and every cache tensor after each step, against the JAX decode."""
+    arch = "recurrentgemma-2b"
+    jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
+    jmodel = build_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(3))
+    model = params_from_jax(jax.device_get(params), cfg, device="cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 41)).astype(np.int32)
+    jcache = jmodel.init_cache(2, 24)
+    cache = model.init_cache(2, 24)
+    assert cache["k"].shape[2] == cfg.sliding_window == 16
+    jstep = jax.jit(jmodel.decode_step)
+    for p in range(41):
+        tok = toks[:, p:p + 1]
+        want, jcache = jstep(params, jnp.asarray(tok), jcache, jnp.int32(p))
+        got = model.decode_step(torch.from_numpy(tok), cache, p)
+        _close(got.numpy(), want)
+        for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(jcache)),
+                        jax.tree_util.tree_leaves(cache_to_numpy(cache, cfg))):
+            _close(b, a)
+
+
 def _slot_inputs(cfg, jcfg, cap, positions, seed=2):
     """Random slot-stacked caches (as the serve engines hold them) and one
     token per slot."""
@@ -87,19 +120,34 @@ def _slot_inputs(cfg, jcfg, cap, positions, seed=2):
     return tree, toks
 
 
+# where each architecture's slot-step test plants its poison in slot 1, and
+# the word that must latch there: a V entry the slot reads (non-finite
+# logits), or the recurrent state (the state probe, and the logits after it)
+POISON_SITES = {
+    "qwen3-1.7b": (("periods", "b0", "v"), (1, 0, 0, 2, 1, 3),
+                   int(ErrorCode.NONFINITE_LOSS)),
+    "recurrentgemma-2b": (("periods", "b1", "h"), (1, 0, 0, 7),
+                          int(ErrorCode.NONFINITE_LOSS | ErrorCode.STATE_FAULT)),
+}
+
+
 @pytest.mark.parametrize("poison", [None, "nan", "inf"])
 def test_slot_step_matches_jax(env, poison):
     """The slot-batched step at mixed per-slot positions — including the
-    capacity clamp (positions >= cap write at cap-1 and read everything) —
-    against the JAX vmapped ``make_slot_decode_step``: logits and caches to
-    tolerance, error words bit-equal (a NaN or inf planted in slot 1's cache
-    at a position it reads must latch NONFINITE_LOSS there and only there)."""
+    capacity clamp (positions >= cap write at cap-1 and read everything) or
+    the ring's wrap — against the JAX vmapped ``make_slot_decode_step``:
+    logits and caches to tolerance, error words bit-equal (a NaN or inf
+    planted in slot 1's cache must latch there and only there)."""
     jcfg, cfg, jmodel, params, model = env
     cap = 16
     positions = np.asarray([0, 5, cap - 1, cap + 3], np.int32)
     tree, toks = _slot_inputs(cfg, jcfg, cap, positions)
+    path, index, code = POISON_SITES[cfg.name]
     if poison is not None:
-        tree["periods"]["b0"]["v"][1, 0, 0, 2, 1, 3] = float(poison)
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        leaf[index] = float(poison)
     jlogits, jcaches, jwords = jax_slot_step(jcfg)(
         params, jax.tree_util.tree_map(jnp.asarray, tree),
         jnp.asarray(toks)[:, None, None], jnp.asarray(positions))
@@ -109,7 +157,7 @@ def test_slot_step_matches_jax(env, poison):
                          torch.from_numpy(positions))
     assert words.dtype == torch.int32
     assert words.numpy().astype(np.uint32).tolist() == np.asarray(jwords).tolist()
-    assert words.tolist() == ([0, 1, 0, 0] if poison else [0, 0, 0, 0])
+    assert words.tolist() == ([0, code, 0, 0] if poison else [0, 0, 0, 0])
     finite = np.isfinite(np.asarray(jlogits[:, 0, 0]))
     np.testing.assert_array_equal(np.isfinite(logits.numpy()), finite)
     _close(logits.numpy()[finite], np.asarray(jlogits[:, 0, 0])[finite])
@@ -121,11 +169,13 @@ def test_slot_step_matches_jax(env, poison):
 
 
 def test_cache_write_positions(env):
-    """Decode writes each slot's K/V at min(pos, cap-1) and nowhere else."""
+    """Decode writes each slot's K/V at its write index and nowhere else:
+    min(pos, cap-1) in a full layer's cache, pos % cap in a ring."""
     _, cfg, _, _, model = env
     cap = 8
     cache = model.init_cache(3, cap)
     pos = torch.tensor([0, 3, cap + 2], dtype=torch.int32)
     make_slot_decode_step(model)(cache, torch.tensor([1, 2, 3], dtype=torch.int32), pos)
     written = (cache["k"][0].abs().sum(dim=(-1, -2)) != 0)
-    assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, cap - 1]]
+    last = 2 if model.attn_kind == "sliding" else cap - 1
+    assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, last]]

@@ -1,13 +1,17 @@
 """The port's window+overlap Replica against the JAX Replica and against its
-own contracts, on the smoke qwen3-1.7b config (float32, weights bridged from
-JAX):
+own contracts, on the smoke configs of qwen3-1.7b and recurrentgemma-2b
+(float32, weights bridged from JAX):
 
 * the same requests give the same streams as the JAX engine (except where
   the reference's top-2 logit gap is below the logits tolerance);
 * the same injected fault words give the same recovery decisions and the
   same streams;
-* an injected KV fault (NaN) is detected and recovered by LFLR with streams
-  bit-equal to the port's clean run;
+* an injected KV fault (NaN; qwen3) or recurrent-state fault (NaN in ``h``;
+  recurrentgemma) is detected and recovered by LFLR with streams bit-equal
+  to the port's clean run — and for the state fault, the poisoned elements,
+  the fault records and the streams equal the JAX replica's;
+* a slot reused after a request serves the next one exactly as a fresh
+  replica does (every cache tensor is reset, not only K/V);
 * ``window=1`` is bit-equal to ``window=4``;
 * host syncs stay O(windows): at most 2 readbacks per retired window.
 """
@@ -26,23 +30,35 @@ from repro_torch.configs import smoke_config
 from repro_torch.core.device_channel import readback
 from repro_torch.core.errors import ErrorCode
 from repro_torch.serve import OK, EngineConfig, Replica, Request
-from repro_torch.weights import params_from_jax
+from repro_torch.weights import cache_from_jax, params_from_jax
 
 torch.set_num_threads(2)
 
-ARCH = "qwen3-1.7b"
+ARCHS = ["qwen3-1.7b", "recurrentgemma-2b"]
 LOGIT_TOL = 1e-4          # float32 logits, reduction order only
+# max_len 48 > the smoke window 16: recurrentgemma's rings wrap in serving
 ENGINE = dict(window=4, overlap=True, num_slots=3, max_len=48)
 
 
-@pytest.fixture(scope="module")
-def env():
-    jcfg = jax_smoke_config(ARCH)
-    cfg = smoke_config(ARCH)
-    jmodel = build_model(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0))
-    model = params_from_jax(jax.device_get(params), cfg, device="cpu")
-    return jcfg, cfg, jmodel, params, model
+_ENVS: dict = {}
+
+
+def _env(arch):
+    """(JAX config, port config, JAX model, JAX params, port model), built
+    once per architecture for the module."""
+    if arch not in _ENVS:
+        jcfg = jax_smoke_config(arch)
+        cfg = smoke_config(arch)
+        jmodel = build_model(jcfg)
+        params = jmodel.init(jax.random.PRNGKey(0))
+        model = params_from_jax(jax.device_get(params), cfg, device="cpu")
+        _ENVS[arch] = (jcfg, cfg, jmodel, params, model)
+    return _ENVS[arch]
+
+
+@pytest.fixture(params=ARCHS)
+def env(request):
+    return _env(request.param)
 
 
 def _traffic(n=8, seed=1):
@@ -149,10 +165,11 @@ def test_recovery_decisions_match_jax_replica(env, schedule):
             assert got[i].tokens == ref[i].tokens
 
 
-def test_kv_fault_recovers_by_lflr_bit_exact(env):
-    """A NaN in an active slot's KV cache is latched by the logits probe as
-    NONFINITE_LOSS on that slot; LFLR re-prefills it, and every stream is
-    bit-equal to the port's clean run."""
+def test_kv_fault_recovers_by_lflr_bit_exact():
+    """qwen3 (attention only): a NaN in an active slot's KV cache is latched
+    by the logits probe as NONFINITE_LOSS on that slot; LFLR re-prefills it,
+    and every stream is bit-equal to the port's clean run."""
+    env = _env("qwen3-1.7b")
     traffic = _traffic()
     clean, _ = _serve(_port_replica(env), Request, traffic)
     rep = _port_replica(env)
@@ -164,6 +181,66 @@ def test_kv_fault_recovers_by_lflr_bit_exact(env):
     assert sum(r.retries for r in faulted.values()) == 1
     assert {i: r.tokens for i, r in faulted.items()} == {i: r.tokens for i, r in clean.items()}
     assert all(r.status == OK for r in faulted.values())
+
+
+def test_state_fault_matches_jax_and_lflr():
+    """recurrentgemma: a NaN in an active slot's recurrent state ``h`` (put
+    where the JAX replica puts it) latches the same fault records in both
+    replicas (step, code STATE_FAULT | NONFINITE_LOSS, action, slot); both
+    serve the same streams, and the port's are bit-equal to its clean
+    run."""
+    env = _env("recurrentgemma-2b")
+    traffic = _traffic()
+    clean, _ = _serve(_port_replica(env), Request, traffic)
+    jrep, prep = _jax_replica(env), _port_replica(env)
+    ref, jslot = _serve(jrep, JaxRequest, traffic, inject_at=3)
+    got, slot = _serve(prep, Request, traffic, inject_at=3)
+    assert slot == jslot is not None
+    code = int(ErrorCode.STATE_FAULT | ErrorCode.NONFINITE_LOSS)
+    assert prep.metrics.faults[0].code == code
+    assert prep.metrics.faults[0].slots == (slot,)
+    assert ([(f.step, f.code, f.action, f.slots) for f in prep.metrics.faults]
+            == [(f.step, f.code, f.action, f.slots) for f in jrep.metrics.faults])
+    assert {i: r.tokens for i, r in got.items()} == {i: r.tokens for i, r in ref.items()}
+    assert {i: r.tokens for i, r in got.items()} == {i: r.tokens for i, r in clean.items()}
+    assert all(r.status == OK for r in got.values())
+
+
+def test_inject_state_fault_poisons_what_jax_poisons(env):
+    """The poisoned elements of the port's cache are exactly the JAX
+    replica's, mapped through the bridge (recurrentgemma: ``h``; qwen3: K
+    at position 0 of layer 0)."""
+    jcfg, cfg = env[:2]
+    jrep, prep = _jax_replica(env), _port_replica(env)
+    assert jrep.inject_state_fault(1) == prep.inject_state_fault(1) == 1
+    want = cache_from_jax(jax.device_get(jrep.caches), cfg, slots=True,
+                          device="cpu")
+    assert set(want) == set(prep.caches)
+    for name, t in prep.caches.items():
+        assert torch.equal(torch.isnan(t), torch.isnan(want[name])), name
+    hit = prep.caches["h" if "h" in prep.caches else "k"]
+    assert int(torch.isnan(hit).sum()) == (
+        4 if cfg.name == "recurrentgemma-2b" else 1)
+
+
+def test_reused_slot_serves_like_a_fresh_replica(env):
+    """One slot: request B after request A on the same slot gives B's
+    stream AND leaves every cache tensor bit-equal to a fresh replica that
+    served B alone — the fresh-lane reset clears the recurrent state and
+    the conv history, not only K/V."""
+    _, cfg, _, _, model = env
+    conf = dict(ENGINE, num_slots=1)
+    a, b = _traffic(n=2, seed=11)
+    reused = Replica(cfg, model, config=EngineConfig(**conf))
+    first, _ = _serve(reused, Request, [a])
+    assert first[0].status == OK
+    again, _ = _serve(reused, Request, [b])
+    fresh = Replica(cfg, model, config=EngineConfig(**conf))
+    alone, _ = _serve(fresh, Request, [b])
+    assert again[0].status == alone[0].status == OK
+    assert again[0].tokens == alone[0].tokens
+    for name, t in fresh.caches.items():
+        assert torch.equal(reused.caches[name], t), name
 
 
 def test_window1_bit_equal_window4(env):

@@ -1,6 +1,8 @@
 """The weight and cache bridge round-trips exactly: JAX params → port model
 → JAX layout, and JAX caches (decode and slot-stacked serve layouts) → port
-cache → JAX layout, leaf for leaf, bit for bit."""
+cache → JAX layout, leaf for leaf, bit for bit — for qwen3 (full-attention
+K/V) and recurrentgemma (RG-LRU leaves, ring K/V, ``h``/``conv`` state,
+remainder layers)."""
 import dataclasses
 
 import jax
@@ -11,6 +13,7 @@ import torch
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import build_model
 from repro_torch.configs import smoke_config
+from repro_torch.models import Model
 from repro_torch.weights import (
     cache_from_jax,
     cache_to_numpy,
@@ -19,6 +22,11 @@ from repro_torch.weights import (
 )
 
 ARCH = "qwen3-1.7b"
+ARCHS = ["qwen3-1.7b", "recurrentgemma-2b"]
+# (arch, layers): a depth without and with remainder layers (recurrentgemma:
+# 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest)
+DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("recurrentgemma-2b", 5),
+          ("recurrentgemma-2b", 8)]
 
 
 def _leaves_equal(a, b):
@@ -32,13 +40,13 @@ def _leaves_equal(a, b):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("layers", [2, 3])
-def test_params_round_trip(dtype, layers):
-    jcfg = jax_smoke_config(ARCH).replace(dtype=dtype, num_layers=layers)
-    cfg = smoke_config(ARCH).replace(dtype=dtype, num_layers=layers)
+@pytest.mark.parametrize("arch,layers", DEPTHS)
+def test_params_round_trip(dtype, arch, layers):
+    jcfg = jax_smoke_config(arch).replace(dtype=dtype, num_layers=layers)
+    cfg = smoke_config(arch).replace(dtype=dtype, num_layers=layers)
     params = jax.device_get(build_model(jcfg).init(jax.random.PRNGKey(1)))
     model = params_from_jax(params, cfg, device="cpu")
-    assert model.blocks[0].attn.wq.dtype == (
+    assert model.blocks[0].mlp.wi.dtype == (
         torch.bfloat16 if dtype == "bfloat16" else torch.float32)
     assert len(model.blocks) == layers
     _leaves_equal(params, params_to_numpy(model))
@@ -48,16 +56,23 @@ def test_params_round_trip(dtype, layers):
 
 
 @pytest.mark.parametrize("slots", [False, True])
-def test_cache_round_trip(slots):
-    jcfg = jax_smoke_config(ARCH)
-    cfg = smoke_config(ARCH)
-    shapes = build_model(jcfg).cache_shapes(1 if slots else 3, 10)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_round_trip(slots, arch):
+    """max_len 20 > the smoke window 16: recurrentgemma's rings hold 16."""
+    jcfg = jax_smoke_config(arch)
+    cfg = smoke_config(arch)
+    shapes = build_model(jcfg).cache_shapes(1 if slots else 3, 20)
     rng = np.random.default_rng(0)
     lead = (3,) if slots else ()
     tree = jax.tree_util.tree_map(
         lambda s: rng.standard_normal(lead + s.shape).astype(np.float32), shapes)
     cache = cache_from_jax(tree, cfg, slots=slots, device="cpu")
-    assert cache["k"].shape == (cfg.num_layers, 3, 10, cfg.num_kv_heads,
+    model = Model(cfg, device="cpu", seed=None)
+    want = model.init_cache(3, 20)
+    assert {k: v.shape for k, v in cache.items()} == {k: v.shape for k, v in want.items()}
+    n_attn = sum(b != "rglru" for b in cfg.pattern_layers)
+    cap = 16 if arch == "recurrentgemma-2b" else 20
+    assert cache["k"].shape == (n_attn, 3, cap, cfg.num_kv_heads,
                                 cfg.resolved_head_dim)
     _leaves_equal(tree, cache_to_numpy(cache, cfg, slots=slots))
 
