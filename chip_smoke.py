@@ -35,7 +35,17 @@ Phases, each printing one JSON line (``"phase": ...``):
    recurrent state and the state probe must latch STATE_FAULT;
 9. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
    window): the scan kernel once per RG-LRU layer, flash once per sliding
-   layer, one probe, a clean word, its time and peak memory.
+   layer, one probe, a clean word, its time and peak memory;
+10. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
+   mamba2-2.7b's prefill shape and at a shape with groups over heads and
+   fewer steps than the chunk, a control that must exceed the limit (one
+   step's dt changed), and the probe over the full ``ssm`` state;
+11. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
+   seeded random weights), the recurrentgemma model freed first;
+12. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
+   ``ssm`` state and the state probe must latch STATE_FAULT;
+13. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD kernel once
+   per layer, one probe, a clean word, its time and peak memory.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
@@ -70,7 +80,14 @@ FLASH_RG_TOL = (1e-4, 2.0 ** -6)    # abs, rel
 # fp32 scan: exp/sqrt ulps and FMA contraction differ from the plain
 # version's and compound through the recurrence over ~1/(1-a) steps
 SCAN_TOL = 1e-4
-FORWARD_GAP_TOL = 2.0               # decode vs forward logits, bf16, 26-28 layers
+# the SSD kernel and its plain version both work in fp32 and differ in
+# summation order (sums of <= 128 terms): 1e-4 of each element plus 1e-4 of
+# the largest. The scan's bf16 output rounds those fp32 results, about 1 ulp
+# apart: 2 bf16 ulps of each element. A control with one step's dt doubled
+# must exceed the limit
+SSD_TOL = (1e-4, 1e-4)              # of the largest |want|, of each |want|
+SSD_BF16_TOL = (1e-4, 2.0 ** -6)
+FORWARD_GAP_TOL = 2.0               # decode vs forward logits, bf16 and fp32
 PREFILL_B, PREFILL_S = 2, 4096      # prefill_32k cut to 1 card: 2x the window
 
 
@@ -142,6 +159,15 @@ def flash_excess(got, want) -> float:
     atol, rtol = FLASH_RG_TOL
     want = want.float()
     return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def scaled_excess(got, want, tol) -> float:
+    """Largest ``|got - want| / (a max|want| + r |want|)`` for ``tol = (a,
+    r)``: at most 1 passes."""
+    a, r = tol
+    want = want.float()
+    limit = a * want.abs().max() + r * want.abs()
+    return ((got.float() - want).abs() / limit).max().item()
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -349,16 +375,18 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
     wall = time.perf_counter() - t0
     launches = launch_counts()
     syncs = readback.count
+    peak = torch.cuda.max_memory_allocated() / 1e9   # before the checks' own
     m = rep.metrics
     bad = [r.id for r in clean.values() if not r.ok or len(r.tokens) != MAX_NEW]
     if len(clean) != NUM_REQUESTS or bad:
         fail(f"{names[0]}: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
-    recurrent = bool(model.rglru_layers)
+    recurrent = model.state_leaf is not None
     # per window step: flash once per attention layer; the probe over the
     # logits, and over the recurrent state where there is one; no scan
-    expected = {"flash_attention": len(model.attn_layers) * steps,
-                "probe_rows": (2 if recurrent else 1) * steps, "rglru_scan": 0}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"flash_attention": len(model.attn_layers) * steps,
+                     "probe_rows": (2 if recurrent else 1) * steps})
     if launches != expected:
         fail(f"{names[0]}: kernel launches {launches} != {expected} "
              f"({len(model.attn_layers)} attention layers, "
@@ -369,7 +397,15 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
     if m.faults:
         fail(f"{names[0]}: clean run recorded faults: {m.faults}")
     tokens = sum(len(r.tokens) for r in clean.values())
-    forward = check_against_forward(torch, model, clean, make_requests(cfg, Request))
+    reqs = make_requests(cfg, Request)
+    forward = check_against_forward(torch, model, clean, reqs)
+    if "ssd" in cfg.block_pattern:
+        # bf16 decode (one-step state update, the conv as one product) and
+        # the chunked forward round differently and drift apart over depth,
+        # in the JAX package too (tests/test_torch_ssd.py): the bf16 stream
+        # may meet the forward on one request by chance, so the stream is
+        # also held to it in fp32, where the two paths agree
+        forward = {"bf16": forward, "fp32": check_fp32_stream(torch, model, reqs)}
     emit({"phase": names[0], "card": card, "model": cfg.name,
           "layers": cfg.num_layers, "pattern": list(cfg.block_pattern),
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -380,8 +416,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
           "syncs": syncs, "window_waits": m.window_waits, "launches": launches,
           "ttft_p50_s": m.ttft_percentiles()["p50"],
           "latency_p99_s": m.latency_percentiles()["p99"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "forward_check": forward})
+          "peak_mem_gb": peak, "forward_check": forward})
 
     # ---- same traffic, a NaN in an active slot's state mid-run
     rep.metrics = ServeMetrics()
@@ -428,19 +463,25 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
 
 def check_against_forward(torch, model, answers, reqs) -> dict:
     """Hold one served stream against the prefill step's full forward (the
-    flash kernel at prefill shape; for recurrentgemma the scan kernel where
-    decode runs the one-step update): every served token must be the
-    forward's argmax, or within ``FORWARD_GAP_TOL`` of it (bf16 decode and
-    forward round differently over the layers)."""
+    flash kernel at prefill shape; for recurrentgemma and mamba2 the scan
+    kernels where decode runs the one-step update): every served token must
+    be the forward's argmax, or within ``FORWARD_GAP_TOL`` of it (bf16
+    decode and forward round differently over the layers). The SSD scan
+    takes a multiple of its chunk, so the sequence is padded at its end;
+    the forward is causal, so the padding changes none of the rows read."""
     from repro_torch.launch.steps import make_prefill_step
     req = min(reqs, key=lambda r: len(r.prompt))
     toks = list(req.prompt) + list(answers[req.id].tokens)
-    logits, word = make_prefill_step(model)(torch.tensor([toks], device=model.device))
+    chunk = model.cfg.ssm_chunk
+    pad = -len(toks) % chunk if "ssd" in model.cfg.block_pattern else 0
+    logits, word = make_prefill_step(model)(
+        torch.tensor([toks + [0] * pad], device=model.device))
     logits = logits[0]
     if int(word) != 0 or not bool(torch.isfinite(logits).all()):
         fail(f"forward logits are not finite (word {int(word)})")
     n = len(req.prompt)
     rows = logits[n - 1:len(toks) - 1]
+
     served = torch.tensor(answers[req.id].tokens, device=model.device)
     gap = (rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0])
     agree = int((gap == 0).sum())
@@ -450,6 +491,34 @@ def check_against_forward(torch, model, answers, reqs) -> dict:
              f"(largest logit gap {worst})")
     return {"request": req.id, "positions": len(served), "argmax_agree": agree,
             "max_gap": worst, "tol": FORWARD_GAP_TOL}
+
+
+def check_fp32_stream(torch, model, reqs) -> dict:
+    """``model``'s weights widened to fp32 (exactly) serve the shortest
+    request through the same engine, and that stream is held against the
+    fp32 prefill forward at ``FORWARD_GAP_TOL``: the full-width check that
+    the chunked kernel path and the recurrent decode agree."""
+    from repro_torch.models import Model
+    from repro_torch.serve import EngineConfig, Replica
+
+    wide = Model(model.cfg.replace(dtype="float32"), device=model.device, seed=None)
+    with torch.no_grad():
+        for (name, p32), p in zip(wide.named_parameters(), model.parameters()):
+            if p32.shape != p.shape:
+                fail(f"fp32 copy: {name} is {tuple(p32.shape)}, not {tuple(p.shape)}")
+            p32.copy_(p.float())
+    wide.tie_unembed()
+    req = min(reqs, key=lambda r: len(r.prompt))
+    rep = Replica(wide.cfg, wide, config=EngineConfig(
+        window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN))
+    answers, _ = drive(rep, [req])
+    if not answers[req.id].ok or len(answers[req.id].tokens) != MAX_NEW:
+        fail(f"fp32 copy: request {req.id} not answered in full")
+    out = check_against_forward(torch, wide, answers, [req])
+    del rep, wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels_rg(torch, card: str) -> dict:
@@ -628,8 +697,125 @@ def phase_kernels_rg(torch, card: str) -> dict:
     return out
 
 
-def phase_prefill(torch, card: str, model) -> dict:
-    """Phase 9: the prefill step at (PREFILL_B, PREFILL_S), counts from 0."""
+def phase_kernels_ssm(torch, card: str) -> dict:
+    """The SSD kernel and the probe against their plain versions at
+    mamba2-2.7b's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import probe_rows, ssd_scan
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+    from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
+                                              ssd_scan_ref)
+
+    cfg = get_config("mamba2-2.7b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    f32 = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device=dev, dtype=torch.float32)
+    out = {}
+
+    def inputs(b, s, h, p, g, n):
+        """The mixer's operands, drawn like the JAX package's SSD test:
+        x, B, C in the model dtype, dt = softplus(normal), A = -exp(0.3
+        normal) in fp32."""
+        return (f32(b, s, h, p).bfloat16(),
+                torch.nn.functional.softplus(f32(b, s, h)),
+                -torch.exp(0.3 * f32(h)),
+                (0.5 * f32(b, s, g, n)).bfloat16(), (0.5 * f32(b, s, g, n)).bfloat16())
+
+    def check(name, shape, chunk):
+        """The kernel's outputs (fp32) and the whole scan (bf16) against
+        their plain versions; returns the errors over the limits."""
+        x, dt, A, B, C = inputs(*shape)
+        L = min(chunk, shape[1])
+        y, st = ssd_intra_chunk(x, dt, A, B, C, chunk)
+        want_y, want_st = ssd_intra_chunk_ref(x, dt, A, B, C, L)
+        intra = max(scaled_excess(y, want_y, SSD_TOL),
+                    scaled_excess(st, want_st, SSD_TOL))
+        err = max((y - want_y).abs().max().item(), (st - want_st).abs().max().item())
+        want = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+        got = ssd_scan(x, dt, A, B, C, chunk=chunk)
+        scan = scaled_excess(got, want, SSD_BF16_TOL)
+        # control: one step's dt doubled (batch 0, a step mid-sequence, a
+        # head mid-way), against the plain version on the unchanged inputs
+        bad = dt.clone()
+        bad[0, shape[1] // 2 + 5, shape[2] // 2] *= 2
+        control = scaled_excess(ssd_scan(x, bad, A, B, C, chunk=chunk), want,
+                                SSD_BF16_TOL)
+        if not (intra <= 1 and scan <= 1 < control):
+            fail(f"ssd_scan at {name}: kernel {intra} x, scan {scan} x the "
+                 f"limit; one dt doubled reads {control} x (must exceed 1)")
+        return {"max_abs_err": err, "err_over_tol": intra,
+                "scan_err_over_tol": scan, "one_dt_doubled_over_tol": control,
+                "scan_max_abs_err": (got.float() - want.float()).abs().max().item()}
+
+    # -- at the prefill shape
+    b, s, h, p = PREFILL_B, PREFILL_S, cfg.ssm_nheads, cfg.ssm_head_dim
+    g, n, L = cfg.ssm_ngroups, cfg.ssm_state_dim, cfg.ssm_chunk
+    shape = (b, s, h, p, g, n)
+    res = check("the prefill shape", shape, L)
+    nc = s // L
+    # the causal half of each L x L product: L (L + 1) / 2 pairs
+    flops = b * nc * (g * n * L * (L + 1) + h * (p * L * (L + 1) + 2 * p * L * n))
+    nbytes = (b * s * h * p * 2 + b * s * h * 4 + h * 4 + 2 * b * s * g * n * 2
+              + b * s * h * p * 4 + b * nc * h * p * n * 4)
+    b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+    ins = copies(lambda: inputs(*shape), b * s * (h * p * 2 + h * 4 + 2 * g * n * 2))
+    out["ssd_scan"] = {
+        "shape": f"x {b}x{s}x{h}x{p} bf16, dt {b}x{s}x{h} fp32, B, C "
+                 f"{b}x{s}x{g}x{n} bf16, chunk {L}",
+        "tol": f"intra-chunk fp32: {SSD_TOL[0]} max + {SSD_TOL[1]} rel; scan "
+               f"bf16: {SSD_BF16_TOL[0]} max + {SSD_BF16_TOL[1]} rel", **res,
+        "timing_copies": len(ins),
+        "kernel_ms": time_ms(torch, lambda *a: ssd_intra_chunk(*a, L), ins),
+        "plain_ms": time_ms(torch, lambda *a: ssd_intra_chunk_ref(*a, L), ins,
+                            launches=8),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_counts": "operations: C B^T once per group, the causal half "
+                        "of each L x L product (the least work); bytes: x, B, "
+                        "C bf16, dt fp32 read, y and the states fp32 written",
+        "scan_ms": time_ms(torch, lambda *a: ssd_scan(*a, chunk=L), ins),
+        "scan_plain_ms": time_ms(torch, lambda *a: ssd_scan_ref(*a, chunk=L), ins,
+                                 launches=8)}
+    del ins
+    # -- groups over heads, fewer steps than the chunk
+    shape = (3, 96, 16, p, 4, n)
+    out["ssd_scan_groups"] = {
+        "shape": f"x 3x96x16x{p} bf16, B, C 3x96x4x{n} bf16, chunk {L} "
+                 "(one chunk of 96 steps)", **check("G > 1, S < chunk", shape, L)}
+
+    # -- the probe over the ssm state (slots, ssd layers * H * P * N)
+    cols = cfg.num_layers * h * p * n
+    sf = int(ErrorCode.STATE_FAULT)
+    st = f32(NUM_SLOTS, cols)
+    st[1, 0] = float("nan")
+    st[6, cols - 1] = float("-inf")
+    got = probe_rows(st, math.inf, nonfinite_code=sf, overflow_code=sf)
+    want = probe_rows_ref(st, math.inf, nonfinite_code=sf, overflow_code=sf)
+    if not torch.equal(got, want) or got.tolist() != [0, sf, 0, 0, 0, 0, sf, 0]:
+        fail(f"probe_rows over ssm wrong: {got.tolist()} vs {want.tolist()}")
+    err = (got - want).abs().max().item()
+    del st
+    sts = copies(lambda: (f32(NUM_SLOTS, cols),), NUM_SLOTS * cols * 4)
+    b_ms, b_by = bound(NUM_SLOTS * cols * 4 + NUM_SLOTS * 4, 3 * NUM_SLOTS * cols,
+                       PEAK_FP32_FLOPS)
+    out["probe_ssm"] = {
+        "shape": f"ssm {NUM_SLOTS}x{cols} fp32, threshold inf", "words": got.tolist(),
+        "max_abs_err": err, "timing_copies": len(sts),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=sf, overflow_code=sf), sts),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=sf, overflow_code=sf), sts, launches=8),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del sts
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_ssm", "card": card, **out})
+    return out
+
+
+def phase_prefill(torch, card: str, model, name: str) -> dict:
+    """Phases 9 and 13: the prefill step at (PREFILL_B, PREFILL_S), counts
+    from 0."""
     import numpy as np
     from repro_torch.core.device_channel import readback
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -652,16 +838,19 @@ def phase_prefill(torch, card: str, model) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    expected = {"rglru_scan": len(model.rglru_layers),
+    # each scan kernel once per layer of its kind, flash once per attention
+    # layer, one probe over the logits
+    expected = {"rglru_scan": cfg.pattern_layers.count("rglru"),
+                "ssd_scan": cfg.pattern_layers.count("ssd"),
                 "flash_attention": len(model.attn_layers), "probe_rows": 1}
     if launches != expected:
-        fail(f"prefill_rg: kernel launches {launches} != {expected}")
+        fail(f"{name}: kernel launches {launches} != {expected}")
     shape = tuple(logits.shape)
     if shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or logits.dtype != torch.float32:
-        fail(f"prefill_rg: logits {logits.dtype} {shape}")
+        fail(f"{name}: logits {logits.dtype} {shape}")
     w = int(readback(word))
     if w != 0:
-        fail(f"prefill_rg: clean prefill raised word {w:#x}")
+        fail(f"{name}: clean prefill raised word {w:#x}")
     del logits, word
     times = []
     for _ in range(3):
@@ -671,7 +860,7 @@ def phase_prefill(torch, card: str, model) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         del logits, word
-    emit({"phase": "prefill_rg", "card": card, "model": cfg.name,
+    emit({"phase": name, "card": card, "model": cfg.name,
           "batch": PREFILL_B, "seq": PREFILL_S, "launches": launches,
           "word": w, "first_ms": first_ms, "ms_per_call": sum(times) / len(times),
           "ms_calls": times, "tokens_per_s": PREFILL_B * PREFILL_S / (min(times) / 1e3),
@@ -719,9 +908,18 @@ def main() -> None:
     kern_rg = phase_kernels_rg(torch, card)
     model, init_s = build_model(torch, get_config("recurrentgemma-2b"))
     serve_rg = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"))
-    prefill_rg = phase_prefill(torch, card, model)
+    prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
+    del model                                     # free rg before mamba2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kern_ssm = phase_kernels_ssm(torch, card)
+    model, init_s = build_model(torch, get_config("mamba2-2.7b"))
+    serve_ssm = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"))
+    prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
     del model
-    paths = {"serve": serve_q, "serve_rg": serve_rg, "prefill_rg": prefill_rg}
+    paths = {"serve": serve_q, "serve_rg": serve_rg, "prefill_rg": prefill_rg,
+             "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
         kernel_entry(
@@ -738,12 +936,18 @@ def main() -> None:
             "src/repro/kernels/fault_probe/kernel.py:44",
             by_path("probe_rows"), kern["probe_rows"],
             {"probe_rows": kern["probe_rows"], "probe_state": kern_rg["probe_state"],
-             "probe_prefill": kern_rg["probe_prefill"]}),
+             "probe_prefill": kern_rg["probe_prefill"],
+             "probe_ssm": kern_ssm["probe_ssm"]}),
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:36",
             by_path("rglru_scan"), kern_rg["rglru_scan"],
             {"rglru_scan": kern_rg["rglru_scan"]}),
+        kernel_entry(
+            "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/kernel.py:47",
+            by_path("ssd_scan"), kern_ssm["ssd_scan"],
+            {"ssd_scan": kern_ssm["ssd_scan"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

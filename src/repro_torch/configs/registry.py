@@ -5,12 +5,14 @@ from __future__ import annotations
 import math
 
 from .base import ModelConfig
+from .mamba2_2_7b import CONFIG as mamba2_2_7b
 from .qwen3_1_7b import CONFIG as qwen3_1_7b
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen3-1.7b": qwen3_1_7b,
     "recurrentgemma-2b": recurrentgemma_2b,
+    "mamba2-2.7b": mamba2_2_7b,
 }
 
 
@@ -41,6 +43,9 @@ def smoke_config(name: str) -> ModelConfig:
     rem = len(cfg.remainder_layers)
     layers = 2 * cfg.period + rem
     overrides = dict(num_layers=layers, **common)
+    if cfg.family == "ssm":
+        overrides.update(ssm_state_dim=16, ssm_head_dim=16, ssm_expand=2,
+                         ssm_chunk=8)   # d_inner=128, 8 heads
     if cfg.family == "hybrid":
         overrides.update(lru_width=64, lru_heads=4)
     return cfg.replace(**overrides)

@@ -6,8 +6,9 @@ step probes ``loss_probe(max|logits|)`` with a divergence threshold of
 computes the same word per slot with the ``probe_rows`` kernel over the
 ``(slots, vocab)`` fp32 logits (its overflow branch, DIVERGENCE, cannot fire
 at an infinite threshold). For recurrent architectures the JAX step also
-runs ``state_probe`` over the recurrent state ``h``; the port runs the same
-kernel over ``h`` viewed as ``(slots, layers * width)``.
+runs ``state_probe`` over the recurrent state (``h`` for RG-LRU, ``ssm``
+for Mamba-2); the port runs the same kernel over that state viewed as
+``(slots, everything else)``.
 """
 from __future__ import annotations
 
@@ -38,12 +39,13 @@ def logits_probe(logits: torch.Tensor) -> torch.Tensor:
                       overflow_code=int(ErrorCode.DIVERGENCE))
 
 
-def state_probe(h: torch.Tensor) -> torch.Tensor:
-    """Per-slot recurrent-state word over ``h (slots, ...)`` (every layer's
-    state of the slot): STATE_FAULT for a NaN/±inf — the JAX ``state_probe``
-    at threshold ``inf``, whose overflow code is STATE_FAULT too. Only ``h``
-    is probed, as the JAX step picks only the ``h``/``ssm`` leaves, not
-    ``conv``. int32 ``(slots,)`` on ``h``'s device."""
+def state_probe(state: torch.Tensor) -> torch.Tensor:
+    """Per-slot recurrent-state word over ``state (slots, ...)`` (every
+    layer's state of the slot, ``h`` or ``ssm``): STATE_FAULT for a
+    NaN/±inf — the JAX ``state_probe`` at threshold ``inf``, whose overflow
+    code is STATE_FAULT too. Only the state is probed, as the JAX step picks
+    only the ``h``/``ssm`` leaves, not ``conv``. int32 ``(slots,)`` on the
+    state's device."""
     code = int(ErrorCode.STATE_FAULT)
-    return probe_rows(h.reshape(h.shape[0], -1), math.inf,
+    return probe_rows(state.reshape(state.shape[0], -1), math.inf,
                       nonfinite_code=code, overflow_code=code)

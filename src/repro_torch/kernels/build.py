@@ -38,6 +38,9 @@ SIGNATURES = {
     "repro_probe_rows": (_P, _I, _L, _I, _F, _I, _I, _P, _P),
     # x_in, log_a, h_out, B, S, W, stream
     "repro_rglru_scan": (_P, _P, _P, _L, _L, _L, _P),
+    # x, dt, A, B, C, y, states, b, S, H, P, G, N, L, dtype, stream
+    "repro_ssd_intra_chunk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -29,15 +29,17 @@ def make_slot_decode_step(model: Model):
 
     The word is per slot — the logits probe kernel reduces each slot's row —
     which is what makes per-sequence LFLR possible. A model with recurrent
-    state ORs in the state word over the updated ``h`` (the JAX decode
-    step's ``state_probe``), one more probe launch per step.
+    state ORs in the state word over the updated state leaf, ``h`` or
+    ``ssm`` (the JAX decode step's ``state_probe`` over the leaves its
+    ``_recurrent_states`` picks; never ``conv``), one more probe launch per
+    step.
     """
 
     def step(caches, tokens, pos):
         logits = model.decode_step(tokens[:, None], caches, pos)[:, 0]
         words = logits_probe(logits)
-        if "h" in caches:
-            words = words | state_probe(caches["h"])
+        if model.state_leaf is not None:
+            words = words | state_probe(caches[model.state_leaf])
         return logits, words
 
     return step

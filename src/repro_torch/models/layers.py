@@ -1,8 +1,8 @@
-"""Common layers: rms norm, rotary embeddings, gated and plain MLPs,
-embeddings.
+"""Common layers: rms norm, rotary embeddings, gated and plain MLPs, the
+causal depthwise convolution, embeddings.
 
-The port of ``repro/models/layers.py`` for the qwen3 and recurrentgemma
-paths. Each function keeps the JAX package's arithmetic and dtype casts
+The port of ``repro/models/layers.py`` for the qwen3, recurrentgemma and
+mamba2 paths. Each function keeps the JAX package's arithmetic and dtype casts
 (norm and rope in fp32, cast back to the activation dtype; logits in fp32),
 so the two packages agree to float tolerance on the same weights.
 """
@@ -95,6 +95,16 @@ def apply_mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp kind {kind!r} (one of {MLP_KINDS})")
     return h @ p.wo
+
+
+def causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise convolution over time: u (B, S, c), w (taps, c)."""
+    taps, S = w.shape[0], u.shape[1]
+    up = F.pad(u, (0, 0, taps - 1, 0))
+    out = torch.zeros_like(u)
+    for i in range(taps):
+        out = out + up[:, i:i + S] * w[i]
+    return out
 
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,

@@ -1,17 +1,20 @@
 """Top-level model: seeded init, full forward, slot decode, caches.
 
-The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``
-and ``rglru`` blocks (qwen3, recurrentgemma). Parameters live in an
-``nn.Module`` on an explicit device. The decode cache is a dict of tensors
-updated in place by :meth:`Model.decode_step`:
+The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``,
+``rglru`` and ``ssd`` blocks (qwen3, recurrentgemma, mamba2). Parameters
+live in an ``nn.Module`` on an explicit device. The decode cache is a dict
+of tensors updated in place by :meth:`Model.decode_step`:
 
 - ``k``/``v`` ``(attention layers, batch, cap, kv_heads, head_dim)`` in the
   model dtype, ``cap = max_len`` for full layers and ``min(window,
   max_len)`` for a sliding layer's ring;
-- ``h`` ``(batch, rglru layers, lru_width)`` fp32 and ``conv`` ``(batch,
-  rglru layers, 3, lru_width)`` in the model dtype. The recurrent state is
-  slot-major, so one probe launch over ``h.view(batch, -1)`` gives every
-  slot's state word over all its layers.
+- the recurrent layers' state in fp32, ``h`` ``(batch, rglru layers,
+  lru_width)`` or ``ssm`` ``(batch, ssd layers, heads, head_dim,
+  state_dim)``, and their last ``width - 1`` convolution inputs ``conv``
+  ``(batch, recurrent layers, width - 1, channels)`` in the model dtype. The
+  recurrent state is slot-major, so one probe launch over
+  ``state.view(batch, -1)`` gives every slot's state word over all its
+  layers.
 """
 from __future__ import annotations
 
@@ -24,19 +27,23 @@ from ..configs.base import ModelConfig
 from .attention import cache_write_index, ring_write_index
 from .layers import apply_norm, dense_init, embed_tokens, rope_tables, unembed
 from .rglru import CONV_WIDTH
-from .transformer import (ATTN_KINDS, Block, apply_block_decode,
-                          apply_block_train, check_block_kind)
+from .ssm import conv_dim
+from .transformer import (ATTN_KINDS, RECURRENT_STATE, Block,
+                          apply_block_decode, apply_block_train,
+                          check_block_kind)
+
 
 class CacheLeaf(NamedTuple):
     slot_axis: int      # indexes the batch row (serving slot)
     layer_axis: int     # indexes the layer, among the layers of its kind
-    recurrent: bool     # one row per rglru layer; else per attention layer
+    recurrent: bool     # one row per recurrent layer; else per attention layer
 
 
 # the layout of every decode cache tensor, read by the cache reset, the
 # weight bridge and the serve engine's fault injection
 CACHE_LAYOUT = {"k": CacheLeaf(1, 0, False), "v": CacheLeaf(1, 0, False),
-                "h": CacheLeaf(0, 1, True), "conv": CacheLeaf(0, 1, True)}
+                "h": CacheLeaf(0, 1, True), "ssm": CacheLeaf(0, 1, True),
+                "conv": CacheLeaf(0, 1, True)}
 
 
 def slot_layer_view(cache: dict, name: str) -> torch.Tensor:
@@ -97,6 +104,11 @@ class Model(nn.Module):
                 "full and sliding attention in one stack (two cache "
                 "capacities) is not ported yet: ROADMAP Queue 1, item 6 "
                 "(gemma3-1b)")
+        rec_kinds = {b for b in cfg.pattern_layers if b in RECURRENT_STATE}
+        if len(rec_kinds) > 1:
+            raise NotImplementedError(
+                "two recurrent block kinds in one stack (two conv widths) "
+                "is not ported: ROADMAP Queue 1, item 14")
         if not cfg.tie_embeddings:
             raise NotImplementedError(
                 "untied unembedding is not ported yet: ROADMAP Queue 1, item "
@@ -104,14 +116,19 @@ class Model(nn.Module):
         pin_matmul_precision()
         self.cfg = cfg
         self.attn_kind = next(iter(attn_kinds), None)
+        # the recurrent layers' state leaf, "h" (rglru), "ssm" (ssd) or None:
+        # what the state probe reads and a state fault poisons (never
+        # "conv", as in the JAX package)
+        self.state_leaf = RECURRENT_STATE.get(next(iter(rec_kinds), None))
         # layer l's decode cache: row cache_index[l] of k/v (attention) or of
-        # h/conv's layer axis (rglru)
+        # the state's and conv's layer axis (recurrent)
         self.attn_layers = [l for l, b in enumerate(cfg.pattern_layers)
                             if b in ATTN_KINDS]
-        self.rglru_layers = [l for l, b in enumerate(cfg.pattern_layers)
-                             if b == "rglru"]
+        self.recurrent_layers = [l for l, b in enumerate(cfg.pattern_layers)
+                                 if b in RECURRENT_STATE]
         self.cache_index = [
-            (self.attn_layers if b in ATTN_KINDS else self.rglru_layers).index(l)
+            (self.attn_layers if b in ATTN_KINDS
+             else self.recurrent_layers).index(l)
             for l, b in enumerate(cfg.pattern_layers)]
         self.device = resolve_device(device)
         self.dtype = model_dtype(cfg)
@@ -167,10 +184,16 @@ class Model(nn.Module):
             shape = (len(self.attn_layers), batch, cap, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
             cache["k"], cache["v"] = zeros(*shape), zeros(*shape)
-        if self.rglru_layers:
-            n, w = len(self.rglru_layers), cfg.resolved_lru_width
+        n = len(self.recurrent_layers)
+        if self.state_leaf == "h":
+            w = cfg.resolved_lru_width
             cache["h"] = zeros(batch, n, w, dtype=torch.float32)
             cache["conv"] = zeros(batch, n, CONV_WIDTH - 1, w)
+        elif self.state_leaf == "ssm":
+            cache["ssm"] = zeros(batch, n, cfg.ssm_nheads, cfg.ssm_head_dim,
+                                 cfg.ssm_state_dim, dtype=torch.float32)
+            cache["conv"] = zeros(batch, n, cfg.ssm_conv_width - 1,
+                                  conv_dim(cfg))
         return cache
 
     def decode_step(self, token: torch.Tensor, cache: dict,
@@ -195,8 +218,8 @@ class Model(nn.Module):
                      else cache_write_index)
             write_idx = index(pos, cache["k"].shape[2])
         for blk, j in zip(self.blocks, self.cache_index):
-            state = ((cache["h"][:, j], cache["conv"][:, j])
-                     if blk.btype == "rglru" else
+            state = ((cache[self.state_leaf][:, j], cache["conv"][:, j])
+                     if blk.btype in RECURRENT_STATE else
                      (cache["k"][j], cache["v"][j], write_idx))
             x = apply_block_decode(blk, x, state, pos, rope, cfg)
         x = apply_norm(self.final_norm, x, cfg.norm)

@@ -18,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.rglru_scan import rglru_scan
-from .layers import dense_init, gelu_tanh
+from .layers import causal_conv, dense_init, gelu_tanh
 
 C_SCALE = 8.0
 CONV_WIDTH = 4          # the causal convolution's taps; decode keeps 3 of them
@@ -57,16 +57,6 @@ def _blockdiag(x: torch.Tensor, w_blocks: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsnk,nkj->bsnj", xb, w_blocks).reshape(B, S, w)
 
 
-def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise convolution over time: u (B, S, c), w (taps, c)."""
-    taps, S = w.shape[0], u.shape[1]
-    up = F.pad(u, (0, 0, taps - 1, 0))
-    out = torch.zeros_like(u)
-    for i in range(taps):
-        out = out + up[:, i:i + S] * w[i]
-    return out
-
-
 def _gates(p: RGLRU, xr: torch.Tensor):
     """Log-decay ``log_a`` (≤ 0) and input gate ``i``, both fp32, from the
     recurrence branch's activations."""
@@ -81,7 +71,7 @@ def rglru_mixer(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
     the recurrence through the scan kernel."""
     xr = x @ p.wx
     gate = gelu_tanh((x @ p.wy).float())
-    xr = _causal_conv(xr, p.conv_w.to(x.dtype))
+    xr = causal_conv(xr, p.conv_w.to(x.dtype))
     log_a, i = _gates(p, xr)
     x_in = i * xr.float()
     h = rglru_scan(x_in, log_a)

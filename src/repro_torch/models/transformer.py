@@ -1,5 +1,5 @@
 """Block assembly: pre-norm ``attn``, ``sliding`` and ``rglru`` blocks, each
-with its MLP.
+with its MLP, and ``ssd`` blocks, whose Mamba-2 mixer is the whole block.
 
 The port of ``repro/models/transformer.py``. The JAX package scans over
 pattern periods with period-stacked parameters and applies the remainder
@@ -15,12 +15,15 @@ import torch.nn as nn
 from .attention import Attention, attention_decode, attention_train
 from .layers import apply_mlp, apply_norm, dense_init
 from .rglru import RGLRU, rglru_decode, rglru_mixer
+from .ssm import Mamba2, mamba2_decode, mamba2_mixer
 
 ATTN_KINDS = ("attn", "sliding")
-BLOCK_KINDS = ATTN_KINDS + ("rglru",)
+# recurrent block kinds, each with the name of its state leaf in the cache
+RECURRENT_STATE = {"rglru": "h", "ssd": "ssm"}
+BLOCK_KINDS = ATTN_KINDS + tuple(RECURRENT_STATE)
+MLP_BLOCKS = ATTN_KINDS + ("rglru",)    # blocks with norm2 and an MLP
 
 NOT_PORTED = {
-    "ssd": "ROADMAP Queue 1, item 14 (remaining architectures: mamba2)",
     "cross": "ROADMAP Queue 1, item 14 (remaining architectures: "
              "cross-attention)",
 }
@@ -52,59 +55,76 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """One block: norms in fp32, weights in the model dtype; the mixer is
-    ``attn`` (attention kinds) or ``rglru``."""
+    ``attn`` (attention kinds), ``rglru`` or ``ssd``. An ``ssd`` block has
+    no ``norm2`` and no MLP (both None), as in the JAX package."""
 
     def __init__(self, cfg, btype: str, *, device, dtype, generator=None):
         super().__init__()
         check_block_kind(btype)
-        if cfg.is_moe or not cfg.d_ff:
+        has_mlp = btype in MLP_BLOCKS
+        if has_mlp and (cfg.is_moe or not cfg.d_ff):
             raise NotImplementedError(
-                "MoE / MLP-less blocks are not ported yet: ROADMAP Queue 1, "
-                "item 14 (remaining architectures)")
+                f"{btype!r} blocks with MoE or without an MLP are not ported "
+                "yet: ROADMAP Queue 1, item 14 (remaining architectures)")
         self.btype = btype
         ones = lambda: nn.Parameter(  # noqa: E731
             torch.ones(cfg.d_model, device=device, dtype=torch.float32),
             requires_grad=False)
         self.norm1 = ones()
-        self.norm2 = ones()
-        if btype in ATTN_KINDS:
-            self.attn = Attention(cfg, device=device, dtype=dtype,
-                                  generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        if btype == "rglru":
+            self.rglru = RGLRU(cfg, **kw)
+        elif btype == "ssd":
+            self.ssd = Mamba2(cfg, **kw)
         else:
-            self.rglru = RGLRU(cfg, device=device, dtype=dtype,
-                               generator=generator)
-        self.mlp = MLP(cfg, device=device, dtype=dtype, generator=generator)
+            self.attn = Attention(cfg, **kw)
+        self.norm2 = ones() if has_mlp else None
+        self.mlp = (MLP(cfg, device=device, dtype=dtype, generator=generator)
+                    if has_mlp else None)
 
 
 def _window(p: Block, cfg) -> int:
     return cfg.sliding_window if p.btype == "sliding" else 0
 
 
+def _mlp(p: Block, x: torch.Tensor, cfg) -> torch.Tensor:
+    if p.mlp is None:
+        return x
+    h = apply_norm(p.norm2, x, cfg.norm)
+    return x + apply_mlp(p.mlp, h, cfg.mlp_kind)
+
+
 def apply_block_train(p: Block, x: torch.Tensor, rope, cfg) -> torch.Tensor:
     h = apply_norm(p.norm1, x, cfg.norm)
     if p.btype == "rglru":
         x = x + rglru_mixer(p.rglru, h)
+    elif p.btype == "ssd":
+        x = x + mamba2_mixer(p.ssd, h, cfg)
     else:
         x = x + attention_train(p.attn, h, rope, cfg, window=_window(p, cfg))
-    h = apply_norm(p.norm2, x, cfg.norm)
-    return x + apply_mlp(p.mlp, h, cfg.mlp_kind)
+    return _mlp(p, x, cfg)
 
 
 def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
                        pos: torch.Tensor, rope, cfg) -> torch.Tensor:
     """One token per batch row. ``state`` is the layer's cache, updated IN
     PLACE: ``(k_cache, v_cache, write_idx)`` for an attention block,
-    ``(h, conv)`` views of the slot-major recurrent caches for ``rglru``."""
+    ``(state, conv)`` views of the slot-major recurrent caches (``h`` for
+    ``rglru``, ``ssm`` for ``ssd``)."""
     h = apply_norm(p.norm1, x, cfg.norm)
-    if p.btype == "rglru":
-        h_state, conv_state = state
-        y, h_new, conv_new = rglru_decode(p.rglru, h, h_state, conv_state)
-        h_state.copy_(h_new)
+    if p.btype in RECURRENT_STATE:
+        rec_state, conv_state = state
+        if p.btype == "rglru":
+            y, rec_new, conv_new = rglru_decode(p.rglru, h, rec_state,
+                                                conv_state)
+        else:
+            y, rec_new, conv_new = mamba2_decode(p.ssd, h, rec_state,
+                                                 conv_state, cfg)
+        rec_state.copy_(rec_new)
         conv_state.copy_(conv_new)
         x = x + y
     else:
         k_cache, v_cache, write_idx = state
         x = x + attention_decode(p.attn, h, k_cache, v_cache, pos, rope,
                                  write_idx, cfg)
-    h = apply_norm(p.norm2, x, cfg.norm)
-    return x + apply_mlp(p.mlp, h, cfg.mlp_kind)
+    return _mlp(p, x, cfg)

@@ -185,9 +185,10 @@ class Replica:
         """Simulated SDC, on the device, where the JAX replica puts it:
 
         - recurrent architectures: NaN element ``(slot, 0, …)`` of every
-          ``h`` leaf of the JAX cache tree — channel 0 of the period-0
-          layer of each ``rglru`` pattern position and of each remainder
-          ``rglru`` layer. The state probe then latches STATE_FAULT;
+          ``h`` or ``ssm`` leaf of the JAX cache tree — the first element of
+          the state of the period-0 layer of each recurrent pattern position
+          and of each remainder recurrent layer. The state probe then
+          latches STATE_FAULT;
         - attention-only architectures: NaN the K entry at position 0 (first
           full-attention layer, first KV head, first feature); the next
           window's logits for that slot go non-finite and the probe latches
@@ -201,11 +202,12 @@ class Replica:
                 return None
             slot = int(rng.choice(active)) if rng is not None else active[0]
         model, cfg = self.model, self.cfg
-        if "h" in self.caches:
+        if model.state_leaf is not None:
             n_scan = cfg.num_periods * cfg.period
-            rows = [model.cache_index[l] for l in model.rglru_layers
+            rows = [model.cache_index[l] for l in model.recurrent_layers
                     if l >= n_scan or (cfg.num_periods and l < cfg.period)]
-            slot_layer_view(self.caches, "h")[slot, rows, 0] = float("nan")
+            state = slot_layer_view(self.caches, model.state_leaf)
+            state[(slot, rows) + (0,) * (state.dim() - 2)] = float("nan")
             return slot
         full = [l for l in model.attn_layers if cfg.pattern_layers[l] == "attn"]
         if not full:

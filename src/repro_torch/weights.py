@@ -11,8 +11,9 @@ Caches cross both ways, so mid-run states can be compared: the JAX decode
 cache (period leaves ``(n_per, B, ...)``, remainder leaves ``(B, ...)``) or
 the slot-stacked serve cache (``(S, n_per, 1, ...)`` and ``(S, 1, ...)``,
 ``slots=True``), against the port's cache: ``k``/``v`` ``(attention layers,
-B, cap, Hkv, D)`` (full or ring), ``h`` ``(B, rglru layers, w)`` and
-``conv`` ``(B, rglru layers, 3, w)``.
+B, cap, Hkv, D)`` (full or ring), the recurrent state ``h`` ``(B, rglru
+layers, w)`` or ``ssm`` ``(B, ssd layers, H, P, N)``, and ``conv`` ``(B,
+recurrent layers, 3, channels)``.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays and go back as
 float32 arrays (exact: every bfloat16 is a float32).
@@ -26,10 +27,13 @@ import torch
 
 from .configs.base import ModelConfig
 from .models.model import CACHE_LAYOUT, Model, resolve_device
+from .models.transformer import RECURRENT_STATE
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _QK_NORM = ("q_norm", "k_norm")
 _RGLRU = ("wx", "wy", "conv_w", "gate_a", "gate_i", "lam", "out")
+_SSD = ("in_x", "in_z", "in_B", "in_C", "in_dt", "conv_w", "dt_bias",
+        "A_log", "D", "norm_scale", "out")
 
 
 def _mlp_names(cfg: ModelConfig) -> tuple:
@@ -40,6 +44,8 @@ def _mixer(cfg: ModelConfig, btype: str) -> tuple[str, tuple]:
     """The block's mixer key in both trees and its leaves."""
     if btype == "rglru":
         return "rglru", _RGLRU
+    if btype == "ssd":
+        return "ssd", _SSD
     return "attn", _ATTN + (_QK_NORM if cfg.qk_norm else ())
 
 
@@ -96,11 +102,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
             lp = _layer(tree["stack"], path, lambda leaf, c: np.asarray(leaf)[c])
             blk = model.blocks[l]
             _fill(blk.norm1, lp["norm1"]["scale"], f"layer {l} norm1")
-            _fill(blk.norm2, lp["norm2"]["scale"], f"layer {l} norm2")
             key, names = _mixer(cfg, blk.btype)
             for name in names:
                 _fill(getattr(getattr(blk, key), name), lp[key][name],
                       f"layer {l} {key}.{name}")
+            if blk.mlp is None:
+                continue
+            _fill(blk.norm2, lp["norm2"]["scale"], f"layer {l} norm2")
             for name in _mlp_names(cfg):
                 _fill(getattr(blk.mlp, name), lp["mlp"][name],
                       f"layer {l} mlp.{name}")
@@ -115,11 +123,13 @@ def params_to_numpy(model: Model) -> dict:
     for blk in model.blocks:
         key, names = _mixer(cfg, blk.btype)
         mixer = getattr(blk, key)
-        layers.append({"norm1": {"scale": _to_numpy(blk.norm1)},
-                       "norm2": {"scale": _to_numpy(blk.norm2)},
-                       key: {n: _to_numpy(getattr(mixer, n)) for n in names},
-                       "mlp": {n: _to_numpy(getattr(blk.mlp, n))
-                               for n in _mlp_names(cfg)}})
+        layer = {"norm1": {"scale": _to_numpy(blk.norm1)},
+                 key: {n: _to_numpy(getattr(mixer, n)) for n in names}}
+        if blk.mlp is not None:
+            layer["norm2"] = {"scale": _to_numpy(blk.norm2)}
+            layer["mlp"] = {n: _to_numpy(getattr(blk.mlp, n))
+                            for n in _mlp_names(cfg)}
+        layers.append(layer)
     return {"embed": {"embedding": _to_numpy(model.embed)},
             "stack": _stack(layers, cfg, lambda xs: np.stack(xs)),
             "final_norm": {"scale": _to_numpy(model.final_norm)}}
@@ -159,11 +169,10 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
         if path[0] == "rest" and slots:
             lc = {k: np.asarray(v)[:, 0] for k, v in lc.items()}
         per_layer.append(lc)        # every leaf (B, ...)
-    kinds = cfg.pattern_layers
     cache = {}
     for name, leaf in CACHE_LAYOUT.items():
-        rows = [_to_tensor(lc[name]) for lc, b in zip(per_layer, kinds)
-                if (b == "rglru") == leaf.recurrent]
+        # in layer order, so row j of a leaf is the j-th layer holding it
+        rows = [_to_tensor(lc[name]) for lc in per_layer if name in lc]
         if rows:
             cache[name] = torch.stack(rows, dim=leaf.layer_axis).to(dev)
     return cache
@@ -175,12 +184,12 @@ def cache_to_numpy(cache: dict, cfg: ModelConfig, *, slots: bool = False) -> dic
     index = {False: 0, True: 0}
     layers = []
     for b in cfg.pattern_layers:
-        rec = b == "rglru"
+        rec = b in RECURRENT_STATE
         j = index[rec]
         index[rec] += 1
         lc = {}
         for name, leaf in CACHE_LAYOUT.items():
-            if leaf.recurrent != rec:
+            if leaf.recurrent != rec or name not in arrays:
                 continue
             row = np.take(arrays[name], j, axis=leaf.layer_axis)
             lc[name] = row[:, None] if slots else row   # per-slot batch of one

@@ -9,10 +9,12 @@ import pytest
 import torch
 
 from repro_torch.core.errors import ErrorCode
-from repro_torch.kernels import flash_attention, probe_rows, rglru_scan
+from repro_torch.kernels import flash_attention, probe_rows, rglru_scan, ssd_scan
 from repro_torch.kernels.fault_probe import probe_rows_ref
 from repro_torch.kernels.flash_attention import sdpa_ref
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
+from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
+                                          ssd_scan_ref)
 
 NF, OV = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
 
@@ -152,3 +154,109 @@ def test_probe_kernel_row_past_2_31_elements(cuda):
     assert probe_rows(x, 1e4, nonfinite_code=NF, overflow_code=OV).tolist() == [OV]
     x[0, 2 ** 31 + 5] = 0
     assert probe_rows(x, 1e4, nonfinite_code=NF, overflow_code=OV).tolist() == [0]
+
+
+# (b, s, h, p, g, n, chunk): the full mamba2-2.7b prefill shape, groups over
+# heads (G > 1), a sequence shorter than the chunk, ragged tiles (p, n, L
+# below the kernel's 64, 128, 128 and not multiples of 4)
+SSD_CASES = [(2, 4096, 80, 64, 1, 128, 128), (2, 256, 8, 64, 4, 128, 128),
+             (3, 40, 6, 64, 2, 128, 128), (1, 30, 3, 13, 1, 7, 10)]
+
+
+def _ssd_inputs(rng, case, dtype, device):
+    """Drawn like the JAX package's SSD test: dt = softplus(normal),
+    A = -exp(0.3 normal), B and C half-normal; x, B, C in ``dtype``."""
+    b, s, h, p, g, n, _ = case
+    x = _randn(rng, (b, s, h, p), dtype, device)
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, device))
+    A = -torch.exp(0.3 * _randn(rng, (h,), torch.float32, device))
+    B = 0.5 * _randn(rng, (b, s, g, n), torch.float32, device)
+    C = 0.5 * _randn(rng, (b, s, g, n), torch.float32, device)
+    return x, dt, A, B.to(dtype), C.to(dtype)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    """The intra-chunk kernel (y_diag and the chunk states, fp32 out) and the
+    whole scan against their plain versions on the same inputs. Both sides
+    work in fp32 and differ in summation order only (sums of <= 128 terms):
+    1e-4 of each element plus 1e-4 of the largest. The scan's bf16 output
+    rounds one fp32 result twice, about 1 ulp apart: 2 bf16 ulps of each
+    element (2^-6), plus 1e-4 of the largest."""
+    rng = np.random.default_rng(3)
+    chunk = case[-1]
+    x, dt, A, B, C = _ssd_inputs(rng, case, dtype, cuda)
+    L = min(chunk, case[1])
+    before = ssd_scan.launches
+    y, states = ssd_intra_chunk(x, dt, A, B, C, chunk)
+    got = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 2
+    want_y, want_states = ssd_intra_chunk_ref(x, dt, A, B, C, L)
+    for g_, w_ in ((y, want_y), (states, want_states)):
+        torch.testing.assert_close(g_, w_, rtol=1e-4,
+                                   atol=1e-4 * w_.abs().max().item())
+    want = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    assert got.dtype == want.dtype == dtype
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-4 * want.float().abs().max().item())
+
+
+def test_ssd_kernel_is_deterministic_per_block(cuda):
+    """A (batch, chunk, head)'s outputs depend on its own inputs only, bit
+    for bit, and a second launch repeats the first — LFLR replays rest on
+    it."""
+    rng = np.random.default_rng(4)
+    case = (2, 512, 8, 64, 1, 128, 128)
+    x, dt, A, B, C = _ssd_inputs(rng, case, torch.bfloat16, cuda)
+    y1, s1 = ssd_intra_chunk(x, dt, A, B, C, 128)
+    y2, s2 = ssd_intra_chunk(x, dt, A, B, C, 128)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    x2 = x.clone()
+    x2[1] = _randn(rng, x2[1].shape, torch.bfloat16, cuda)
+    y3, s3 = ssd_intra_chunk(x2, dt, A, B, C, 128)
+    assert torch.equal(y1[0], y3[0]) and torch.equal(s1[0], s3[0])
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    """On the card the wrapper raises where the kernel's tiles end (chunk
+    128, head_dim 64, state 128) and on inputs it does not take; it never
+    hands a CUDA tensor to the plain version."""
+    def inputs(s=16, h=2, p=8, g=1, n=8):
+        z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+        return z(1, s, h, p), z(1, s, h), z(h), z(1, s, g, n), z(1, s, g, n)
+
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        ssd_scan(*inputs(s=256), chunk=256)
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        ssd_scan(*inputs(p=128), chunk=8)
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        ssd_scan(*inputs(n=256), chunk=8)
+    x, dt, A, B, C = inputs()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
+                 chunk=8)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, A, B.half(), C.half(), chunk=8)
+    with pytest.raises(ValueError, match="several devices"):
+        ssd_scan(x, dt, A.cpu(), B, C, chunk=8)
+
+
+def test_probe_kernel_over_one_slots_ssm_state(cuda):
+    """One row of 41 943 040 fp32 elements — one slot's ``ssm`` state over
+    mamba2-2.7b's 64 layers (80 heads x 64 x 128 each): a NaN at its last
+    element and an inf at its first are seen, and a clean row is 0."""
+    n = 64 * 80 * 64 * 128
+    sf = int(ErrorCode.STATE_FAULT)
+    x = torch.zeros((1, n), device=cuda)
+    assert probe_rows(x, float("inf"), nonfinite_code=sf, overflow_code=sf).tolist() == [0]
+    x[0, n - 1] = float("nan")
+    assert probe_rows(x, float("inf"), nonfinite_code=sf, overflow_code=sf).tolist() == [sf]
+    x[0, n - 1] = 0
+    x[0, 0] = float("-inf")
+    got = probe_rows(x, float("inf"), nonfinite_code=sf, overflow_code=sf)
+    assert torch.equal(got, probe_rows_ref(x, float("inf"), nonfinite_code=sf,
+                                           overflow_code=sf))
+    assert got.tolist() == [sf]

@@ -10,7 +10,7 @@ from repro.kernels.fault_probe.kernel import probe_rows as jax_probe_rows
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import sdpa_ref as jax_sdpa_ref
 from repro_torch.kernels import (build, flash_attention, launch_counts,
-                                 probe_rows, rglru_scan)
+                                 probe_rows, rglru_scan, ssd_scan)
 from repro_torch.kernels.flash_attention import sdpa_ref
 from test_kernels import FLASH_CASES
 
@@ -209,12 +209,15 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
 
 def test_kernel_sources_cover_both_kernels():
-    """Every kernel's source is built (the name predates the third)."""
+    """Every kernel's source is built (the name predates the third and the
+    fourth)."""
     names = sorted(p.name for p in build.sources())
-    assert names == ["fault_probe.cu", "flash_attention.cu", "rglru_scan.cu"]
-    for fn in (flash_attention, probe_rows, rglru_scan):
+    assert names == ["fault_probe.cu", "flash_attention.cu", "rglru_scan.cu",
+                     "ssd_scan.cu"]
+    for fn in (flash_attention, probe_rows, rglru_scan, ssd_scan):
         assert isinstance(fn.launches, int)
-    assert set(launch_counts()) == {"flash_attention", "probe_rows", "rglru_scan"}
+    assert set(launch_counts()) == {"flash_attention", "probe_rows",
+                                    "rglru_scan", "ssd_scan"}
 
 
 def test_launch_signatures_are_64_bit_where_they_index():

@@ -1,7 +1,8 @@
 """The port's model against the JAX package on the smoke configs of each
 ported architecture (qwen3-1.7b: 2 layers, d_model 64; recurrentgemma-2b: 8
-layers — RG-LRU, RG-LRU, sliding — d_model 64, lru_width 64, window 16; all
-float32), with the JAX weights carried over by the bridge: full-forward
+layers — RG-LRU, RG-LRU, sliding — d_model 64, lru_width 64, window 16;
+mamba2-2.7b: 2 SSD layers, d_model 64, 8 heads of 16, state 16, chunk 8;
+all float32), with the JAX weights carried over by the bridge: full-forward
 logits (against the JAX forward with its reference paths and with its Pallas
 kernels in interpret mode), decode steps (logits and caches; for
 recurrentgemma across the ring's wrap), the slot-batched decode step at
@@ -29,7 +30,7 @@ from repro_torch.weights import cache_from_jax, cache_to_numpy, params_from_jax
 torch.set_num_threads(2)
 
 TOL = 1e-4
-ARCHS = ["qwen3-1.7b", "recurrentgemma-2b"]
+ARCHS = ["qwen3-1.7b", "recurrentgemma-2b", "mamba2-2.7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -56,13 +57,15 @@ def test_smoke_configs_agree(arch):
 @pytest.mark.parametrize("impl", ["ref", "pallas"])
 def test_forward_logits_match_jax(env, impl):
     """19 tokens: past the smoke sliding window (16), so the window mask
-    acts."""
+    acts; 24 for mamba2, whose scan (in both packages) takes a multiple of
+    its chunk (8): three chunks, so the inter-chunk recurrence acts."""
     jcfg, cfg, jmodel, params, model = env
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 19)).astype(np.int32)
+    S = 24 if "ssd" in cfg.block_pattern else 19
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
     want, _ = jmodel.forward(params, jnp.asarray(toks), impl=impl)
     with torch.no_grad():
         got = model(torch.from_numpy(toks))
-    assert got.dtype == torch.float32 and got.shape == (2, 19, cfg.vocab_size)
+    assert got.dtype == torch.float32 and got.shape == (2, S, cfg.vocab_size)
     _close(got.numpy(), want)
 
 
@@ -128,6 +131,8 @@ POISON_SITES = {
                    int(ErrorCode.NONFINITE_LOSS)),
     "recurrentgemma-2b": (("periods", "b1", "h"), (1, 0, 0, 7),
                           int(ErrorCode.NONFINITE_LOSS | ErrorCode.STATE_FAULT)),
+    "mamba2-2.7b": (("periods", "b0", "ssm"), (1, 1, 0, 6, 3, 5),
+                    int(ErrorCode.NONFINITE_LOSS | ErrorCode.STATE_FAULT)),
 }
 
 
@@ -170,12 +175,21 @@ def test_slot_step_matches_jax(env, poison):
 
 def test_cache_write_positions(env):
     """Decode writes each slot's K/V at its write index and nowhere else:
-    min(pos, cap-1) in a full layer's cache, pos % cap in a ring."""
+    min(pos, cap-1) in a full layer's cache, pos % cap in a ring. Without
+    attention (mamba2) the step's input lands in the newest tap of every
+    layer's conv history, and the older taps of a fresh cache stay zero."""
     _, cfg, _, _, model = env
     cap = 8
     cache = model.init_cache(3, cap)
     pos = torch.tensor([0, 3, cap + 2], dtype=torch.int32)
     make_slot_decode_step(model)(cache, torch.tensor([1, 2, 3], dtype=torch.int32), pos)
+    if not model.attn_layers:
+        written = cache["conv"].abs().sum(dim=-1) != 0      # (slot, layer, tap)
+        taps = cache["conv"].shape[2]
+        assert written.nonzero().tolist() == [
+            [s, l, taps - 1] for s in range(3)
+            for l in range(len(model.recurrent_layers))]
+        return
     written = (cache["k"][0].abs().sum(dim=(-1, -2)) != 0)
     last = 2 if model.attn_kind == "sliding" else cap - 1
     assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, last]]

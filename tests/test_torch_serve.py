@@ -1,13 +1,14 @@
 """The port's window+overlap Replica against the JAX Replica and against its
-own contracts, on the smoke configs of qwen3-1.7b and recurrentgemma-2b
-(float32, weights bridged from JAX):
+own contracts, on the smoke configs of qwen3-1.7b, recurrentgemma-2b and
+mamba2-2.7b (float32, weights bridged from JAX):
 
 * the same requests give the same streams as the JAX engine (except where
   the reference's top-2 logit gap is below the logits tolerance);
 * the same injected fault words give the same recovery decisions and the
   same streams;
-* an injected KV fault (NaN; qwen3) or recurrent-state fault (NaN in ``h``;
-  recurrentgemma) is detected and recovered by LFLR with streams bit-equal
+* an injected KV fault (NaN; qwen3) or recurrent-state fault (NaN in ``h``,
+  recurrentgemma; in ``ssm``, mamba2) is detected and recovered by LFLR
+  with streams bit-equal
   to the port's clean run — and for the state fault, the poisoned elements,
   the fault records and the streams equal the JAX replica's;
 * a slot reused after a request serves the next one exactly as a fresh
@@ -34,7 +35,7 @@ from repro_torch.weights import cache_from_jax, params_from_jax
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen3-1.7b", "recurrentgemma-2b"]
+ARCHS = ["qwen3-1.7b", "recurrentgemma-2b", "mamba2-2.7b"]
 LOGIT_TOL = 1e-4          # float32 logits, reduction order only
 # max_len 48 > the smoke window 16: recurrentgemma's rings wrap in serving
 ENGINE = dict(window=4, overlap=True, num_slots=3, max_len=48)
@@ -183,13 +184,14 @@ def test_kv_fault_recovers_by_lflr_bit_exact():
     assert all(r.status == OK for r in faulted.values())
 
 
-def test_state_fault_matches_jax_and_lflr():
-    """recurrentgemma: a NaN in an active slot's recurrent state ``h`` (put
-    where the JAX replica puts it) latches the same fault records in both
-    replicas (step, code STATE_FAULT | NONFINITE_LOSS, action, slot); both
-    serve the same streams, and the port's are bit-equal to its clean
-    run."""
-    env = _env("recurrentgemma-2b")
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-2.7b"])
+def test_state_fault_matches_jax_and_lflr(arch):
+    """A NaN in an active slot's recurrent state (``h`` for recurrentgemma,
+    ``ssm`` for mamba2; put where the JAX replica puts it) latches the same
+    fault records in both replicas (step, code STATE_FAULT |
+    NONFINITE_LOSS, action, slot); both serve the same streams, and the
+    port's are bit-equal to its clean run."""
+    env = _env(arch)
     traffic = _traffic()
     clean, _ = _serve(_port_replica(env), Request, traffic)
     jrep, prep = _jax_replica(env), _port_replica(env)
@@ -208,8 +210,9 @@ def test_state_fault_matches_jax_and_lflr():
 
 def test_inject_state_fault_poisons_what_jax_poisons(env):
     """The poisoned elements of the port's cache are exactly the JAX
-    replica's, mapped through the bridge (recurrentgemma: ``h``; qwen3: K
-    at position 0 of layer 0)."""
+    replica's, mapped through the bridge (recurrentgemma: ``h`` in 4
+    layers; mamba2: ``ssm`` in layer 0; qwen3: K at position 0 of layer
+    0)."""
     jcfg, cfg = env[:2]
     jrep, prep = _jax_replica(env), _port_replica(env)
     assert jrep.inject_state_fault(1) == prep.inject_state_fault(1) == 1
@@ -218,7 +221,7 @@ def test_inject_state_fault_poisons_what_jax_poisons(env):
     assert set(want) == set(prep.caches)
     for name, t in prep.caches.items():
         assert torch.equal(torch.isnan(t), torch.isnan(want[name])), name
-    hit = prep.caches["h" if "h" in prep.caches else "k"]
+    hit = prep.caches[prep.model.state_leaf or "k"]
     assert int(torch.isnan(hit).sum()) == (
         4 if cfg.name == "recurrentgemma-2b" else 1)
 

@@ -1,8 +1,9 @@
 """The weight and cache bridge round-trips exactly: JAX params → port model
 → JAX layout, and JAX caches (decode and slot-stacked serve layouts) → port
 cache → JAX layout, leaf for leaf, bit for bit — for qwen3 (full-attention
-K/V) and recurrentgemma (RG-LRU leaves, ring K/V, ``h``/``conv`` state,
-remainder layers)."""
+K/V), recurrentgemma (RG-LRU leaves, ring K/V, ``h``/``conv`` state,
+remainder layers) and mamba2 (SSD leaves, blocks without norm2 or MLP,
+``ssm``/``conv`` state)."""
 import dataclasses
 
 import jax
@@ -22,11 +23,11 @@ from repro_torch.weights import (
 )
 
 ARCH = "qwen3-1.7b"
-ARCHS = ["qwen3-1.7b", "recurrentgemma-2b"]
+ARCHS = ["qwen3-1.7b", "recurrentgemma-2b", "mamba2-2.7b"]
 # (arch, layers): a depth without and with remainder layers (recurrentgemma:
 # 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest)
 DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("recurrentgemma-2b", 5),
-          ("recurrentgemma-2b", 8)]
+          ("recurrentgemma-2b", 8), ("mamba2-2.7b", 2), ("mamba2-2.7b", 3)]
 
 
 def _leaves_equal(a, b):
@@ -46,8 +47,9 @@ def test_params_round_trip(dtype, arch, layers):
     cfg = smoke_config(arch).replace(dtype=dtype, num_layers=layers)
     params = jax.device_get(build_model(jcfg).init(jax.random.PRNGKey(1)))
     model = params_from_jax(params, cfg, device="cpu")
-    assert model.blocks[0].mlp.wi.dtype == (
-        torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    # every weight matrix in the model dtype (norms, gates' fp32 vectors aside)
+    want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    assert {p.dtype for p in model.parameters() if p.dim() >= 2} == {want}
     assert len(model.blocks) == layers
     _leaves_equal(params, params_to_numpy(model))
     # the fp32 unembedding copy is the embedding itself, exactly
@@ -70,10 +72,11 @@ def test_cache_round_trip(slots, arch):
     model = Model(cfg, device="cpu", seed=None)
     want = model.init_cache(3, 20)
     assert {k: v.shape for k, v in cache.items()} == {k: v.shape for k, v in want.items()}
-    n_attn = sum(b != "rglru" for b in cfg.pattern_layers)
+    n_attn = sum(b in ("attn", "sliding") for b in cfg.pattern_layers)
     cap = 16 if arch == "recurrentgemma-2b" else 20
-    assert cache["k"].shape == (n_attn, 3, cap, cfg.num_kv_heads,
-                                cfg.resolved_head_dim)
+    if n_attn:
+        assert cache["k"].shape == (n_attn, 3, cap, cfg.num_kv_heads,
+                                    cfg.resolved_head_dim)
     _leaves_equal(tree, cache_to_numpy(cache, cfg, slots=slots))
 
 
