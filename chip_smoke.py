@@ -9,7 +9,9 @@ Phases, each printing one JSON line (``"phase": ...``):
 
 1. device     — the card, its capability (Hopper, 9.0 required) and the
    ``nvidia-smi`` name and power limit (also printed raw on a line of its own);
-2. build      — builds every kernel of the port from the checkout's sources;
+2. build      — builds every kernel of the port from the checkout's sources,
+   then a ``ptxas`` line: registers, static shared memory and spills of each
+   instantiation of the two flash kernels (decode, bf16 forward);
 3. kernels    — holds each kernel against its plain PyTorch version on the
    card at the qwen3 serve path's shapes, with the stated tolerances, and
    times the kernel, the plain version and (where one exists) one PyTorch
@@ -71,11 +73,12 @@ SPIN_CYCLES = 5 * 10 ** 7           # ~25 ms at 1.98 GHz: the host's head start
 NUM_SLOTS, MAX_LEN, WINDOW = 8, 1024, 8
 NUM_REQUESTS, MAX_NEW = 16, 64
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
-# recurrentgemma's flash outputs average over up to 2048 keys (|x| ~ 0.05):
-# each element is held to 2 bf16 ulps of itself, plus 1e-4 for values near
-# 0. Kernel and plain version both accumulate in fp32 and round once to
-# bf16, so they differ by about 1 ulp; a kernel off by one key at the window
-# or ring edge is run as a control and must exceed the limit
+# flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
+# every bf16 row is also held, element by element, to 2 bf16 ulps of itself
+# plus 1e-4 for values near 0. Kernel and plain version both accumulate in
+# fp32 and round once to bf16, so they differ by about 1 ulp; a kernel off
+# by one key (at the causal end, a decode split boundary, the window or ring
+# edge) is run as a control and must exceed the limit
 FLASH_RG_TOL = (1e-4, 2.0 ** -6)    # abs, rel
 # fp32 scan: exp/sqrt ulps and FMA contraction differ from the plain
 # version's and compound through the recurrence over ~1/(1-a) steps
@@ -153,12 +156,35 @@ def time_ms(torch, fn, inputs: list, *, launches: int = 32,
     fail(f"timing: the host could not queue {n} calls ahead of the device")
 
 
+FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
+
+
+def flash_call(flash_attention, *args, **kwargs):
+    """One call of the flash wrapper: its output, and the kernel it launched
+    (the one whose count moved) with that kernel's source."""
+    before = dict(flash_attention.kernel_launches)
+    out = flash_attention(*args, **kwargs)
+    moved = [k for k, n in flash_attention.kernel_launches.items() if n != before[k]]
+    if len(moved) != 1:
+        fail(f"flash_attention launched {moved}, not one kernel")
+    return out, {"kernel": moved[0], "source": f"{FLASH_CSRC}/{moved[0]}.cu"}
+
+
 def flash_excess(got, want) -> float:
     """Largest ``|got - want| / (abs + rel |want|)`` under ``FLASH_RG_TOL``:
     at most 1 passes."""
     atol, rtol = FLASH_RG_TOL
     want = want.float()
     return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def key_doubled(k, v, j: int):
+    """Copies of ``k, v`` with key ``j - 1`` standing in for key ``j``: a
+    kernel that counts the key before a split boundary twice and drops the
+    one after it."""
+    k, v = k.clone(), v.clone()
+    k[:, j], v[:, j] = k[:, j - 1], v[:, j - 1]
+    return k, v
 
 
 def scaled_excess(got, want, tol) -> float:
@@ -194,6 +220,39 @@ def phase_device(torch) -> str:
     return line
 
 
+PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu")   # reported by ptxas
+
+
+def ptxas_report(log: str) -> list:
+    """Each kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
+    head_dim, registers, static shared memory, stack and spills (the flash
+    kernels' shared memory is dynamic: see their sources)."""
+    import re
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the identifier follows its length (digits) in the mangled name
+            k = re.search(r"(?<=\d)(flash_[a-z0-9_]*?_kernel)ILi(\d+)E", m.group(1))
+            cur = {"kernel": k.group(1) if k else m.group(1),
+                   "head_dim": int(k.group(2)) if k else None}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -202,6 +261,8 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(so, ROOT),
           "sources": [os.path.relpath(s, ROOT) for s in build.sources()]})
+    emit({"phase": "ptxas", "kernels": {
+        src: ptxas_report(build.compile_log(so, src)) for src in PTXAS_SOURCES}})
 
 
 def phase_kernels(torch, card: str) -> dict:
@@ -212,6 +273,7 @@ def phase_kernels(torch, card: str) -> dict:
     from repro_torch.kernels import flash_attention, probe_rows
     from repro_torch.kernels.fault_probe import probe_rows_ref
     from repro_torch.kernels.flash_attention import sdpa_ref
+    from repro_torch.kernels.flash_attention.ops import plan
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -224,11 +286,22 @@ def phase_kernels(torch, card: str) -> dict:
     pos = [0, 1, 100, 511, 700, 1022, MAX_LEN - 1, 1500]       # 1500 >= cap
     q, k, v = randn(B, 1, Hq, D), randn(B, MAX_LEN, Hkv, D), randn(B, MAX_LEN, Hkv, D)
     off = torch.tensor(pos, dtype=torch.int32, device=dev)
-    got = flash_attention(q, k, v, off, causal=True, seq_kv=MAX_LEN)
+    got, route = flash_call(flash_attention, q, k, v, off, causal=True, seq_kv=MAX_LEN)
     want = sdpa_ref(q, k, v, q_offset=off, causal=True, seq_kv=MAX_LEN)
     err = (got.float() - want.float()).abs().max().item()
-    if not err <= FLASH_TOL:
-        fail(f"flash decode disagrees with its plain version: {err}")
+    excess = flash_excess(got, want)
+    # controls: the last key dropped (slots at or past MAX_LEN - 1), and the
+    # key after the first split boundary replaced by the one before it
+    # (slots past the boundary)
+    dropped = flash_excess(flash_attention(q, k, v, off, causal=True,
+                                           seq_kv=MAX_LEN - 1), want)
+    edge = plan(1, MAX_LEN, Hkv, q.dtype).keys_per_split
+    doubled = flash_excess(flash_attention(*(q, *key_doubled(k, v, edge)), off,
+                                           causal=True, seq_kv=MAX_LEN), want)
+    if not (err <= FLASH_TOL and excess <= 1 < min(dropped, doubled)):
+        fail(f"flash decode: error {err} (limit {FLASH_TOL}), {excess} x the "
+             f"relative limit; one key dropped reads {dropped} x, key {edge} "
+             f"replaced by key {edge - 1} reads {doubled} x (both must exceed 1)")
     kpos = torch.arange(MAX_LEN, device=dev)
     mask = (kpos[None, :] <= off[:, None])[:, None, None, :]
     heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
@@ -243,8 +316,11 @@ def phase_kernels(torch, card: str) -> dict:
                           randn(B, MAX_LEN, Hkv, D)),
                  (B * Hq + 2 * B * MAX_LEN * Hkv) * D * 2)
     out["flash_decode"] = {
-        "shape": f"q {B}x1x{Hq}x{D}, kv {B}x{MAX_LEN}x{Hkv}x{D} bf16, pos {pos}",
-        "max_abs_err": err, "tol": FLASH_TOL, "library_err": lib_err,
+        "shape": f"q {B}x1x{Hq}x{D}, kv {B}x{MAX_LEN}x{Hkv}x{D} bf16, pos {pos}", **route,
+        "max_abs_err": err, "tol": FLASH_TOL,
+        "rel_tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+        "err_over_tol": excess, "one_key_dropped_over_tol": dropped,
+        f"key_{edge}_doubled_over_tol": doubled, "library_err": lib_err,
         "timing_copies": len(qkv),
         "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
             q, k, v, off, causal=True, seq_kv=MAX_LEN), qkv),
@@ -258,19 +334,27 @@ def phase_kernels(torch, card: str) -> dict:
     S = 512
     q, k, v = randn(1, S, Hq, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    got = flash_attention(q, k, v, zero, causal=True)
+    got, route = flash_call(flash_attention, q, k, v, zero, causal=True)
     want = sdpa_ref(q, k, v, q_offset=zero, causal=True)
     err = (got.float() - want.float()).abs().max().item()
-    if not err <= FLASH_TOL:
-        fail(f"flash forward disagrees with its plain version: {err}")
+    excess = flash_excess(got, want)
+    # control: the last key dropped (row S - 1 loses its diagonal key)
+    dropped = flash_excess(flash_attention(q, k, v, zero, causal=True,
+                                           seq_kv=S - 1), want)
+    if not (err <= FLASH_TOL and excess <= 1 < dropped):
+        fail(f"flash forward: error {err} (limit {FLASH_TOL}), {excess} x the "
+             f"relative limit; one key dropped reads {dropped} x (must exceed 1)")
     nbytes = 2 * S * Hq * D * 2 + 2 * S * Hkv * D * 2 + 4
     flops = 4 * Hq * D * S * (S + 1) // 2
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     qkv = copies(lambda: (randn(1, S, Hq, D), randn(1, S, Hkv, D),
                           randn(1, S, Hkv, D)), S * (Hq + 2 * Hkv) * D * 2)
     out["flash_forward"] = {
-        "shape": f"q 1x{S}x{Hq}x{D}, kv 1x{S}x{Hkv}x{D} bf16, causal",
-        "max_abs_err": err, "tol": FLASH_TOL, "timing_copies": len(qkv),
+        "shape": f"q 1x{S}x{Hq}x{D}, kv 1x{S}x{Hkv}x{D} bf16, causal", **route,
+        "max_abs_err": err, "tol": FLASH_TOL,
+        "rel_tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+        "err_over_tol": excess, "one_key_dropped_over_tol": dropped,
+        "timing_copies": len(qkv),
         "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
             q, k, v, zero, causal=True), qkv),
         "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
@@ -382,10 +466,12 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
         fail(f"{names[0]}: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
     recurrent = model.state_leaf is not None
-    # per window step: flash once per attention layer; the probe over the
-    # logits, and over the recurrent state where there is one; no scan
+    # per window step: flash once per attention layer, through the decode
+    # kernel; the probe over the logits, and over the recurrent state where
+    # there is one; no scan
     expected = dict.fromkeys(launches, 0)
     expected.update({"flash_attention": len(model.attn_layers) * steps,
+                     "flash_decode": len(model.attn_layers) * steps,
                      "probe_rows": (2 if recurrent else 1) * steps})
     if launches != expected:
         fail(f"{names[0]}: kernel launches {launches} != {expected} "
@@ -573,7 +659,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
     pos = [0, 1, 700, cap - 1, cap, 3000, 4500, 6000]
     q, k, v = randn(NUM_SLOTS, 1, Hq, D), randn(NUM_SLOTS, cap, Hkv, D), randn(NUM_SLOTS, cap, Hkv, D)
     off = torch.tensor(pos, dtype=torch.int32, device=dev)
-    got = flash_attention(q, k, v, off, causal=True, seq_kv=cap)
+    got, route = flash_call(flash_attention, q, k, v, off, causal=True, seq_kv=cap)
     want = sdpa_ref(q, k, v, q_offset=off, causal=True, seq_kv=cap)
     err = (got.float() - want.float()).abs().max().item()
     excess = flash_excess(got, want)
@@ -595,7 +681,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
                  (NUM_SLOTS * Hq + 2 * NUM_SLOTS * cap * Hkv) * D * 2)
     out["flash_ring_decode"] = {
         "shape": f"q {NUM_SLOTS}x1x{Hq}x{D}, ring kv {NUM_SLOTS}x{cap}x{Hkv}x{D} "
-                 f"bf16, pos {pos}",
+                 f"bf16, pos {pos}", **route,
         "max_abs_err": err, "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
         "err_over_tol": excess, "one_key_dropped_over_tol": control,
         "timing_copies": len(qkv),
@@ -613,7 +699,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
     Bp, Sp, win = PREFILL_B, PREFILL_S, cfg.sliding_window
     q, k, v = randn(Bp, Sp, Hq, D), randn(Bp, Sp, Hkv, D), randn(Bp, Sp, Hkv, D)
     zero = torch.zeros(Bp, dtype=torch.int32, device=dev)
-    got = flash_attention(q, k, v, zero, causal=True, window=win)
+    got, route = flash_call(flash_attention, q, k, v, zero, causal=True, window=win)
     want = sdpa_ref(q, k, v, q_offset=zero, causal=True, window=win)
     err = (got.float() - want.float()).abs().max().item()
     excess = flash_excess(got, want)
@@ -633,7 +719,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
                           randn(Bp, Sp, Hkv, D)), Bp * Sp * (Hq + 2 * Hkv) * D * 2)
     out["flash_sliding_forward"] = {
         "shape": f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal, "
-                 f"window {win}",
+                 f"window {win}", **route,
         "max_abs_err": err, "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
         "err_over_tol": excess, "one_key_dropped_over_tol": control,
         "timing_copies": len(qkv),
@@ -839,10 +925,12 @@ def phase_prefill(torch, card: str, model, name: str) -> dict:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     # each scan kernel once per layer of its kind, flash once per attention
-    # layer, one probe over the logits
-    expected = {"rglru_scan": cfg.pattern_layers.count("rglru"),
-                "ssd_scan": cfg.pattern_layers.count("ssd"),
-                "flash_attention": len(model.attn_layers), "probe_rows": 1}
+    # layer through the bf16 forward kernel, one probe over the logits
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"rglru_scan": cfg.pattern_layers.count("rglru"),
+                     "ssd_scan": cfg.pattern_layers.count("ssd"),
+                     "flash_attention": len(model.attn_layers),
+                     "flash_forward": len(model.attn_layers), "probe_rows": 1})
     if launches != expected:
         fail(f"{name}: kernel launches {launches} != {expected}")
     shape = tuple(logits.shape)
@@ -862,24 +950,53 @@ def phase_prefill(torch, card: str, model, name: str) -> dict:
         del logits, word
     emit({"phase": name, "card": card, "model": cfg.name,
           "batch": PREFILL_B, "seq": PREFILL_S, "launches": launches,
+          "mlp_activation": activation_cost(torch, model),
           "word": w, "first_ms": first_ms, "ms_per_call": sum(times) / len(times),
           "ms_calls": times, "tokens_per_s": PREFILL_B * PREFILL_S / (min(times) / 1e3),
           "peak_mem_gb": peak, "logits_gb": PREFILL_B * PREFILL_S * cfg.vocab_size * 4 / 1e9})
     return launches
 
 
+def activation_cost(torch, model):
+    """The MLP activation at the prefill shape (B, S, d_ff) in the model
+    dtype, spelled op for op as the JAX package rounds it (the model's), and
+    as one fused PyTorch call: ms per layer and over the model's MLP layers.
+    None for a model without MLPs."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import gelu_tanh, silu
+    from repro_torch.models.transformer import MLP
+    cfg = model.cfg
+    layers = sum(isinstance(m, MLP) for m in model.modules())
+    if not layers:
+        return None
+    if cfg.mlp_kind == "swiglu":
+        ours, fused = silu, F.silu
+    else:
+        ours, fused = gelu_tanh, lambda x: F.gelu(x, approximate="tanh")
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 5)
+    shape = (PREFILL_B, PREFILL_S, cfg.d_ff)
+    xs = copies(lambda: (torch.randn(shape, generator=gen, device=model.device,
+                                     dtype=model.dtype),), math.prod(shape) * 2)
+    op_ms, fused_ms = time_ms(torch, ours, xs, launches=8), time_ms(torch, fused, xs, launches=8)
+    return {"kind": cfg.mlp_kind, "shape": list(shape), "layers": layers,
+            "op_for_op_ms": op_ms, "fused_ms": fused_ms,
+            "extra_ms_per_call": layers * (op_ms - fused_ms)}
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
-                 primary: dict, shapes: dict) -> dict:
+                 primary: dict, shapes: dict, **extra) -> dict:
     """One kernel's row of the kernels line: launches summed over the main
     paths (and by path), times from its ``primary`` shape, the largest
-    error over every shape it was held at, and every shape's numbers."""
+    error over every shape it was held at, and every shape's numbers (with
+    the kernel it went through, where the wrapper has several)."""
     keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    row_keys = keys + ("max_abs_err", "shape", "kernel", "source")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "ms": primary["kernel_ms"],
             "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
-            **{k: primary[k] for k in keys[1:]},
-            "by_shape": {n: {k: v[k] for k in keys + ("max_abs_err", "shape")}
+            **{k: primary[k] for k in keys[1:]}, **extra,
+            "by_shape": {n: {k: v[k] for k in row_keys if k in v}
                          for n, v in shapes.items()}}
 
 
@@ -923,14 +1040,15 @@ def main() -> None:
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
         kernel_entry(
-            "flash_attention",
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "flash_attention", kern["flash_decode"]["source"],
             "src/repro/kernels/flash_attention/kernel.py:81",
             by_path("flash_attention"), kern["flash_decode"],
             {"flash_decode": kern["flash_decode"],
              "flash_forward": kern["flash_forward"],
              "flash_ring_decode": kern_rg["flash_ring_decode"],
-             "flash_sliding_forward": kern_rg["flash_sliding_forward"]}),
+             "flash_sliding_forward": kern_rg["flash_sliding_forward"]},
+            launches_by_kernel={k: by_path(k) for k in (
+                "flash_decode", "flash_forward", "flash_f32")}),
         kernel_entry(
             "probe_rows", "src/repro_torch/kernels/fault_probe/csrc/fault_probe.cu",
             "src/repro/kernels/fault_probe/kernel.py:44",

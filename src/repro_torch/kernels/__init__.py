@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
-version and a launch counter on its wrapper (``<wrapper>.launches``)."""
+version and a launch counter on its wrapper (``<wrapper>.launches``; a
+wrapper with several kernels also counts each in ``.kernel_launches``)."""
 from .fault_probe import probe_rows  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .rglru_scan import rglru_scan  # noqa: F401
@@ -11,8 +12,16 @@ WRAPPERS = (flash_attention, probe_rows, rglru_scan, ssd_scan)
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+        for name in getattr(fn, "kernel_launches", {}):
+            fn.kernel_launches[name] = 0
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` since the last reset."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """``{wrapper or kernel name: launches}`` since the last reset: each
+    wrapper's calls, and for a wrapper with several kernels
+    (``flash_attention``) each kernel's launches too."""
+    counts = {}
+    for fn in WRAPPERS:
+        counts[fn.__name__] = fn.launches
+        counts.update(getattr(fn, "kernel_launches", {}))
+    return counts

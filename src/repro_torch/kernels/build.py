@@ -6,8 +6,9 @@ into one shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes). The library
 lands in ``build/repro_torch_kernels/`` at the root of the checkout, named by
 a hash of the sources and flags, so an edited source is never served a stale
-build. Nothing is built when this module is imported: the first kernel
-launch (or an explicit :func:`build`) does it.
+build; what ``nvcc -Xptxas -v`` printed for each source is kept beside its
+object (:func:`compile_log`). Nothing is built when this module is
+imported: the first kernel launch (or an explicit :func:`build`) does it.
 """
 from __future__ import annotations
 
@@ -24,15 +25,21 @@ import torch
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each exported launcher; every one returns cudaGetLastError()
 SIGNATURES = {
+    # q, k, v, q_offset, out, B, T, Hq, Hkv, D, causal, window, seq_kv,
+    # splits, keys_per_split, stream
+    "repro_flash_decode": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _L,
+                           _I, _L, _P),
     # q, k, v, q_offset, out, B, S, T, Hq, Hkv, D, causal, window, seq_kv,
-    # dtype, stream
-    "repro_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _P),
+    # stream
+    "repro_flash_forward": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
+                            _L, _P),
+    "repro_flash_f32": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _L,
+                        _P),
     # x, rows, cols, dtype, threshold, nonfinite_code, overflow_code, out,
     # stream
     "repro_probe_rows": (_P, _I, _L, _I, _F, _I, _I, _P, _P),
@@ -64,7 +71,7 @@ def build() -> Path:
     nvcc = _nvcc()
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(_KERNELS.glob("*/csrc/*.cuh")):   # headers too
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     so = BUILD_DIR / f"libreprokernels-{digest.hexdigest()[:16]}.so"
@@ -77,8 +84,9 @@ def build() -> Path:
                               text=True)
              for s, o in zip(srcs, objs)]
     errors = []
-    for s, p in zip(srcs, procs):
+    for s, o, p in zip(srcs, objs, procs):
         out, _ = p.communicate()
+        o.with_suffix(".log").write_text(out)     # ptxas: registers, spills
         if p.returncode:
             errors.append(f"{s.name}:\n{out}")
     if errors:
@@ -90,6 +98,14 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def compile_log(so: Path, source: str) -> str:
+    """What ``nvcc`` printed compiling ``source`` (a file name under some
+    ``csrc/``) into the library ``so`` — with ``-Xptxas -v``, each kernel's
+    registers, static shared memory and spills."""
+    digest = so.stem.rsplit("-", 1)[1]
+    return (so.parent / f"{Path(source).stem}-{digest}.log").read_text()
 
 
 def library() -> ctypes.CDLL:

@@ -1,18 +1,20 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention for Hopper (sm_90a) in fp32 on the CUDA cores, decode and
+// forward. Plain C interface.
 //
-// Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:81
-// flash_attention_fwd (pallas_call at :103, body _flash_kernel at :26):
-// online-softmax attention with fp32 (acc, m, l) state, causal and sliding
-// masks from positions, a kpos < seq_kv padding mask, GQA (query head h reads
-// KV head h / group), masked scores set to NEG_INF = -1e30, fully masked KV
-// tiles skipped, output acc / max(l, 1e-30) in q's type.
+// Replaces, for fp32 inputs, the TPU kernel
+// repro/kernels/flash_attention/kernel.py:81 flash_attention_fwd (pallas_call
+// at :103, body _flash_kernel at :26): online-softmax attention with fp32
+// (acc, m, l) state, causal and sliding masks from positions, a kpos < seq_kv
+// padding mask, GQA (query head h reads KV head h / group), masked scores set
+// to NEG_INF = -1e30, fully masked KV tiles skipped, output acc / max(l,
+// 1e-30). bf16 runs on the tensor cores (flash_decode.cu for S == 1,
+// flash_forward.cu for S > 1); fp32 stays off them, because TF32 would not
+// hold fp32 results to 2e-5, and takes this kernel, the port's first flash
+// kernel, by dtype. No main path runs it.
 //
 // Layout is the JAX package's public one: q (B, S, Hq, D), k/v (B, T, Hkv, D),
-// out (B, S, Hq, D), all contiguous. q_offset is an int32 DEVICE array (B,):
-// row s of batch b sits at position q_offset[b] + s. That is the TPU
-// kernel's static q_offset made a per-batch-row runtime value, which is what
-// serving decode needs (one query row per slot, each slot at its own
-// position, over the whole cache capacity).
+// out (B, S, Hq, D), all contiguous fp32. q_offset is an int32 DEVICE array
+// (B,): row s of batch b sits at position q_offset[b] + s.
 //
 // Work split: one thread block per (query tile, KV head, batch row). The
 // block serves all group = Hq / Hkv query heads of its KV head, so the KV
@@ -24,28 +26,21 @@
 // read as 16-byte vectors), the warp reduces max and sum with butterfly
 // shuffles, and each lane accumulates D / 32 output features from V rows
 // read coalesced. At the end the partitions of a row merge through shared
-// memory in partition order. Decode (one row per slot, group 2) thus runs
-// 16 warps per (slot, KV head) over the context instead of 2. The KV range
-// ends at the last tile a causal row of the block can reach (and starts at
-// the first a sliding window can reach): the TPU kernel's fully-masked-block
-// skip.
+// memory in partition order. The KV range ends at the last tile a causal row
+// of the block can reach (and starts at the first a sliding window can
+// reach): the TPU kernel's fully-masked-block skip.
 //
 // Shared memory is static: qs and accs hold kMaxRows x D floats each, 32 KB
-// together at D 256 (recurrentgemma's head_dim), under the 48 KB limit for
-// static shared memory.
+// together at D 256, under the 48 KB limit for static shared memory.
 //
 // Determinism: no split across blocks, no atomics. A row's tiles, their
 // partition and the merge order depend only on the launch shape and the
-// row's own position, never on the other rows' data, so a serving slot
-// recomputed by LFLR in the same window shape reproduces its clean-run
-// values bit for bit.
+// row's own position, never on the other rows' data.
 //
-// Bound on the H100: decode (one query row per slot) moves the slot's K and
-// V once (2 * ctx * Hkv * D * 2 bytes in bf16) and does 4 * Hq * ctx * D
-// flops — far below the 295 flop/byte ridge, so it is memory-bound. This
-// version keeps the arithmetic in fp32 on the CUDA cores and loads K rows
-// per lane; the tensor cores (wgmma) and TMA staging are later work.
-#include <cuda_bf16.h>
+// Bound on the H100: at prefill shapes 4 * Hq * D * S * ctx flops at 67
+// TFLOP/s in fp32 on the CUDA cores (operations); in decode the K/V bytes.
+// The kernel loads K rows per lane, re-reads K/V once per query tile and
+// splits no slot's keys across blocks: it is the slow route.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -58,13 +53,9 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // N contiguous elements at src (aligned to their size in bytes) as floats.
 template <typename T, int N>
@@ -102,7 +93,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(32 * kMaxWarps)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ q_offset, T* __restrict__ out, int S, int T_,
                  int Hq, int Hkv, int group, int bq, int parts, int causal, int window,
                  int seq_kv, float scale) {
@@ -226,43 +217,38 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset, voi
   const dim3 grid((S + bq - 1) / bq, Hkv, B);
   const dim3 block(32 * rows * parts);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<T, D><<<grid, block, 0, stream>>>(
+  flash_f32_kernel<T, D><<<grid, block, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       q_offset, static_cast<T*>(out), S, T_, Hq, Hkv, group, bq, parts, causal, window,
       seq_kv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const int* q_offset, void* out,
              int B, int S, int T_, int Hq, int Hkv, int D, int causal, int window,
              int seq_kv, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 32: return launch<T, 32>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 64: return launch<T, 64>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 128: return launch<T, 128>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 256: return launch<T, 256>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 16: return launch<float, 16>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 32: return launch<float, 32>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 64: return launch<float, 64>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 128: return launch<float, 128>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 256: return launch<float, 256>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The Python wrapper has checked shapes,
-// types, devices, contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and
-// D in {16, 32, 64, 128, 256}.
-extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                         const void* q_offset, void* out, int B, int S,
-                                         int T, int Hq, int Hkv, int D, int causal,
-                                         int window, int seq_kv, int dtype,
-                                         void* stream) {
-  const int* qo = static_cast<const int*>(q_offset);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, qo, out, B, S, T, Hq, Hkv, D, causal, window, seq_kv, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, qo, out, B, S, T, Hq, Hkv, D, causal, window,
-                                   seq_kv, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// fp32 only. The Python wrapper has checked shapes, types, devices,
+// contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in
+// {16, 32, 64, 128, 256}.
+extern "C" int repro_flash_f32(const void* q, const void* k, const void* v,
+                               const void* q_offset, void* out, long long B, long long S,
+                               long long T, int Hq, int Hkv, int D, int causal,
+                               int window, long long seq_kv, void* stream) {
+  if (B > 65535 || S > 0x7fffffffLL || T > 0x7fffffffLL || Hkv < 1 || Hq % Hkv)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d(q, k, v, static_cast<const int*>(q_offset), out, static_cast<int>(B),
+                  static_cast<int>(S), static_cast<int>(T), Hq, Hkv, D, causal, window,
+                  static_cast<int>(seq_kv), static_cast<cudaStream_t>(stream));
 }

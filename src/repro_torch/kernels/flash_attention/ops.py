@@ -1,9 +1,20 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernels (``csrc/*.cu``).
 
 A tensor on the CPU goes to the plain version (``ref.py``); a CUDA tensor
-goes to the kernel or raises — there is no fallback.
+goes to a kernel or raises — there is no fallback. :func:`plan` picks the
+kernel from the shape and dtype alone:
+
+- ``flash_decode`` (``csrc/flash_decode.cu``): one query row per slot
+  (S == 1) in bf16, on the tensor cores; each slot's keys split across the
+  blocks of a cluster, merged in split order;
+- ``flash_forward`` (``csrc/flash_forward.cu``): S > 1 in bf16, on the tensor
+  cores;
+- ``flash_f32`` (``csrc/flash_f32.cu``): fp32, any S, on the CUDA cores (TF32
+  would not hold fp32 results to 2e-5).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -11,8 +22,38 @@ from ..build import (DTYPE_CODES, check_device, check_launch, library,
                      stream_of)
 from .ref import sdpa_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel is instantiated for these
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels are instantiated for these
 MAX_GROUP = 16                  # a block holds the group's query rows
+KERNELS = ("flash_decode", "flash_forward", "flash_f32")
+DECODE_TILE = 64                # keys per tile of flash_decode
+MAX_SPLITS = 8                  # blocks of one decode cluster (flash_decode.cu)
+SPLIT_TARGET = 32               # decode blocks wanted per slot: KV heads x splits
+
+
+@dataclass(frozen=True)
+class Plan:
+    kernel: str                 # one of KERNELS
+    splits: int = 1             # decode: blocks per (slot, KV head)
+    keys_per_split: int = 0     # decode: a multiple of DECODE_TILE
+
+
+def plan(S: int, seq_kv: int, Hkv: int, dtype: torch.dtype) -> Plan:
+    """The kernel a launch of this shape and dtype takes and, for decode,
+    how the keys ``[0, seq_kv)`` are split.
+
+    The split depends on the launch shape alone — never on the slots'
+    positions, so a slot's output depends only on its own data, its own
+    position and the launch shape (bit-exact LFLR replays). Slots x KV
+    heads x splits is aimed at ``SPLIT_TARGET`` blocks per slot; a split
+    holds whole tiles, and none is empty for every position."""
+    if dtype != torch.bfloat16:
+        return Plan("flash_f32")
+    if S != 1:
+        return Plan("flash_forward")
+    tiles = max(1, -(-seq_kv // DECODE_TILE))
+    splits = max(1, min(MAX_SPLITS, tiles, SPLIT_TARGET // Hkv))
+    per = -(-tiles // splits)                           # tiles per split
+    return Plan("flash_decode", -(-tiles // per), per * DECODE_TILE)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,13 +100,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads rows as 16-byte vectors)")
     out = torch.empty_like(q)
-    rc = library().repro_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
-        out.data_ptr(), B, S, T, Hq, Hkv, D, int(bool(causal)), int(window),
-        seq_kv, DTYPE_CODES[q.dtype], stream_of(q))
-    check_launch("flash_attention", rc)
+    p = plan(S, seq_kv, Hkv, q.dtype)
+    lib = library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
+            out.data_ptr())
+    if p.kernel == "flash_decode":
+        rc = lib.repro_flash_decode(
+            *args, B, T, Hq, Hkv, D, int(bool(causal)), int(window), seq_kv,
+            p.splits, p.keys_per_split, stream_of(q))
+    else:
+        rc = getattr(lib, f"repro_{p.kernel}")(
+            *args, B, S, T, Hq, Hkv, D, int(bool(causal)), int(window), seq_kv,
+            stream_of(q))
+    check_launch(p.kernel, rc)
     flash_attention.launches += 1
+    flash_attention.kernel_launches[p.kernel] += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0          # wrapper calls that launched a kernel
+flash_attention.kernel_launches = dict.fromkeys(KERNELS, 0)

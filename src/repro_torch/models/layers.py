@@ -8,6 +8,7 @@ so the two packages agree to float tolerance on the same weights.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -76,9 +77,30 @@ def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
 MLP_KINDS = ("swiglu", "geglu", "gelu")
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x / (1 + exp(-x))`` as ``jax.nn.silu`` lowers it: each of the four
+    steps rounded to x's dtype. ``F.silu`` rounds once, so in bf16 it is up
+    to 2 ulps from the JAX package's on most elements; this puts the bf16
+    roundings where the reference's are."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """The tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
-    return F.gelu(x, approximate="tanh")
+    """The tanh-approximate GELU spelled op for op as
+    ``jax.nn.gelu(approximate=True)`` lowers it, each step rounded to x's
+    dtype: ``cdf = 0.5 (1 + tanh(c (x + 0.044715 x^3)))``, then ``x cdf``.
+    The constants are rounded to x's dtype first, as JAX rounds them, and
+    ``x^3`` is two products each rounded (``F.gelu`` rounds once)."""
+    c, a = _rounded(math.sqrt(2 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x))))
+    return x * cdf
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float (a scalar operand,
+    so no tensor is made on the device per call)."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def apply_mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
@@ -87,7 +109,7 @@ def apply_mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     gated kinds, ``wg``."""
     h = x @ p.wi
     if kind == "swiglu":
-        h = F.silu(x @ p.wg) * h
+        h = silu(x @ p.wg) * h
     elif kind == "geglu":
         h = gelu_tanh(x @ p.wg) * h
     elif kind == "gelu":

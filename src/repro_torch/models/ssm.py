@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_scan
-from .layers import causal_conv, dense_init, rms_norm_vec
+from .layers import causal_conv, dense_init, rms_norm_vec, silu
 
 
 def conv_dim(cfg) -> int:
@@ -70,17 +70,9 @@ def _split(conv_out: torch.Tensor, cfg):
     return xs.contiguous(), Bv.contiguous(), Cv.contiguous()
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``x / (1 + exp(-x))`` as ``jax.nn.silu`` lowers it: each of the four
-    steps rounded to x's dtype. ``F.silu`` rounds once, so in bf16 it is up
-    to 2 ulps from the JAX package's; this puts the mixer's bf16 roundings
-    where the reference's are."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def _out(p: Mamba2, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Gated rms norm and the output projection: y, z (…, d_inner)."""
-    return rms_norm_vec(y * _silu(z), p.norm_scale) @ p.out
+    return rms_norm_vec(y * silu(z), p.norm_scale) @ p.out
 
 
 def mamba2_mixer(p: Mamba2, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -89,7 +81,7 @@ def mamba2_mixer(p: Mamba2, x: torch.Tensor, cfg) -> torch.Tensor:
     of it, as in the JAX package."""
     B_, S, _ = x.shape
     conv_in, z, dt = _project(p, x)
-    conv_out = _silu(causal_conv(conv_in, p.conv_w.to(x.dtype)))
+    conv_out = silu(causal_conv(conv_in, p.conv_w.to(x.dtype)))
     xs, Bv, Cv = _split(conv_out, cfg)
     dt = F.softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
@@ -107,7 +99,7 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, ssm_prev: torch.Tensor,
     H = cfg.ssm_nheads
     conv_in, z, dt = _project(p, x)
     window = torch.cat([conv_prev, conv_in], dim=1)          # (B, width, c)
-    conv = _silu(torch.einsum("bwc,wc->bc", window, p.conv_w.to(x.dtype)))
+    conv = silu(torch.einsum("bwc,wc->bc", window, p.conv_w.to(x.dtype)))
     xs, Bv, Cv = _split(conv, cfg)
     rep = H // cfg.ssm_ngroups
     Bh = Bv.repeat_interleave(rep, dim=1).float()             # (B, H, N)

@@ -12,6 +12,7 @@ from repro_torch.core.errors import ErrorCode
 from repro_torch.kernels import flash_attention, probe_rows, rglru_scan, ssd_scan
 from repro_torch.kernels.fault_probe import probe_rows_ref
 from repro_torch.kernels.flash_attention import sdpa_ref
+from repro_torch.kernels.flash_attention.ops import plan
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
 from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
                                           ssd_scan_ref)
@@ -49,6 +50,11 @@ FLASH_CASES = [
      (0, 1, 700, 2047, 2048, 3000, 4500, 6000)),        # decode, wrapped
     (2, 1024, 1024, 10, 1, 256, True, 256, (0, 0)),     # sliding forward
     (1, 100, 300, 10, 1, 256, True, 64, (150,)),        # window past offset
+    (2, 77, 300, 10, 1, 256, True, 0, (0, 150)),        # MQA, S not a multiple
+    (3, 45, 200, 10, 1, 256, True, 32, (3, 60, 155)),   # of the tile, offsets
+    (2, 70, 70, 4, 2, 16, True, 0, (0, 0)),             # forward at D 16,
+    (1, 130, 130, 6, 3, 32, True, 24, (0,)),            # 32 and 64
+    (2, 65, 100, 8, 2, 64, False, 0, (0, 35)),
 ]
 
 
@@ -61,10 +67,12 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     k = _randn(rng, (B, T, Hkv, D), dtype, cuda)
     v = _randn(rng, (B, T, Hkv, D), dtype, cuda)
     off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
-    before = flash_attention.launches
+    kernel = plan(S, T, Hkv, dtype).kernel
+    before = flash_attention.launches, flash_attention.kernel_launches[kernel]
     got = flash_attention(q, k, v, off, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention.kernel_launches[kernel]) == (
+        before[0] + 1, before[1] + 1)
     want = sdpa_ref(q, k, v, q_offset=off, causal=causal, window=window)
     # fp32: summation order differs (online softmax, 32-key tiles);
     # bf16: both round an fp32 result to bf16, so about 1 ulp apart: held to
@@ -74,20 +82,89 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
-def test_flash_kernel_is_deterministic_per_row(cuda):
-    """A slot's output does not depend on the other slots' data — the LFLR
-    bit-exactness contract rests on it."""
+# decode shapes (T, Hq, Hkv, D): qwen3's serve cache and recurrentgemma's ring
+DECODE_SHAPES = [(1024, 16, 8, 128), (2048, 10, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_deterministic_per_row(cuda, shape, dtype):
+    """A slot's output does not depend on the other slots' data or their
+    positions, bit for bit — the LFLR bit-exactness contract rests on it."""
+    T, Hq, Hkv, D = shape
     rng = np.random.default_rng(1)
-    q = _randn(rng, (4, 1, 16, 128), torch.bfloat16, cuda)
-    k = _randn(rng, (4, 256, 8, 128), torch.bfloat16, cuda)
-    v = _randn(rng, (4, 256, 8, 128), torch.bfloat16, cuda)
-    off = torch.tensor([5, 100, 255, 300], dtype=torch.int32, device=cuda)
+    q = _randn(rng, (4, 1, Hq, D), dtype, cuda)
+    k = _randn(rng, (4, T, Hkv, D), dtype, cuda)
+    v = _randn(rng, (4, T, Hkv, D), dtype, cuda)
+    off = torch.tensor([T // 2 + 5, 100, T - 1, T + 300], dtype=torch.int32,
+                       device=cuda)
     a = flash_attention(q, k, v, off, causal=True)
     k2, v2 = k.clone(), v.clone()
-    k2[1:] = _randn(rng, (3, 256, 8, 128), torch.bfloat16, cuda)
-    v2[1:] = _randn(rng, (3, 256, 8, 128), torch.bfloat16, cuda)
+    k2[1:] = _randn(rng, (3, T, Hkv, D), dtype, cuda)
+    v2[1:] = _randn(rng, (3, T, Hkv, D), dtype, cuda)
     b = flash_attention(q, k2, v2, off, causal=True)
     assert torch.equal(a[0], b[0])
+    # the other slots at other positions: one before any split boundary,
+    # one past every key, one on a boundary
+    off2 = torch.tensor([T // 2 + 5, 0, 3 * T, T // 4], dtype=torch.int32,
+                        device=cuda)
+    c = flash_attention(q, k2, v2, off2, causal=True)
+    assert torch.equal(a[0], c[0])
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_split_boundaries(cuda, shape, dtype):
+    """Positions on and either side of every split boundary ``plan`` sets
+    for the bf16 decode (fp32 takes its own kernel, which does not split,
+    at the same positions), the first and last key, and positions past
+    ``seq_kv`` (cut below T here, so keys past it are padding) and past T."""
+    T, Hq, Hkv, D = shape
+    p = plan(1, T, Hkv, torch.bfloat16)
+    assert p.kernel == "flash_decode" and p.splits > 1
+    seq_kv = T - 3
+    pos = [0, 1, T - 1, seq_kv - 1, seq_kv, seq_kv + 1, T, 2 * T + 7]
+    pos += [i * p.keys_per_split + d for i in range(1, p.splits) for d in (-1, 0, 1)]
+    B = len(pos)
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (B, 1, Hq, D), dtype, cuda)
+    k = _randn(rng, (B, T, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, T, Hkv, D), dtype, cuda)
+    off = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kernel = plan(1, seq_kv, Hkv, dtype).kernel
+    before = flash_attention.kernel_launches[kernel]
+    got = flash_attention(q, k, v, off, causal=True, seq_kv=seq_kv)
+    assert flash_attention.kernel_launches[kernel] == before + 1
+    want = sdpa_ref(q, k, v, q_offset=off, causal=True, seq_kv=seq_kv)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2.0 ** -6, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# one case per kernel: the bf16 decode, the bf16 forward, fp32 (decode and
+# forward)
+REPEAT_CASES = [((8, 1, 2048, 10, 1, 256), torch.bfloat16, "flash_decode"),
+                ((8, 1, 1024, 16, 8, 128), torch.bfloat16, "flash_decode"),
+                ((2, 300, 300, 10, 1, 256), torch.bfloat16, "flash_forward"),
+                ((8, 1, 1024, 16, 8, 128), torch.float32, "flash_f32"),
+                ((2, 300, 300, 10, 1, 256), torch.float32, "flash_f32")]
+
+
+@pytest.mark.parametrize("case", REPEAT_CASES)
+def test_flash_kernel_repeats_bit_for_bit(cuda, case):
+    """Two identical launches of each kernel give the same bits."""
+    (B, S, T, Hq, Hkv, D), dtype, kernel = case
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (B, S, Hq, D), dtype, cuda)
+    k = _randn(rng, (B, T, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, T, Hkv, D), dtype, cuda)
+    off = torch.tensor(rng.integers(0, 2 * T, B), dtype=torch.int32, device=cuda)
+    if S > 1:
+        off.zero_()
+    before = flash_attention.kernel_launches[kernel]
+    a = flash_attention(q, k, v, off, causal=True, window=T // 3)
+    b = flash_attention(q, k, v, off, causal=True, window=T // 3)
+    assert flash_attention.kernel_launches[kernel] == before + 2
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,6 +1,8 @@
 """The port's kernels (plain versions, on the CPU) against the JAX package's
 Pallas kernels in interpret mode, on the same numpy-seeded inputs; and the
 CUDA wrappers' input checks, which run before any device dispatch."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,8 @@ from repro.kernels.flash_attention.ref import sdpa_ref as jax_sdpa_ref
 from repro_torch.kernels import (build, flash_attention, launch_counts,
                                  probe_rows, rglru_scan, ssd_scan)
 from repro_torch.kernels.flash_attention import sdpa_ref
+from repro_torch.kernels.flash_attention.ops import (DECODE_TILE, MAX_SPLITS,
+                                                     SPLIT_TARGET, plan)
 from test_kernels import FLASH_CASES
 
 torch.set_num_threads(2)
@@ -209,23 +213,36 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
 
 def test_kernel_sources_cover_both_kernels():
-    """Every kernel's source is built (the name predates the third and the
-    fourth)."""
+    """Every kernel's source is built, flash's three among them (the name
+    predates the later kernels), and every C entry point has a signature."""
     names = sorted(p.name for p in build.sources())
-    assert names == ["fault_probe.cu", "flash_attention.cu", "rglru_scan.cu",
-                     "ssd_scan.cu"]
+    assert names == ["fault_probe.cu", "flash_decode.cu", "flash_f32.cu",
+                     "flash_forward.cu", "rglru_scan.cu", "ssd_scan.cu"]
     for fn in (flash_attention, probe_rows, rglru_scan, ssd_scan):
         assert isinstance(fn.launches, int)
-    assert set(launch_counts()) == {"flash_attention", "probe_rows",
-                                    "rglru_scan", "ssd_scan"}
+    assert set(launch_counts()) == {"flash_attention", "flash_decode",
+                                    "flash_forward", "flash_f32",
+                                    "probe_rows", "rglru_scan", "ssd_scan"}
+    exported = set()
+    for src in build.sources():
+        exported |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+    assert exported == set(build.SIGNATURES)
 
 
 def test_launch_signatures_are_64_bit_where_they_index():
-    """The probe's column count and the scan's sizes cross the C boundary
-    as 64-bit integers (a (B*S, V) prefill view may hold > 2^31 values)."""
+    """The probe's column count, the scan's sizes and flash's batch and
+    sequence lengths cross the C boundary as 64-bit integers (a (B*S, V)
+    prefill view may hold > 2^31 values, as may B * S * Hq * D)."""
     import ctypes
-    assert build.SIGNATURES["repro_probe_rows"][2] is ctypes.c_longlong
-    assert build.SIGNATURES["repro_rglru_scan"][3:6] == (ctypes.c_longlong,) * 3
+    L = ctypes.c_longlong
+    assert build.SIGNATURES["repro_probe_rows"][2] is L
+    assert build.SIGNATURES["repro_rglru_scan"][3:6] == (L,) * 3
+    # decode: B, T, ..., seq_kv, splits, keys_per_split
+    dec = build.SIGNATURES["repro_flash_decode"]
+    assert dec[5:7] == (L, L) and dec[12] is L and dec[14] is L
+    for name in ("repro_flash_forward", "repro_flash_f32"):
+        sig = build.SIGNATURES[name]
+        assert sig[5:8] == (L,) * 3 and sig[13] is L      # B, S, T; seq_kv
 
 
 def test_probe_wrapper_refuses_more_rows_than_the_kernel_counts(monkeypatch):
@@ -255,3 +272,79 @@ def test_flash_plain_matches_jax_kernel_head_dim_256(case):
                           torch.zeros(B, dtype=torch.int32), causal=causal,
                           window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+# (S, seq_kv, Hkv, dtype) -> kernel
+PLAN_KERNELS = [
+    ((1, 1024, 8, torch.bfloat16), "flash_decode"),
+    ((1, 2048, 1, torch.bfloat16), "flash_decode"),
+    ((2, 512, 8, torch.bfloat16), "flash_forward"),
+    ((4096, 4096, 1, torch.bfloat16), "flash_forward"),
+    ((1, 2048, 1, torch.float32), "flash_f32"),
+    ((2, 512, 8, torch.float32), "flash_f32"),
+]
+
+
+@pytest.mark.parametrize("shape, kernel", PLAN_KERNELS)
+def test_plan_picks_the_kernel_by_shape_and_dtype(shape, kernel):
+    """bf16 on the tensor cores, decode (S == 1) or forward; fp32 on the
+    CUDA cores: a choice by dtype, not a fallback."""
+    assert plan(*shape).kernel == kernel
+
+
+# (seq_kv, Hkv) -> (splits, keys per split): the serve decode shapes
+# (qwen3: 8 KV heads, cap 1024; recurrentgemma's ring: 1 KV head, cap 2048),
+# short caches, an empty cache
+PLAN_SPLITS = [
+    ((1024, 8), (4, 256)),
+    ((2048, 1), (8, 256)),
+    ((300, 2), (5, 64)),
+    ((200, 1), (4, 64)),
+    ((40, 1), (1, 64)),
+    ((0, 1), (1, 64)),
+]
+
+
+@pytest.mark.parametrize("shape, split", PLAN_SPLITS)
+def test_plan_splits_depend_on_the_launch_shape_only(shape, split):
+    """The decode split is a pure function of the launch shape (``plan``
+    takes no positions): whole tiles per split, every key of ``seq_kv``
+    covered, no split past the last tile, at most a cluster's 8 blocks,
+    and a slots x KV heads x splits grid near ``SPLIT_TARGET`` blocks per
+    slot."""
+    seq_kv, Hkv = shape
+    p = plan(1, seq_kv, Hkv, torch.bfloat16)
+    assert (p.kernel, p.splits, p.keys_per_split) == ("flash_decode", *split)
+    assert p.keys_per_split % DECODE_TILE == 0 and p.keys_per_split * p.splits >= seq_kv
+    assert (p.splits - 1) * p.keys_per_split < max(seq_kv, 1)
+    assert 1 <= p.splits <= MAX_SPLITS and Hkv * p.splits <= max(SPLIT_TARGET, Hkv)
+    assert plan(1, seq_kv, Hkv, torch.bfloat16) == p
+
+
+def test_p_split_holds_the_bf16_tolerance():
+    """Why the bf16 forward kernel splits P into a bf16 high and low part
+    for its P V product: at recurrentgemma's sliding-window shape (D 256,
+    10 heads, rows averaging ~2048 keys, outputs ~0.04), P rounded to bf16
+    alone misses the bf16 limit the card checks hold flash to (1e-4 + 2^-6
+    |want| per element), while hi + lo stays where fp32 P is. Emulated here
+    in fp32 on the CPU: the plain version's output is ``want``."""
+    gen = torch.Generator().manual_seed(0)
+    D, H, T, W = 256, 10, 4096, 2048
+    rows = torch.arange(2048, 2048 + 96)
+    q = torch.randn(len(rows), H, D, generator=gen).bfloat16().float()
+    k = torch.randn(T, D, generator=gen).bfloat16().float()
+    v = torch.randn(T, D, generator=gen).bfloat16().float()
+    sc = torch.einsum("shd,td->hst", q, k) / D ** 0.5
+    kp = torch.arange(T)
+    mask = (kp[None] <= rows[:, None]) & (kp[None] > rows[:, None] - W)
+    p = torch.exp(torch.where(mask[None], sc, -1e30) - sc.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    want = (p / l @ v).bfloat16().float()
+
+    def excess(pv):
+        got = (pv / l).bfloat16().float()
+        return ((got - want).abs() / (1e-4 + 2 ** -6 * want.abs())).max().item()
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    assert excess(hi @ v) > 1
+    assert excess(hi @ v + lo @ v) <= 1 and excess(p @ v) <= 1
