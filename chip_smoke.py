@@ -11,12 +11,13 @@ Phases, each printing one JSON line (``"phase": ...``):
    ``nvidia-smi`` name and power limit (also printed raw on a line of its own);
 2. build      — builds every kernel of the port from the checkout's sources,
    then a ``ptxas`` line: registers, static shared memory and spills of each
-   instantiation of the two flash kernels (decode, bf16 forward);
+   kernel of the tensor-core and scan sources (``PTXAS_SOURCES``);
 3. kernels    — holds each kernel against its plain PyTorch version on the
    card at the qwen3 serve path's shapes, with the stated tolerances, and
    times the kernel, the plain version and (where one exists) one PyTorch
    library call computing the same function, beside the least time the card
-   could take;
+   could take; flash's fp32 route (``flash_f32``) at the same decode and
+   forward shapes in fp32;
 4. serve      — full-width qwen3-1.7b (28 layers, bf16, seeded random
    weights) served by ``Replica(window=8, overlap=True, num_slots=8,
    max_len=1024)``: 16 requests with 16–256-token prompts and 64 new tokens
@@ -27,9 +28,11 @@ Phases, each printing one JSON line (``"phase": ...``):
    slot's KV cache mid-run: the probe kernel must latch NONFINITE_LOSS, and
    every stream must be bit-equal to phase 4;
 6. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
-   the RG-LRU scan at (2, 4096, 2560), flash decode over ring caches that
-   wrap, the sliding-window flash forward at S 4096, the probe over the
-   recurrent state and over the prefill logits;
+   the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
+   halved) that must exceed the limit, and again on long-memory log_a,
+   where a control in chunk 0 must exceed it after chunk 1; flash decode
+   over ring caches that wrap, the sliding-window flash forward at S 4096,
+   the probe over the recurrent state and over the prefill logits;
 7. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
    RG-LRU, 8 sliding-window attention; bf16, seeded random weights), the
    qwen3 model freed first;
@@ -40,14 +43,16 @@ Phases, each printing one JSON line (``"phase": ...``):
    layer, one probe, a clean word, its time and peak memory;
 10. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
    mamba2-2.7b's prefill shape and at a shape with groups over heads and
-   fewer steps than the chunk, a control that must exceed the limit (one
-   step's dt changed), and the probe over the full ``ssm`` state;
+   fewer steps than the chunk (bf16: the tensor-core route), and at the
+   prefill shape in fp32 (the ``ssd_f32`` route), each with a control that
+   must exceed the limit (one step's dt changed), and the probe over the
+   full ``ssm`` state;
 11. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
    seeded random weights), the recurrentgemma model freed first;
 12. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
    ``ssm`` state and the state probe must latch STATE_FAULT;
-13. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD kernel once
-   per layer, one probe, a clean word, its time and peak memory.
+13. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
+   kernel once per layer, one probe, a clean word, its time and peak memory.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
@@ -90,8 +95,11 @@ SCAN_TOL = 1e-4
 # must exceed the limit
 SSD_TOL = (1e-4, 1e-4)              # of the largest |want|, of each |want|
 SSD_BF16_TOL = (1e-4, 2.0 ** -6)
+# flash's fp32 route against its plain version: summation order only
+FLASH_F32_TOL = 2e-5                # abs + rel, as the card tests
 FORWARD_GAP_TOL = 2.0               # decode vs forward logits, bf16 and fp32
 PREFILL_B, PREFILL_S = 2, 4096      # prefill_32k cut to 1 card: 2x the window
+PREFILL_32K = 32768                 # prefill_32k's length, for the scan's timing
 
 
 def fail(msg: str) -> None:
@@ -220,22 +228,31 @@ def phase_device(torch) -> str:
     return line
 
 
-PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu")   # reported by ptxas
+PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu", "ssd_chunk_tc.cu",
+                 "rglru_scan.cu")                        # reported by ptxas
 
 
 def ptxas_report(log: str) -> list:
     """Each kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
-    head_dim, registers, static shared memory, stack and spills (the flash
-    kernels' shared memory is dynamic: see their sources)."""
+    head_dim (flash's template argument), registers, static shared memory,
+    stack and spills (the flash and SSD kernels' shared memory is dynamic:
+    see their sources)."""
     import re
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            # the identifier follows its length (digits) in the mangled name
-            k = re.search(r"(?<=\d)(flash_[a-z0-9_]*?_kernel)ILi(\d+)E", m.group(1))
-            cur = {"kernel": k.group(1) if k else m.group(1),
-                   "head_dim": int(k.group(2)) if k else None}
+            # _ZN <length><name>... E: the last name is the kernel's, and a
+            # template argument ILi<head_dim>E may follow it
+            mangled, names, i = m.group(1), [], 3
+            while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
+                d = re.match(r"\d+", mangled[i:]).group()
+                i += len(d)
+                names.append(mangled[i:i + int(d)])
+                i += int(d)
+            hd = re.match(r"ILi(\d+)E", mangled[i:])
+            cur = {"kernel": names[-1] if names else mangled,
+                   "head_dim": int(hd.group(1)) if hd else None}
             rows.append(cur)
             continue
         if cur is None:
@@ -362,6 +379,51 @@ def phase_kernels(torch, card: str) -> dict:
         "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
             *t, is_causal=True, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
+
+    # -- flash's fp32 route (flash_f32, the CUDA cores) at the same decode
+    #    and forward shapes in fp32: held to its plain version, timed
+    f32 = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    off = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kpos = torch.arange(MAX_LEN, device=dev)
+    mask = (kpos[None, :] <= off[:, None])[:, None, None, :]
+    fwd_flops = 4 * Hq * D * S * (S + 1) // 2
+    for name, (qs, kvs), kw, lib_kw, (nbytes, flops) in (
+            ("flash_f32_decode", ((B, 1, Hq, D), (B, MAX_LEN, Hkv, D)),
+             {"q_offset": off, "causal": True, "seq_kv": MAX_LEN},
+             {"attn_mask": mask},
+             (2 * B * Hq * D * 4 + 2 * sum(ctx) * Hkv * D * 4 + 4 * B,
+              sum(4 * Hq * c * D for c in ctx))),
+            ("flash_f32_forward", ((1, S, Hq, D), (1, S, Hkv, D)),
+             {"q_offset": zero, "causal": True}, {"is_causal": True},
+             (2 * S * Hq * D * 4 + 2 * S * Hkv * D * 4 + 4, fwd_flops))):
+        q, k, v = f32(*qs), f32(*kvs), f32(*kvs)
+        o = kw.pop("q_offset")
+        got, route = flash_call(flash_attention, q, k, v, o, **kw)
+        want = sdpa_ref(q, k, v, q_offset=o, **kw)
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() / (FLASH_F32_TOL + FLASH_F32_TOL * want.abs())).max().item()
+        if route["kernel"] != "flash_f32" or excess > 1:
+            fail(f"{name}: {route['kernel']}, error {err}, {excess} x the limit")
+        lib = F.scaled_dot_product_attention(*heads_first(q, k, v), enable_gqa=True,
+                                             **lib_kw).transpose(1, 2)
+        b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+        qkv = copies(lambda: (f32(*qs), f32(*kvs), f32(*kvs)),
+                     (math.prod(qs) + 2 * math.prod(kvs)) * 4)
+        out[name] = {
+            "shape": f"q {'x'.join(map(str, qs))}, kv {'x'.join(map(str, kvs))} fp32, "
+                     + (f"pos {pos}" if "seq_kv" in kw else "causal"), **route,
+            "max_abs_err": err, "tol": f"{FLASH_F32_TOL} abs + {FLASH_F32_TOL} rel",
+            "err_over_tol": excess,
+            "library_err": (lib - want).abs().max().item(),
+            "timing_copies": len(qkv),
+            "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(q, k, v, o, **kw), qkv),
+            "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(q, k, v, q_offset=o, **kw),
+                                qkv),
+            "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+                *t, enable_gqa=True, **lib_kw), [heads_first(*t) for t in qkv]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v, got, want, lib, qkv
 
     # -- probe: one word per row of (slots, vocab) fp32 logits
     V = 151936
@@ -583,7 +645,9 @@ def check_fp32_stream(torch, model, reqs) -> dict:
     """``model``'s weights widened to fp32 (exactly) serve the shortest
     request through the same engine, and that stream is held against the
     fp32 prefill forward at ``FORWARD_GAP_TOL``: the full-width check that
-    the chunked kernel path and the recurrent decode agree."""
+    the chunked kernel path (the SSD scan's fp32 route, ``ssd_f32``) and the
+    recurrent decode agree."""
+    from repro_torch.kernels import ssd_scan
     from repro_torch.models import Model
     from repro_torch.serve import EngineConfig, Replica
 
@@ -600,7 +664,12 @@ def check_fp32_stream(torch, model, reqs) -> dict:
     answers, _ = drive(rep, [req])
     if not answers[req.id].ok or len(answers[req.id].tokens) != MAX_NEW:
         fail(f"fp32 copy: request {req.id} not answered in full")
+    before = dict(ssd_scan.kernel_launches)
     out = check_against_forward(torch, wide, answers, [req])
+    out["ssd_launches"] = {k: n - before[k] for k, n in ssd_scan.kernel_launches.items()}
+    if out["ssd_launches"] != {"ssd_chunk_tc": 0, "ssd_f32": wide.cfg.pattern_layers.count("ssd")}:
+        fail(f"fp32 forward: SSD launches {out['ssd_launches']}, not one ssd_f32 "
+             "launch per layer")
     del rep, wide
     gc.collect()
     torch.cuda.empty_cache()
@@ -616,6 +685,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
     from repro_torch.kernels.fault_probe import probe_rows_ref
     from repro_torch.kernels.flash_attention import sdpa_ref
     from repro_torch.kernels.rglru_scan import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ops import CHUNK
 
     cfg = get_config("recurrentgemma-2b")
     dev = torch.device("cuda")
@@ -628,29 +698,78 @@ def phase_kernels_rg(torch, card: str) -> dict:
     out = {}
 
     # -- RG-LRU scan at the prefill shape; log_a as the model makes it,
-    #    -8 softplus(lam) sigmoid(.), lam the Griffin init
-    B, S, W = PREFILL_B, PREFILL_S, cfg.resolved_lru_width
-    lam = torch.log(torch.expm1(torch.linspace(0.9, 4.0, W, device=dev)))
-    make = lambda: (f32(B, S, W),  # noqa: E731
-                    (-8.0 * F.softplus(lam) * torch.sigmoid(f32(B, S, W))).contiguous())
+    #    -8 softplus(lam) sigmoid(.), lam spanning the model's init
+    #    (softplus 0.9 to 4: a chunk's decay product is 0 in fp32) and, for
+    #    long memory, the Griffin paper's a^8 in [0.9, 0.999]
+    B, S, W, T = PREFILL_B, PREFILL_S, cfg.resolved_lru_width, CHUNK
+
+    def make_for(lo, hi, b=B, s=S):
+        lam = torch.log(torch.expm1(torch.linspace(lo, hi, W, device=dev)))
+        return lambda: (f32(b, s, W), (-8.0 * F.softplus(lam)
+                                       * torch.sigmoid(f32(b, s, W))).contiguous())
+    make = make_for(0.9, 4.0)
     x_in, log_a = make()
     got = rglru_scan(x_in, log_a)
     want = rglru_scan_ref(x_in, log_a)
-    diff = (got - want).abs()
-    err = diff.max().item()
-    if not bool((diff <= SCAN_TOL + SCAN_TOL * want.abs()).all()):
-        fail(f"rglru_scan disagrees with its plain version: max error {err}")
+    limit = SCAN_TOL + SCAN_TOL * want.abs()
+    err = (got - want).abs().max().item()
+    excess = ((got - want).abs() / limit).max().item()
+    # control: one step's log_a halved (batch 0, mid-sequence, channel 0,
+    # the longest memory), against the plain version on the unchanged inputs
+    bad = log_a.clone()
+    bad[0, S // 2 + 5, 0] *= 0.5
+    control = ((rglru_scan(x_in, bad) - want).abs() / limit).max().item()
+    if not excess <= 1 < control:
+        fail(f"rglru_scan: max error {err}, {excess} x the limit; one log_a "
+             f"halved reads {control} x (must exceed 1)")
+    # long memory: chunks 2 onward see chunk 0 only through chunk 1's decay
+    # product (up to about 0.94 here), so the carry decides them. Control,
+    # over those chunks: one log_a of chunk 0 set to -1
+    x_in, log_a = make_for(-math.log(0.999) / 8, -math.log(0.9) / 8)()
+    got = rglru_scan(x_in, log_a)
+    want = rglru_scan_ref(x_in, log_a)
+    limit = SCAN_TOL + SCAN_TOL * want.abs()
+    long_err = (got - want).abs().max().item()
+    long_excess = ((got - want).abs() / limit).max().item()
+    bad = log_a.clone()
+    bad[0, T - 8, 0] = -1.0
+    later = slice(2 * T, S)
+    long_control = ((rglru_scan(x_in, bad)[:, later] - want[:, later]).abs()
+                    / limit[:, later]).max().item()
+    if not long_excess <= 1 < long_control:
+        fail(f"rglru_scan, long memory: max error {long_err}, {long_excess} x "
+             f"the limit; one log_a of chunk 0 set to -1 reads {long_control} x "
+             f"over chunks 2 onward (must exceed 1)")
+    del bad, limit, x_in, log_a, got, want
     b_ms, b_by = bound(3 * B * S * W * 4, 10 * B * S * W, PEAK_FP32_FLOPS)
     ins = copies(make, 2 * B * S * W * 4)
     out["rglru_scan"] = {
         "shape": f"x_in, log_a {B}x{S}x{W} fp32", "max_abs_err": err,
-        "tol": f"{SCAN_TOL} abs + {SCAN_TOL} rel", "timing_copies": len(ins),
+        "tol": f"{SCAN_TOL} abs + {SCAN_TOL} rel", "err_over_tol": excess,
+        "one_log_a_halved_over_tol": control, "chunk": T, "chunks": -(-S // T),
+        # three launches: chunk aggregates, carries, carry-in and re-scan;
+        # the inputs are read twice, 20 bytes per element against the bound's 12
+        "design_bytes_ms": 20 * B * S * W / PEAK_BYTES_PER_S * 1e3,
+        "timing_copies": len(ins),
         "kernel_ms": time_ms(torch, rglru_scan, ins),
         "plain_ms": time_ms(torch, rglru_scan_ref, ins, launches=4, queued=False),
         "plain_timing": "unqueued: one launch per time step, more than the "
                         "device queues; includes the host's launch gaps",
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    del x_in, log_a, got, want, diff, ins
+    del ins
+    out["rglru_scan_long_memory"] = {
+        "shape": f"x_in, log_a {B}x{S}x{W} fp32, a^8 in [0.9, 0.999]",
+        "max_abs_err": long_err, "err_over_tol": long_excess,
+        "chunk_0_log_a_changed_over_tol_after_chunk_1": long_control}
+    # one row at the reference's prefill_32k length: 256 chunks, whose
+    # carries the middle launch folds one after another
+    ins = copies(make_for(0.9, 4.0, 1, PREFILL_32K), 2 * PREFILL_32K * W * 4)
+    out["rglru_scan"]["at_32k"] = {
+        "shape": f"x_in, log_a 1x{PREFILL_32K}x{W} fp32",
+        "chunks": -(-PREFILL_32K // T), "kernel_ms": time_ms(torch, rglru_scan, ins),
+        "bound_ms": bound(3 * PREFILL_32K * W * 4, 10 * PREFILL_32K * W,
+                          PEAK_FP32_FLOPS)[0]}
+    del ins
 
     # -- flash decode over ring caches: one query row per slot, positions
     #    past the ring's capacity (it has wrapped; the read is index < min(cap, pos+1))
@@ -783,8 +902,11 @@ def phase_kernels_rg(torch, card: str) -> dict:
     return out
 
 
+SSD_CSRC = "src/repro_torch/kernels/ssd_scan/csrc"
+
+
 def phase_kernels_ssm(torch, card: str) -> dict:
-    """The SSD kernel and the probe against their plain versions at
+    """The SSD kernels and the probe against their plain versions at
     mamba2-2.7b's shapes."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import ErrorCode
@@ -792,6 +914,7 @@ def phase_kernels_ssm(torch, card: str) -> dict:
     from repro_torch.kernels.fault_probe import probe_rows_ref
     from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
                                               ssd_scan_ref)
+    from repro_torch.kernels.ssd_scan.ops import plan
 
     cfg = get_config("mamba2-2.7b")
     dev = torch.device("cuda")
@@ -800,70 +923,88 @@ def phase_kernels_ssm(torch, card: str) -> dict:
         shape, generator=gen, device=dev, dtype=torch.float32)
     out = {}
 
-    def inputs(b, s, h, p, g, n):
+    def inputs(b, s, h, p, g, n, dtype=torch.bfloat16):
         """The mixer's operands, drawn like the JAX package's SSD test:
         x, B, C in the model dtype, dt = softplus(normal), A = -exp(0.3
         normal) in fp32."""
-        return (f32(b, s, h, p).bfloat16(),
+        return (f32(b, s, h, p).to(dtype),
                 torch.nn.functional.softplus(f32(b, s, h)),
                 -torch.exp(0.3 * f32(h)),
-                (0.5 * f32(b, s, g, n)).bfloat16(), (0.5 * f32(b, s, g, n)).bfloat16())
+                (0.5 * f32(b, s, g, n)).to(dtype), (0.5 * f32(b, s, g, n)).to(dtype))
 
-    def check(name, shape, chunk):
-        """The kernel's outputs (fp32) and the whole scan (bf16) against
-        their plain versions; returns the errors over the limits."""
-        x, dt, A, B, C = inputs(*shape)
+    def check(name, shape, chunk, dtype=torch.bfloat16):
+        """The kernel's outputs (fp32) and the whole scan (in ``dtype``)
+        against their plain versions; returns the errors over the limits
+        and the kernel (route) the wrapper launched."""
+        x, dt, A, B, C = inputs(*shape, dtype)
         L = min(chunk, shape[1])
+        before = dict(ssd_scan.kernel_launches)
         y, st = ssd_intra_chunk(x, dt, A, B, C, chunk)
+        moved = [k for k, n in ssd_scan.kernel_launches.items() if n != before[k]]
+        if moved != [plan(dtype)]:
+            fail(f"ssd_scan at {name} launched {moved}, not {plan(dtype)}")
         want_y, want_st = ssd_intra_chunk_ref(x, dt, A, B, C, L)
         intra = max(scaled_excess(y, want_y, SSD_TOL),
                     scaled_excess(st, want_st, SSD_TOL))
         err = max((y - want_y).abs().max().item(), (st - want_st).abs().max().item())
+        del y, st, want_y, want_st
+        scan_tol = SSD_BF16_TOL if dtype == torch.bfloat16 else SSD_TOL
         want = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
         got = ssd_scan(x, dt, A, B, C, chunk=chunk)
-        scan = scaled_excess(got, want, SSD_BF16_TOL)
+        scan = scaled_excess(got, want, scan_tol)
         # control: one step's dt doubled (batch 0, a step mid-sequence, a
         # head mid-way), against the plain version on the unchanged inputs
         bad = dt.clone()
         bad[0, shape[1] // 2 + 5, shape[2] // 2] *= 2
-        control = scaled_excess(ssd_scan(x, bad, A, B, C, chunk=chunk), want,
-                                SSD_BF16_TOL)
+        control = scaled_excess(ssd_scan(x, bad, A, B, C, chunk=chunk), want, scan_tol)
         if not (intra <= 1 and scan <= 1 < control):
             fail(f"ssd_scan at {name}: kernel {intra} x, scan {scan} x the "
                  f"limit; one dt doubled reads {control} x (must exceed 1)")
-        return {"max_abs_err": err, "err_over_tol": intra,
+        return {"kernel": moved[0], "source": f"{SSD_CSRC}/{moved[0]}.cu",
+                "max_abs_err": err, "err_over_tol": intra,
                 "scan_err_over_tol": scan, "one_dt_doubled_over_tol": control,
                 "scan_max_abs_err": (got.float() - want.float()).abs().max().item()}
 
-    # -- at the prefill shape
+    # -- at the prefill shape, bf16 (the tensor-core route) and fp32
     b, s, h, p = PREFILL_B, PREFILL_S, cfg.ssm_nheads, cfg.ssm_head_dim
     g, n, L = cfg.ssm_ngroups, cfg.ssm_state_dim, cfg.ssm_chunk
     shape = (b, s, h, p, g, n)
-    res = check("the prefill shape", shape, L)
     nc = s // L
-    # the causal half of each L x L product: L (L + 1) / 2 pairs
+    # the least work: C B^T once per group, the causal half of each L x L
+    # product (L (L + 1) / 2 pairs)
     flops = b * nc * (g * n * L * (L + 1) + h * (p * L * (L + 1) + 2 * p * L * n))
-    nbytes = (b * s * h * p * 2 + b * s * h * 4 + h * 4 + 2 * b * s * g * n * 2
-              + b * s * h * p * 4 + b * nc * h * p * n * 4)
-    b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
-    ins = copies(lambda: inputs(*shape), b * s * (h * p * 2 + h * 4 + 2 * g * n * 2))
-    out["ssd_scan"] = {
-        "shape": f"x {b}x{s}x{h}x{p} bf16, dt {b}x{s}x{h} fp32, B, C "
-                 f"{b}x{s}x{g}x{n} bf16, chunk {L}",
-        "tol": f"intra-chunk fp32: {SSD_TOL[0]} max + {SSD_TOL[1]} rel; scan "
-               f"bf16: {SSD_BF16_TOL[0]} max + {SSD_BF16_TOL[1]} rel", **res,
-        "timing_copies": len(ins),
-        "kernel_ms": time_ms(torch, lambda *a: ssd_intra_chunk(*a, L), ins),
-        "plain_ms": time_ms(torch, lambda *a: ssd_intra_chunk_ref(*a, L), ins,
-                            launches=8),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "bound_counts": "operations: C B^T once per group, the causal half "
-                        "of each L x L product (the least work); bytes: x, B, "
-                        "C bf16, dt fp32 read, y and the states fp32 written",
-        "scan_ms": time_ms(torch, lambda *a: ssd_scan(*a, chunk=L), ins),
-        "scan_plain_ms": time_ms(torch, lambda *a: ssd_scan_ref(*a, chunk=L), ins,
-                                 launches=8)}
-    del ins
+    for name, dtype, peak in (("ssd_scan", torch.bfloat16, PEAK_BF16_FLOPS),
+                              ("ssd_f32", torch.float32, PEAK_FP32_FLOPS)):
+        res = check(f"the prefill shape ({dtype})", shape, L, dtype)
+        e = 2 if dtype == torch.bfloat16 else 4          # x, B, C element
+        nbytes = (b * s * h * p * e + b * s * h * 4 + h * 4 + 2 * b * s * g * n * e
+                  + b * s * h * p * 4 + b * nc * h * p * n * 4)
+        b_ms, b_by = bound(nbytes, flops, peak)
+        ins = copies(lambda: inputs(*shape, dtype), b * s * (h * p * e + h * 4 + 2 * g * n * e))
+        tname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        out[name] = {
+            "shape": f"x {b}x{s}x{h}x{p} {tname}, dt {b}x{s}x{h} fp32, B, C "
+                     f"{b}x{s}x{g}x{n} {tname}, chunk {L}",
+            "tol": f"intra-chunk fp32: {SSD_TOL[0]} max + {SSD_TOL[1]} rel; scan "
+                   f"{tname}: " + ("{} max + {} rel".format(
+                       *(SSD_BF16_TOL if dtype == torch.bfloat16 else SSD_TOL))),
+            **res, "timing_copies": len(ins),
+            "kernel_ms": time_ms(torch, lambda *a: ssd_intra_chunk(*a, L), ins),
+            "plain_ms": time_ms(torch, lambda *a: ssd_intra_chunk_ref(*a, L), ins,
+                                launches=8),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_counts": f"bytes: x, B, C {tname}, dt fp32 read, y and the states "
+                            "fp32 written; operations: C B^T once per group, the "
+                            "causal half of each L x L product (the least work), at "
+                            f"the {'bf16 tensor-core' if peak == PEAK_BF16_FLOPS else 'fp32 CUDA-core'} peak",
+            "scan_ms": time_ms(torch, lambda *a: ssd_scan(*a, chunk=L), ins),
+            "scan_plain_ms": time_ms(torch, lambda *a: ssd_scan_ref(*a, chunk=L), ins,
+                                     launches=8)}
+        if dtype == torch.bfloat16:
+            # the same least work on the CUDA cores, as the fp32 route bounds it
+            out[name]["fp32_core_bound_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+        del ins
+        torch.cuda.empty_cache()
     # -- groups over heads, fewer steps than the chunk
     shape = (3, 96, 16, p, 4, n)
     out["ssd_scan_groups"] = {
@@ -924,11 +1065,13 @@ def phase_prefill(torch, card: str, model, name: str) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    # each scan kernel once per layer of its kind, flash once per attention
-    # layer through the bf16 forward kernel, one probe over the logits
+    # each scan kernel once per layer of its kind (the SSD scan through its
+    # bf16 tensor-core kernel), flash once per attention layer through the
+    # bf16 forward kernel, one probe over the logits
     expected = dict.fromkeys(launches, 0)
     expected.update({"rglru_scan": cfg.pattern_layers.count("rglru"),
                      "ssd_scan": cfg.pattern_layers.count("ssd"),
+                     "ssd_chunk_tc": cfg.pattern_layers.count("ssd"),
                      "flash_attention": len(model.attn_layers),
                      "flash_forward": len(model.attn_layers), "probe_rows": 1})
     if launches != expected:
@@ -1045,6 +1188,8 @@ def main() -> None:
             by_path("flash_attention"), kern["flash_decode"],
             {"flash_decode": kern["flash_decode"],
              "flash_forward": kern["flash_forward"],
+             "flash_f32_decode": kern["flash_f32_decode"],
+             "flash_f32_forward": kern["flash_f32_forward"],
              "flash_ring_decode": kern_rg["flash_ring_decode"],
              "flash_sliding_forward": kern_rg["flash_sliding_forward"]},
             launches_by_kernel={k: by_path(k) for k in (
@@ -1060,12 +1205,15 @@ def main() -> None:
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:36",
             by_path("rglru_scan"), kern_rg["rglru_scan"],
-            {"rglru_scan": kern_rg["rglru_scan"]}),
+            {n: kern_rg[n] for n in ("rglru_scan", "rglru_scan_long_memory")}),
         kernel_entry(
-            "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "ssd_scan", kern_ssm["ssd_scan"]["source"],
             "src/repro/kernels/ssd_scan/kernel.py:47",
             by_path("ssd_scan"), kern_ssm["ssd_scan"],
-            {"ssd_scan": kern_ssm["ssd_scan"]}),
+            {"ssd_scan": kern_ssm["ssd_scan"],
+             "ssd_scan_groups": kern_ssm["ssd_scan_groups"],
+             "ssd_f32": kern_ssm["ssd_f32"]},
+            launches_by_kernel={k: by_path(k) for k in ("ssd_chunk_tc", "ssd_f32")}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

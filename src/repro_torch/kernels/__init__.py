@@ -19,7 +19,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """``{wrapper or kernel name: launches}`` since the last reset: each
     wrapper's calls, and for a wrapper with several kernels
-    (``flash_attention``) each kernel's launches too."""
+    (``flash_attention``, ``ssd_scan``) each kernel's launches too."""
     counts = {}
     for fn in WRAPPERS:
         counts[fn.__name__] = fn.launches

@@ -5,9 +5,9 @@ Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` — one
 into one shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes). The library
 lands in ``build/repro_torch_kernels/`` at the root of the checkout, named by
-a hash of the sources and flags, so an edited source is never served a stale
-build; what ``nvcc -Xptxas -v`` printed for each source is kept beside its
-object (:func:`compile_log`). Nothing is built when this module is
+a hash of the sources, the headers and the flags, so an edited source or
+header is never served a stale build; what ``nvcc -Xptxas -v`` printed for
+each source is kept beside its object (:func:`compile_log`). Nothing is built when this module is
 imported: the first kernel launch (or an explicit :func:`build`) does it.
 """
 from __future__ import annotations
@@ -43,11 +43,13 @@ SIGNATURES = {
     # x, rows, cols, dtype, threshold, nonfinite_code, overflow_code, out,
     # stream
     "repro_probe_rows": (_P, _I, _L, _I, _F, _I, _I, _P, _P),
-    # x_in, log_a, h_out, B, S, W, stream
-    "repro_rglru_scan": (_P, _P, _P, _L, _L, _L, _P),
-    # x, dt, A, B, C, y, states, b, S, H, P, G, N, L, dtype, stream
-    "repro_ssd_intra_chunk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _P),
+    # x_in, log_a, h_out, agg (scratch), B, S, W, T (chunk), stream
+    "repro_rglru_scan": (_P, _P, _P, _P, _L, _L, _L, _L, _P),
+    # x, dt, A, B, C, y, states, b, S, H, P, G, N, L, stream
+    "repro_ssd_chunk_tc": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                           _I, _P),
+    "repro_ssd_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
+                      _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,6 +57,12 @@ _lib: Optional[ctypes.CDLL] = None
 
 def sources() -> list[Path]:
     return sorted(_KERNELS.glob("*/csrc/*.cu"))
+
+
+def headers() -> list[Path]:
+    """Every header the sources may include (``common/`` and any
+    ``csrc/``): hashed with the sources, so an edited header rebuilds."""
+    return sorted(_KERNELS.rglob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -71,7 +79,7 @@ def build() -> Path:
     nvcc = _nvcc()
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + sorted(_KERNELS.glob("*/csrc/*.cuh")):   # headers too
+    for s in srcs + headers():
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     so = BUILD_DIR / f"libreprokernels-{digest.hexdigest()[:16]}.so"

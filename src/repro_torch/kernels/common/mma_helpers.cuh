@@ -1,6 +1,8 @@
-// PTX helpers shared by the bf16 tensor-core flash kernels (flash_decode.cu,
-// flash_forward.cu): cp.async staging, ldmatrix, the m16n8k16 mma and the
-// bf16 high/low split of P that both kernels' bf16 tolerance rests on.
+// PTX helpers shared by the port's bf16 tensor-core kernels
+// (flash_attention/csrc/flash_decode.cu and flash_forward.cu,
+// ssd_scan/csrc/ssd_chunk_tc.cu): cp.async staging, ldmatrix, the m16n8k16
+// mma and the bf16 high/low split of an fp32 operand (flash's P, the SSD
+// kernel's decay matrix and scaled x) that their bf16 tolerances rest on.
 #pragma once
 #include <cuda_bf16.h>
 

@@ -57,7 +57,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_helpers.cuh"
+#include "../../common/mma_helpers.cuh"
 
 namespace cg = cooperative_groups;
 

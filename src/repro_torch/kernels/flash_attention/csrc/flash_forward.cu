@@ -50,7 +50,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_helpers.cuh"
+#include "../../common/mma_helpers.cuh"
 
 namespace {
 

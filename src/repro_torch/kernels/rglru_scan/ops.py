@@ -1,4 +1,5 @@
-"""Wrapper of the RG-LRU scan kernel (``csrc/rglru_scan.cu``).
+"""Wrapper of the RG-LRU scan kernel (``csrc/rglru_scan.cu``), chunked over
+time in chunks of ``CHUNK`` steps.
 
 A tensor on the CPU goes to the plain version (``ref.py``); a CUDA tensor
 goes to the kernel or raises — there is no fallback.
@@ -9,6 +10,8 @@ import torch
 
 from ..build import check_device, check_launch, library, stream_of
 from .ref import rglru_scan_ref
+
+CHUNK = 128                     # steps per chunk, whatever the length
 
 
 def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
@@ -31,8 +34,12 @@ def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     if B > 65535:
         raise ValueError(f"rglru_scan: batch {B} exceeds the grid's 65535")
     out = torch.empty_like(x_in)
+    nc = -(-S // CHUNK)
+    # each earlier chunk's decay product and end state
+    agg = torch.empty(2 * B * (nc - 1) * W, dtype=torch.float32, device=x_in.device)
     rc = library().repro_rglru_scan(x_in.data_ptr(), log_a.data_ptr(),
-                                    out.data_ptr(), B, S, W, stream_of(x_in))
+                                    out.data_ptr(), agg.data_ptr(), B, S, W, CHUNK,
+                                    stream_of(x_in))
     check_launch("rglru_scan", rc)
     rglru_scan.launches += 1
     return out

@@ -1,11 +1,14 @@
-// Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a), plain C interface.
+// Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a) in fp32 on the CUDA
+// cores, plain C interface: the route for fp32 x, B, C (bf16 inputs take
+// the tensor-core kernel, ssd_chunk_tc.cu; TF32 would not hold fp32 results
+// to the stated tolerance).
 //
-// Replaces the TPU kernel repro/kernels/ssd_scan/kernel.py:47
+// Replaces, for fp32 inputs, the TPU kernel repro/kernels/ssd_scan/kernel.py:47
 // ssd_intra_chunk (pallas_call at :53, body _ssd_chunk_kernel at :27)
 // together with the prologue of its wrapper repro/kernels/ssd_scan/ops.py
 // ssd_scan (:25-30). For one (batch, chunk, head), with the chunk's L steps
-// j = 0..L-1, x (L, P) in the model dtype, dt (L,) fp32, A fp32 and the
-// head's group's B, C (L, N) in the model dtype:
+// j = 0..L-1, x (L, P), dt (L,), A and the head's group's B, C (L, N), all
+// fp32:
 //   xd_j = x_j dt_j,  cum_i = sum_{j<=i} dt_j A,
 //   y_diag_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xd_j      (L, P)
 //   state    = sum_j exp(cum_{L-1} - cum_j) xd_j (x) B_j          (P, N)
@@ -13,11 +16,9 @@
 // term stay in torch (ops.py), as they stay in jnp beside the TPU kernel.
 //
 // The TPU wrapper materialises xd and repeats B and C to every head before
-// the kernel (at mamba2-2.7b's prefill shape 168 MB for xd and 335 MB for
-// each of B and C, per layer). Here the block reads x in the model dtype,
-// dt and A in fp32 and B, C once per GROUP (head h reads group
-// h / (H / G)), and forms xd and the decays in shared memory; widening bf16
-// to fp32 is exact, so the result is the same.
+// the kernel. Here the block reads x, dt and A, and B, C once per GROUP
+// (head h reads group h / (H / G)), and forms xd and the decays in shared
+// memory.
 //
 // One block of 256 threads per (head, chunk, batch) -- heads fastest, so the
 // 80 heads of one chunk run side by side and share B and C in L2. The block
@@ -44,11 +45,8 @@
 // 2 P L N)) operations: 16.3 GFLOP per launch at the prefill shape (b 2,
 // nc 32, L 128, H 80, P 64, G 1, N 128), 0.243 ms at 67 TFLOP/s. This kernel
 // computes C B^T per head and the full squares, as the TPU kernel does
-// (42.9 GFLOP, 0.64 ms): sharing C B^T across the heads of a group, and
-// skipping the upper half, are later work.
-// By bytes: x in bf16 read once, y and the states written in fp32, about
-// 0.42 GB per launch, 0.13 ms at 3.35 TB/s.
-#include <cuda_bf16.h>
+// (42.9 GFLOP, 0.64 ms); the bf16 route does neither. fp32 runs on no main
+// path (the fp32 forward check only).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -64,9 +62,6 @@ static_assert(kL == kN, "M reuses C's buffer");
 constexpr int kSmemFloats = 2 * kL * kLd + kL * kP + 3 * kL;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -74,13 +69,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                       const float* __restrict__ A, const T* __restrict__ Bm,
-                       const T* __restrict__ Cm, float* __restrict__ y,
-                       float* __restrict__ states, int S, int H, int P, int G, int N,
-                       int L) {
+ssd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ Bm,
+               const float* __restrict__ Cm, float* __restrict__ y,
+               float* __restrict__ states, long long S, int H, int P, int G, int N,
+               int L) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Bs = smem;                    // [kL][kLd]
@@ -91,10 +85,11 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* wts = cum + kL;               // [kL]: exp(cum_{L-1} - cum_j)
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x;
+  const long long c = blockIdx.y, b = blockIdx.z;
   const int g = h / (H / G);
-  const int nc = S / L;
-  const long long t0 = static_cast<long long>(b) * S + static_cast<long long>(c) * L;
+  const long long nc = S / L;
+  const long long t0 = b * S + c * L;
 
   // ---- stage the chunk: dt first (x is scaled by it), zeros past L, P, N
   if (tid < kL) dts[tid] = tid < L ? dt[(t0 + tid) * H + h] : 0.f;
@@ -103,8 +98,8 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     float bv = 0.f, cv = 0.f;
     if (j < L && k < N) {
       const long long off = ((t0 + j) * G + g) * N + k;
-      bv = to_f32(Bm[off]);
-      cv = to_f32(Cm[off]);
+      bv = Bm[off];
+      cv = Cm[off];
     }
     Bs[j * kLd + k] = bv;
     Cs[j * kLd + k] = cv;
@@ -112,7 +107,7 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
   for (int e = tid; e < kL * kP; e += kThreads) {
     const int j = e / kP, q = e % kP;
-    Xs[e] = (j < L && q < P) ? to_f32(x[((t0 + j) * H + h) * P + q]) * dts[j] : 0.f;
+    Xs[e] = (j < L && q < P) ? x[((t0 + j) * H + h) * P + q] * dts[j] : 0.f;
   }
   if (tid == 0) {
     // sequential, as the reference's cumsum: a fixed order
@@ -216,7 +211,7 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int u = 0; u < 8; ++u) sa[r][u] = fmaf(bv[u], xw[r], sa[r][u]);
     }
-    float* st = states + ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
+    float* st = states + ((b * nc + c) * H + h) * static_cast<long long>(P) * N;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int p = ty * 4 + r;
@@ -230,44 +225,32 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           void* y, void* states, int b, int S, int H, int P, int G, int N, int L,
-           cudaStream_t stream) {
+}  // namespace
+
+// x (b, S, H, P), B, C (b, S, G, N), dt (b, S, H) and A (H,) fp32; outputs
+// y (b, S, H, P) and states (b, S / L, H, P, N) fp32. All contiguous on one
+// device; the Python wrapper has checked shapes, types and devices, L <= 128,
+// P <= 64, N <= 128, S % L == 0 and H % G == 0.
+extern "C" int repro_ssd_f32(const void* x, const void* dt, const void* A, const void* Bm,
+                             const void* Cm, void* y, void* states, long long b, long long S,
+                             int H, int P, int G, int N, int L, void* stream) {
+  if (b < 1 || b > 65535 || L < 1 || L > kL || S % L || S / L > 65535 || P < 1 ||
+      P > kP || N < 1 || N > kN || G < 1 || H % G)
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_intra_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(S / L),
                   static_cast<unsigned>(b));
-  ssd_intra_chunk_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      static_cast<float*>(y), static_cast<float*>(states), S, H, P, G, N, L);
+  ssd_f32_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<float*>(y), static_cast<float*>(states), S,
+      H, P, G, N, L);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// x (b, S, H, P) and B, C (b, S, G, N) in one dtype (0 fp32, 1 bf16); dt
-// (b, S, H) and A (H,) fp32; outputs y (b, S, H, P) and states (b, S / L, H,
-// P, N) fp32. All contiguous on one device; the Python wrapper has checked
-// shapes, types and devices, L <= 128, P <= 64, N <= 128, S % L == 0 and
-// H % G == 0.
-extern "C" int repro_ssd_intra_chunk(const void* x, const void* dt, const void* A,
-                                     const void* Bm, const void* Cm, void* y, void* states,
-                                     int b, int S, int H, int P, int G, int N, int L,
-                                     int dtype, void* stream) {
-  if (b < 1 || b > 65535 || L < 1 || L > kL || S % L || S / L > 65535 || P < 1 ||
-      P > kP || N < 1 || N > kN || G < 1 || H % G)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, dt, A, Bm, Cm, y, states, b, S, H, P, G, N, L, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, states, b, S, H, P, G, N, L, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

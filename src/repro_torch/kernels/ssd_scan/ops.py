@@ -1,8 +1,15 @@
-"""Wrapper of the SSD intra-chunk kernel (``csrc/ssd_scan.cu``) and the
-chunked scan around it.
+"""Wrapper of the SSD intra-chunk kernels (``csrc/*.cu``) and the chunked
+scan around them.
 
 A tensor on the CPU goes to the plain version (``ref.py``); a CUDA tensor
-goes to the kernel or raises — there is no fallback.
+goes to a kernel or raises — there is no fallback. :func:`plan` picks the
+kernel from the dtype alone:
+
+- ``ssd_chunk_tc`` (``csrc/ssd_chunk_tc.cu``): x, B, C in bf16, on the
+  tensor cores (C·Bᵀ once per group, causal tiles only, the fp32 operands
+  split into bf16 hi + lo);
+- ``ssd_f32`` (``csrc/ssd_f32.cu``): fp32, on the CUDA cores (TF32 would not
+  hold fp32 results to 1e-4).
 """
 from __future__ import annotations
 
@@ -12,8 +19,15 @@ from ..build import (DTYPE_CODES, check_device, check_launch, library,
                      stream_of)
 from .ref import check_scan_shapes, ssd_inter_chunk, ssd_intra_chunk_ref
 
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128   # the kernel's tiles
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128   # the kernels' tiles
 MAX_GRID = 65535                # batch and chunk count ride grid y and z
+KERNELS = ("ssd_chunk_tc", "ssd_f32")
+
+
+def plan(dtype: torch.dtype) -> str:
+    """The kernel that x, B, C of this dtype take: a choice by dtype, not a
+    fallback."""
+    return "ssd_chunk_tc" if dtype == torch.bfloat16 else "ssd_f32"
 
 
 def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
@@ -21,8 +35,8 @@ def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
     ``(y_diag (b, s, h, p), states (b, s/L, h, p, n))``, both fp32: what the
     JAX package's ``ops.py`` prologue and its Pallas ``ssd_intra_chunk``
     compute together. x, B, C share one dtype (the model's); dt and A are
-    fp32. The kernel's launches count on :func:`ssd_scan`, the wrapper the
-    model calls."""
+    fp32. The kernels' launches count on :func:`ssd_scan`, the wrapper the
+    model calls (``launches``, and each kernel's in ``kernel_launches``)."""
     kind = check_device("ssd_scan", x, dt, A, B, C)
     L = check_scan_shapes(x, dt, A, B, C, chunk)
     if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
@@ -41,18 +55,22 @@ def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
         raise ValueError(f"ssd_scan: chunk {L}, head_dim {p} or state {n} "
                          f"exceeds the kernel's {MAX_CHUNK}, {MAX_HEAD_DIM}, "
                          f"{MAX_STATE}")
+    kernel = plan(x.dtype)
+    if kernel == "ssd_chunk_tc" and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan: x, B, C must be 16-byte aligned (the "
+                         "kernel stages rows as 16-byte vectors)")
     if b > MAX_GRID or s // L > MAX_GRID:
         raise ValueError(f"ssd_scan: batch {b} or {s // L} chunks exceed the "
                          f"grid's {MAX_GRID}")
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     states = torch.empty((b, s // L, h, p, n), dtype=torch.float32,
                          device=x.device)
-    rc = library().repro_ssd_intra_chunk(
+    rc = getattr(library(), f"repro_{kernel}")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), states.data_ptr(), b, s, h, p, g, n, L,
-        DTYPE_CODES[x.dtype], stream_of(x))
-    check_launch("ssd_scan", rc)
+        y.data_ptr(), states.data_ptr(), b, s, h, p, g, n, L, stream_of(x))
+    check_launch(kernel, rc)
     ssd_scan.launches += 1
+    ssd_scan.kernel_launches[kernel] += 1
     return y, states
 
 
@@ -67,4 +85,5 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128) -> torch.Tensor:
     return ssd_inter_chunk(y_diag, states, dt, A, C, L).to(x.dtype)
 
 
-ssd_scan.launches = 0
+ssd_scan.launches = 0                 # wrapper calls that launched a kernel
+ssd_scan.kernel_launches = dict.fromkeys(KERNELS, 0)

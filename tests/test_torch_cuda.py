@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention.ops import plan
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
 from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
                                           ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ops import plan as ssd_plan
 
 NF, OV = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
 
@@ -186,24 +187,62 @@ def test_probe_kernel_matches_plain(cuda, dtype):
 
 
 # (B, S, W): smoke width, a ragged width (not a multiple of the block), the
-# full recurrentgemma-2b prefill shape
-SCAN_CASES = [(1, 16, 64), (2, 37, 200), (3, 9, 1), (2, 4096, 2560)]
+# full recurrentgemma-2b prefill shape; S not a multiple of the kernel's
+# 128-step chunk, below one chunk, one step, and a long context (256 chunks)
+SCAN_CASES = [(1, 16, 64), (2, 37, 200), (3, 9, 1), (2, 4096, 2560),
+              (2, 4100, 256), (1, 100, 64), (2, 1, 300), (1, 32768, 256)]
 
 
+def _scan_log_a(rng, shape, memory, device):
+    """``short``: -softplus(normal), a chunk's decay product 0 in fp32;
+    ``long``: -8 softplus(lam) sigmoid(normal) with the Griffin paper's
+    a^8 in [0.9, 0.999] over the channels, a chunk's decay product up to
+    about 0.94, so later chunks depend on the carry."""
+    z = _randn(rng, shape, torch.float32, device)
+    if memory == "short":
+        return -torch.nn.functional.softplus(z)
+    lam = torch.log(torch.expm1(torch.linspace(
+        -np.log(0.999) / 8, -np.log(0.9) / 8, shape[-1], device=device)))
+    return -8.0 * torch.nn.functional.softplus(lam) * torch.sigmoid(z)
+
+
+@pytest.mark.parametrize("memory", ["short", "long"])
 @pytest.mark.parametrize("shape", SCAN_CASES)
-def test_rglru_scan_kernel_matches_plain(cuda, shape):
+def test_rglru_scan_kernel_matches_plain(cuda, shape, memory):
     """fp32 both sides; exp/sqrt ulps and the kernel's FMA contraction
     compound through the recurrence over ~1/(1-a) steps: tolerance 1e-4
     absolute plus 1e-4 relative."""
     rng = np.random.default_rng(2)
     x_in = _randn(rng, shape, torch.float32, cuda)
-    log_a = -torch.nn.functional.softplus(_randn(rng, shape, torch.float32, cuda))
+    log_a = _scan_log_a(rng, shape, memory, cuda)
     before = rglru_scan.launches
     got = rglru_scan(x_in, log_a)
     torch.cuda.synchronize()
     assert rglru_scan.launches == before + 1
     want = rglru_scan_ref(x_in, log_a)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("memory", ["short", "long"])
+def test_rglru_scan_kernel_repeats_bit_for_bit(cuda, memory):
+    """Two launches give the same bits, a batch row's output does not
+    depend on the other rows' data (the chunk carries combine in a fixed
+    order, with no atomics), and a sequence's states are the same bits as
+    the first S of a longer sequence's (the chunk does not depend on S)."""
+    rng = np.random.default_rng(8)
+    shape = (3, 4100, 640)
+    x_in = _randn(rng, shape, torch.float32, cuda)
+    log_a = _scan_log_a(rng, shape, memory, cuda)
+    a, b = rglru_scan(x_in, log_a), rglru_scan(x_in, log_a)
+    assert torch.equal(a, b)
+    x2, la2 = x_in.clone(), log_a.clone()
+    x2[1:] = _randn(rng, (2, *shape[1:]), torch.float32, cuda)
+    la2[1:] = _scan_log_a(rng, (2, *shape[1:]), memory, cuda)
+    c = rglru_scan(x2, la2)
+    assert torch.equal(a[0], c[0])
+    assert torch.equal(a[:1], rglru_scan(x_in[:1].contiguous(), log_a[:1].contiguous()))
+    assert torch.equal(a[:, :4000], rglru_scan(x_in[:, :4000].contiguous(),
+                                               log_a[:, :4000].contiguous()))
 
 
 def test_probe_kernel_many_rows(cuda):
@@ -235,9 +274,11 @@ def test_probe_kernel_row_past_2_31_elements(cuda):
 
 # (b, s, h, p, g, n, chunk): the full mamba2-2.7b prefill shape, groups over
 # heads (G > 1), a sequence shorter than the chunk, ragged tiles (p, n, L
-# below the kernel's 64, 128, 128 and not multiples of 4)
+# below the kernel's 64, 128, 128 and not multiples of 4), 12 heads a group
+# (a full tile of 8 and one of 4 on the tensor-core route)
 SSD_CASES = [(2, 4096, 80, 64, 1, 128, 128), (2, 256, 8, 64, 4, 128, 128),
-             (3, 40, 6, 64, 2, 128, 128), (1, 30, 3, 13, 1, 7, 10)]
+             (3, 40, 6, 64, 2, 128, 128), (1, 30, 3, 13, 1, 7, 10),
+             (1, 256, 24, 64, 2, 128, 128)]
 
 
 def _ssd_inputs(rng, case, dtype, device):
@@ -256,20 +297,28 @@ def _ssd_inputs(rng, case, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(cuda, case, dtype):
     """The intra-chunk kernel (y_diag and the chunk states, fp32 out) and the
-    whole scan against their plain versions on the same inputs. Both sides
-    work in fp32 and differ in summation order only (sums of <= 128 terms):
-    1e-4 of each element plus 1e-4 of the largest. The scan's bf16 output
-    rounds one fp32 result twice, about 1 ulp apart: 2 bf16 ulps of each
-    element (2^-6), plus 1e-4 of the largest."""
+    whole scan against their plain versions on the same inputs, through the
+    route ``plan`` picks: bf16 to the tensor-core kernel (``ssd_chunk_tc``;
+    the first case is mamba2-2.7b's prefill, 80 heads over 1 group, S
+    4096), fp32 to ``ssd_f32``. fp32 differs from the plain version in
+    summation order only (sums of <= 128 terms); the tensor-core route also
+    carries its fp32 operands as bf16 hi + lo (16 bits): 1e-4 of each
+    element plus 1e-4 of the largest. The scan's bf16 output rounds one fp32
+    result twice, about 1 ulp apart: 2 bf16 ulps of each element (2^-6),
+    plus 1e-4 of the largest."""
     rng = np.random.default_rng(3)
     chunk = case[-1]
     x, dt, A, B, C = _ssd_inputs(rng, case, dtype, cuda)
     L = min(chunk, case[1])
-    before = ssd_scan.launches
+    kernel = ssd_plan(dtype)
+    assert kernel == ("ssd_chunk_tc" if dtype == torch.bfloat16 else "ssd_f32")
+    before = ssd_scan.launches, dict(ssd_scan.kernel_launches)
     y, states = ssd_intra_chunk(x, dt, A, B, C, chunk)
     got = ssd_scan(x, dt, A, B, C, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 2
+    assert ssd_scan.launches == before[0] + 2
+    assert {k: n - before[1][k] for k, n in ssd_scan.kernel_launches.items()} == {
+        k: 2 if k == kernel else 0 for k in before[1]}
     want_y, want_states = ssd_intra_chunk_ref(x, dt, A, B, C, L)
     for g_, w_ in ((y, want_y), (states, want_states)):
         torch.testing.assert_close(g_, w_, rtol=1e-4,
@@ -295,6 +344,27 @@ def test_ssd_kernel_is_deterministic_per_block(cuda):
     x2[1] = _randn(rng, x2[1].shape, torch.bfloat16, cuda)
     y3, s3 = ssd_intra_chunk(x2, dt, A, B, C, 128)
     assert torch.equal(y1[0], y3[0]) and torch.equal(s1[0], s3[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_head_ignores_the_other_heads_of_its_tile(cuda, dtype):
+    """The tensor-core kernel computes C B^T once for a tile of 8 heads of
+    one group: a head's outputs stay bit-equal when only the other heads of
+    its tile, or of the other group, change (their x, dt and A)."""
+    rng = np.random.default_rng(9)
+    case = (2, 256, 16, 64, 2, 128, 128)          # 8 heads a group: one tile
+    x, dt, A, B, C = _ssd_inputs(rng, case, dtype, cuda)
+    y1, s1 = ssd_intra_chunk(x, dt, A, B, C, 128)
+    x2, dt2, A2 = x.clone(), dt.clone(), A.clone()
+    others = [1, 2, 5, 7, 9, 12]                  # of heads 0-7 and 8-15
+    x2[:, :, others] = _randn(rng, x2[:, :, others].shape, dtype, cuda)
+    dt2[:, :, others] = 2 * dt2[:, :, others]
+    A2[others] = A2[others] / 3
+    y2, s2 = ssd_intra_chunk(x2, dt2, A2, B, C, 128)
+    for h in (0, 3, 8, 15):
+        assert torch.equal(y1[:, :, h], y2[:, :, h])
+        assert torch.equal(s1[:, :, h], s2[:, :, h])
+    assert not torch.equal(y1[:, :, 1], y2[:, :, 1])
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda):

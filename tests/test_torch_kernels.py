@@ -213,30 +213,43 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
 
 def test_kernel_sources_cover_both_kernels():
-    """Every kernel's source is built, flash's three among them (the name
-    predates the later kernels), and every C entry point has a signature."""
+    """Every kernel's source is built, flash's three and the SSD scan's two
+    among them (the name predates the later kernels); every C entry point
+    has a signature; every header a source includes is hashed into the
+    library's name."""
     names = sorted(p.name for p in build.sources())
     assert names == ["fault_probe.cu", "flash_decode.cu", "flash_f32.cu",
-                     "flash_forward.cu", "rglru_scan.cu", "ssd_scan.cu"]
+                     "flash_forward.cu", "rglru_scan.cu", "ssd_chunk_tc.cu",
+                     "ssd_f32.cu"]
     for fn in (flash_attention, probe_rows, rglru_scan, ssd_scan):
         assert isinstance(fn.launches, int)
     assert set(launch_counts()) == {"flash_attention", "flash_decode",
                                     "flash_forward", "flash_f32",
-                                    "probe_rows", "rglru_scan", "ssd_scan"}
+                                    "probe_rows", "rglru_scan", "ssd_scan",
+                                    "ssd_chunk_tc", "ssd_f32"}
     exported = set()
     for src in build.sources():
         exported |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
     assert exported == set(build.SIGNATURES)
+    hashed = {h.resolve() for h in build.headers()}
+    for src in build.sources():
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (src.parent / inc).resolve() in hashed, (src.name, inc)
+    assert any(h.name == "mma_helpers.cuh" and h.parent.name == "common"
+               for h in hashed)
 
 
 def test_launch_signatures_are_64_bit_where_they_index():
-    """The probe's column count, the scan's sizes and flash's batch and
+    """The probe's column count, the scans' sizes and flash's batch and
     sequence lengths cross the C boundary as 64-bit integers (a (B*S, V)
-    prefill view may hold > 2^31 values, as may B * S * Hq * D)."""
+    prefill view may hold > 2^31 values, as may B * S * Hq * D and
+    b * S * H * P)."""
     import ctypes
     L = ctypes.c_longlong
     assert build.SIGNATURES["repro_probe_rows"][2] is L
-    assert build.SIGNATURES["repro_rglru_scan"][3:6] == (L,) * 3
+    assert build.SIGNATURES["repro_rglru_scan"][4:8] == (L,) * 4  # B, S, W, T
+    for name in ("repro_ssd_chunk_tc", "repro_ssd_f32"):
+        assert build.SIGNATURES[name][7:9] == (L, L)                  # b, S
     # decode: B, T, ..., seq_kv, splits, keys_per_split
     dec = build.SIGNATURES["repro_flash_decode"]
     assert dec[5:7] == (L, L) and dec[12] is L and dec[14] is L
@@ -290,6 +303,16 @@ def test_plan_picks_the_kernel_by_shape_and_dtype(shape, kernel):
     """bf16 on the tensor cores, decode (S == 1) or forward; fp32 on the
     CUDA cores: a choice by dtype, not a fallback."""
     assert plan(*shape).kernel == kernel
+
+
+@pytest.mark.parametrize("dtype, kernel", [(torch.bfloat16, "ssd_chunk_tc"),
+                                           (torch.float32, "ssd_f32")])
+def test_ssd_plan_picks_the_kernel_by_dtype(dtype, kernel):
+    """The SSD wrapper's route: bf16 x, B, C on the tensor cores, fp32 on
+    the CUDA cores, from the dtype alone; each route has its counter."""
+    from repro_torch.kernels.ssd_scan.ops import KERNELS, plan as ssd_plan
+    assert ssd_plan(dtype) == kernel and kernel in KERNELS
+    assert set(ssd_scan.kernel_launches) == set(KERNELS)
 
 
 # (seq_kv, Hkv) -> (splits, keys per split): the serve decode shapes

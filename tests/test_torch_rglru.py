@@ -80,6 +80,103 @@ def test_scan_plain_matches_jax_kernel(B, S, W, blk):
                                   got.numpy())
 
 
+def _gated(x_in, log_a):
+    a = torch.exp(log_a)
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * x_in
+
+
+def _chunked_scan(x_in, log_a, T, drop_prod=False):
+    """The kernel's order of work, in torch: each chunk of T steps but the
+    last scanned from a zero state (its decay product and end state), the
+    carries folded in chunk order, and each chunk scanned again from the
+    carry-out of the chunk before it. ``drop_prod`` folds a decay product
+    of 0 (a faulty combine that keeps only the last chunk's end state)."""
+    a, x = _gated(x_in, log_a)
+    S = x.shape[1]
+    starts = list(range(0, S, T))
+    carry = [torch.zeros_like(x[:, 0])]
+    for t0 in starts[:-1]:
+        prod, h = torch.ones_like(x[:, 0]), torch.zeros_like(x[:, 0])
+        for t in range(t0, t0 + T):
+            h = a[:, t] * h + x[:, t]
+            prod = prod * a[:, t]
+        if drop_prod:
+            prod = torch.zeros_like(prod)
+        carry.append(prod * carry[-1] + h)
+    out = torch.empty_like(x)
+    for k, t0 in enumerate(starts):
+        h = carry[k]
+        for t in range(t0, min(S, t0 + T)):
+            h = a[:, t] * h + x[:, t]
+            out[:, t] = h
+    return out
+
+
+def _log_a(rng, B, S, W, memory):
+    """log_a as recurrentgemma makes it, -8 softplus(lam) sigmoid(.), over
+    W channels from the longest memory to the shortest: ``init`` spans the
+    model's initial lam (softplus 0.9 to 4: a over a 128-step chunk decays
+    to 0 in fp32), ``long`` the Griffin paper's a^8 in [0.9, 0.999] (a
+    chunk's decay product up to about 0.94, so the carry matters)."""
+    lo, hi = {"init": (0.9, 4.0), "long": (-np.log(0.999) / 8, -np.log(0.9) / 8)}[memory]
+    lam = torch.log(torch.expm1(torch.linspace(lo, hi, W)))
+    return -8.0 * torch.nn.functional.softplus(lam) * torch.sigmoid(
+        _t(rng.standard_normal((B, S, W))))
+
+
+def _excess(got, want):
+    return ((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+
+
+# (B, S, W): several chunks and a ragged last chunk, and one chunk
+CHUNKED_CASES = [(2, 1000, 64), (1, 300, 32), (2, 100, 16)]
+
+
+@pytest.mark.parametrize("memory", ["init", "long"])
+@pytest.mark.parametrize("shape", CHUNKED_CASES)
+def test_chunked_combine_holds_the_scan_tolerance(shape, memory):
+    """The chunked scan the kernel runs (``csrc/rglru_scan.cu``, chunks of
+    ``ops.CHUNK`` steps), emulated in torch in its order, against the
+    sequential plain version: within the card's scan limit (1e-4 abs +
+    1e-4 rel); one step's log_a halved (a control) is not."""
+    from repro_torch.kernels.rglru_scan.ops import CHUNK
+    B, S, W = shape
+    rng = np.random.default_rng(S + W)
+    x_in = _t(rng.standard_normal((B, S, W)))
+    log_a = _log_a(rng, B, S, W, memory)
+    want = rglru_scan_ref(x_in, log_a)
+    assert _excess(_chunked_scan(x_in, log_a, CHUNK), want) <= 1
+    bad = log_a.clone()
+    bad[0, S // 2 + 5, 0] *= 0.5
+    assert _excess(_chunked_scan(x_in, bad, CHUNK), want) > 1
+
+
+# (B, S, W): three or more chunks, the last ragged
+CARRY_CASES = [(2, 1000, 64), (1, 300, 32), (1, 2000, 16)]
+
+
+@pytest.mark.parametrize("shape", CARRY_CASES)
+def test_chunk_carry_reaches_later_chunks(shape):
+    """On long-memory log_a the carry decides chunks 2 onward, so there the
+    combine is held to the scan limit where it matters: chunk 2 sees chunk
+    0 only through chunk 1's decay product. Controls, each over chunks 2
+    onward: one log_a of chunk 0 set to -1 exceeds the limit, and so does a
+    combine that folds a decay product of 0."""
+    from repro_torch.kernels.rglru_scan.ops import CHUNK
+    B, S, W = shape
+    rng = np.random.default_rng(7 * S + W)
+    x_in = _t(rng.standard_normal((B, S, W)))
+    log_a = _log_a(rng, B, S, W, "long")
+    later = slice(2 * CHUNK, S)
+    want = rglru_scan_ref(x_in, log_a)[:, later]
+    assert _excess(_chunked_scan(x_in, log_a, CHUNK)[:, later], want) <= 1
+    bad = log_a.clone()
+    bad[0, CHUNK - 8, 0] = -1.0
+    assert _excess(_chunked_scan(x_in, bad, CHUNK)[:, later], want) > 1
+    assert _excess(_chunked_scan(x_in, log_a, CHUNK, drop_prod=True)[:, later],
+                   want) > 1
+
+
 @pytest.mark.parametrize("bad", [
     lambda x, a: (x, a[:, :3]),                         # shapes differ
     lambda x, a: (x[0], a[0]),                          # not 3-D

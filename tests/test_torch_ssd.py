@@ -182,6 +182,56 @@ def test_no_nan_from_the_masked_decay():
                                              (x, dt, A, B, C)]), SCAN_TOL)
 
 
+def _hi_lo(t):
+    """``t`` (fp32) as a bf16 high part and the bf16 rounding of the rest,
+    both widened back to fp32."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+@pytest.mark.parametrize("out", ["y_diag", "states"])
+def test_hi_lo_split_holds_the_ssd_tolerance(out):
+    """Why the bf16 SSD kernel (``csrc/ssd_chunk_tc.cu``) splits its fp32
+    MMA operands into a bf16 high and low part: the decay matrix
+    ``M'_ij = (C_i·B_j) exp(cum_i − cum_j) dt_j`` for y_diag, the scaled
+    ``x_j dt_j exp(cum_{L-1} − cum_j)`` for the state. At one chunk of the
+    card test's statistics (L 128, P 64, N 128, 16 heads; x, B, C in bf16,
+    exact in the MMA) each rounded to bf16 alone misses the card's SSD limit
+    (1e-4 of the largest |want| plus 1e-4 of each; about 10-14x), while
+    hi + lo stays near 0.03x. Emulated in fp32 on the CPU: the plain
+    version's output is ``want``."""
+    rng = np.random.default_rng(3)
+    L, h, p, n = 128, 16, 64, 128
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32))
+    x = t(1, L, h, p).bfloat16()
+    dt = torch.nn.functional.softplus(t(1, L, h))
+    A = -torch.exp(0.3 * t(h))
+    B, C = (0.5 * t(1, L, 1, n)).bfloat16(), (0.5 * t(1, L, 1, n)).bfloat16()
+    want_y, want_states = ssd_intra_chunk_ref(x, dt, A, B, C, L)
+    Bf, xf = B[0, :, 0].float(), x[0].float().transpose(0, 1)    # (L, n), (h, L, p)
+    cum = torch.cumsum(dt[0] * A, 0)                               # (L, h)
+    if out == "y_diag":
+        scores = C[0, :, 0].float() @ Bf.T                         # once per group
+        seg = cum.T[:, :, None] - cum.T[:, None, :]
+        tril = torch.ones(L, L, dtype=torch.bool).tril()
+        M = torch.where(tril, scores * torch.exp(seg.masked_fill(~tril, 0.0))
+                        * dt[0].T[:, None, :], 0.0)
+        hi, lo = _hi_lo(M)
+        got = lambda *parts: sum(m @ xf for m in parts)  # noqa: E731
+        want = want_y[0].transpose(0, 1)
+    else:
+        xs = xf * (dt[0] * torch.exp(cum[-1:] - cum)).T[:, :, None]
+        hi, lo = _hi_lo(xs)
+        got = lambda *parts: sum(m.transpose(1, 2) @ Bf for m in parts)  # noqa: E731
+        want = want_states[0, 0]
+
+    def excess(v):
+        return ((v - want).abs() / (1e-4 * want.abs().max() + 1e-4 * want.abs())).max().item()
+    assert excess(got(hi)) > 5
+    assert excess(got(hi, lo)) < 0.1
+
+
 @pytest.mark.parametrize("bad", [
     lambda x, dt, A, B, C: (x[:, :, :3], dt[..., :3], A[:3], B, C),  # H % G
     lambda x, dt, A, B, C: (x[:, :12], dt[:, :12], A, B[:, :12], C[:, :12]),  # S % L
