@@ -27,32 +27,57 @@ Phases, each printing one JSON line (``"phase": ...``):
 5. lflr       — the same traffic again with a NaN injected into an active
    slot's KV cache mid-run: the probe kernel must latch NONFINITE_LOSS, and
    every stream must be bit-equal to phase 4;
-6. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
+6. engines    — qwen3-1.7b through the reference's three unpaged engines
+   on one traffic (8 requests, 8–32-token prompts, 12 new tokens):
+   stepwise (``window=0``), decode windows with blocking prefill
+   (``window=8, overlap=False``) and with overlapped prefill. The three
+   streams must be equal token for token, host syncs at most 2 per step or
+   window plus 2 per blocking prefill, and kernel launches one slot step per
+   decode step and per prefilled token;
+7. lflr_stepwise, lflr_blocking — the stepwise and the blocking engine on
+   the same traffic with one KV fault: streams bit-equal to that engine's
+   clean run;
+8. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
    where a control in chunk 0 must exceed it after chunk 1; flash decode
    over ring caches that wrap, the sliding-window flash forward at S 4096,
    the probe over the recurrent state and over the prefill logits;
-7. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
+9. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
    RG-LRU, 8 sliding-window attention; bf16, seeded random weights), the
    qwen3 model freed first;
-8. lflr_rg    — phase 5 for recurrentgemma-2b: the NaN goes into the slots'
+10. lflr_rg   — phase 5 for recurrentgemma-2b: the NaN goes into the slots'
    recurrent state and the state probe must latch STATE_FAULT;
-9. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
+11. lflr_stepwise_rg — recurrentgemma's stepwise engine, 4 requests, clean
+   and with a NaN in ``h``: the re-prefill rebuilds the lane across the
+   state's (batch, layer) layout, and the streams are bit-equal;
+12. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
    window): the scan kernel once per RG-LRU layer, flash once per sliding
    layer, one probe, a clean word, its time and peak memory;
-10. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
+13. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
    mamba2-2.7b's prefill shape and at a shape with groups over heads and
    fewer steps than the chunk (bf16: the tensor-core route), and at the
    prefill shape in fp32 (the ``ssd_f32`` route), each with a control that
    must exceed the limit (one step's dt changed), and the probe over the
    full ``ssm`` state;
-11. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
+14. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
    seeded random weights), the recurrentgemma model freed first;
-12. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
+15. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
    ``ssm`` state and the state probe must latch STATE_FAULT;
-13. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
-   kernel once per layer, one probe, a clean word, its time and peak memory.
+16. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
+   kernel once per layer, one probe, a clean word, its time and peak memory;
+17. kernels_g3 — flash and the probe at gemma3-1b's shapes (4/1 heads of
+   256): decode over the full cache and over the 512-entry ring, wrapped,
+   the sliding (window 512) and the full forward at 2 × 4096, the probe
+   over 8 × 262144 logits, each flash row with controls;
+18. serve_g3   — phase 4 for full-width gemma3-1b (26 layers: 22 sliding,
+   4 full; bf16, seeded random weights), the mamba2 model freed first; two
+   of the 16 prompts have 560 tokens, so the rings wrap, and the longest
+   answer is held against the forward;
+19. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
+   first full layer, as in the JAX replica;
+20. prefill_g3 — ``make_prefill_step`` at B 2, S 4096: flash forward once per
+   layer, one probe.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
@@ -77,6 +102,13 @@ MAX_COPIES = 48                     # keeps a plain run's launches under the
 SPIN_CYCLES = 5 * 10 ** 7           # ~25 ms at 1.98 GHz: the host's head start
 NUM_SLOTS, MAX_LEN, WINDOW = 8, 1024, 8
 NUM_REQUESTS, MAX_NEW = 16, 64
+LONG_PROMPT = 560                   # gemma3: past its 512-entry rings
+# the engines phases: the three engines of the reference's serving
+# benchmark on one short traffic
+ENGINE_REQUESTS, ENGINE_NEW = 8, 12
+ENGINES = {"stepwise": dict(window=0),
+           "blocking": dict(window=WINDOW, overlap=False),
+           "overlap": dict(window=WINDOW, overlap=True)}
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
 # flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
 # every bf16 row is also held, element by element, to 2 bf16 ulps of itself
@@ -460,14 +492,53 @@ def phase_kernels(torch, card: str) -> dict:
     return out
 
 
-def make_requests(cfg, Request):
+def make_requests(cfg, Request, long: int = 0):
+    """The serve phases' traffic; the first ``long`` requests get prompts of
+    ``LONG_PROMPT`` tokens instead (drawn apart, so the others do not
+    change)."""
     import numpy as np
     rng = np.random.default_rng(SEED + 1)
-    return [Request(id=i,
-                    prompt=tuple(int(t) for t in rng.integers(
-                        0, cfg.vocab_size, int(rng.integers(16, 257)))),
-                    max_new_tokens=MAX_NEW)
-            for i in range(NUM_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257)))
+               for _ in range(NUM_REQUESTS)]
+    rng_long = np.random.default_rng(SEED + 7)
+    for i in range(long):
+        prompts[i] = rng_long.integers(0, cfg.vocab_size, LONG_PROMPT)
+    return [Request(id=i, prompt=tuple(int(t) for t in p), max_new_tokens=MAX_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def engine_requests(cfg, Request, n: int = ENGINE_REQUESTS):
+    """The engines phases' traffic: prompts of 8-32 tokens, ENGINE_NEW new
+    tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    return [Request(id=i, prompt=tuple(int(t) for t in rng.integers(
+                        0, cfg.vocab_size, int(rng.integers(8, 33)))),
+                    max_new_tokens=ENGINE_NEW)
+            for i in range(n)]
+
+
+def injector(horizon: int, first_cycle: int, new_tokens: int):
+    """An ``inject`` for :func:`drive`: from cycle ``first_cycle`` on, a
+    NaN through ``Replica.inject_state_fault`` in the first slot that is
+    decoding and still needs more than ``horizon`` tokens (the steps already
+    in flight). ``state`` gets the slot and the layers poisoned (as the
+    replica computes them: no device read inside the timed run)."""
+    state = {"cycles": 0, "slot": None, "layers": None}
+
+    def inject(r) -> bool:
+        state["cycles"] += 1
+        if state["cycles"] < first_cycle:
+            return False
+        for s in r.sched.slots:
+            if (s.active and s.pending is None and s.generated
+                    and new_tokens - len(s.generated) > horizon):
+                state["slot"] = r.inject_state_fault(s.idx)
+                state["layers"] = r.state_fault_layers()
+                return True
+        return False
+
+    return inject, state
 
 
 def drive(rep, reqs, inject=None):
@@ -493,9 +564,13 @@ def build_model(torch, cfg):
     return model, time.perf_counter() - t0
 
 
-def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr")) -> dict:
-    """Phases 4-5 (qwen3) and 7-8 (recurrentgemma): serve the traffic clean,
-    then again with an injected state fault. Returns the clean run's kernel
+def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
+                long: int = 0, poison_layers=None) -> dict:
+    """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
+    traffic clean, then again with an injected state fault. ``long``
+    requests get ``LONG_PROMPT``-token prompts, and the longest answer is
+    then the one held against the forward; ``poison_layers``, where given,
+    is where the fault must land. Returns the clean run's kernel
     launches."""
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
@@ -516,7 +591,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
     reset_launch_counts()
     readback.count = 0
     t0 = time.perf_counter()
-    clean, _ = drive(rep, make_requests(cfg, Request))
+    clean, _ = drive(rep, make_requests(cfg, Request, long))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -545,8 +620,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
     if m.faults:
         fail(f"{names[0]}: clean run recorded faults: {m.faults}")
     tokens = sum(len(r.tokens) for r in clean.values())
-    reqs = make_requests(cfg, Request)
-    forward = check_against_forward(torch, model, clean, reqs)
+    reqs = make_requests(cfg, Request, long)
+    forward = check_against_forward(torch, model, clean, reqs, longest=bool(long))
     if "ssd" in cfg.block_pattern:
         # bf16 decode (one-step state update, the conv as one product) and
         # the chunked forward round differently and drift apart over depth,
@@ -566,29 +641,20 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
           "latency_p99_s": m.latency_percentiles()["p99"],
           "peak_mem_gb": peak, "forward_check": forward})
 
-    # ---- same traffic, a NaN in an active slot's state mid-run
+    # ---- same traffic, a NaN in an active slot's state mid-run, in a slot
+    # decoding and busy past the in-flight and the next window
     rep.metrics = ServeMetrics()
-    state = {"cycles": 0, "slot": None}
-
-    def inject(r) -> bool:
-        state["cycles"] += 1
-        if state["cycles"] < 6:
-            return False
-        for s in r.sched.slots:
-            # decoding, and busy past the in-flight and the next window
-            if (s.active and s.pending is None and s.generated
-                    and MAX_NEW - len(s.generated) > 2 * WINDOW):
-                state["slot"] = r.inject_state_fault(s.idx)
-                return True
-        return False
-
+    inject, state = injector(2 * WINDOW, 6, MAX_NEW)
     t0 = time.perf_counter()
-    faulted, injected = drive(rep, make_requests(cfg, Request), inject)
+    faulted, injected = drive(rep, make_requests(cfg, Request, long), inject)
     torch.cuda.synchronize()
     lflr_wall = time.perf_counter() - t0
     fm = rep.metrics
     if not injected:
         fail(f"{names[1]}: no decoding slot to poison")
+    if poison_layers is not None and state["layers"] != poison_layers:
+        fail(f"{names[1]}: the fault landed in layers {state['layers']}, not "
+             f"{poison_layers}")
     # recurrent state: the state probe's STATE_FAULT; KV: non-finite logits
     code = ErrorCode.STATE_FAULT if recurrent else ErrorCode.NONFINITE_LOSS
     latched = [f for f in fm.faults if f.code & int(code)]
@@ -600,7 +666,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
     if diff:
         fail(f"{names[1]}: streams differ from the clean run for requests {diff}")
     emit({"phase": names[1], "card": card, "model": cfg.name,
-          "poisoned_slot": state["slot"], "latched": code.name,
+          "poisoned_slot": state["slot"], "poisoned_layers": state["layers"],
+          "latched": code.name,
           "faults": [{"step": f.step, "code": f.code, "action": f.action,
                       "slots": list(f.slots)} for f in fm.faults],
           "recovery_action": latched[0].action,
@@ -609,16 +676,154 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"))
     return launches
 
 
-def check_against_forward(torch, model, answers, reqs) -> dict:
-    """Hold one served stream against the prefill step's full forward (the
-    flash kernel at prefill shape; for recurrentgemma and mamba2 the scan
-    kernels where decode runs the one-step update): every served token must
-    be the forward's argmax, or within ``FORWARD_GAP_TOL`` of it (bf16
-    decode and forward round differently over the layers). The SSD scan
-    takes a multiple of its chunk, so the sequence is padded at its end;
-    the forward is causal, so the padding changes none of the rows read."""
+def serve_engine(torch, model, conf: dict, reqs, inject=None):
+    """One engine of ``conf`` serving ``reqs`` (warmed up first): the
+    answers, the metrics, and the run's wall time, host syncs and kernel
+    launches, the counts set to 0 just before it."""
+    from repro_torch.core.device_channel import readback
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import EngineConfig, Replica
+
+    rep = Replica(model.cfg, model, config=EngineConfig(
+        num_slots=NUM_SLOTS, max_len=MAX_LEN, **conf))
+    rep.warmup()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    readback.count = 0
+    t0 = time.perf_counter()
+    out, injected = drive(rep, reqs, inject)
+    torch.cuda.synchronize()
+    return {"answers": out, "metrics": rep.metrics, "injected": injected,
+            "overlap": rep.overlap,
+            "wall": time.perf_counter() - t0, "syncs": readback.count,
+            "launches": launch_counts()}
+
+
+def streams(answers: dict) -> dict:
+    return {i: r.tokens for i, r in answers.items()}
+
+
+def phase_engines(torch, card: str, model) -> dict:
+    """The stepwise engine, the blocking window engine and the overlapped
+    one on one traffic (qwen3 at full width): every answer OK, the three
+    streams equal token for token, host syncs and kernel launches as each
+    engine's design says. Returns each engine's launches."""
+    from repro_torch.serve import Request
+
+    cfg = model.cfg
+    reqs = engine_requests(cfg, Request)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    runs, rows, launches = {}, {}, {}
+    for name, conf in ENGINES.items():
+        run = serve_engine(torch, model, conf, engine_requests(cfg, Request))
+        out, m = run["answers"], run["metrics"]
+        bad = [r.id for r in out.values() if not r.ok or len(r.tokens) != ENGINE_NEW]
+        if len(out) != ENGINE_REQUESTS or bad:
+            fail(f"engines/{name}: {len(out)} answers, not OK or short: {bad}")
+        if m.faults:
+            fail(f"engines/{name}: clean run recorded faults: {m.faults}")
+        window = conf["window"]
+        steps = m.decode_steps                    # window steps, or steps
+        units = m.windows if window else steps    # syncs: 2 per unit
+        blocking = not run["overlap"]
+        prefills = m.prefills
+        if blocking and prefills != ENGINE_REQUESTS:
+            fail(f"engines/{name}: {prefills} blocking prefills, not one per request")
+        if run["syncs"] > 2 * units + 2 * prefills:
+            fail(f"engines/{name}: {run['syncs']} host syncs for {units} "
+                 f"{'windows' if window else 'steps'} and {prefills} prefills "
+                 "(at most 2 each)")
+        # one slot step per decode step and per prefilled token: flash once
+        # per attention layer through the decode kernel, one probe
+        slot_steps = steps + (prompt_tokens if blocking else 0)
+        expected = dict.fromkeys(run["launches"], 0)
+        expected.update({"flash_attention": len(model.attn_layers) * slot_steps,
+                         "flash_decode": len(model.attn_layers) * slot_steps,
+                         "probe_rows": slot_steps})
+        if run["launches"] != expected:
+            fail(f"engines/{name}: kernel launches {run['launches']} != {expected}")
+        tokens = sum(len(r.tokens) for r in out.values())
+        runs[name], launches[name] = streams(out), run["launches"]
+        rows[name] = {
+            "config": conf, "wall_s": run["wall"], "tokens": tokens,
+            "tokens_per_s": tokens / run["wall"], "steps": steps,
+            "ms_per_step": (run["wall"] - m.host_stall_s) / steps * 1e3,
+            "windows": m.windows, "syncs": run["syncs"], "prefills": prefills,
+            "prefill_ms_per_call": (m.host_stall_s / m.host_stalls * 1e3
+                                    if m.host_stalls else None),
+            "host_stall_s": m.host_stall_s, "launches": run["launches"]}
+    diff = [i for i in runs["stepwise"]
+            if not runs["stepwise"][i] == runs["blocking"][i] == runs["overlap"][i]]
+    if diff:
+        fail(f"engines: the streams of the three engines differ for requests {diff}")
+    emit({"phase": "engines", "card": card, "model": cfg.name,
+          "requests": ENGINE_REQUESTS, "new_tokens": ENGINE_NEW,
+          "prompt_tokens": prompt_tokens, "streams_equal": True,
+          "ms_per_step_note": "wall less the blocking prefills' stall, over "
+                              "the decode steps", **rows})
+    return {"streams": runs, "launches": launches}
+
+
+def phase_lflr_engine(torch, card: str, model, name: str, conf: dict,
+                      clean: dict, n: int = ENGINE_REQUESTS) -> None:
+    """An engine of the engines phase on the same traffic with one injected
+    fault: the probe latches it on the poisoned slot and every stream is
+    bit-equal to that engine's clean run (``clean``)."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.serve import Request
+
+    cfg = model.cfg
+    inject, state = injector(conf["window"] or 1, 2, ENGINE_NEW)
+    run = serve_engine(torch, model, conf, engine_requests(cfg, Request, n),
+                       inject=inject)
+    out, m = run["answers"], run["metrics"]
+    if not run["injected"]:
+        fail(f"{name}: no decoding slot to poison")
+    code = (ErrorCode.STATE_FAULT if model.state_leaf is not None
+            else ErrorCode.NONFINITE_LOSS)
+    latched = [f for f in m.faults if f.code & int(code)]
+    if not latched or state["slot"] not in latched[0].slots:
+        fail(f"{name}: the probe did not latch {code.name} on slot "
+             f"{state['slot']}: {m.faults}")
+    diff = [i for i in clean if out.get(i) is None or not out[i].ok
+            or out[i].tokens != clean[i]]
+    if diff:
+        fail(f"{name}: streams differ from the clean run for requests {diff}")
+    emit({"phase": name, "card": card, "model": cfg.name, "config": conf,
+          "requests": n, "poisoned_slot": state["slot"],
+          "poisoned_layers": state["layers"], "latched": code.name,
+          "faults": [{"step": f.step, "code": f.code, "action": f.action,
+                      "slots": list(f.slots)} for f in m.faults],
+          "retries": sum(r.retries for r in out.values()),
+          "prefills": m.prefills, "host_stall_s": m.host_stall_s,
+          "streams_bit_equal": True, "wall_s": run["wall"]})
+
+
+def phase_lflr_stepwise_rg(torch, card: str, model, n: int = 4) -> None:
+    """recurrentgemma's stepwise engine, clean and with a NaN in ``h``: the
+    re-prefill rebuilds the lane's (batch, layer) state rows through the
+    scratch cache, and the streams are bit-equal."""
+    from repro_torch.serve import Request
+
+    conf = ENGINES["stepwise"]
+    clean = serve_engine(torch, model, conf, engine_requests(model.cfg, Request, n))
+    if not all(r.ok for r in clean["answers"].values()):
+        fail("lflr_stepwise_rg: the clean stepwise run failed a request")
+    phase_lflr_engine(torch, card, model, "lflr_stepwise_rg", conf,
+                      streams(clean["answers"]), n)
+
+
+def check_against_forward(torch, model, answers, reqs, longest: bool = False) -> dict:
+    """Hold one served stream, the shortest prompt's (or the longest's),
+    against the prefill step's full forward (the flash kernel at prefill
+    shape; for recurrentgemma and mamba2 the scan kernels where decode runs
+    the one-step update): every served token must be the forward's argmax,
+    or within ``FORWARD_GAP_TOL`` of it (bf16 decode and forward round
+    differently over the layers). The SSD scan takes a multiple of its
+    chunk, so the sequence is padded at its end; the forward is causal, so
+    the padding changes none of the rows read."""
     from repro_torch.launch.steps import make_prefill_step
-    req = min(reqs, key=lambda r: len(r.prompt))
+    req = (max if longest else min)(reqs, key=lambda r: len(r.prompt))
     toks = list(req.prompt) + list(answers[req.id].tokens)
     chunk = model.cfg.ssm_chunk
     pad = -len(toks) % chunk if "ssd" in model.cfg.block_pattern else 0
@@ -637,7 +842,8 @@ def check_against_forward(torch, model, answers, reqs) -> dict:
     if worst > FORWARD_GAP_TOL:
         fail(f"served stream of request {req.id} disagrees with the forward "
              f"(largest logit gap {worst})")
-    return {"request": req.id, "positions": len(served), "argmax_agree": agree,
+    return {"request": req.id, "prompt": len(req.prompt),
+            "positions": len(served), "argmax_agree": agree,
             "max_gap": worst, "tol": FORWARD_GAP_TOL}
 
 
@@ -902,6 +1108,162 @@ def phase_kernels_rg(torch, card: str) -> dict:
     return out
 
 
+def phase_kernels_g3(torch, card: str) -> dict:
+    """flash and the probe against their plain versions at gemma3-1b's
+    shapes (4/1 heads of 256): decode over the full cache and over the
+    ring (wrapped), the sliding and the full forward at the prefill shape,
+    the probe over the serve logits and over the prefill logits (2^31
+    elements). Each flash row has controls that must exceed the limit."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import flash_attention, probe_rows
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+    from repro_torch.kernels.flash_attention import sdpa_ref
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    cfg = get_config("gemma3-1b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    f32 = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device=dev, dtype=torch.float32)
+    randn = lambda *shape: f32(*shape).to(torch.bfloat16)  # noqa: E731
+    heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
+    Hq, Hkv, D, win = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
+    out = {}
+
+    def flash_row(name, note, qs, kvs, off, kw, controls, kv_keys, flop_keys,
+                  lib_kw, plain_launches=32):
+        """One flash shape: the kernel against its plain version (and each
+        control, which must exceed the limit), its time, the plain
+        version's, the library call's and the bound. ``kv_keys``: the keys
+        each K/V element read once counts; ``flop_keys``: the keys attended
+        over all query rows."""
+        q, k, v = randn(*qs), randn(*kvs), randn(*kvs)
+        got, route = flash_call(flash_attention, q, k, v, off, **kw)
+        want = sdpa_ref(q, k, v, q_offset=off, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        excess = flash_excess(got, want)
+        ctl = {label: flash_excess(fn(q, k, v), want) for label, fn in controls.items()}
+        if not excess <= 1 < min(ctl.values()):
+            fail(f"{name}: error {err}, {excess} x the limit; controls {ctl} "
+                 "(each must exceed 1)")
+        del q, k, v, got, want
+        b_ms, b_by = bound(2 * math.prod(qs) * 2 + 2 * kv_keys * Hkv * D * 2 + 4 * qs[0],
+                           4 * Hq * D * flop_keys, PEAK_BF16_FLOPS)
+        qkv = copies(lambda: (randn(*qs), randn(*kvs), randn(*kvs)),
+                     (math.prod(qs) + 2 * math.prod(kvs)) * 2)
+        out[name] = {
+            "shape": note, **route, "max_abs_err": err,
+            "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+            "err_over_tol": excess, **{f"{c}_over_tol": x for c, x in ctl.items()},
+            "timing_copies": len(qkv),
+            "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(q, k, v, off, **kw), qkv),
+            "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(q, k, v, q_offset=off, **kw),
+                                qkv, launches=plain_launches),
+            "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+                *t, enable_gqa=True, **lib_kw), [heads_first(*t) for t in qkv]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del qkv
+        torch.cuda.empty_cache()
+
+    def decode_mask(pos, cap):
+        off = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kpos = torch.arange(cap, device=dev)
+        return off, (kpos[None, :] <= off[:, None])[:, None, None, :]
+
+    # -- decode over the full layers' cache (cap MAX_LEN) and the ring (cap
+    #    = the window, wrapped past it): the read is index < min(cap, pos + 1)
+    for name, cap, pos in (
+            ("flash_g3_decode", MAX_LEN, [0, 1, 300, 511, 512, 1000, MAX_LEN - 1, 1500]),
+            ("flash_g3_ring_decode", win, [0, 1, win - 1, win, 600, 1023, 1024, 2000])):
+        off, mask = decode_mask(pos, cap)
+        ctx = sum(min(p + 1, cap) for p in pos)
+        kw = {"causal": True, "seq_kv": cap}
+        controls = {"one_key_dropped": lambda q, k, v, cap=cap, off=off: flash_attention(
+            q, k, v, off, causal=True, seq_kv=cap - 1)}
+        edge = plan(1, cap, Hkv, torch.bfloat16).keys_per_split
+        if edge < cap:
+            controls[f"key_{edge}_doubled"] = lambda q, k, v, cap=cap, off=off, edge=edge: (
+                flash_attention(q, *key_doubled(k, v, edge), off, causal=True, seq_kv=cap))
+        flash_row(name, f"q {NUM_SLOTS}x1x{Hq}x{D}, kv {NUM_SLOTS}x{cap}x{Hkv}x{D} bf16, "
+                  f"pos {pos}", (NUM_SLOTS, 1, Hq, D), (NUM_SLOTS, cap, Hkv, D), off, kw,
+                  controls, ctx, ctx, {"attn_mask": mask})
+
+    # -- the forward at the prefill shape: sliding (window 512) and full
+    Bp, Sp = PREFILL_B, PREFILL_S
+    zero = torch.zeros(Bp, dtype=torch.int32, device=dev)
+    qp = torch.arange(Sp, device=dev)
+    mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - win)
+    flash_row("flash_g3_sliding_forward",
+              f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal, window {win}",
+              (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True, "window": win},
+              {"window_one_short": lambda q, k, v: flash_attention(
+                  q, k, v, zero, causal=True, window=win - 1)},
+              Bp * Sp, Bp * sum(min(s + 1, win) for s in range(Sp)), {"attn_mask": mask},
+              plain_launches=8)
+    del mask
+    flash_row("flash_g3_forward", f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal",
+              (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True},
+              {"one_key_dropped": lambda q, k, v: flash_attention(
+                  q, k, v, zero, causal=True, seq_kv=Sp - 1)},
+              Bp * Sp, Bp * Sp * (Sp + 1) // 2, {"is_causal": True}, plain_launches=8)
+
+    # -- the probe over the serve logits (slots, vocab 262144) fp32
+    V = cfg.vocab_size
+    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
+    x = f32(NUM_SLOTS, V)
+    x[3, V - 1] = float("nan")
+    x[6, 0] = float("inf")
+    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    if not torch.equal(got, want) or got.tolist() != [0, 0, 0, nf, 0, 0, nf, 0]:
+        fail(f"probe_rows over gemma3's logits wrong: {got.tolist()} vs {want.tolist()}")
+    xs = copies(lambda: (f32(NUM_SLOTS, V),), NUM_SLOTS * V * 4)
+    b_ms, b_by = bound(NUM_SLOTS * V * 4 + NUM_SLOTS * 4, 3 * NUM_SLOTS * V, PEAK_FP32_FLOPS)
+    out["probe_g3_logits"] = {
+        "shape": f"logits {NUM_SLOTS}x{V} fp32, threshold inf", "words": got.tolist(),
+        "max_abs_err": (got - want).abs().max().item(), "timing_copies": len(xs),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del x, xs
+    torch.cuda.empty_cache()
+
+    # -- the probe over the prefill logits (B * S, vocab) fp32: 2^31
+    #    elements, 8 GiB; a NaN at the last one and an inf past row 4096
+    rows = PREFILL_B * PREFILL_S
+    x = f32(rows, V)
+    x[rows - 1, V - 1] = float("nan")
+    x[PREFILL_S + 5, 7] = float("inf")
+    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    hit = got.nonzero().flatten().tolist()
+    if not torch.equal(got, want) or hit != [PREFILL_S + 5, rows - 1] or (
+            got[hit].tolist() != [nf, nf]):
+        fail(f"probe_rows over gemma3's prefill logits wrong: words at {hit}, "
+             f"{got[hit].tolist()}")
+    err = (got - want).abs().max().item()
+    del x, got, want
+    torch.cuda.empty_cache()
+    xs = copies(lambda: (f32(rows, V),), rows * V * 4)
+    b_ms, b_by = bound(rows * V * 4 + rows * 4, 3 * rows * V, PEAK_FP32_FLOPS)
+    out["probe_g3_prefill"] = {
+        "shape": f"logits {rows}x{V} fp32 (2^31 elements), threshold inf",
+        "words_at": hit, "max_abs_err": err, "timing_copies": len(xs),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del xs
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_g3", "card": card, **out})
+    return out
+
+
 SSD_CSRC = "src/repro_torch/kernels/ssd_scan/csrc"
 
 
@@ -1161,6 +1523,10 @@ def main() -> None:
     kern = phase_kernels(torch, card)
     model, init_s = build_model(torch, get_config("qwen3-1.7b"))
     serve_q = phase_serve(torch, card, model, init_s)
+    engines = phase_engines(torch, card, model)
+    for name, engine in (("lflr_stepwise", "stepwise"), ("lflr_blocking", "blocking")):
+        phase_lflr_engine(torch, card, model, name, ENGINES[engine],
+                          engines["streams"][engine])
     del model                                     # free qwen3 before rg
     gc.collect()
     torch.cuda.empty_cache()
@@ -1168,6 +1534,7 @@ def main() -> None:
     kern_rg = phase_kernels_rg(torch, card)
     model, init_s = build_model(torch, get_config("recurrentgemma-2b"))
     serve_rg = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"))
+    phase_lflr_stepwise_rg(torch, card, model)
     prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
     del model                                     # free rg before mamba2
     gc.collect()
@@ -1177,9 +1544,22 @@ def main() -> None:
     model, init_s = build_model(torch, get_config("mamba2-2.7b"))
     serve_ssm = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"))
     prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
+    del model                                     # free mamba2 before gemma3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kern_g3 = phase_kernels_g3(torch, card)
+    model, init_s = build_model(torch, get_config("gemma3-1b"))
+    # the fault: K of layer 5, the first full layer (max_len > the window)
+    serve_g3 = phase_serve(torch, card, model, init_s, ("serve_g3", "lflr_g3"),
+                           long=2, poison_layers=[5])
+    prefill_g3 = phase_prefill(torch, card, model, "prefill_g3")
     del model
-    paths = {"serve": serve_q, "serve_rg": serve_rg, "prefill_rg": prefill_rg,
-             "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm}
+    paths = {"serve": serve_q,
+             **{f"engines_{e}": c for e, c in engines["launches"].items()},
+             "serve_rg": serve_rg, "prefill_rg": prefill_rg,
+             "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm,
+             "serve_g3": serve_g3, "prefill_g3": prefill_g3}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
         kernel_entry(
@@ -1191,7 +1571,9 @@ def main() -> None:
              "flash_f32_decode": kern["flash_f32_decode"],
              "flash_f32_forward": kern["flash_f32_forward"],
              "flash_ring_decode": kern_rg["flash_ring_decode"],
-             "flash_sliding_forward": kern_rg["flash_sliding_forward"]},
+             "flash_sliding_forward": kern_rg["flash_sliding_forward"],
+             **{n: kern_g3[n] for n in ("flash_g3_decode", "flash_g3_ring_decode",
+                                        "flash_g3_sliding_forward", "flash_g3_forward")}},
             launches_by_kernel={k: by_path(k) for k in (
                 "flash_decode", "flash_forward", "flash_f32")}),
         kernel_entry(
@@ -1200,7 +1582,9 @@ def main() -> None:
             by_path("probe_rows"), kern["probe_rows"],
             {"probe_rows": kern["probe_rows"], "probe_state": kern_rg["probe_state"],
              "probe_prefill": kern_rg["probe_prefill"],
-             "probe_ssm": kern_ssm["probe_ssm"]}),
+             "probe_ssm": kern_ssm["probe_ssm"],
+             "probe_g3_logits": kern_g3["probe_g3_logits"],
+             "probe_g3_prefill": kern_g3["probe_g3_prefill"]}),
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:36",

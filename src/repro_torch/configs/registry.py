@@ -5,12 +5,14 @@ from __future__ import annotations
 import math
 
 from .base import ModelConfig
+from .gemma3_1b import CONFIG as gemma3_1b
 from .mamba2_2_7b import CONFIG as mamba2_2_7b
 from .qwen3_1_7b import CONFIG as qwen3_1_7b
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen3-1.7b": qwen3_1_7b,
+    "gemma3-1b": gemma3_1b,
     "recurrentgemma-2b": recurrentgemma_2b,
     "mamba2-2.7b": mamba2_2_7b,
 }
@@ -19,7 +21,7 @@ ARCHS: dict[str, ModelConfig] = {
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; the port knows {sorted(ARCHS)} "
-                       "(other architectures: ROADMAP Queue 1, Slice B onward)")
+                       "(other architectures: ROADMAP Queue 1, item 14)")
     return ARCHS[name]
 
 

@@ -1,13 +1,15 @@
 """Top-level model: seeded init, full forward, slot decode, caches.
 
 The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``,
-``rglru`` and ``ssd`` blocks (qwen3, recurrentgemma, mamba2). Parameters
-live in an ``nn.Module`` on an explicit device. The decode cache is a dict
-of tensors updated in place by :meth:`Model.decode_step`:
+``rglru`` and ``ssd`` blocks (qwen3, gemma3, recurrentgemma, mamba2).
+Parameters live in an ``nn.Module`` on an explicit device. The decode cache
+is a dict of tensors updated in place by :meth:`Model.decode_step`, one
+pair of leaves per attention kind, so a stack may hold both:
 
-- ``k``/``v`` ``(attention layers, batch, cap, kv_heads, head_dim)`` in the
-  model dtype, ``cap = max_len`` for full layers and ``min(window,
-  max_len)`` for a sliding layer's ring;
+- ``k``/``v`` ``(full layers, batch, max_len, kv_heads, head_dim)`` for the
+  ``attn`` layers, and ``k_ring``/``v_ring`` ``(sliding layers, batch,
+  min(window, max_len), kv_heads, head_dim)`` for the ``sliding`` layers'
+  rings, in the model dtype;
 - the recurrent layers' state in fp32, ``h`` ``(batch, rglru layers,
   lru_width)`` or ``ssm`` ``(batch, ssd layers, heads, head_dim,
   state_dim)``, and their last ``width - 1`` convolution inputs ``conv``
@@ -15,6 +17,9 @@ of tensors updated in place by :meth:`Model.decode_step`:
   recurrent state is slot-major, so one probe launch over
   ``state.view(batch, -1)`` gives every slot's state word over all its
   layers.
+
+Layer ``l`` reads row ``cache_index[l]`` of its leaves: its index among the
+layers that share them.
 """
 from __future__ import annotations
 
@@ -36,14 +41,21 @@ from .transformer import (ATTN_KINDS, RECURRENT_STATE, Block,
 class CacheLeaf(NamedTuple):
     slot_axis: int      # indexes the batch row (serving slot)
     layer_axis: int     # indexes the layer, among the layers of its kind
-    recurrent: bool     # one row per recurrent layer; else per attention layer
 
 
-# the layout of every decode cache tensor, read by the cache reset, the
-# weight bridge and the serve engine's fault injection
-CACHE_LAYOUT = {"k": CacheLeaf(1, 0, False), "v": CacheLeaf(1, 0, False),
-                "h": CacheLeaf(0, 1, True), "ssm": CacheLeaf(0, 1, True),
-                "conv": CacheLeaf(0, 1, True)}
+# the layout of every decode cache tensor, read by the cache reset and
+# insert, the weight bridge and the serve engine's fault injection
+CACHE_LAYOUT = {"k": CacheLeaf(1, 0), "v": CacheLeaf(1, 0),
+                "k_ring": CacheLeaf(1, 0), "v_ring": CacheLeaf(1, 0),
+                "h": CacheLeaf(0, 1), "ssm": CacheLeaf(0, 1),
+                "conv": CacheLeaf(0, 1)}
+
+# each attention kind's K and V leaves
+KV_LEAVES = {"attn": ("k", "v"), "sliding": ("k_ring", "v_ring")}
+# each block kind's cache leaves, port name -> the JAX layer cache's name
+BLOCK_LEAVES = {**{b: {k: "k", v: "v"} for b, (k, v) in KV_LEAVES.items()},
+                "rglru": {"h": "h", "conv": "conv"},
+                "ssd": {"ssm": "ssm", "conv": "conv"}}
 
 
 def slot_layer_view(cache: dict, name: str) -> torch.Tensor:
@@ -84,6 +96,19 @@ def reset_cache_slot(cache: dict, slot: int) -> None:
         slot_layer_view(cache, name)[slot].zero_()
 
 
+def insert_cache_slot(full: dict, one: dict, slot: int, row: int) -> None:
+    """Copy batch row ``row`` of every tensor of the rebuilt cache ``one``
+    into batch row ``slot`` of the live caches ``full``, in place, queued on
+    the device (the JAX replica's ``_insert``). The whole row is copied,
+    not only the rebuilt prefix: a window already queued may have written
+    the slot's row past the rebuilt sequence, and a NaN left there may
+    reach the attention output through a masked key's zero weight."""
+    if one.keys() != full.keys():
+        raise ValueError(f"cache leaves {sorted(one)} != {sorted(full)}")
+    for name in full:
+        slot_layer_view(full, name)[slot].copy_(slot_layer_view(one, name)[row])
+
+
 class Model(nn.Module):
     """Decoder bound to a config, with its weights on ``device``.
 
@@ -98,12 +123,6 @@ class Model(nn.Module):
         super().__init__()
         for b in cfg.pattern_layers:
             check_block_kind(b)
-        attn_kinds = {b for b in cfg.pattern_layers if b in ATTN_KINDS}
-        if len(attn_kinds) > 1:
-            raise NotImplementedError(
-                "full and sliding attention in one stack (two cache "
-                "capacities) is not ported yet: ROADMAP Queue 1, item 6 "
-                "(gemma3-1b)")
         rec_kinds = {b for b in cfg.pattern_layers if b in RECURRENT_STATE}
         if len(rec_kinds) > 1:
             raise NotImplementedError(
@@ -115,20 +134,19 @@ class Model(nn.Module):
                 "14 (remaining architectures)")
         pin_matmul_precision()
         self.cfg = cfg
-        self.attn_kind = next(iter(attn_kinds), None)
         # the recurrent layers' state leaf, "h" (rglru), "ssm" (ssd) or None:
         # what the state probe reads and a state fault poisons (never
         # "conv", as in the JAX package)
         self.state_leaf = RECURRENT_STATE.get(next(iter(rec_kinds), None))
-        # layer l's decode cache: row cache_index[l] of k/v (attention) or of
-        # the state's and conv's layer axis (recurrent)
         self.attn_layers = [l for l, b in enumerate(cfg.pattern_layers)
                             if b in ATTN_KINDS]
         self.recurrent_layers = [l for l, b in enumerate(cfg.pattern_layers)
                                  if b in RECURRENT_STATE]
+        # layer l's decode cache: row cache_index[l] of its kind's leaves
+        # (BLOCK_LEAVES), counted among the layers that share them
         self.cache_index = [
-            (self.attn_layers if b in ATTN_KINDS
-             else self.recurrent_layers).index(l)
+            sum(BLOCK_LEAVES[b2] == BLOCK_LEAVES[b]
+                for b2 in cfg.pattern_layers[:l])
             for l, b in enumerate(cfg.pattern_layers)]
         self.device = resolve_device(device)
         self.dtype = model_dtype(cfg)
@@ -177,13 +195,13 @@ class Model(nn.Module):
         zeros = lambda *shape, dtype=self.dtype: torch.zeros(  # noqa: E731
             shape, device=self.device, dtype=dtype)
         cache = {}
-        if self.attn_layers:
-            # a sliding layer's ring holds min(window, max_len) entries
-            cap = (min(cfg.sliding_window, max_len)
-                   if self.attn_kind == "sliding" else max_len)
-            shape = (len(self.attn_layers), batch, cap, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            cache["k"], cache["v"] = zeros(*shape), zeros(*shape)
+        for kind in ATTN_KINDS:
+            n = cfg.pattern_layers.count(kind)
+            if n:
+                shape = (n, batch, self.kv_capacity(kind, max_len),
+                         cfg.num_kv_heads, cfg.resolved_head_dim)
+                k, v = KV_LEAVES[kind]
+                cache[k], cache[v] = zeros(*shape), zeros(*shape)
         n = len(self.recurrent_layers)
         if self.state_leaf == "h":
             w = cfg.resolved_lru_width
@@ -195,6 +213,12 @@ class Model(nn.Module):
             cache["conv"] = zeros(batch, n, cfg.ssm_conv_width - 1,
                                   conv_dim(cfg))
         return cache
+
+    def kv_capacity(self, kind: str, max_len: int) -> int:
+        """Entries of a layer's K/V cache: ``max_len`` for a full layer,
+        ``min(window, max_len)`` for a sliding layer's ring."""
+        return (min(self.cfg.sliding_window, max_len) if kind == "sliding"
+                else max_len)
 
     def decode_step(self, token: torch.Tensor, cache: dict,
                     pos: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -209,18 +233,20 @@ class Model(nn.Module):
         if isinstance(pos, int):
             pos = torch.full((B,), pos, dtype=torch.int32, device=self.device)
         x = self._embed(token)
-        # every attention layer rotates at, and writes its cache at, the
-        # same positions
+        # every attention layer rotates at the same positions, and every
+        # layer of one kind writes its cache at the same index
         rope = self._rope(pos[:, None])
-        write_idx = None
-        if self.attn_layers:
-            index = (ring_write_index if self.attn_kind == "sliding"
-                     else cache_write_index)
-            write_idx = index(pos, cache["k"].shape[2])
+        write_idx = {}
+        if "k" in cache:
+            write_idx["attn"] = cache_write_index(pos, cache["k"].shape[2])
+        if "k_ring" in cache:
+            write_idx["sliding"] = ring_write_index(pos, cache["k_ring"].shape[2])
         for blk, j in zip(self.blocks, self.cache_index):
-            state = ((cache[self.state_leaf][:, j], cache["conv"][:, j])
-                     if blk.btype in RECURRENT_STATE else
-                     (cache["k"][j], cache["v"][j], write_idx))
+            if blk.btype in RECURRENT_STATE:
+                state = (cache[self.state_leaf][:, j], cache["conv"][:, j])
+            else:
+                k, v = KV_LEAVES[blk.btype]
+                state = (cache[k][j], cache[v][j], write_idx[blk.btype])
             x = apply_block_decode(blk, x, state, pos, rope, cfg)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return unembed(x, self.embed_f32, softcap=cfg.logit_softcap)

@@ -14,14 +14,13 @@ from typing import Optional
 class EngineConfig:
     """Shape of one serving engine. Frozen, hashable, validated.
 
-    The fields keep the JAX package's names and meaning, but ``window``
-    defaults to 8: the JAX default, 0, is the stepwise engine, which the
-    port does not run. The knobs of
-    modes the port does not run yet (page sizes, draft shape, trace
-    sampling, donation) are left out; their switches stay, so the port's
-    :class:`~repro_torch.serve.Replica` can raise ``NotImplementedError``
-    on ``window=0``, ``overlap=False``, ``paged``, ``speculate``, ``tp > 1``
-    and ``trace``, naming the ROADMAP item that ports each.
+    The fields keep the JAX package's names, defaults and cross-field
+    rules: ``EngineConfig()`` is the stepwise engine (``window=0``) in both
+    packages. The knobs of modes the port does not run yet (page sizes,
+    draft shape, trace sampling, donation) are left out; their switches
+    stay, so the port's :class:`~repro_torch.serve.Replica` can raise
+    ``NotImplementedError`` on ``paged``, ``speculate``, ``tp > 1`` and
+    ``trace``, naming the ROADMAP item that ports each.
     """
 
     num_slots: int = 4
@@ -29,7 +28,7 @@ class EngineConfig:
     eos_id: Optional[int] = None
     max_request_retries: int = 2
     # ---- decode windows ------------------------------------------------
-    window: int = 8
+    window: int = 0
     overlap: bool = True
     prefill_budget: Optional[int] = None
     # ---- modes not ported yet --------------------------------------------
@@ -51,5 +50,23 @@ class EngineConfig:
         if self.prefill_budget is not None and self.prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 (or None), got "
                              f"{self.prefill_budget}")
+        # cross-field rules
+        if self.paged and not self.window:
+            raise ValueError("paged=True requires window mode (window=K)")
+        if self.speculate and not self.window:
+            raise ValueError("speculate=True requires window mode (window=K)")
+        if self.speculate and not self.overlap:
+            raise ValueError(
+                "speculate=True requires overlap=True (admission/LFLR must "
+                "ride the window: the blocking-prefill patch path assumes a "
+                "host-predictable position chain)")
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.tp > 1 and not self.window:
+            raise ValueError(
+                "tp>1 requires window mode (window=K): the cross-shard "
+                "error-word fold lives in the window enumeration")
+        if self.tp > 1 and not self.overlap:
+            raise ValueError(
+                "tp>1 requires overlap=True: admission/LFLR must ride the "
+                "sharded windows (the blocking prefill path is single-device)")

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/serve/metrics.py: the counters the window+overlap replica records.
+# Trimmed copy of repro/serve/metrics.py: the counters of the stepwise, window and overlap engines (no paging or speculation counters).
 """Serving metrics: per-request latency, throughput, fault counters.
 
 Feeds the same :class:`~repro_torch.core.resilient.EventLog` record the
@@ -37,7 +37,9 @@ class ServeMetrics:
         self._resp_t: list[float] = []       # completion wall time per response
         self.faults: list[FaultRecord] = []
         self.decode_steps = 0
-        self.decode_tokens = 0               # all committed tokens
+        self.prefills = 0
+        self.decode_tokens = 0               # all committed tokens (incl. the
+                                             # first one, from prefill logits)
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
         self.windows = 0                     # decode windows retired
@@ -45,11 +47,19 @@ class ServeMetrics:
                                              # boundaries (EOS/budget/fault)
         self.prefill_chunks = 0              # prompt chunks fused into windows
         self.prefill_chunk_tokens = 0        # prompt tokens fed via chunks
+        self.host_stalls = 0                 # blocking prefills (admission/LFLR
+        self.host_stall_s = 0.0              # that froze the dispatch loop)
         self.window_waits = 0                # windows not yet done at retire
                                              # (device-bound, host keeping up)
         self.peak_active_slots = 0           # most lanes concurrently serving
 
     # ------------------------------------------------------------- recording
+    def record_step(self, committed_tokens: int) -> None:
+        with self._lock:
+            self._tick()
+            self.decode_steps += 1
+            self.decode_tokens += committed_tokens
+
     def record_window(self, committed_tokens: int, discarded_tokens: int,
                       window: int) -> None:
         """One retired decode window: K deferred device steps, one host sync."""
@@ -60,12 +70,26 @@ class ServeMetrics:
             self.decode_tokens += committed_tokens
             self.discarded_tokens += discarded_tokens
 
+    def record_prefill(self, committed_tokens: int = 1) -> None:
+        """A (re-)prefill that committed its first token from prefill logits."""
+        with self._lock:
+            self._tick()
+            self.prefills += 1
+            self.decode_tokens += committed_tokens
+
     def record_chunk(self, tokens_fed: int) -> None:
         """A prompt chunk fused into a decode window (overlapped prefill)."""
         with self._lock:
             self._tick()
             self.prefill_chunks += 1
             self.prefill_chunk_tokens += tokens_fed
+
+    def record_host_stall(self, seconds: float) -> None:
+        """Wall time the dispatch loop spent blocked on a synchronous prefill
+        — the stall the overlapped engine exists to eliminate."""
+        with self._lock:
+            self.host_stalls += 1
+            self.host_stall_s += max(0.0, seconds)
 
     def record_window_wait(self) -> None:
         """A window that was still computing when the host came to retire it."""
@@ -145,11 +169,14 @@ class ServeMetrics:
             "requests": len(self.responses),
             "statuses": self.by_status(),
             "decode_steps": self.decode_steps,
+            "prefills": self.prefills,
             "decode_tokens": self.decode_tokens,
             "windows": self.windows,
             "discarded_tokens": self.discarded_tokens,
             "prefill_chunks": self.prefill_chunks,
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "host_stalls": self.host_stalls,
+            "host_stall_s": self.host_stall_s,
             "window_waits": self.window_waits,
             "peak_active_slots": self.peak_active_slots,
             "tokens_per_step": self.tokens_per_step(),

@@ -1,28 +1,44 @@
-"""Serving replica: zero-sync decode windows with overlapped prefill and
-per-sequence LFLR, on one device.
+"""Serving replica: the stepwise engine, and zero-sync decode windows with
+blocking or overlapped prefill, with per-sequence LFLR, on one device.
 
-The port of ``repro/serve/replica.py`` in window+overlap mode (``window=K``,
-``overlap=True``). K greedy steps run on the device per dispatch
-(:func:`~repro_torch.launch.steps.make_prefill_decode_window`); fault
-detection is deferred to the window boundary (the paper's asynchrony
-contract — errors latch in-band, raise at the *wait*); and the commit loop is
-double-buffered: window N+1 is dispatched from window N's device-resident
-outputs (next token, next positions, in-place caches) *before* window N's
-token block is read back. Admission and LFLR recovery are background prefill
-lanes: a joining or recovering slot's sequence is chunked into the same
-windows, so the healthy slots' token stream never stalls.
+The port of ``repro/serve/replica.py`` in its three unpaged modes:
+
+- ``window=0`` (``EngineConfig()``'s default): the stepwise engine. Every
+  step decodes every slot once (:func:`~repro_torch.launch.steps.
+  make_slot_decode_step`), waits for the per-slot words and commits each
+  slot's argmax; admission and LFLR are blocking prefills.
+- ``window=K, overlap=False``: K greedy steps run on the device per dispatch
+  (:func:`~repro_torch.launch.steps.make_decode_window`); fault detection is
+  deferred to the window boundary (the paper's asynchrony contract — errors
+  latch in-band, raise at the *wait*), and the commit loop is
+  double-buffered: window N+1 is dispatched from window N's device-resident
+  outputs (next token, next positions, in-place caches) *before* window N's
+  token block is read back. Admission and LFLR are blocking prefills, which
+  patch the lane's device state.
+- ``window=K, overlap=True``: the same windows with prompt chunks fed in
+  (:func:`~repro_torch.launch.steps.make_prefill_decode_window`). Admission
+  and LFLR are background prefill lanes, so the healthy slots' token stream
+  never stalls.
 
 Recovery is the paper's use case 1 applied to inference: non-finite logits
-on slot *i* (the probe kernel's word) → LFLR: slot *i* re-prefills its prompt
-+ committed tokens through the same decode step (greedy decode is
-deterministic, so the recomputed trajectory is the pre-fault one bit for
-bit) while the other slots commit their tokens; the
+on slot *i* (the probe kernel's word) → LFLR: slot *i* recomputes its cache
+from its prompt + committed tokens through the same decode step (greedy
+decode is deterministic, so the recomputed trajectory is the pre-fault one
+bit for bit) while the other slots commit their tokens; the
 :class:`~repro_torch.core.recovery.RecoveryPolicy` escalates, and a request
 that re-faults past ``max_request_retries`` is answered ``FAILED``.
 
+The blocking prefill runs at the slots' batch size, every row holding the
+lane's sequence, into a scratch cache allocated once, and keeps row
+``slot``: a product's rounding may depend on how many rows it is given, so a
+batch-1 prefill would not give the bits the slot step gives, and LFLR
+replays and blocking ≡ overlap would stop being bit-exact. It costs S times
+the arithmetic of a batch-1 prefill on a step that is host-bound anyway.
+
 Host syncs: two :func:`~repro_torch.core.device_channel.readback` calls per
-retired window (the error word with its enumeration table, then the token
-block), plus the window history on the fault path.
+stepwise step or retired window (the error word with its enumeration table,
+then the tokens) and per blocking prefill (its word, then its token), plus
+the window history on the fault path.
 """
 from __future__ import annotations
 
@@ -44,8 +60,10 @@ from ..core.device_channel import (
 from ..core.errors import PropagatedError
 from ..core.faults import INJECTABLE_CODE_MASK
 from ..core.recovery import Action, RecoveryPolicy
-from ..launch.steps import make_prefill_decode_window
-from ..models.model import Model, reset_cache_slot, slot_layer_view
+from ..launch.steps import (make_cache_prefill, make_decode_window,
+                            make_prefill_decode_window, make_slot_decode_step)
+from ..models.model import (KV_LEAVES, Model, insert_cache_slot,
+                            reset_cache_slot, slot_layer_view)
 from .config import EngineConfig
 from .metrics import ServeMetrics
 from .queue import EXPIRED, FAILED, AdmissionPolicy, Request, RequestQueue, Response
@@ -55,10 +73,6 @@ from .scheduler import ContinuousBatchingScheduler
 def _check_supported(config: EngineConfig, tracer: Any) -> None:
     """The modes of the JAX replica this port does not run yet."""
     missing = [
-        (config.window == 0, "window=0 (the stepwise engine)",
-         "ROADMAP Queue 1, item 5 (replica modes still to port)"),
-        (not config.overlap, "overlap=False (blocking prefill)",
-         "ROADMAP Queue 1, item 5 (replica modes still to port)"),
         (config.paged, "paged=True", "ROADMAP Queue 1, item 7 (paged KV)"),
         (config.speculate, "speculate=True",
          "ROADMAP Queue 1, item 8 (speculative windows)"),
@@ -71,16 +85,26 @@ def _check_supported(config: EngineConfig, tracer: Any) -> None:
             raise NotImplementedError(f"{what} is not ported yet: {item}")
 
 
-def window_enum(history: torch.Tensor, mask: torch.Tensor):
-    """``(history (K, S), mask (S,)) -> (combined, count, table, hist)`` on
-    the device: free slots are masked out of the whole word history, each
-    slot's words are OR-folded over the window (one check per K tokens),
-    and the paper's enumeration attributes the folds to their slots
-    (``max_errors = S``, so attribution never truncates)."""
-    hist = history * mask[None, :]
-    words = or_reduce(hist, dim=0)
+def slot_enum(words: torch.Tensor, mask: torch.Tensor):
+    """``(words (S,), mask (S,)) -> (combined, count, table)`` on the device
+    (the JAX package's ``make_enum_fn``): free slots are masked out (their
+    caches may hold stale values from an evicted sequence, and a free slot
+    decodes a dummy token), then the paper's enumeration attributes each
+    remaining word to its slot (``max_errors = S``, so attribution never
+    truncates)."""
+    words = words * mask
     count, table = enumerate_errors_ref(words, max_errors=words.shape[0])
-    return or_reduce(words, dim=0), count, table, hist
+    return or_reduce(words, dim=0), count, table
+
+
+def window_enum(history: torch.Tensor, mask: torch.Tensor):
+    """``(history (K, S), mask (S,)) -> (combined, count, table, hist)``:
+    the window variant of :func:`slot_enum`. Free slots are masked out of
+    the whole word history, each slot's words are OR-folded over the window
+    (one check per K tokens), and the folds go through the same per-slot
+    enumeration, so the engines cannot diverge in attribution."""
+    hist = history * mask[None, :]
+    return (*slot_enum(or_reduce(hist, dim=0), mask), hist)
 
 
 @dataclass
@@ -137,6 +161,7 @@ class Replica:
         # enumeration, so injected codes ride the real detection path
         self._injector = fault_injector
         self.window = int(config.window)
+        self.overlap = bool(self.window) and bool(config.overlap)
         num_slots = config.num_slots
         self.queue = queue or RequestQueue(
             AdmissionPolicy(max_total_len=config.max_len), clock=clock)
@@ -144,12 +169,24 @@ class Replica:
             num_slots, self.queue, replica=rank, eos_id=config.eos_id,
             clock=clock, prefill_budget=config.prefill_budget)
         self.caches = self.model.init_cache(num_slots, config.max_len)
-        self._decode_window = make_prefill_decode_window(
-            self.model, window=self.window)
+        if not self.window:
+            self._decode = make_slot_decode_step(self.model)
+            self._slot_logits: Optional[torch.Tensor] = None
+        elif self.overlap:
+            self._decode_window = make_prefill_decode_window(
+                self.model, window=self.window)
+        else:
+            self._decode_window = make_decode_window(self.model,
+                                                     window=self.window)
+        if not self.overlap:
+            # the blocking prefill's S-wide scratch cache (module docstring)
+            self._prefill = make_cache_prefill(self.model)
+            self._scratch = self.model.init_cache(num_slots, config.max_len)
         self._step_count = 0
         self._pending: Optional[_WindowInFlight] = None
-        # the device-resident chain window N+1 consumes: next input token and
-        # position per slot (never read back inside or between windows)
+        # window modes: the device-resident chain window N+1 consumes, next
+        # input token and position per slot (never read back inside or
+        # between windows; a blocking prefill patches a lane's entries)
         self._dev_tokens = torch.zeros(num_slots, dtype=torch.int32,
                                        device=self.device)
         self._dev_pos = torch.zeros(num_slots, dtype=torch.int32,
@@ -190,8 +227,10 @@ class Replica:
           and of each remainder recurrent layer. The state probe then
           latches STATE_FAULT;
         - attention-only architectures: NaN the K entry at position 0 (first
-          full-attention layer, first KV head, first feature); the next
-          window's logits for that slot go non-finite and the probe latches
+          KV head, first feature) of the first K leaf, in the JAX cache
+          tree's order, whose capacity is ``max_len`` — a full layer, or a
+          sliding layer's ring when ``max_len <= window``; the next step's
+          logits for that slot go non-finite and the probe latches
           NONFINITE_LOSS.
 
         ``slot=None`` picks the first active slot, or a seeded-random one
@@ -201,21 +240,42 @@ class Replica:
             if not active:
                 return None
             slot = int(rng.choice(active)) if rng is not None else active[0]
-        model, cfg = self.model, self.cfg
+        model, layers = self.model, self.state_fault_layers()
         if model.state_leaf is not None:
-            n_scan = cfg.num_periods * cfg.period
-            rows = [model.cache_index[l] for l in model.recurrent_layers
-                    if l >= n_scan or (cfg.num_periods and l < cfg.period)]
+            rows = [model.cache_index[l] for l in layers]
             state = slot_layer_view(self.caches, model.state_leaf)
             state[(slot, rows) + (0,) * (state.dim() - 2)] = float("nan")
             return slot
-        full = [l for l in model.attn_layers if cfg.pattern_layers[l] == "attn"]
-        if not full:
-            raise ValueError(f"{cfg.name}: no recurrent state or "
-                             "full-attention KV to poison")
-        k = slot_layer_view(self.caches, "k")
-        k[slot, model.cache_index[full[0]], 0, 0, 0] = float("nan")
+        (l,) = layers
+        k = slot_layer_view(self.caches, KV_LEAVES[self.cfg.pattern_layers[l]][0])
+        k[slot, model.cache_index[l], 0, 0, 0] = float("nan")
         return slot
+
+    def state_fault_layers(self) -> list[int]:
+        """The layers :meth:`inject_state_fault` poisons, from the config
+        and ``max_len`` alone (no device read)."""
+        model, cfg = self.model, self.cfg
+        if model.state_leaf is not None:
+            n_scan = cfg.num_periods * cfg.period
+            return [l for l in model.recurrent_layers
+                    if l >= n_scan or (cfg.num_periods and l < cfg.period)]
+        for l in self._jax_tree_order():
+            kind = cfg.pattern_layers[l]
+            if kind in KV_LEAVES and (
+                    model.kv_capacity(kind, self.max_len) == self.max_len):
+                return [l]
+        raise ValueError(f"{cfg.name}: no recurrent state or full-attention "
+                         "KV to poison")
+
+    def _jax_tree_order(self) -> list[int]:
+        """The layers in the order the JAX cache tree flattens them: the
+        period-0 layer of each pattern position (``periods["b<pos>"]``, keys
+        in sorted order), then the remainder layers."""
+        cfg = self.cfg
+        n_scan = cfg.num_periods * cfg.period
+        heads = (sorted(range(cfg.period), key=lambda p: f"b{p}")
+                 if cfg.num_periods else [])
+        return heads + list(range(n_scan, cfg.num_layers))
 
     def _inject_words(self, words: torch.Tensor, shape: tuple) -> torch.Tensor:
         """OR the injector's validated fault words for this dispatch into
@@ -239,8 +299,9 @@ class Replica:
 
     # ------------------------------------------------------------- step cycle
     def step(self) -> list[Response]:
-        """One scheduler cycle: expire → admit (as prefill lanes) → dispatch
-        window N+1 → retire window N. Returns every request answered."""
+        """One scheduler cycle: expire → admit (a blocking prefill, or a
+        prefill lane with overlap) → one stepwise step, or dispatch window
+        N+1 and retire window N. Returns every request answered."""
         now = self.clock()
         out: list[Response] = []
         for req in self.queue.drain_expired(now):
@@ -250,10 +311,20 @@ class Replica:
                                 detail="deadline passed in queue"))
         out.extend(self.sched.expire_active(now))
         for slot, _req in self.sched.backfill(now):
-            self.sched.begin_prefill(slot)
+            if self.overlap:
+                # admission is a background lane: the scheduler chunks the
+                # prompt into subsequent decode windows — no blocking prefill
+                self.sched.begin_prefill(slot)
+            else:
+                resp = self._prefill_slot(slot)
+                if resp is not None:
+                    out.append(resp)
         self.metrics.record_active_slots(self.sched.in_flight())
-        if self.sched.has_active() or self._pending is not None:
-            out.extend(self._window_cycle())
+        if self.window:
+            if self.sched.has_active() or self._pending is not None:
+                out.extend(self._window_cycle())
+        elif self.sched.has_active():
+            out.extend(self._decode_step())
         for resp in out:
             self.metrics.record_response(resp)
         return out
@@ -277,6 +348,135 @@ class Replica:
         return (not len(self.queue) and not self.sched.has_active()
                 and self._pending is None)
 
+    # ------------------------------------------------------- stepwise engine
+    def _decode_step(self) -> list[Response]:
+        self._step_count += 1
+        S = self.sched.num_slots
+        tokens, pos = self.sched.step_inputs()
+        mask = self.sched.active_mask().astype(np.int32)
+        logits, words = self._decode(self.caches, self._to_device(tokens),
+                                     self._to_device(pos))
+        words = self._inject_words(words, (S,))
+        combined, count, table = slot_enum(words, self._to_device(mask))
+        fut = DeviceFuture(outputs=logits, word=combined, count=count,
+                           table=table)
+        try:
+            self._slot_logits = fut.wait()
+            return self._commit(skip=frozenset())
+        except PropagatedError as exc:
+            return self._recover(exc, fut)
+
+    def _commit(self, skip: frozenset) -> list[Response]:
+        now = self.clock()
+        out = []
+        # argmax on the device: S int32 to the host, not S×V logits
+        toks = readback(torch.argmax(self._slot_logits, dim=-1))
+        committed = 0
+        for slot in self.sched.active_slots():
+            if slot in skip:
+                continue
+            resp = self.sched.commit_token(slot, int(toks[slot]), now)
+            committed += 1
+            if resp is not None:
+                out.append(resp)
+        self.metrics.record_step(committed)
+        return out
+
+    def _recover(self, exc: PropagatedError,
+                 fut: DeviceFuture) -> list[Response]:
+        """Stepwise recovery: no window history — the enumeration's
+        ``(slot, code)`` pairs are the attribution. The other slots' outputs
+        of the step are valid (rows are independent), so they commit and
+        only the attributed lanes recompute."""
+        decision = self.policy.decide(exc, self._step_count)
+        num_slots = self.sched.num_slots
+        faulted = sorted({e.rank for e in exc.errors if 0 <= e.rank < num_slots})
+        if not faulted:                      # unattributed word: assume all
+            faulted = list(self.sched.active_slots())
+        self.metrics.record_fault(self._step_count, int(exc.combined_code),
+                                  decision.action.value, tuple(faulted))
+        self._slot_logits = fut.outputs
+        if decision.action is Action.ROLLBACK:
+            # escalation: recompute every lane (whole-batch recompute is the
+            # serving analogue of restoring the last checkpoint)
+            targets, fail_now = list(self.sched.active_slots()), False
+        elif decision.action is Action.ABORT:
+            targets, fail_now = faulted, True
+        else:   # SKIP_BATCH / RESTORE_GOOD / CONTINUE / ... → per-sequence LFLR
+            targets, fail_now = faulted, False
+        out = self._commit(skip=frozenset(targets))
+        faulted_set = set(faulted)
+        for slot in targets:
+            if not self.sched.slots[slot].active:
+                continue                     # already evicted this cycle
+            # only the attributed slots pay a retry: a healthy lane swept
+            # into a ROLLBACK recompute must not burn its budget
+            if slot in faulted_set:
+                retries = self.sched.note_retry(slot)
+            else:
+                retries = self.sched.request(slot).retries
+            if fail_now or retries > self.max_request_retries:
+                out.append(self.sched.evict(
+                    slot, FAILED,
+                    detail=f"{decision.reason} (retries={retries})"))
+                continue
+            resp = self._prefill_slot(slot)  # LFLR: recompute, don't restart
+            if resp is not None:
+                out.append(resp)
+        return out
+
+    # --------------------------------------------------------------- prefill
+    def _prefill_slot(self, slot: int) -> Optional[Response]:
+        """*Blocking* (re-)compute of a slot's cache from its full token
+        history, committing the next token from the prefill logits. Serves
+        admission and LFLR on the stepwise and non-overlapped window
+        engines. It runs at the slots' batch size with every row holding the
+        sequence, into the scratch cache, and keeps row ``slot`` (module
+        docstring); a faulted prefill retries until the request's retries
+        pass ``max_request_retries``, then the request FAILs. The wall time
+        inside — the stall every healthy slot pays — goes to
+        ``metrics.record_host_stall``.
+
+        In window mode this is also the patch point of the double-buffered
+        pipeline: the lane's next token and position are written into the
+        device tensors the next dispatch reads (outputs of the window in
+        flight), and the lane is marked invalid in that window so its stale
+        block is skipped at retirement."""
+        t0 = self.clock()
+        S = self.sched.num_slots
+        try:
+            while True:
+                seq = np.asarray(self.sched.sequence_tokens(slot), np.int32)
+                tokens = self._to_device(seq)[None].expand(S, -1)
+                logits, _, word = self._prefill(tokens, self.max_len,
+                                                cache=self._scratch)
+                fut = DeviceFuture(outputs=logits, word=word)
+                try:
+                    logits = fut.wait()
+                    break
+                except PropagatedError as exc:
+                    retries = self.sched.note_retry(slot)
+                    self.metrics.record_fault(self._step_count,
+                                              int(exc.combined_code),
+                                              "prefill_retry", (slot,))
+                    if retries > self.max_request_retries:
+                        return self.sched.evict(
+                            slot, FAILED,
+                            detail=f"prefill faulted {retries} times: {exc}")
+            tok = int(readback(torch.argmax(logits[slot, -1])))
+            insert_cache_slot(self.caches, self._scratch, slot, slot)
+            resp = self.sched.commit_token(slot, tok, self.clock())
+            self.metrics.record_prefill(1)
+            if self.window:
+                s = self.sched.slots[slot]
+                self._dev_tokens[slot] = tok
+                self._dev_pos[slot] = s.seq_len - 1 if s.active else 0
+                if self._pending is not None:
+                    self._pending.valid[slot] = False
+            return resp
+        finally:
+            self.metrics.record_host_stall(self.clock() - t0)
+
     # --------------------------------------------------------- window engine
     def _window_cycle(self) -> list[Response]:
         """Double-buffered commit loop: dispatch window N+1 from window N's
@@ -293,9 +493,28 @@ class Replica:
         self._step_count += 1
         sched, K = self.sched, self.window
         S = sched.num_slots
-        plan = sched.plan_prefill(K)
         mask = sched.active_mask().astype(np.int32)
         start = np.zeros(S, np.int64)
+        feed = self._plan_chunks(mask, start) if self.overlap else ()
+        toks, words, self._dev_tokens, self._dev_pos = self._decode_window(
+            self.caches, self._dev_tokens, self._dev_pos, *feed)
+        words = self._inject_words(words, (K, S))
+        combined, count, table, hist = window_enum(words, self._to_device(mask))
+        fut = DeviceFuture(outputs=toks, word=combined, count=count,
+                           table=table, history=hist,
+                           event=record_event(self.device))
+        return _WindowInFlight(
+            fut=fut,
+            req_ids=tuple(s.req.id if s.active else None for s in sched.slots),
+            valid=np.ones(S, bool), start=start)
+
+    def _plan_chunks(self, mask: np.ndarray, start: np.ndarray) -> tuple:
+        """The overlapped window's prompt feed ``(chunk (K, S), rem (S,))``
+        on the device; deferred lanes are masked out and ``start`` set to
+        each lane's first committable step, in place."""
+        sched, K = self.sched, self.window
+        S = sched.num_slots
+        plan = sched.plan_prefill(K)
         chunk = np.zeros((K, S), np.int32)
         rem = np.zeros((S,), np.int32)
         for slot, cp in plan.items():
@@ -316,18 +535,7 @@ class Replica:
             # committable token
             start[slot] = cp.rem - 1 if cp.exhausts else K
             self.metrics.record_chunk(cp.rem)
-        toks, words, self._dev_tokens, self._dev_pos = self._decode_window(
-            self.caches, self._dev_tokens, self._dev_pos,
-            self._to_device(chunk), self._to_device(rem))
-        words = self._inject_words(words, (K, S))
-        combined, count, table, hist = window_enum(words, self._to_device(mask))
-        fut = DeviceFuture(outputs=toks, word=combined, count=count,
-                           table=table, history=hist,
-                           event=record_event(self.device))
-        return _WindowInFlight(
-            fut=fut,
-            req_ids=tuple(s.req.id if s.active else None for s in sched.slots),
-            valid=np.ones(S, bool), start=start)
+        return self._to_device(chunk), self._to_device(rem)
 
     def _retire_window(self, win: _WindowInFlight) -> list[Response]:
         if not win.fut.done():
@@ -418,15 +626,22 @@ class Replica:
                     # state; its lane would re-raise this fault at retire
                     self._pending.valid[slot] = False
                 continue
-            self._lflr_slot(slot)
+            resp = self._lflr_slot(slot)     # LFLR: recompute, don't restart
+            if resp is not None:
+                out.append(resp)
         return out
 
-    def _lflr_slot(self, slot: int) -> None:
-        """LFLR recompute for one lane: re-queue it as a prefill lane — the
-        scheduler chunks prompt + committed tokens back into the cache
-        through the next windows (the cache reset rides the next dispatch),
-        and the in-flight window's stale lane is invalidated. The host never
-        blocks."""
+    def _lflr_slot(self, slot: int) -> Optional[Response]:
+        """Window-mode LFLR recompute for one lane.
+
+        Overlapped: re-queue it as a prefill lane — the scheduler chunks
+        prompt + committed tokens back into the cache through the next
+        windows (the cache reset rides the next dispatch), and the in-flight
+        window's stale lane is invalidated. The host never blocks. Blocking
+        mode: the synchronous re-prefill."""
+        if not self.overlap:
+            return self._prefill_slot(slot)
         self.sched.begin_prefill(slot)
         if self._pending is not None:
             self._pending.valid[slot] = False
+        return None

@@ -3,7 +3,9 @@
 
 The scheduler is the host-side brain of a replica. It never touches the
 device: it tracks which request occupies which decode slot, plans the prompt
-chunks each decode window feeds, consumes the sampled tokens per slot, evicts finished/expired/faulted sequences and backfills freed slots
+chunks each decode window feeds (or the stepwise engine's inputs), consumes
+the sampled tokens per slot, evicts finished/expired/faulted sequences and
+backfills freed slots
 from the admission queue *every step* — prefill and decode share the same
 fixed-shape batch, so a long request never blocks the lane (the serving
 counterpart of the paper's "local errors must not block global progress").
@@ -227,6 +229,31 @@ class ContinuousBatchingScheduler:
         return admitted
 
     # ------------------------------------------------------------ step cycle
+    def step_inputs(self) -> tuple[np.ndarray, np.ndarray]:
+        """(tokens (S,) int32, pos (S,) int32) for the stepwise engine's
+        slot decode step.
+
+        An active slot feeds its last token at its own absolute position;
+        free slots decode a dummy token at position 0 (their word is masked
+        out and their cache is overwritten at admission, so the work is dead
+        weight the fixed-shape batch pays for simplicity).
+        """
+        S = self.num_slots
+        tokens = np.zeros((S,), np.int32)
+        pos = np.zeros((S,), np.int32)
+        for s in self.slots:
+            if not s.active:
+                continue
+            # The cache holds states for positions [0, seq_len-1): prefill
+            # consumed the prompt, decode consumed every generated token but
+            # the newest. The input is that newest token (the first one comes
+            # from the prefill logits, committed in Replica._prefill_slot, so
+            # active slots always have generated >= 1), at position seq_len-1.
+            last = s.generated[-1] if s.generated else s.req.prompt[-1]
+            tokens[s.idx] = last
+            pos[s.idx] = s.seq_len - 1
+        return tokens, pos
+
     def active_mask(self) -> np.ndarray:
         return np.asarray([1 if s.active else 0 for s in self.slots], np.uint32)
 

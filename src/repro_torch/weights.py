@@ -10,10 +10,12 @@ it ``jax.device_get(params)``.
 Caches cross both ways, so mid-run states can be compared: the JAX decode
 cache (period leaves ``(n_per, B, ...)``, remainder leaves ``(B, ...)``) or
 the slot-stacked serve cache (``(S, n_per, 1, ...)`` and ``(S, 1, ...)``,
-``slots=True``), against the port's cache: ``k``/``v`` ``(attention layers,
-B, cap, Hkv, D)`` (full or ring), the recurrent state ``h`` ``(B, rglru
-layers, w)`` or ``ssm`` ``(B, ssd layers, H, P, N)``, and ``conv`` ``(B,
-recurrent layers, 3, channels)``.
+``slots=True``), against the port's cache: ``k``/``v`` ``(full layers, B,
+max_len, Hkv, D)``, ``k_ring``/``v_ring`` ``(sliding layers, B, ring, Hkv,
+D)``, the recurrent state ``h`` ``(B, rglru layers, w)`` or ``ssm`` ``(B, ssd
+layers, H, P, N)``, and ``conv`` ``(B, recurrent layers, 3, channels)``. A
+JAX layer cache names its K/V ``k``/``v`` whatever the layer's kind; the
+port's leaf for each is :data:`~repro_torch.models.model.BLOCK_LEAVES`'s.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays and go back as
 float32 arrays (exact: every bfloat16 is a float32).
@@ -26,8 +28,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
-from .models.model import CACHE_LAYOUT, Model, resolve_device
-from .models.transformer import RECURRENT_STATE
+from .models.model import BLOCK_LEAVES, CACHE_LAYOUT, Model, resolve_device
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _QK_NORM = ("q_norm", "k_norm")
@@ -164,11 +165,13 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
     else:
         select = lambda leaf, c: np.asarray(leaf)[c]  # noqa: E731
     per_layer = []
-    for path in _layer_paths(cfg):
+    for path, b in zip(_layer_paths(cfg), cfg.pattern_layers):
         lc = _layer(tree, path, select)
         if path[0] == "rest" and slots:
             lc = {k: np.asarray(v)[:, 0] for k, v in lc.items()}
-        per_layer.append(lc)        # every leaf (B, ...)
+        # every leaf (B, ...), under the port's name
+        per_layer.append({ours: lc[theirs]
+                          for ours, theirs in BLOCK_LEAVES[b].items()})
     cache = {}
     for name, leaf in CACHE_LAYOUT.items():
         # in layer order, so row j of a leaf is the j-th layer holding it
@@ -181,18 +184,15 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
 def cache_to_numpy(cache: dict, cfg: ModelConfig, *, slots: bool = False) -> dict:
     """Inverse of :func:`cache_from_jax`: the JAX cache tree, as numpy."""
     arrays = {name: _to_numpy(t) for name, t in cache.items()}
-    index = {False: 0, True: 0}
+    index = dict.fromkeys(arrays, 0)
     layers = []
     for b in cfg.pattern_layers:
-        rec = b in RECURRENT_STATE
-        j = index[rec]
-        index[rec] += 1
         lc = {}
-        for name, leaf in CACHE_LAYOUT.items():
-            if leaf.recurrent != rec or name not in arrays:
-                continue
-            row = np.take(arrays[name], j, axis=leaf.layer_axis)
-            lc[name] = row[:, None] if slots else row   # per-slot batch of one
+        for ours, theirs in BLOCK_LEAVES[b].items():
+            row = np.take(arrays[ours], index[ours],
+                          axis=CACHE_LAYOUT[ours].layer_axis)
+            index[ours] += 1
+            lc[theirs] = row[:, None] if slots else row  # per-slot batch of one
         layers.append(lc)
     axis = 1 if slots else 0
     return _stack(layers, cfg, lambda xs: np.stack(xs, axis=axis))

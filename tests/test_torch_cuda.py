@@ -56,6 +56,12 @@ FLASH_CASES = [
     (2, 70, 70, 4, 2, 16, True, 0, (0, 0)),             # forward at D 16,
     (1, 130, 130, 6, 3, 32, True, 24, (0,)),            # 32 and 64
     (2, 65, 100, 8, 2, 64, False, 0, (0, 35)),
+    (8, 1, 1024, 4, 1, 256, True, 0,                    # gemma3 full decode
+     (0, 1, 300, 511, 512, 1000, 1023, 1500)),
+    (8, 1, 512, 4, 1, 256, True, 0,                     # gemma3 ring decode,
+     (0, 1, 511, 512, 600, 1023, 1024, 2000)),          # wrapped
+    (2, 1024, 1024, 4, 1, 256, True, 512, (0, 0)),      # gemma3 forward:
+    (1, 600, 600, 4, 1, 256, True, 0, (0,)),            # sliding and full
 ]
 
 
@@ -83,8 +89,10 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
-# decode shapes (T, Hq, Hkv, D): qwen3's serve cache and recurrentgemma's ring
-DECODE_SHAPES = [(1024, 16, 8, 128), (2048, 10, 1, 256)]
+# decode shapes (T, Hq, Hkv, D): qwen3's serve cache, recurrentgemma's ring,
+# gemma3's full cache and ring
+DECODE_SHAPES = [(1024, 16, 8, 128), (2048, 10, 1, 256), (1024, 4, 1, 256),
+                 (512, 4, 1, 256)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -407,3 +415,83 @@ def test_probe_kernel_over_one_slots_ssm_state(cuda):
     assert torch.equal(got, probe_rows_ref(x, float("inf"), nonfinite_code=sf,
                                            overflow_code=sf))
     assert got.tolist() == [sf]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b",
+                                  "mamba2-2.7b"])
+def test_engines_bit_equal_on_the_card(cuda, arch):
+    """The smoke model in bf16 on the card, seeded: the stepwise engine, the
+    blocking window engine and the overlapped one serve the same streams,
+    token for token — the blocking prefill runs at the slots' batch size,
+    so cuBLAS and flash see the slot step's shapes."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serve import OK, EngineConfig, Replica, Request
+
+    cfg = smoke_config(arch).replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    rng = np.random.default_rng(3)
+    traffic = [(tuple(int(t) for t in rng.integers(1, cfg.vocab_size,
+                                                   int(rng.integers(2, 30)))),
+                int(rng.integers(3, 20))) for _ in range(6)]
+    streams = []
+    for conf in (dict(window=0), dict(window=4, overlap=False),
+                 dict(window=4, overlap=True)):
+        rep = Replica(cfg, model, config=EngineConfig(num_slots=3, max_len=64,
+                                                      **conf))
+        for i, (prompt, n) in enumerate(traffic):
+            assert rep.submit(Request(id=i, prompt=prompt, max_new_tokens=n)) is None
+        out = rep.run()
+        assert all(r.status == OK for r in out)
+        streams.append({r.id: r.tokens for r in out})
+    assert streams[0] == streams[1] == streams[2]
+
+
+def test_cache_prefill_row_ignores_the_other_rows(cuda):
+    """qwen3-1.7b at full width, seeded, 8 slots: row 3 of a blocking
+    prefill at the slots' batch size (what the replica keeps) has the same
+    logits and cache bits whether the other rows hold the same sequence or
+    others, so a rebuilt lane does not depend on its neighbours. Prints the
+    prefill's ms at batch 1 and at batch 8 and how far row 0's logits at
+    batch 1 are from batch 8's (the reason the replica does not rebuild at
+    batch 1); run with ``-s`` to see the line."""
+    import json
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_cache_prefill
+    from repro_torch.models import Model
+    from repro_torch.models.model import slot_layer_view
+
+    slots, slot, max_len = 8, 3, 1024
+    cfg = get_config("qwen3-1.7b")
+    model = Model(cfg, device=cuda, seed=0)
+    prefill = make_cache_prefill(model)
+    rng = np.random.default_rng(5)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 19))).to(
+        device=cuda, dtype=torch.int32)
+    mixed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (slots, 19))).to(
+        device=cuda, dtype=torch.int32)
+    mixed[slot] = seq[0]
+    same_logits, same_cache, _ = prefill(seq.expand(slots, -1), max_len)
+    mixed_logits, mixed_cache, _ = prefill(mixed, max_len)
+    assert torch.equal(same_logits[slot], mixed_logits[slot])
+    for name in same_cache:
+        assert torch.equal(slot_layer_view(same_cache, name)[slot],
+                           slot_layer_view(mixed_cache, name)[slot]), name
+    del same_cache, mixed_cache
+
+    ms, last = {}, {}
+    for b in (1, slots):
+        prefill(seq.expand(b, -1), max_len)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _ = prefill(seq.expand(b, -1), max_len)
+        torch.cuda.synchronize()
+        ms[b] = (time.perf_counter() - t0) * 1e3
+        last[b] = logits[0, -1]
+    print(json.dumps({
+        "test": "cache_prefill_batch_cost", "card": torch.cuda.get_device_name(0),
+        "prompt": seq.shape[1], "batch_1_ms": ms[1], f"batch_{slots}_ms": ms[slots],
+        "row_0_bit_equal": bool(torch.equal(last[1], last[slots])),
+        "row_0_max_abs_diff": (last[1] - last[slots]).abs().max().item()}))

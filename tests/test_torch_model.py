@@ -1,6 +1,8 @@
 """The port's model against the JAX package on the smoke configs of each
-ported architecture (qwen3-1.7b: 2 layers, d_model 64; recurrentgemma-2b: 8
-layers — RG-LRU, RG-LRU, sliding — d_model 64, lru_width 64, window 16;
+ported architecture (qwen3-1.7b: 2 layers, d_model 64; gemma3-1b: 14
+layers — five sliding, one full, twice, then two sliding — window 16;
+recurrentgemma-2b: 8 layers — RG-LRU, RG-LRU, sliding — d_model 64,
+lru_width 64, window 16;
 mamba2-2.7b: 2 SSD layers, d_model 64, 8 heads of 16, state 16, chunk 8;
 all float32), with the JAX weights carried over by the bridge: full-forward
 logits (against the JAX forward with its reference paths and with its Pallas
@@ -25,12 +27,13 @@ from repro.models import build_model
 from repro_torch.configs import smoke_config
 from repro_torch.core.errors import ErrorCode
 from repro_torch.launch.steps import make_slot_decode_step
+from repro_torch.models.model import KV_LEAVES
 from repro_torch.weights import cache_from_jax, cache_to_numpy, params_from_jax
 
 torch.set_num_threads(2)
 
 TOL = 1e-4
-ARCHS = ["qwen3-1.7b", "recurrentgemma-2b", "mamba2-2.7b"]
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -98,7 +101,7 @@ def test_decode_across_the_ring_wrap():
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 41)).astype(np.int32)
     jcache = jmodel.init_cache(2, 24)
     cache = model.init_cache(2, 24)
-    assert cache["k"].shape[2] == cfg.sliding_window == 16
+    assert cache["k_ring"].shape[2] == cfg.sliding_window == 16
     jstep = jax.jit(jmodel.decode_step)
     for p in range(41):
         tok = toks[:, p:p + 1]
@@ -129,6 +132,8 @@ def _slot_inputs(cfg, jcfg, cap, positions, seed=2):
 POISON_SITES = {
     "qwen3-1.7b": (("periods", "b0", "v"), (1, 0, 0, 2, 1, 3),
                    int(ErrorCode.NONFINITE_LOSS)),
+    "gemma3-1b": (("periods", "b5", "v"), (1, 0, 0, 2, 0, 3),
+                  int(ErrorCode.NONFINITE_LOSS)),
     "recurrentgemma-2b": (("periods", "b1", "h"), (1, 0, 0, 7),
                           int(ErrorCode.NONFINITE_LOSS | ErrorCode.STATE_FAULT)),
     "mamba2-2.7b": (("periods", "b0", "ssm"), (1, 1, 0, 6, 3, 5),
@@ -175,7 +180,8 @@ def test_slot_step_matches_jax(env, poison):
 
 def test_cache_write_positions(env):
     """Decode writes each slot's K/V at its write index and nowhere else:
-    min(pos, cap-1) in a full layer's cache, pos % cap in a ring. Without
+    min(pos, cap-1) in a full layer's cache, pos % cap in a ring (gemma3
+    holds both kinds, each with its own index). Without
     attention (mamba2) the step's input lands in the newest tap of every
     layer's conv history, and the older taps of a fresh cache stay zero."""
     _, cfg, _, _, model = env
@@ -190,6 +196,9 @@ def test_cache_write_positions(env):
             [s, l, taps - 1] for s in range(3)
             for l in range(len(model.recurrent_layers))]
         return
-    written = (cache["k"][0].abs().sum(dim=(-1, -2)) != 0)
-    last = 2 if model.attn_kind == "sliding" else cap - 1
-    assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, last]]
+    for kind, (k, _) in KV_LEAVES.items():
+        if k not in cache:
+            continue
+        written = (cache[k][0].abs().sum(dim=(-1, -2)) != 0)
+        last = 2 if kind == "sliding" else cap - 1
+        assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, last]], kind

@@ -1,11 +1,13 @@
 """The port's window+overlap Replica against the JAX Replica and against its
-own contracts, on the smoke configs of qwen3-1.7b, recurrentgemma-2b and
-mamba2-2.7b (float32, weights bridged from JAX):
+own contracts, on the smoke configs of qwen3-1.7b, gemma3-1b,
+recurrentgemma-2b and mamba2-2.7b (float32, weights bridged from JAX):
 
 * the same requests give the same streams as the JAX engine (except where
   the reference's top-2 logit gap is below the logits tolerance);
 * the same injected fault words give the same recovery decisions and the
   same streams;
+* ``inject_state_fault`` poisons what the JAX replica poisons, for gemma3
+  also where its rings hold ``max_len`` entries;
 * an injected KV fault (NaN; qwen3) or recurrent-state fault (NaN in ``h``,
   recurrentgemma; in ``ssm``, mamba2) is detected and recovered by LFLR
   with streams bit-equal
@@ -35,9 +37,10 @@ from repro_torch.weights import cache_from_jax, params_from_jax
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen3-1.7b", "recurrentgemma-2b", "mamba2-2.7b"]
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b"]
 LOGIT_TOL = 1e-4          # float32 logits, reduction order only
-# max_len 48 > the smoke window 16: recurrentgemma's rings wrap in serving
+# max_len 48 > the smoke window 16: the rings of recurrentgemma and gemma3
+# wrap in serving (prompts up to 12 tokens plus up to 14 new)
 ENGINE = dict(window=4, overlap=True, num_slots=3, max_len=48)
 
 
@@ -91,14 +94,15 @@ def _serve(rep, request_cls, traffic, inject_at=None):
     return out, poisoned
 
 
-def _jax_replica(env, **kw):
+def _jax_replica(env, max_len=ENGINE["max_len"], **kw):
     jcfg, _, _, params, _ = env
-    return JaxReplica(jcfg, params=params, config=JaxEngineConfig(**ENGINE), **kw)
+    conf = dict(ENGINE, max_len=max_len)
+    return JaxReplica(jcfg, params=params, config=JaxEngineConfig(**conf), **kw)
 
 
-def _port_replica(env, window=ENGINE["window"], **kw):
+def _port_replica(env, window=ENGINE["window"], max_len=ENGINE["max_len"], **kw):
     _, cfg, _, _, model = env
-    conf = dict(ENGINE, window=window)
+    conf = dict(ENGINE, window=window, max_len=max_len)
     return Replica(cfg, model, config=EngineConfig(**conf), **kw)
 
 
@@ -208,22 +212,51 @@ def test_state_fault_matches_jax_and_lflr(arch):
     assert all(r.status == OK for r in got.values())
 
 
-def test_inject_state_fault_poisons_what_jax_poisons(env):
-    """The poisoned elements of the port's cache are exactly the JAX
-    replica's, mapped through the bridge (recurrentgemma: ``h`` in 4
-    layers; mamba2: ``ssm`` in layer 0; qwen3: K at position 0 of layer
-    0)."""
-    jcfg, cfg = env[:2]
-    jrep, prep = _jax_replica(env), _port_replica(env)
+def _assert_same_poison(env, max_len):
+    cfg = env[1]
+    jrep, prep = _jax_replica(env, max_len=max_len), _port_replica(env, max_len=max_len)
     assert jrep.inject_state_fault(1) == prep.inject_state_fault(1) == 1
     want = cache_from_jax(jax.device_get(jrep.caches), cfg, slots=True,
                           device="cpu")
     assert set(want) == set(prep.caches)
     for name, t in prep.caches.items():
         assert torch.equal(torch.isnan(t), torch.isnan(want[name])), name
+    assert _nan_layers(prep) == prep.state_fault_layers()
+    return prep
+
+
+def _nan_layers(rep):
+    """The layers whose cache rows hold a NaN, read back from the caches."""
+    from repro_torch.models.model import BLOCK_LEAVES, slot_layer_view
+    model = rep.model
+    return [l for l, b in enumerate(model.cfg.pattern_layers)
+            if any(bool(slot_layer_view(rep.caches, name)[:, model.cache_index[l]]
+                        .isnan().any()) for name in BLOCK_LEAVES[b])]
+
+
+def test_inject_state_fault_poisons_what_jax_poisons(env):
+    """The poisoned elements of the port's cache are exactly the JAX
+    replica's, mapped through the bridge (recurrentgemma: ``h`` in 4
+    layers; mamba2: ``ssm`` in layer 0; qwen3: K at position 0 of layer
+    0; gemma3: of layer 5, its first full layer)."""
+    cfg = env[1]
+    prep = _assert_same_poison(env, ENGINE["max_len"])
     hit = prep.caches[prep.model.state_leaf or "k"]
     assert int(torch.isnan(hit).sum()) == (
         4 if cfg.name == "recurrentgemma-2b" else 1)
+    if cfg.name == "gemma3-1b":
+        assert torch.isnan(hit[0, 1]).any()          # full layer 0: layer 5
+
+
+def test_inject_state_fault_poisons_a_ring_where_jax_does():
+    """gemma3 with ``max_len`` <= the window (12 <= 16): every ring holds
+    ``max_len`` entries, and the JAX replica's first K leaf of that
+    capacity is layer 0's ring, a sliding layer. The port poisons the same
+    element."""
+    prep = _assert_same_poison(_env("gemma3-1b"), 12)
+    assert int(torch.isnan(prep.caches["k_ring"]).sum()) == 1
+    assert torch.isnan(prep.caches["k_ring"][0, 1]).any()
+    assert not torch.isnan(prep.caches["k"]).any()
 
 
 def test_reused_slot_serves_like_a_fresh_replica(env):
@@ -269,8 +302,7 @@ def test_host_sync_budget(env):
 
 def test_unported_modes_raise(env):
     _, cfg, _, _, model = env
-    for bad in (dict(window=0), dict(window=4, overlap=False),
-                dict(window=4, paged=True), dict(window=4, speculate=True),
+    for bad in (dict(window=4, paged=True), dict(window=4, speculate=True),
                 dict(window=4, tp=2), dict(window=4, trace=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Replica(cfg, model, config=EngineConfig(**bad))
@@ -279,10 +311,12 @@ def test_unported_modes_raise(env):
 
 
 def test_default_config_serves(env):
-    """``EngineConfig()`` is a mode the port runs (window 8, overlap)."""
+    """``EngineConfig()`` is the stepwise engine (window 0), as in the JAX
+    package, and it serves."""
     _, cfg, _, _, model = env
     rep = Replica(cfg, model)
-    assert (rep.window, rep.config.overlap) == (8, True)
+    assert rep.config == EngineConfig() == EngineConfig(window=0)
+    assert (rep.window, rep.overlap) == (0, False)
     rep.submit(Request(id=0, prompt=(1, 2, 3), max_new_tokens=4))
     (resp,) = rep.run()
     assert resp.status == OK and len(resp.tokens) == 4

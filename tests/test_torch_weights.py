@@ -1,7 +1,7 @@
 """The weight and cache bridge round-trips exactly: JAX params → port model
 → JAX layout, and JAX caches (decode and slot-stacked serve layouts) → port
 cache → JAX layout, leaf for leaf, bit for bit — for qwen3 (full-attention
-K/V), recurrentgemma (RG-LRU leaves, ring K/V, ``h``/``conv`` state,
+K/V), gemma3 (full K/V and sliding rings in one stack), recurrentgemma (RG-LRU leaves, ring K/V, ``h``/``conv`` state,
 remainder layers) and mamba2 (SSD leaves, blocks without norm2 or MLP,
 ``ssm``/``conv`` state)."""
 import dataclasses
@@ -23,10 +23,12 @@ from repro_torch.weights import (
 )
 
 ARCH = "qwen3-1.7b"
-ARCHS = ["qwen3-1.7b", "recurrentgemma-2b", "mamba2-2.7b"]
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b"]
 # (arch, layers): a depth without and with remainder layers (recurrentgemma:
-# 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest)
-DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("recurrentgemma-2b", 5),
+# 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest;
+# gemma3: 6 = one period, 14 = the smoke depth, two periods + 2 rest)
+DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("gemma3-1b", 6),
+          ("gemma3-1b", 14), ("recurrentgemma-2b", 5),
           ("recurrentgemma-2b", 8), ("mamba2-2.7b", 2), ("mamba2-2.7b", 3)]
 
 
@@ -60,7 +62,8 @@ def test_params_round_trip(dtype, arch, layers):
 @pytest.mark.parametrize("slots", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_round_trip(slots, arch):
-    """max_len 20 > the smoke window 16: recurrentgemma's rings hold 16."""
+    """max_len 20 > the smoke window 16: the sliding layers' rings
+    (recurrentgemma, gemma3) hold 16, the full layers' caches 20."""
     jcfg = jax_smoke_config(arch)
     cfg = smoke_config(arch)
     shapes = build_model(jcfg).cache_shapes(1 if slots else 3, 20)
@@ -72,11 +75,13 @@ def test_cache_round_trip(slots, arch):
     model = Model(cfg, device="cpu", seed=None)
     want = model.init_cache(3, 20)
     assert {k: v.shape for k, v in cache.items()} == {k: v.shape for k, v in want.items()}
-    n_attn = sum(b in ("attn", "sliding") for b in cfg.pattern_layers)
-    cap = 16 if arch == "recurrentgemma-2b" else 20
-    if n_attn:
-        assert cache["k"].shape == (n_attn, 3, cap, cfg.num_kv_heads,
-                                    cfg.resolved_head_dim)
+    for kind, (k, _), cap in (("attn", ("k", "v"), 20),
+                              ("sliding", ("k_ring", "v_ring"), 16)):
+        n = cfg.pattern_layers.count(kind)
+        assert (k in cache) == bool(n)
+        if n:
+            assert cache[k].shape == (n, 3, cap, cfg.num_kv_heads,
+                                      cfg.resolved_head_dim)
     _leaves_equal(tree, cache_to_numpy(cache, cfg, slots=slots))
 
 
