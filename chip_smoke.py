@@ -37,46 +37,67 @@ Phases, each printing one JSON line (``"phase": ...``):
 7. lflr_stepwise, lflr_blocking — the stepwise and the blocking engine on
    the same traffic with one KV fault: streams bit-equal to that engine's
    clean run;
-8. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
+8. serve_paged, lflr_paged — phases 4 and 5 through the page pool
+   (``paged=True``, pages of 16, the default 8 × 64 pages): the streams
+   must equal phase 4's token for token, at 2 host syncs per window and the
+   same launches per step; every page comes back at drain and the ledger is
+   consistent. The line adds the pool's size and the device time of one
+   whole-tree gather + scatter beside its bytes bound. The NaN goes into
+   the lane's first pool page, and the streams must be bit-equal;
+9. page_fault — the same run with one decoding lane's page-table row
+   unmapped mid-run: PAGE_FAULT raised at the wait on that slot, one
+   ``page_reclaim`` record, every stream equal to phase 8's;
+10. paged_pressure — the same traffic through a pool of 64 pages: lanes are
+   preempted back into the queue (evictions > 0), the pool's peak stays
+   within it, and the streams equal phase 4's;
+11. engines_paged — the engines traffic through the blocking engine over
+   the pool (``window=8, overlap=False, paged=True``): streams equal the
+   blocking engine's, syncs within its rule;
+12. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
    where a control in chunk 0 must exceed it after chunk 1; flash decode
    over ring caches that wrap, the sliding-window flash forward at S 4096,
    the probe over the recurrent state and over the prefill logits;
-9. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
+13. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
    RG-LRU, 8 sliding-window attention; bf16, seeded random weights), the
    qwen3 model freed first;
-10. lflr_rg   — phase 5 for recurrentgemma-2b: the NaN goes into the slots'
+14. lflr_rg   — phase 5 for recurrentgemma-2b: the NaN goes into the slots'
    recurrent state and the state probe must latch STATE_FAULT;
-11. lflr_stepwise_rg — recurrentgemma's stepwise engine, 4 requests, clean
+15. lflr_stepwise_rg — recurrentgemma's stepwise engine, 4 requests, clean
    and with a NaN in ``h``: the re-prefill rebuilds the lane across the
    state's (batch, layer) layout, and the streams are bit-equal;
-12. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
+16. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
    window): the scan kernel once per RG-LRU layer, flash once per sliding
    layer, one probe, a clean word, its time and peak memory;
-13. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
+17. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
    mamba2-2.7b's prefill shape and at a shape with groups over heads and
    fewer steps than the chunk (bf16: the tensor-core route), and at the
    prefill shape in fp32 (the ``ssd_f32`` route), each with a control that
    must exceed the limit (one step's dt changed), and the probe over the
    full ``ssm`` state;
-14. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
-   seeded random weights), the recurrentgemma model freed first;
-15. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
+18. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
+   seeded random weights), the recurrentgemma model freed first, on the
+   first 8 of the 16 requests (one per slot: cut when the paged phases
+   came, to keep the run's time);
+19. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
    ``ssm`` state and the state probe must latch STATE_FAULT;
-16. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
+20. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
    kernel once per layer, one probe, a clean word, its time and peak memory;
-17. kernels_g3 — flash and the probe at gemma3-1b's shapes (4/1 heads of
+21. kernels_g3 — flash and the probe at gemma3-1b's shapes (4/1 heads of
    256): decode over the full cache and over the 512-entry ring, wrapped,
    the sliding (window 512) and the full forward at 2 × 4096, the probe
    over 8 × 262144 logits, each flash row with controls;
-18. serve_g3   — phase 4 for full-width gemma3-1b (26 layers: 22 sliding,
+22. serve_g3   — phase 4 for full-width gemma3-1b (26 layers: 22 sliding,
    4 full; bf16, seeded random weights), the mamba2 model freed first; two
    of the 16 prompts have 560 tokens, so the rings wrap, and the longest
    answer is held against the forward;
-19. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
+23. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
    first full layer, as in the JAX replica;
-20. prefill_g3 — ``make_prefill_step`` at B 2, S 4096: flash forward once per
+24. serve_g3_paged, lflr_g3_paged — phases 22 and 23 through the pool: the
+   4 full layers paged, the 512-entry rings dense; the streams must equal
+   phase 22's, and the NaN goes into K of layer 5, now a pool page;
+25. prefill_g3 — ``make_prefill_step`` at B 2, S 4096: flash forward once per
    layer, one probe.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -109,6 +130,10 @@ ENGINE_REQUESTS, ENGINE_NEW = 8, 12
 ENGINES = {"stepwise": dict(window=0),
            "blocking": dict(window=WINDOW, overlap=False),
            "overlap": dict(window=WINDOW, overlap=True)}
+# the paged phases: pages of 16 positions, the default budget (8 slots x
+# 64 pages), and a pool of 64 pages for the pressure phase
+PAGE_SIZE, PRESSURE_BUDGET = 16, 64
+PAGED = dict(paged=True, page_size=PAGE_SIZE)
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
 # flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
 # every bf16 row is also held, element by element, to 2 bf16 ulps of itself
@@ -492,10 +517,10 @@ def phase_kernels(torch, card: str) -> dict:
     return out
 
 
-def make_requests(cfg, Request, long: int = 0):
-    """The serve phases' traffic; the first ``long`` requests get prompts of
-    ``LONG_PROMPT`` tokens instead (drawn apart, so the others do not
-    change)."""
+def make_requests(cfg, Request, long: int = 0, n: int = NUM_REQUESTS):
+    """The serve phases' traffic, its first ``n`` requests; the first
+    ``long`` requests get prompts of ``LONG_PROMPT`` tokens instead (drawn
+    apart, so the others do not change)."""
     import numpy as np
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257)))
@@ -504,7 +529,7 @@ def make_requests(cfg, Request, long: int = 0):
     for i in range(long):
         prompts[i] = rng_long.integers(0, cfg.vocab_size, LONG_PROMPT)
     return [Request(id=i, prompt=tuple(int(t) for t in p), max_new_tokens=MAX_NEW)
-            for i, p in enumerate(prompts)]
+            for i, p in enumerate(prompts[:n])]
 
 
 def engine_requests(cfg, Request, n: int = ENGINE_REQUESTS):
@@ -565,13 +590,17 @@ def build_model(torch, cfg):
 
 
 def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
-                long: int = 0, poison_layers=None) -> dict:
+                long: int = 0, poison_layers=None, paged: bool = False,
+                want=None, n: int = NUM_REQUESTS):
     """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
     traffic clean, then again with an injected state fault. ``long``
     requests get ``LONG_PROMPT``-token prompts, and the longest answer is
     then the one held against the forward; ``poison_layers``, where given,
-    is where the fault must land. Returns the clean run's kernel
-    launches."""
+    is where the fault must land. ``paged`` serves through the page pool
+    (``PAGED``), whose clean streams must equal ``want`` (the contiguous
+    run's), and adds the pool's numbers and the time of one whole-tree
+    gather + scatter to the line. ``n`` cuts the traffic to its first
+    requests. Returns the clean run's kernel launches and streams."""
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -580,7 +609,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     cfg = model.cfg
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     rep = Replica(cfg, model, config=EngineConfig(
-        window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN))
+        window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+        **(PAGED if paged else {})))
     t0 = time.perf_counter()
     rep.warmup()
     torch.cuda.synchronize()
@@ -591,7 +621,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     reset_launch_counts()
     readback.count = 0
     t0 = time.perf_counter()
-    clean, _ = drive(rep, make_requests(cfg, Request, long))
+    clean, _ = drive(rep, make_requests(cfg, Request, long, n))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -599,7 +629,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     peak = torch.cuda.max_memory_allocated() / 1e9   # before the checks' own
     m = rep.metrics
     bad = [r.id for r in clean.values() if not r.ok or len(r.tokens) != MAX_NEW]
-    if len(clean) != NUM_REQUESTS or bad:
+    if len(clean) != n or bad:
         fail(f"{names[0]}: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
     recurrent = model.state_leaf is not None
@@ -619,8 +649,12 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
              "window expected)")
     if m.faults:
         fail(f"{names[0]}: clean run recorded faults: {m.faults}")
+    if want is not None and streams(clean) != want:
+        diff = [i for i in want if clean[i].tokens != want[i]]
+        fail(f"{names[0]}: streams differ from the contiguous run for requests {diff}")
+    pool = paged_report(torch, rep, names[0]) if paged else {}
     tokens = sum(len(r.tokens) for r in clean.values())
-    reqs = make_requests(cfg, Request, long)
+    reqs = make_requests(cfg, Request, long, n)
     forward = check_against_forward(torch, model, clean, reqs, longest=bool(long))
     if "ssd" in cfg.block_pattern:
         # bf16 decode (one-step state update, the conv as one product) and
@@ -639,14 +673,14 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
           "syncs": syncs, "window_waits": m.window_waits, "launches": launches,
           "ttft_p50_s": m.ttft_percentiles()["p50"],
           "latency_p99_s": m.latency_percentiles()["p99"],
-          "peak_mem_gb": peak, "forward_check": forward})
+          "peak_mem_gb": peak, "forward_check": forward, **pool})
 
     # ---- same traffic, a NaN in an active slot's state mid-run, in a slot
     # decoding and busy past the in-flight and the next window
     rep.metrics = ServeMetrics()
     inject, state = injector(2 * WINDOW, 6, MAX_NEW)
     t0 = time.perf_counter()
-    faulted, injected = drive(rep, make_requests(cfg, Request, long), inject)
+    faulted, injected = drive(rep, make_requests(cfg, Request, long, n), inject)
     torch.cuda.synchronize()
     lflr_wall = time.perf_counter() - t0
     fm = rep.metrics
@@ -655,6 +689,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     if poison_layers is not None and state["layers"] != poison_layers:
         fail(f"{names[1]}: the fault landed in layers {state['layers']}, not "
              f"{poison_layers}")
+    if state["slot"] is None:
+        fail(f"{names[1]}: the poisoned slot owned no page")
     # recurrent state: the state probe's STATE_FAULT; KV: non-finite logits
     code = ErrorCode.STATE_FAULT if recurrent else ErrorCode.NONFINITE_LOSS
     latched = [f for f in fm.faults if f.code & int(code)]
@@ -673,7 +709,132 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
           "recovery_action": latched[0].action,
           "retries": sum(r.retries for r in faulted.values()),
           "streams_bit_equal": True, "wall_s": lflr_wall})
-    return launches
+    return launches, streams(clean)
+
+
+def paged_report(torch, rep, name: str) -> dict:
+    """The page pool after a clean paged run: every page back
+    (``pages_allocated == pages_freed``, the ledger consistent), the
+    pool's size, and the device time of one whole-tree gather + scatter
+    with every slot's pages mapped, beside its bytes bound (the pages read,
+    the view written, read back and written through the table)."""
+    import numpy as np
+    m, layout = rep.metrics, rep.layout
+    if not m.pages_allocated or m.pages_allocated != m.pages_freed:
+        fail(f"{name}: pages allocated {m.pages_allocated}, freed {m.pages_freed}")
+    try:
+        rep.alloc.check()
+    except AssertionError as exc:
+        fail(f"{name}: page ledger: {exc}")
+    ids = np.arange(NUM_SLOTS * layout.max_pages) % layout.num_pages
+    table = torch.from_numpy(ids.reshape(NUM_SLOTS, layout.max_pages).astype(
+        np.int32)).to(rep.device)
+
+    def gather_scatter(hybrid, table):
+        layout.scatter(hybrid, layout.gather(hybrid, table), table)
+
+    ms = time_ms(torch, gather_scatter, [(rep.caches, table)], launches=16)
+    nbytes = 4 * NUM_SLOTS * layout.max_pages * layout.page_bytes()
+    return {"page_size": layout.page_size, "num_pages": layout.num_pages,
+            "paged_leaves": sorted(n for n in rep.caches if layout.is_paged_path(n)),
+            "pool_gb": layout.pool_bytes() / 1e9,
+            "pages_allocated": m.pages_allocated, "pages_freed": m.pages_freed,
+            "peak_pages_in_use": m.peak_pages_in_use,
+            "gather_scatter_ms": ms,
+            "gather_scatter_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "gather_scatter_bound_by": "bytes",
+            "streams_equal_contiguous": True}
+
+
+def phase_page_fault(torch, card: str, model, want: dict) -> None:
+    """The serve_paged run with one lane's page-table row unmapped behind
+    the allocator's back, mid-run: the page probe latches PAGE_FAULT at the
+    wait, attributed to that slot, one ``page_reclaim`` record follows, the
+    LFLR re-queue rebuilds the mapping, and every stream equals
+    serve_paged's (``want``)."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.serve import EngineConfig, Replica, Request
+
+    rep = Replica(model.cfg, model, config=EngineConfig(
+        window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN, **PAGED))
+    state = {"cycles": 0, "slot": None}
+
+    def corrupt(r) -> bool:
+        state["cycles"] += 1
+        if state["cycles"] < 6:
+            return False
+        for s in r.sched.slots:
+            if (s.active and s.pending is None and s.generated
+                    and MAX_NEW - len(s.generated) > 2 * WINDOW
+                    and r.corrupt_page_table(s.idx)):
+                state["slot"] = s.idx
+                return True
+        return False
+
+    t0 = time.perf_counter()
+    out, injected = drive(rep, make_requests(model.cfg, Request), corrupt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = rep.metrics
+    if not injected:
+        fail("page_fault: no decoding slot to corrupt")
+    page = [f for f in m.faults if f.code & int(ErrorCode.PAGE_FAULT)]
+    reclaims = [f for f in m.faults if f.action == "page_reclaim"]
+    if not page or page[0].slots != (state["slot"],):
+        fail(f"page_fault: PAGE_FAULT not raised on slot {state['slot']}: {m.faults}")
+    if len(reclaims) != 1 or reclaims[0].slots != (state["slot"],):
+        fail(f"page_fault: page_reclaim records {reclaims}")
+    bad = [i for i in want if out.get(i) is None or not out[i].ok
+           or out[i].tokens != want[i]]
+    if bad:
+        fail(f"page_fault: streams differ from serve_paged for requests {bad}")
+    try:
+        rep.alloc.check()
+    except AssertionError as exc:
+        fail(f"page_fault: page ledger: {exc}")
+    emit({"phase": "page_fault", "card": card, "model": model.cfg.name,
+          "corrupted_slot": state["slot"],
+          "faults": [{"step": f.step, "code": f.code, "action": f.action,
+                      "slots": list(f.slots)} for f in m.faults],
+          "retries": sum(r.retries for r in out.values()),
+          "streams_bit_equal": True, "wall_s": wall})
+
+
+def phase_paged_pressure(torch, card: str, model, want: dict) -> None:
+    """serve's traffic through a pool of ``PRESSURE_BUDGET`` pages, an
+    eighth of what 8 slots of 1024 would take: growth must preempt the
+    oldest lanes back into the queue, the pool's peak stays within it,
+    every request is answered OK, and the streams equal serve's
+    (``want``)."""
+    from repro_torch.serve import EngineConfig, Replica, Request
+
+    rep = Replica(model.cfg, model, config=EngineConfig(
+        window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+        **PAGED, page_budget=PRESSURE_BUDGET))
+    t0 = time.perf_counter()
+    out, _ = drive(rep, make_requests(model.cfg, Request))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = rep.metrics
+    if m.page_evictions < 1:
+        fail("paged_pressure: the pool never ran dry (no eviction)")
+    if m.peak_pages_in_use > PRESSURE_BUDGET:
+        fail(f"paged_pressure: {m.peak_pages_in_use} pages in use > {PRESSURE_BUDGET}")
+    bad = [i for i in want if out.get(i) is None or not out[i].ok
+           or out[i].tokens != want[i]]
+    if bad:
+        fail(f"paged_pressure: streams differ from serve for requests {bad}")
+    try:
+        rep.alloc.check()
+    except AssertionError as exc:
+        fail(f"paged_pressure: page ledger: {exc}")
+    emit({"phase": "paged_pressure", "card": card, "model": model.cfg.name,
+          "page_budget": PRESSURE_BUDGET, "page_evictions": m.page_evictions,
+          "peak_pages_in_use": m.peak_pages_in_use,
+          "peak_active_slots": m.peak_active_slots,
+          "pages_allocated": m.pages_allocated, "windows": m.windows,
+          "tokens_per_s": sum(len(r.tokens) for r in out.values()) / wall,
+          "streams_equal_serve": True, "wall_s": wall})
 
 
 def serve_engine(torch, model, conf: dict, reqs, inject=None):
@@ -762,6 +923,52 @@ def phase_engines(torch, card: str, model) -> dict:
           "ms_per_step_note": "wall less the blocking prefills' stall, over "
                               "the decode steps", **rows})
     return {"streams": runs, "launches": launches}
+
+
+def phase_engines_paged(torch, card: str, model, want: dict) -> dict:
+    """The engines phase's traffic through the blocking window engine over
+    the page pool (``window=8, overlap=False, paged=True``): every answer
+    OK, the streams equal the contiguous blocking engine's (``want``), host
+    syncs within the blocking rule (2 per window, 2 per blocking prefill),
+    one slot step per decode step and per prefilled token, and every page
+    back at drain. Returns the run's launches."""
+    from repro_torch.serve import Request
+
+    cfg = model.cfg
+    reqs = engine_requests(cfg, Request)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    conf = dict(ENGINES["blocking"], **PAGED)
+    run = serve_engine(torch, model, conf, reqs)
+    out, m = run["answers"], run["metrics"]
+    bad = [i for i in want if out.get(i) is None or not out[i].ok
+           or out[i].tokens != want[i]]
+    if bad or m.faults:
+        fail(f"engines_paged: streams differ from the blocking engine's for "
+             f"requests {bad}, faults {m.faults}")
+    if m.prefills != ENGINE_REQUESTS or run["syncs"] > 2 * m.windows + 2 * m.prefills:
+        fail(f"engines_paged: {run['syncs']} host syncs for {m.windows} windows "
+             f"and {m.prefills} prefills")
+    slot_steps = m.decode_steps + prompt_tokens
+    expected = dict.fromkeys(run["launches"], 0)
+    expected.update({"flash_attention": len(model.attn_layers) * slot_steps,
+                     "flash_decode": len(model.attn_layers) * slot_steps,
+                     "probe_rows": slot_steps})
+    if run["launches"] != expected:
+        fail(f"engines_paged: kernel launches {run['launches']} != {expected}")
+    if not m.pages_allocated or m.pages_allocated != m.pages_freed:
+        fail(f"engines_paged: pages allocated {m.pages_allocated}, freed "
+             f"{m.pages_freed}")
+    tokens = sum(len(r.tokens) for r in out.values())
+    emit({"phase": "engines_paged", "card": card, "model": cfg.name,
+          "config": conf, "requests": ENGINE_REQUESTS, "tokens": tokens,
+          "wall_s": run["wall"], "tokens_per_s": tokens / run["wall"],
+          "steps": m.decode_steps,
+          "ms_per_step": (run["wall"] - m.host_stall_s) / m.decode_steps * 1e3,
+          "windows": m.windows, "syncs": run["syncs"], "prefills": m.prefills,
+          "prefill_ms_per_call": m.host_stall_s / m.host_stalls * 1e3,
+          "host_stall_s": m.host_stall_s, "pages_allocated": m.pages_allocated,
+          "launches": run["launches"], "streams_equal_blocking": True})
+    return run["launches"]
 
 
 def phase_lflr_engine(torch, card: str, model, name: str, conf: dict,
@@ -1403,7 +1610,7 @@ def phase_kernels_ssm(torch, card: str) -> dict:
 
 
 def phase_prefill(torch, card: str, model, name: str) -> dict:
-    """Phases 9 and 13: the prefill step at (PREFILL_B, PREFILL_S), counts
+    """The prefill phases: the prefill step at (PREFILL_B, PREFILL_S), counts
     from 0."""
     import numpy as np
     from repro_torch.core.device_channel import readback
@@ -1522,18 +1729,25 @@ def main() -> None:
 
     kern = phase_kernels(torch, card)
     model, init_s = build_model(torch, get_config("qwen3-1.7b"))
-    serve_q = phase_serve(torch, card, model, init_s)
+    serve_q, serve_streams = phase_serve(torch, card, model, init_s)
     engines = phase_engines(torch, card, model)
     for name, engine in (("lflr_stepwise", "stepwise"), ("lflr_blocking", "blocking")):
         phase_lflr_engine(torch, card, model, name, ENGINES[engine],
                           engines["streams"][engine])
+    serve_paged, paged_streams = phase_serve(
+        torch, card, model, init_s, ("serve_paged", "lflr_paged"), paged=True,
+        want=serve_streams)
+    phase_page_fault(torch, card, model, paged_streams)
+    phase_paged_pressure(torch, card, model, serve_streams)
+    engines_paged = phase_engines_paged(torch, card, model,
+                                        engines["streams"]["blocking"])
     del model                                     # free qwen3 before rg
     gc.collect()
     torch.cuda.empty_cache()
 
     kern_rg = phase_kernels_rg(torch, card)
     model, init_s = build_model(torch, get_config("recurrentgemma-2b"))
-    serve_rg = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"))
+    serve_rg, _ = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"))
     phase_lflr_stepwise_rg(torch, card, model)
     prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
     del model                                     # free rg before mamba2
@@ -1542,7 +1756,10 @@ def main() -> None:
 
     kern_ssm = phase_kernels_ssm(torch, card)
     model, init_s = build_model(torch, get_config("mamba2-2.7b"))
-    serve_ssm = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"))
+    # the first 8 requests only (one per slot): the mamba2 phases are the
+    # run's slowest, cut to leave time for the paged phases
+    serve_ssm, _ = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"),
+                               n=NUM_SLOTS)
     prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
     del model                                     # free mamba2 before gemma3
     gc.collect()
@@ -1551,12 +1768,20 @@ def main() -> None:
     kern_g3 = phase_kernels_g3(torch, card)
     model, init_s = build_model(torch, get_config("gemma3-1b"))
     # the fault: K of layer 5, the first full layer (max_len > the window)
-    serve_g3 = phase_serve(torch, card, model, init_s, ("serve_g3", "lflr_g3"),
-                           long=2, poison_layers=[5])
+    serve_g3, g3_streams = phase_serve(torch, card, model, init_s,
+                                       ("serve_g3", "lflr_g3"), long=2,
+                                       poison_layers=[5])
+    # the same through the pool: the 4 full layers paged, the rings dense;
+    # the fault goes into K of layer 5, now a pool page
+    serve_g3_paged, _ = phase_serve(
+        torch, card, model, init_s, ("serve_g3_paged", "lflr_g3_paged"), long=2,
+        poison_layers=[5], paged=True, want=g3_streams)
     prefill_g3 = phase_prefill(torch, card, model, "prefill_g3")
     del model
     paths = {"serve": serve_q,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
+             "serve_paged": serve_paged, "engines_paged": engines_paged,
+             "serve_g3_paged": serve_g3_paged,
              "serve_rg": serve_rg, "prefill_rg": prefill_rg,
              "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm,
              "serve_g3": serve_g3, "prefill_g3": prefill_g3}

@@ -4,9 +4,11 @@ cache-building prefills (chunked and whole) and the full-sequence prefill
 step.
 
 The port of ``repro/launch/steps.py:226 make_decode_step``, ``:244
-make_slot_decode_step``, ``:404 make_decode_window``, ``:491
-make_prefill_decode_window``, ``:791 make_chunked_prefill``, ``:867
-make_cache_prefill`` and ``:208 make_prefill_step``. The JAX package vmaps
+make_slot_decode_step``, ``:271 _paged_slot_step``, ``:404
+make_decode_window``, ``:491 make_prefill_decode_window``, ``:791
+make_chunked_prefill``, ``:867 make_cache_prefill`` and ``:208
+make_prefill_step``, each window and cache prefill also in its paged form
+(``paged=`` a :class:`~repro_torch.launch.paging.PagedLayout`). The JAX package vmaps
 a batch-1 decode step over slots and scans K of them in one jitted program;
 PyTorch runs eagerly, so the slots are the batch dimension of one decode
 step (each slot at its own position, held in a device tensor) and the window
@@ -28,7 +30,8 @@ from typing import Optional
 import torch
 
 from ..core.detect import logits_probe, state_probe
-from ..models.model import Model
+from ..models.model import CACHE_LAYOUT, Model
+from .paging import PagedLayout
 
 
 def make_decode_step(model: Model):
@@ -84,6 +87,29 @@ def make_slot_decode_step(model: Model):
     return step
 
 
+def _paged_slot_step(slot_step, paged: PagedLayout):
+    """Wrap the slot-decode step with page-table addressing::
+
+      step(hybrid, tokens, pos, table (S, max_pages) int32 device tensor)
+
+    Gather builds every slot's contiguous view of the pools (unmapped pages
+    read as zeros — the bits of a fresh contiguous cache), the unchanged
+    slot step runs on it, and scatter writes it back through the table
+    (unmapped pages dropped, so a lane that owns no page writes nowhere).
+    The page probe ORs ``PAGE_FAULT`` into a slot's word iff a page up to
+    the one it writes is unmapped. The whole tree is gathered and scattered
+    every step, as in the JAX package.
+    """
+
+    def step(hybrid, tokens, pos, table):
+        views = paged.gather(hybrid, table)
+        logits, words = slot_step(views, tokens, pos)
+        paged.scatter(hybrid, views, table)
+        return logits, words | paged.probe(table, pos)
+
+    return step
+
+
 def make_prefill_step(model: Model):
     """Full-sequence prefill::
 
@@ -121,7 +147,8 @@ def _window_loop(slot_step, window: int, caches, tokens, pos, feed=None):
     return torch.stack(toks), torch.stack(words), tok, p
 
 
-def make_decode_window(model: Model, *, window: int):
+def make_decode_window(model: Model, *, window: int,
+                       paged: Optional[PagedLayout] = None):
     """Pipelined decode window: K slot-decode steps with the greedy token
     fed back on the device and no prompt feed::
 
@@ -133,10 +160,24 @@ def make_decode_window(model: Model, *, window: int):
 
     The same loop as :func:`make_prefill_decode_window` without its chunk
     feed, so the two are bit-equal when no lane takes a chunk (``rem = 0``).
+
+    With ``paged`` the caches argument is the hybrid cache
+    (:meth:`PagedLayout.init_hybrid`) and the function takes a trailing
+    ``table (S, max_pages)`` int32 device tensor; every step goes through
+    :func:`_paged_slot_step`, so the streams are bit-equal to the
+    contiguous window's.
     """
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     slot_step = make_slot_decode_step(model)
+    if paged is not None:
+        pstep = _paged_slot_step(slot_step, paged)
+
+        def paged_window_step(hybrid, tokens, pos, table):
+            return _window_loop(lambda c, t, p: pstep(c, t, p, table),
+                                window, hybrid, tokens, pos)
+
+        return paged_window_step
 
     def window_step(caches, tokens, pos):
         return _window_loop(slot_step, window, caches, tokens, pos)
@@ -144,7 +185,8 @@ def make_decode_window(model: Model, *, window: int):
     return window_step
 
 
-def make_prefill_decode_window(model: Model, *, window: int):
+def make_prefill_decode_window(model: Model, *, window: int,
+                               paged: Optional[PagedLayout] = None):
     """Fused decode+prefill window: K slot-decode steps with the greedy
     token fed back on the device and prompt chunks fed in per slot::
 
@@ -160,19 +202,36 @@ def make_prefill_decode_window(model: Model, *, window: int):
     A lane whose chunk ends at step ``rem - 1`` flips there: that step's
     argmax is its first generated token (the JAX window's flip semantics).
     All inputs must already be on the model's device; nothing is read back.
+
+    With ``paged`` the function takes a trailing ``table`` as
+    :func:`make_decode_window` does; a chunking lane writes its prompt
+    through the same page addressing.
     """
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     slot_step = make_slot_decode_step(model)
 
+    def feed(chunk, rem):
+        return lambda k, tok: torch.where(k < rem, chunk[k], tok)
+
+    if paged is not None:
+        pstep = _paged_slot_step(slot_step, paged)
+
+        def paged_window_step(hybrid, tokens, pos, chunk, rem, table):
+            return _window_loop(lambda c, t, p: pstep(c, t, p, table),
+                                window, hybrid, tokens, pos, feed(chunk, rem))
+
+        return paged_window_step
+
     def window_step(caches, tokens, pos, chunk, rem):
         return _window_loop(slot_step, window, caches, tokens, pos,
-                            lambda k, tok: torch.where(k < rem, chunk[k], tok))
+                            feed(chunk, rem))
 
     return window_step
 
 
-def make_chunked_prefill(model: Model, *, chunk: int):
+def make_chunked_prefill(model: Model, *, chunk: int,
+                         paged: Optional[PagedLayout] = None):
     """Advance an *existing* cache by at most ``chunk`` tokens::
 
       chunk_step(cache, tokens (B, C), n, start_pos)
@@ -185,18 +244,65 @@ def make_chunked_prefill(model: Model, *, chunk: int):
     one chunk by chunk), and a chain of chunks is bit-equal to
     :func:`make_cache_prefill` over the whole sequence: the same decode step
     at the same positions and batch.
+
+    With ``paged`` the signature becomes ``chunk_step(hybrid, row, slot,
+    tokens, n, start_pos)``: the cache advanced is slot ``slot`` of the
+    hybrid cache, its pages addressed through its ``(max_pages,)`` table
+    ``row`` (a device tensor). Each step gathers the slot's view
+    (:meth:`PagedLayout.gather_slot`), runs the decode step on it with every
+    one of the B rows holding that view, scatters row ``slot`` back (row 0
+    when B is 1) and ORs in the row's page probe at the step's position.
+    A serving lane passes its sequence in every row of the slots' batch, so
+    the products have the slot step's shapes (module docstring).
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     step = make_decode_step(model)
 
-    def chunk_step(cache, tokens, n: int, start_pos: int):
+    def check(tokens, n):
         if tokens.dim() != 2 or tokens.shape[1] > chunk or not 0 <= n <= tokens.shape[1]:
             raise ValueError(f"tokens {tuple(tokens.shape)} and n {n} do not "
                              f"fit a chunk of {chunk}")
+
+    if paged is not None:
+        def paged_chunk_step(hybrid, row, slot: int, tokens, n: int,
+                             start_pos: int):
+            check(tokens, n)
+            B = tokens.shape[0]
+            if B > 1 and not 0 <= slot < B:
+                raise ValueError(f"slot {slot} is no row of tokens "
+                                 f"{tuple(tokens.shape)}")
+            keep = slot if B > 1 else 0
+
+            def slot_step(_, tok, p: int):
+                view = paged.gather_slot(hybrid, row, slot)
+                rows = {name: _rows(v, CACHE_LAYOUT[name].slot_axis, B)
+                        for name, v in view.items()}
+                logits, w = step(rows, tok, p)
+                paged.scatter_slot(hybrid, {
+                    name: v.narrow(CACHE_LAYOUT[name].slot_axis, keep, 1)
+                    for name, v in rows.items()}, row, slot)
+                pos = torch.full((1,), p, dtype=torch.int32,
+                                 device=model.device)
+                return logits, w | paged.probe(row[None], pos)[0]
+
+            return _feed(model, slot_step, hybrid, tokens, n, start_pos)
+
+        return paged_chunk_step
+
+    def chunk_step(cache, tokens, n: int, start_pos: int):
+        check(tokens, n)
         return _feed(model, step, cache, tokens, n, start_pos)
 
     return chunk_step
+
+
+def _rows(leaf: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """A batch-1 cache leaf repeated into ``n`` rows along its slot axis,
+    in the contiguous layout."""
+    shape = list(leaf.shape)
+    shape[axis] = n
+    return leaf.expand(shape).contiguous()
 
 
 def _feed(model: Model, step, cache, tokens, n: int, start_pos: int):
@@ -211,7 +317,7 @@ def _feed(model: Model, step, cache, tokens, n: int, start_pos: int):
     return logits, cache, word
 
 
-def make_cache_prefill(model: Model):
+def make_cache_prefill(model: Model, *, paged: Optional[PagedLayout] = None):
     """Cache-producing prefill through the decode step::
 
       prefill(tokens (B, S), max_len, start_pos=0, *, cache=None)
@@ -227,8 +333,31 @@ def make_cache_prefill(model: Model):
     The JAX factory's ``fused`` flag chooses between a host loop of jitted
     steps and one jitted ``fori_loop``, which give the same bits; an eager
     PyTorch step has only the loop, so the port has no such flag.
+
+    With ``paged`` the signature becomes ``prefill(hybrid, row, slot,
+    tokens, start_pos=0)``: the rebuilt cache is written straight into slot
+    ``slot``'s pages through its table ``row``, after a scrub of those pages
+    and a reset of the slot's dense leaves, by the paged
+    :func:`make_chunked_prefill` over the whole sequence — so a recycled
+    page never leaves stale (possibly poisoned) bytes behind.
     """
     step = make_decode_step(model)
+    if paged is not None:
+        chunked = make_chunked_prefill(model, chunk=paged.max_len, paged=paged)
+
+        def paged_prefill(hybrid, row, slot: int, tokens: torch.Tensor,
+                          start_pos: int = 0):
+            if tokens.dim() != 2 or tokens.shape[1] == 0:
+                raise ValueError(f"tokens must be (B, S>0), got {tuple(tokens.shape)}")
+            S = tokens.shape[1]
+            if S > paged.max_len:
+                raise ValueError(
+                    f"prompt of {S} tokens exceeds capacity {paged.max_len}")
+            paged.scrub(hybrid, row)
+            paged.reset_slot(hybrid, slot)
+            return chunked(hybrid, row, slot, tokens, S, start_pos)
+
+        return paged_prefill
 
     def prefill(tokens: torch.Tensor, max_len: int, start_pos: int = 0, *,
                 cache: Optional[dict] = None):

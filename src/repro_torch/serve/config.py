@@ -16,11 +16,15 @@ class EngineConfig:
 
     The fields keep the JAX package's names, defaults and cross-field
     rules: ``EngineConfig()`` is the stepwise engine (``window=0``) in both
-    packages. The knobs of modes the port does not run yet (page sizes,
-    draft shape, trace sampling, donation) are left out; their switches
-    stay, so the port's :class:`~repro_torch.serve.Replica` can raise
-    ``NotImplementedError`` on ``paged``, ``speculate``, ``tp > 1`` and
-    ``trace``, naming the ROADMAP item that ports each.
+    packages. ``paged=True`` (window mode only) pools the K/V leaves of
+    capacity ``max_len`` into ``page_budget`` pages of ``page_size``
+    positions (``None``: ``num_slots * max_len // page_size``), and admits a
+    request only while ``page_watermark`` pages stay free. The knobs of
+    modes the port does not run yet (draft shape, trace sampling, donation)
+    are left out; their switches stay, so the port's
+    :class:`~repro_torch.serve.Replica` can raise ``NotImplementedError`` on
+    ``speculate``, ``tp > 1`` and ``trace``, naming the ROADMAP item that
+    ports each.
     """
 
     num_slots: int = 4
@@ -31,8 +35,12 @@ class EngineConfig:
     window: int = 0
     overlap: bool = True
     prefill_budget: Optional[int] = None
-    # ---- modes not ported yet --------------------------------------------
+    # ---- paged KV pool -------------------------------------------------
     paged: bool = False
+    page_size: int = 8
+    page_budget: Optional[int] = None
+    page_watermark: int = 0
+    # ---- modes not ported yet --------------------------------------------
     speculate: bool = False
     tp: int = 1
     trace: bool = False
@@ -50,6 +58,14 @@ class EngineConfig:
         if self.prefill_budget is not None and self.prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 (or None), got "
                              f"{self.prefill_budget}")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.page_budget is not None and self.page_budget < 1:
+            raise ValueError("page_budget must be >= 1 (or None), got "
+                             f"{self.page_budget}")
+        if self.page_watermark < 0:
+            raise ValueError("page_watermark must be >= 0, got "
+                             f"{self.page_watermark}")
         # cross-field rules
         if self.paged and not self.window:
             raise ValueError("paged=True requires window mode (window=K)")

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/serve/metrics.py: the counters of the stepwise, window and overlap engines (no paging or speculation counters).
+# Trimmed copy of repro/serve/metrics.py: the counters of the stepwise, window, overlap and paged engines (no speculation counters).
 """Serving metrics: per-request latency, throughput, fault counters.
 
 Feeds the same :class:`~repro_torch.core.resilient.EventLog` record the
@@ -52,6 +52,10 @@ class ServeMetrics:
         self.window_waits = 0                # windows not yet done at retire
                                              # (device-bound, host keeping up)
         self.peak_active_slots = 0           # most lanes concurrently serving
+        self.pages_allocated = 0             # paged KV: pages granted
+        self.pages_freed = 0                 # pages reclaimed
+        self.peak_pages_in_use = 0           # high-water mark of the pool
+        self.page_evictions = 0              # lanes preempted for pages
 
     # ------------------------------------------------------------- recording
     def record_step(self, committed_tokens: int) -> None:
@@ -95,6 +99,19 @@ class ServeMetrics:
         """A window that was still computing when the host came to retire it."""
         with self._lock:
             self.window_waits += 1
+
+    def record_pages(self, *, allocated: int = 0, freed: int = 0,
+                     in_use: int = 0) -> None:
+        """Paged-KV ledger movement (allocation / reclamation + high-water)."""
+        with self._lock:
+            self.pages_allocated += allocated
+            self.pages_freed += freed
+            self.peak_pages_in_use = max(self.peak_pages_in_use, in_use)
+
+    def record_page_eviction(self) -> None:
+        """A lane preempted (and requeued) to free pages under pressure."""
+        with self._lock:
+            self.page_evictions += 1
 
     def record_active_slots(self, n: int) -> None:
         with self._lock:
@@ -179,6 +196,10 @@ class ServeMetrics:
             "host_stall_s": self.host_stall_s,
             "window_waits": self.window_waits,
             "peak_active_slots": self.peak_active_slots,
+            "pages_allocated": self.pages_allocated,
+            "pages_freed": self.pages_freed,
+            "page_evictions": self.page_evictions,
+            "peak_pages_in_use": self.peak_pages_in_use,
             "tokens_per_step": self.tokens_per_step(),
             "tokens_per_s": self.tokens_per_s(),
             "faults": self.fault_counts(),

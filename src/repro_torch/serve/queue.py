@@ -104,6 +104,7 @@ class RequestQueue:
         self._lock = threading.Lock()
         self._heap: list[tuple[float, int, Request]] = []
         self._seq = itertools.count()
+        self._rseq = itertools.count(-1, -1)   # requeue: ahead of same-deadline
         self._expired: list[Request] = []
 
     def __len__(self) -> int:
@@ -123,6 +124,22 @@ class RequestQueue:
             key = req.deadline if req.deadline is not None else float("inf")
             heapq.heappush(self._heap, (key, next(self._seq), req))
         return None
+
+    def requeue(self, req: Request) -> None:
+        """Put an *already accepted* request back in the queue, ahead of its
+        deadline class (negative sequence keys sort before every submitted
+        entry with the same deadline, newest requeue first).
+
+        The zero-drop re-queue path: admission checks are bypassed (the
+        request was admitted once and must eventually get a terminal
+        answer), and ``arrival_t`` is kept, so latency and TTFT span the
+        preemption. Used when a slot is preempted, e.g. by paged-KV
+        eviction under memory pressure."""
+        if req.arrival_t is None:
+            raise ValueError("requeue is for accepted requests")
+        with self._lock:
+            key = req.deadline if req.deadline is not None else float("inf")
+            heapq.heappush(self._heap, (key, next(self._rseq), req))
 
     def pop(self, now: Optional[float] = None) -> Optional[Request]:
         """Earliest-deadline request still able to start; expired ones are set

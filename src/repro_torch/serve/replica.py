@@ -1,7 +1,8 @@
 """Serving replica: the stepwise engine, and zero-sync decode windows with
 blocking or overlapped prefill, with per-sequence LFLR, on one device.
 
-The port of ``repro/serve/replica.py`` in its three unpaged modes:
+The port of ``repro/serve/replica.py`` in its three engines, each window
+engine also paged:
 
 - ``window=0`` (``EngineConfig()``'s default): the stepwise engine. Every
   step decodes every slot once (:func:`~repro_torch.launch.steps.
@@ -19,6 +20,16 @@ The port of ``repro/serve/replica.py`` in its three unpaged modes:
   (:func:`~repro_torch.launch.steps.make_prefill_decode_window`). Admission
   and LFLR are background prefill lanes, so the healthy slots' token stream
   never stalls.
+- ``paged=True`` (with either window engine): the K/V leaves of capacity
+  ``max_len`` live in a shared page pool addressed through a ``(slots,
+  max_pages)`` page table (:mod:`repro_torch.launch.paging`); the host
+  ledger (:class:`~repro_torch.serve.scheduler.PageAllocator`) grows each
+  lane a window ahead, preempts the oldest lane back into the queue when
+  the pool runs dry, and rejects at submit a request the pool can never
+  hold. The table goes to the device once per window, from a copy of the
+  host table; growth is planned from a host mirror of the positions, never
+  from a device read. The streams are bit-equal to the contiguous
+  engine's.
 
 Recovery is the paper's use case 1 applied to inference: non-finite logits
 on slot *i* (the probe kernel's word) → LFLR: slot *i* recomputes its cache
@@ -38,7 +49,8 @@ the arithmetic of a batch-1 prefill on a step that is host-bound anyway.
 Host syncs: two :func:`~repro_torch.core.device_channel.readback` calls per
 stepwise step or retired window (the error word with its enumeration table,
 then the tokens) and per blocking prefill (its word, then its token), plus
-the window history on the fault path.
+the window history on the fault path (and the per-slot codes when
+paged).
 """
 from __future__ import annotations
 
@@ -57,9 +69,10 @@ from ..core.device_channel import (
     readback,
     record_event,
 )
-from ..core.errors import PropagatedError
+from ..core.errors import ErrorCode, PropagatedError
 from ..core.faults import INJECTABLE_CODE_MASK
 from ..core.recovery import Action, RecoveryPolicy
+from ..launch.paging import PagedLayout
 from ..launch.steps import (make_cache_prefill, make_decode_window,
                             make_prefill_decode_window, make_slot_decode_step)
 from ..models.model import (KV_LEAVES, Model, insert_cache_slot,
@@ -67,13 +80,13 @@ from ..models.model import (KV_LEAVES, Model, insert_cache_slot,
 from .config import EngineConfig
 from .metrics import ServeMetrics
 from .queue import EXPIRED, FAILED, AdmissionPolicy, Request, RequestQueue, Response
-from .scheduler import ContinuousBatchingScheduler
+from .scheduler import (ContinuousBatchingScheduler, PageAllocator,
+                        PagePoolExhausted)
 
 
 def _check_supported(config: EngineConfig, tracer: Any) -> None:
     """The modes of the JAX replica this port does not run yet."""
     missing = [
-        (config.paged, "paged=True", "ROADMAP Queue 1, item 7 (paged KV)"),
         (config.speculate, "speculate=True",
          "ROADMAP Queue 1, item 8 (speculative windows)"),
         (config.tp > 1, "tp>1", "ROADMAP Queue 1, item 11 (tensor parallel)"),
@@ -163,25 +176,55 @@ class Replica:
         self.window = int(config.window)
         self.overlap = bool(self.window) and bool(config.overlap)
         num_slots = config.num_slots
+        # ---- paged KV pool (paged=True, window mode only): the K/V leaves
+        # of capacity max_len become one shared page pool addressed through
+        # a (slots, max_pages) table; the allocator owns the free list and
+        # the per-slot ownership ledger
+        self.paged = bool(config.paged)
+        self.layout: Optional[PagedLayout] = None
+        self.alloc: Optional[PageAllocator] = None
+        pool_cap = config.max_len
+        if self.paged:
+            one = self.model.init_cache(1, config.max_len)
+            num_pages = (config.page_budget if config.page_budget is not None
+                         else num_slots * (config.max_len // config.page_size))
+            self.layout = PagedLayout(one, config.max_len,
+                                      page_size=config.page_size,
+                                      num_pages=num_pages)
+            self.alloc = PageAllocator(num_pages, config.page_size,
+                                       watermark=config.page_watermark)
+            self.page_table = self.layout.empty_table(num_slots)
+            self.caches = self.layout.init_hybrid(one, num_slots)
+            if self.layout.has_paged_leaves:
+                # a request the pool can never hold is REJECTED at submit,
+                # not deferred forever by the watermark gate
+                pool_cap = self.layout.capacity_tokens
+        else:
+            self.caches = self.model.init_cache(num_slots, config.max_len)
         self.queue = queue or RequestQueue(
-            AdmissionPolicy(max_total_len=config.max_len), clock=clock)
+            AdmissionPolicy(max_total_len=pool_cap), clock=clock)
         self.sched = ContinuousBatchingScheduler(
             num_slots, self.queue, replica=rank, eos_id=config.eos_id,
-            clock=clock, prefill_budget=config.prefill_budget)
-        self.caches = self.model.init_cache(num_slots, config.max_len)
+            clock=clock, prefill_budget=config.prefill_budget,
+            can_admit=self._can_admit if self.paged else None,
+            on_release=self._release_pages if self.paged else None)
+        paged = self.layout
         if not self.window:
             self._decode = make_slot_decode_step(self.model)
             self._slot_logits: Optional[torch.Tensor] = None
         elif self.overlap:
             self._decode_window = make_prefill_decode_window(
-                self.model, window=self.window)
+                self.model, window=self.window, paged=paged)
         else:
-            self._decode_window = make_decode_window(self.model,
-                                                     window=self.window)
+            self._decode_window = make_decode_window(
+                self.model, window=self.window, paged=paged)
         if not self.overlap:
-            # the blocking prefill's S-wide scratch cache (module docstring)
-            self._prefill = make_cache_prefill(self.model)
-            self._scratch = self.model.init_cache(num_slots, config.max_len)
+            self._prefill = make_cache_prefill(self.model, paged=paged)
+            if not self.paged:
+                # the blocking prefill's S-wide scratch cache (module
+                # docstring); the paged prefill replicates the lane's view
+                self._scratch = self.model.init_cache(num_slots,
+                                                      config.max_len)
         self._step_count = 0
         self._pending: Optional[_WindowInFlight] = None
         # window modes: the device-resident chain window N+1 consumes, next
@@ -191,6 +234,138 @@ class Replica:
                                        device=self.device)
         self._dev_pos = torch.zeros(num_slots, dtype=torch.int32,
                                     device=self.device)
+        # the host mirror of _dev_pos, advanced by what the host knows (K
+        # per window, 0 at a lane's restart, the sequence after a blocking
+        # prefill): page growth is planned from it, never from a readback
+        self._host_pos = np.zeros(num_slots, np.int64)
+
+    # ------------------------------------------------------------- page ledger
+    def _check_pages(self) -> None:
+        """Ledger invariant, checked where the ledger changes (preemption,
+        requeue, LFLR reclaim) so that a corrupted ledger fails at the
+        operation that corrupted it. Off under ``python -O``."""
+        if __debug__ and self.alloc is not None:
+            self.alloc.check()
+
+    def _can_admit(self, req: Request) -> bool:
+        """Watermark admission: a fresh sequence joins only if its prompt's
+        pages (plus the first generated position) fit with the configured
+        headroom left free for in-flight lanes to grow into."""
+        if not self.layout.has_paged_leaves:
+            return True
+        return self.alloc.can_admit(len(req.prompt) + 1)
+
+    def _release_pages(self, slot: int) -> None:
+        """Free a slot's pages and unmap its table row. Host bookkeeping
+        only: the device stream orders every dispatched read and write of
+        these pages before the scrub their next owner's allocation queues,
+        so reclamation never stalls or races the window in flight."""
+        if self.alloc.owns(slot):
+            freed = self.alloc.free_slot(slot)
+            self.page_table[slot, :] = self.layout.sentinel
+            self.metrics.record_pages(freed=len(freed),
+                                      in_use=self.alloc.pages_in_use)
+
+    def _oldest_active(self, exclude: frozenset) -> Optional[int]:
+        """Eviction victim: the oldest-arrival active lane that owns pages."""
+        best = None
+        for s in self.sched.slots:
+            if not s.active or s.idx in exclude or not self.alloc.owns(s.idx):
+                continue
+            key = (s.req.arrival_t if s.req.arrival_t is not None
+                   else float("inf"), s.idx)
+            if best is None or key < best[0]:
+                best = (key, s.idx)
+        return None if best is None else best[1]
+
+    def _evict_for_pages(self, victim: int) -> None:
+        """Memory-pressure preemption: pull the victim's request out of its
+        slot and requeue it (progress discarded — it recomputes from the
+        prompt on its next slot; no request is dropped). The window in
+        flight's lane is invalidated so its stale block is skipped."""
+        req = self.sched.preempt(victim)          # on_release frees the pages
+        self.queue.requeue(req)
+        self.metrics.record_page_eviction()
+        if self._pending is not None:
+            self._pending.valid[victim] = False
+        self._check_pages()
+
+    def _grow_slot(self, slot: int, target_tokens: int, *,
+                   exclude_self: bool = False) -> Optional[list[int]]:
+        """Make ``slot`` own pages covering ``target_tokens`` positions,
+        evicting the oldest lanes under pressure. Returns the newly
+        allocated (unscrubbed) page ids, or None if ``slot`` itself was
+        evicted.
+
+        The target is clamped to the pool's token capacity, not only to
+        ``max_len``: window over-decode can push ``pos + K`` past what any
+        lane may hold, and demanding pages that cannot exist would evict
+        the whole fleet and livelock (positions past the clamp drop their
+        writes and are discarded at retirement anyway)."""
+        target = min(int(target_tokens), self.layout.capacity_tokens)
+        while True:
+            need = self.alloc.pages_for(target) - len(self.alloc.owned(slot))
+            if need <= 0:
+                return []
+            try:
+                got = self.alloc.alloc(slot, need)
+                break
+            except PagePoolExhausted:
+                victim = self._oldest_active(
+                    frozenset((slot,)) if exclude_self else frozenset())
+                if victim is None:
+                    raise      # unreachable under the admission clamp
+                self._evict_for_pages(victim)
+                if victim == slot:
+                    return None
+        # append-only: write just the new tail entries, never the whole row
+        # — the device table is the mapping of record, and a full-row
+        # rewrite would paper over exactly the ledger/table divergence the
+        # in-band PAGE_FAULT probe exists to surface
+        n_owned = len(self.alloc.owned(slot))
+        self.page_table[slot, n_owned - len(got):n_owned] = got
+        self.metrics.record_pages(allocated=len(got),
+                                  in_use=self.alloc.pages_in_use)
+        return got
+
+    def _paged_prepare(self, plan: dict) -> None:
+        """Page maintenance before a window is dispatched.
+
+        1. **Lane (re)starts** (fresh chunk plans — admission or LFLR): free
+           the lane's old pages (the LFLR page *reclaim*, a host ledger
+           operation) and zero its dense rows on the device stream; step 2
+           acquires its new pages.
+        2. **Growth**: every lane that writes in this window gets the pages
+           holding positions ``[pos, pos + K)`` (``pos`` from the host
+           mirror); exhaustion preempts the oldest lanes into the queue.
+        3. **Scrub**: the new pages are zeroed on the device stream before
+           the window, so a recycled page never leaks a previous owner's
+           (possibly poisoned) state.
+        """
+        sched, K = self.sched, self.window
+        for slot, cp in plan.items():
+            if cp.rem == 0 or not cp.fresh:
+                continue
+            self._release_pages(slot)
+            self._check_pages()
+            self.layout.reset_slot(self.caches, slot)
+            self._dev_pos[slot] = 0
+            self._host_pos[slot] = 0
+        if not self.layout.has_paged_leaves:
+            return
+        deferred = {slot for slot, cp in plan.items() if cp.rem == 0}
+        new_ids: list[int] = []
+        for s in sched.slots:
+            if not s.active or s.idx in deferred:
+                continue
+            got = self._grow_slot(s.idx, int(self._host_pos[s.idx]) + K)
+            if got:
+                new_ids.extend(got)
+        if new_ids:
+            # an eviction inside the growth loop recycles ids, so one page
+            # may be granted twice within one prepare: dedupe
+            ids = np.asarray(list(dict.fromkeys(new_ids)), np.int32)
+            self.layout.scrub(self.caches, self._to_device(ids))
 
     # ---------------------------------------------------------------- warmup
     def warmup(self, *, max_new: int = 8) -> None:
@@ -231,10 +406,12 @@ class Replica:
           tree's order, whose capacity is ``max_len`` — a full layer, or a
           sliding layer's ring when ``max_len <= window``; the next step's
           logits for that slot go non-finite and the probe latches
-          NONFINITE_LOSS.
+          NONFINITE_LOSS. Paged, that leaf is the first pool, and the entry
+          lies in the page the slot's table maps first.
 
         ``slot=None`` picks the first active slot, or a seeded-random one
-        with ``rng``. Returns the slot, or None if no slot is active."""
+        with ``rng``. Returns the slot, or None if no slot is active or a
+        paged slot owns no page yet."""
         if slot is None:
             active = self.sched.active_slots()
             if not active:
@@ -247,9 +424,44 @@ class Replica:
             state[(slot, rows) + (0,) * (state.dim() - 2)] = float("nan")
             return slot
         (l,) = layers
-        k = slot_layer_view(self.caches, KV_LEAVES[self.cfg.pattern_layers[l]][0])
+        name = KV_LEAVES[self.cfg.pattern_layers[l]][0]
+        if self.paged and self.layout.is_paged_path(name):
+            pid = int(self.page_table[slot, 0])
+            if pid >= self.layout.num_pages:
+                return None              # the lane owns no page yet
+            self.caches[name][model.cache_index[l], pid, 0, 0, 0] = float("nan")
+            return slot
+        k = slot_layer_view(self.caches, name)
         k[slot, model.cache_index[l], 0, 0, 0] = float("nan")
         return slot
+
+    def corrupt_page_table(self, slot: int) -> bool:
+        """Ledger-divergence injection: unmap a lane's page-table row behind
+        the allocator's back. The host ledger still says the slot owns its
+        pages; the table the next window uploads says it owns none —
+        exactly the corruption the in-band ``PAGE_FAULT`` probe latches at
+        the next step. Returns True iff there was a mapped row."""
+        if not (self.paged and self.layout.has_paged_leaves):
+            return False
+        if int(self.page_table[slot, 0]) >= self.layout.num_pages:
+            return False
+        self.page_table[slot, :] = self.layout.sentinel
+        return True
+
+    def preempt_slot(self, slot: int) -> bool:
+        """Preemption injection: pull ``slot``'s request out mid-flight and
+        requeue it ahead of its class — the zero-drop contract of the paged
+        memory-pressure eviction, as an explicit hook. The window in
+        flight's lane is invalidated and the page ledger, if any, checked.
+        Returns True iff the slot held a request."""
+        if not self.sched.slots[slot].active:
+            return False
+        req = self.sched.preempt(slot)    # on_release reclaims any pages
+        self.queue.requeue(req)
+        if self._pending is not None:
+            self._pending.valid[slot] = False
+        self._check_pages()
+        return True
 
     def state_fault_layers(self) -> list[int]:
         """The layers :meth:`inject_state_fault` poisons, from the config
@@ -437,6 +649,12 @@ class Replica:
         inside — the stall every healthy slot pays — goes to
         ``metrics.record_host_stall``.
 
+        Paged, each attempt frees the lane's pages and acquires pages for
+        the whole sequence and its first generated position, and the
+        prefill writes the rebuilt cache straight into them (every row
+        holding the lane's view, row ``slot`` scattered back): there is no
+        cache to insert afterwards.
+
         In window mode this is also the patch point of the double-buffered
         pipeline: the lane's next token and position are written into the
         device tensors the next dispatch reads (outputs of the window in
@@ -448,8 +666,18 @@ class Replica:
             while True:
                 seq = np.asarray(self.sched.sequence_tokens(slot), np.int32)
                 tokens = self._to_device(seq)[None].expand(S, -1)
-                logits, _, word = self._prefill(tokens, self.max_len,
-                                                cache=self._scratch)
+                if self.paged:
+                    self._release_pages(slot)
+                    self._check_pages()
+                    if self._grow_slot(slot, len(seq) + 1,
+                                       exclude_self=True) is None:
+                        raise RuntimeError("blocking prefill self-evicted")
+                    row = self._to_device(self.page_table[slot].copy())
+                    logits, _, word = self._prefill(self.caches, row, slot,
+                                                    tokens)
+                else:
+                    logits, _, word = self._prefill(tokens, self.max_len,
+                                                    cache=self._scratch)
                 fut = DeviceFuture(outputs=logits, word=word)
                 try:
                     logits = fut.wait()
@@ -464,13 +692,15 @@ class Replica:
                             slot, FAILED,
                             detail=f"prefill faulted {retries} times: {exc}")
             tok = int(readback(torch.argmax(logits[slot, -1])))
-            insert_cache_slot(self.caches, self._scratch, slot, slot)
+            if not self.paged:
+                insert_cache_slot(self.caches, self._scratch, slot, slot)
             resp = self.sched.commit_token(slot, tok, self.clock())
             self.metrics.record_prefill(1)
             if self.window:
                 s = self.sched.slots[slot]
                 self._dev_tokens[slot] = tok
-                self._dev_pos[slot] = s.seq_len - 1 if s.active else 0
+                self._dev_pos[slot] = self._host_pos[slot] = (
+                    s.seq_len - 1 if s.active else 0)
                 if self._pending is not None:
                     self._pending.valid[slot] = False
             return resp
@@ -493,11 +723,22 @@ class Replica:
         self._step_count += 1
         sched, K = self.sched, self.window
         S = sched.num_slots
+        plan = sched.plan_prefill(K) if self.overlap else {}
+        if self.paged:
+            # page maintenance first: lane restarts recycle their pages,
+            # every writing lane gets its growth pages, eviction preempts
+            # under pressure — host bookkeeping and queued device work
+            self._paged_prepare(plan)
         mask = sched.active_mask().astype(np.int32)
         start = np.zeros(S, np.int64)
-        feed = self._plan_chunks(mask, start) if self.overlap else ()
+        feed = self._plan_chunks(plan, mask, start) if self.overlap else ()
+        # one upload per window, from a copy: the host table may change
+        # before the copy engine reads it
+        table = ((self._to_device(self.page_table.copy()),) if self.paged
+                 else ())
         toks, words, self._dev_tokens, self._dev_pos = self._decode_window(
-            self.caches, self._dev_tokens, self._dev_pos, *feed)
+            self.caches, self._dev_tokens, self._dev_pos, *feed, *table)
+        self._host_pos += K
         words = self._inject_words(words, (K, S))
         combined, count, table, hist = window_enum(words, self._to_device(mask))
         fut = DeviceFuture(outputs=toks, word=combined, count=count,
@@ -508,27 +749,33 @@ class Replica:
             req_ids=tuple(s.req.id if s.active else None for s in sched.slots),
             valid=np.ones(S, bool), start=start)
 
-    def _plan_chunks(self, mask: np.ndarray, start: np.ndarray) -> tuple:
+    def _plan_chunks(self, plan: dict, mask: np.ndarray,
+                     start: np.ndarray) -> tuple:
         """The overlapped window's prompt feed ``(chunk (K, S), rem (S,))``
-        on the device; deferred lanes are masked out and ``start`` set to
-        each lane's first committable step, in place."""
+        on the device, from the scheduler's ``plan``; deferred lanes are
+        masked out and ``start`` set to each lane's first committable step,
+        in place."""
         sched, K = self.sched, self.window
         S = sched.num_slots
-        plan = sched.plan_prefill(K)
         chunk = np.zeros((K, S), np.int32)
         rem = np.zeros((S,), np.int32)
         for slot, cp in plan.items():
+            if not sched.slots[slot].active:
+                continue                 # preempted by the page-pressure loop
             if cp.rem == 0:
                 # deferred fresh lane: no valid state yet — fully masked
                 mask[slot] = 0
                 start[slot] = K
                 continue
-            if cp.fresh:
+            if cp.fresh and not self.paged:
                 # lane (re)start: the slot's row of EVERY cache tensor (K/V,
                 # recurrent state, conv history) back to the fresh zeros and
-                # position 0, queued on the device stream — never a host sync
+                # position 0, queued on the device stream — never a host
+                # sync (paged: _paged_prepare did it, with the page
+                # free, re-acquire and scrub in place of the K/V reset)
                 reset_cache_slot(self.caches, slot)
                 self._dev_pos[slot] = 0
+                self._host_pos[slot] = 0
             chunk[:cp.rem, slot] = cp.tokens
             rem[slot] = cp.rem
             # flip point: the argmax after the last prompt token is the first
@@ -601,6 +848,19 @@ class Replica:
         decision = self.policy.decide(exc, self._step_count)
         self.metrics.record_fault(self._step_count, int(exc.combined_code),
                                   decision.action.value, tuple(faulted))
+        if self.paged:
+            # a page-ownership fault gets its own record: the LFLR re-queue
+            # repairs it too (free + re-acquire rebuilds the mapping), but a
+            # PAGE_FAULT means the host ledger and the device table diverged.
+            # The per-slot codes are the window history's OR-fold, which
+            # never truncates
+            codes = win.fut.fault_codes()
+            page_slots = tuple(s for s in faulted
+                               if int(codes[s]) & int(ErrorCode.PAGE_FAULT))
+            if page_slots:
+                self.metrics.record_fault(self._step_count,
+                                          int(ErrorCode.PAGE_FAULT),
+                                          "page_reclaim", page_slots)
         if decision.action is Action.ROLLBACK:
             targets, fail_now = list(self.sched.active_slots()), False
         elif decision.action is Action.ABORT:

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/serve/scheduler.py: ContinuousBatchingScheduler, without the paged-KV allocator.
+# Trimmed copy of repro/serve/scheduler.py: ContinuousBatchingScheduler and the paged-KV PageAllocator.
 """Continuous-batching scheduler: fixed decode slots, evict + backfill.
 
 The scheduler is the host-side brain of a replica. It never touches the
@@ -9,6 +9,12 @@ backfills freed slots
 from the admission queue *every step* — prefill and decode share the same
 fixed-shape batch, so a long request never blocks the lane (the serving
 counterpart of the paper's "local errors must not block global progress").
+
+:class:`PageAllocator` is the host half of the paged KV pool
+(``launch/paging.py`` holds the device half): a free list plus a per-slot
+ownership ledger. It is pure accounting, so its invariants (no page owned
+twice, double frees rejected, exact free-count arithmetic under any
+interleaving of allocations and frees) are testable without a device.
 """
 from __future__ import annotations
 
@@ -19,6 +25,124 @@ from typing import Callable, Optional
 import numpy as np
 
 from .queue import EXPIRED, OK, Request, RequestQueue, Response
+
+
+class PagePoolExhausted(RuntimeError):
+    """Not enough free pages — the caller must evict or defer (never drop)."""
+
+
+class PageAllocator:
+    """Free list + per-slot page-ownership ledger for the paged KV pool.
+
+    * **allocation order is irrelevant by design** — the device addresses
+      pages through the table, so fragmentation of the physical id space
+      never degrades anything (there is no "contiguity" to lose);
+    * **watermark-driven admission**: :meth:`can_admit` says whether a new
+      sequence's first pages fit while keeping ``watermark`` pages free as
+      headroom for in-flight lanes to grow into (one page per active lane is
+      a sensible default at call sites);
+    * **strict frees**: freeing a slot that owns nothing, or a page that is
+      not owned by that slot, raises — a double free means the host ledger
+      and the device table have diverged, which is exactly the corruption
+      the in-band ``PAGE_FAULT`` probe exists to catch, so it must never be
+      papered over.
+    """
+
+    def __init__(self, num_pages: int, page_size: int, *, watermark: int = 0):
+        if num_pages < 1:
+            raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if watermark < 0:
+            raise ValueError(f"watermark must be >= 0, got {watermark}")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.watermark = int(watermark)
+        self._free: list[int] = list(range(num_pages - 1, -1, -1))
+        self._owned: dict[int, list[int]] = {}
+
+    # ---------------------------------------------------------------- queries
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-max(int(n_tokens), 0) // self.page_size)
+
+    def owns(self, slot: int) -> bool:
+        return bool(self._owned.get(slot))
+
+    def owned(self, slot: int) -> tuple[int, ...]:
+        """Slot's pages in logical-page order (index i holds positions
+        ``[i*page_size, (i+1)*page_size)``)."""
+        return tuple(self._owned.get(slot, ()))
+
+    def can_admit(self, n_tokens: int) -> bool:
+        """True iff ``n_tokens`` worth of pages fit with the watermark spare.
+
+        The headroom is waived for a request so large that ``need +
+        watermark`` exceeds the whole pool: such a request could *never*
+        pass the gated check even with every page free, and an accepted
+        request must eventually be admitted, not deferred forever — it is
+        admitted whenever it plainly fits instead."""
+        need = self.pages_for(n_tokens)
+        headroom = (self.watermark
+                    if need + self.watermark <= self.num_pages else 0)
+        return need <= self.free_pages - headroom
+
+    # ------------------------------------------------------------- alloc/free
+    def alloc(self, slot: int, n: int) -> list[int]:
+        """Grow ``slot`` by ``n`` pages; returns the new physical ids (the
+        caller appends them to the device table *and scrubs them* before any
+        step reads them). Raises :class:`PagePoolExhausted` without partial
+        effect when the pool cannot cover the request."""
+        if n < 0:
+            raise ValueError(f"cannot alloc {n} pages")
+        if n > len(self._free):
+            raise PagePoolExhausted(
+                f"slot {slot} needs {n} pages, {len(self._free)} free "
+                f"of {self.num_pages}")
+        got = [self._free.pop() for _ in range(n)]
+        self._owned.setdefault(slot, []).extend(got)
+        return got
+
+    def free_slot(self, slot: int) -> list[int]:
+        """Return all of ``slot``'s pages to the free list; returns the freed
+        ids. Freeing a slot that owns nothing is a double free — rejected."""
+        pages = self._owned.pop(slot, None)
+        if not pages:
+            raise ValueError(f"double free: slot {slot} owns no pages")
+        # cross-ownership corruption is asserted by check() (tests/debug);
+        # scanning every owner here would put an O(pages²) walk on the hot
+        # finish/evict path
+        self._free.extend(pages)
+        return pages
+
+    # -------------------------------------------------------------- invariant
+    def check(self) -> None:
+        """Assert ledger consistency (tests / debugging / the fuzzer oracle):
+        every page is free or owned exactly once. Raises ``AssertionError``
+        explicitly (not via ``assert``) so the invariant still fires under
+        ``python -O`` — a fuzz oracle that silently evaporates is worse than
+        none."""
+        seen: dict[int, str] = {}
+        for p in self._free:
+            if p in seen:
+                raise AssertionError(f"page {p} double-listed as free")
+            seen[p] = "free"
+        for slot, pages in self._owned.items():
+            for p in pages:
+                if p in seen:
+                    raise AssertionError(
+                        f"page {p} owned by slot {slot} and {seen[p]}")
+                seen[p] = f"slot {slot}"
+        if len(seen) != self.num_pages:
+            raise AssertionError(
+                f"{self.num_pages - len(seen)} pages leaked")
 
 
 @dataclass
@@ -97,7 +221,9 @@ class ContinuousBatchingScheduler:
     def __init__(self, num_slots: int, queue: RequestQueue, *,
                  replica: Optional[int] = None, eos_id: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 prefill_budget: Optional[int] = None):
+                 prefill_budget: Optional[int] = None,
+                 can_admit: Optional[Callable[[Request], bool]] = None,
+                 on_release: Optional[Callable[[int], None]] = None):
         if num_slots < 1:
             raise ValueError("need at least one slot")
         if prefill_budget is not None and prefill_budget < 1:
@@ -108,6 +234,12 @@ class ContinuousBatchingScheduler:
         self.eos_id = eos_id
         self.clock = clock
         self.prefill_budget = prefill_budget
+        # paged-KV hooks: `can_admit` gates backfill on pool headroom
+        # (watermark admission); `on_release` fires whenever a slot stops
+        # owning its request (finish, expiry, failure, preemption) so the
+        # page ledger can reclaim without the replica chasing every exit path
+        self.can_admit = can_admit
+        self.on_release = on_release
 
     # ---------------------------------------------------------------- queries
     @property
@@ -117,11 +249,20 @@ class ContinuousBatchingScheduler:
     def active_slots(self) -> list[int]:
         return [s.idx for s in self.slots if s.active]
 
+    def free_slots(self) -> list[int]:
+        return [s.idx for s in self.slots if not s.active]
+
     def has_active(self) -> bool:
         return any(s.active for s in self.slots)
 
     def in_flight(self) -> int:
         return len(self.active_slots())
+
+    def pressure(self) -> dict:
+        """Occupancy snapshot: queued requests, busy slots, total slots.
+        Pure bookkeeping — no device sync."""
+        return {"queued": len(self.queue), "active": self.in_flight(),
+                "slots": self.num_slots}
 
     def request(self, slot: int) -> Request:
         req = self.slots[slot].req
@@ -221,6 +362,11 @@ class ContinuousBatchingScheduler:
                 continue
             req = self.queue.pop(now)
             if req is None:
+                break
+            if self.can_admit is not None and not self.can_admit(req):
+                # pool headroom exhausted: put it back (ahead of its class)
+                # and stop admitting this cycle — deferred, never dropped
+                self.queue.requeue(req)
                 break
             s.req = req
             s.generated = []
@@ -326,4 +472,23 @@ class ContinuousBatchingScheduler:
             ttft_s=(s.t_first - req.arrival_t) if s.t_first is not None else None,
             retries=req.retries, replica=self.replica, detail=detail)
         s.clear()
+        if self.on_release is not None:
+            self.on_release(s.idx)
         return resp
+
+    def preempt(self, slot: int) -> Request:
+        """Non-terminal eviction: pull the request out of its slot with its
+        progress discarded (the next owner recomputes from the prompt; the
+        paged engine's memory-pressure path). The caller MUST requeue the
+        returned request: an accepted request is never dropped. Fault
+        retries already consumed are *preserved*, so a persistently
+        faulting request still converges to FAILED instead of laundering
+        its retry budget through evictions."""
+        s = self.slots[slot]
+        req = s.req
+        if req is None:
+            raise ValueError(f"preempt on free slot {slot}")
+        s.clear()
+        if self.on_release is not None:
+            self.on_release(slot)
+        return req

@@ -495,3 +495,94 @@ def test_cache_prefill_row_ignores_the_other_rows(cuda):
         "prompt": seq.shape[1], "batch_1_ms": ms[1], f"batch_{slots}_ms": ms[slots],
         "row_0_bit_equal": bool(torch.equal(last[1], last[slots])),
         "row_0_max_abs_diff": (last[1] - last[slots]).abs().max().item()}))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b"])
+def test_paged_engines_bit_equal_on_the_card(cuda, arch):
+    """The smoke model in bf16 on the card, seeded: the paged window
+    engines (overlapped and blocking prefill) serve the contiguous engine's
+    streams, token for token, with the host syncs of the contiguous engine
+    (2 per window, 2 per blocking prefill: the table upload and the page
+    scrubs read nothing back), and every page comes back at drain. gemma3
+    at max_len 64 pages its full layers and keeps its 16-entry rings
+    dense."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.device_channel import readback
+    from repro_torch.models import Model
+    from repro_torch.serve import OK, EngineConfig, Replica, Request
+
+    cfg = smoke_config(arch).replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    rng = np.random.default_rng(4)
+    traffic = [(tuple(int(t) for t in rng.integers(1, cfg.vocab_size,
+                                                   int(rng.integers(2, 30)))),
+                int(rng.integers(3, 20))) for _ in range(6)]
+    for overlap in (True, False):
+        streams = []
+        for paged in (False, True):
+            rep = Replica(cfg, model, config=EngineConfig(
+                num_slots=3, max_len=64, window=4, overlap=overlap, paged=paged,
+                page_size=8))
+            for i, (prompt, n) in enumerate(traffic):
+                assert rep.submit(Request(id=i, prompt=prompt, max_new_tokens=n)) is None
+            readback.count = 0
+            out = rep.run()
+            m = rep.metrics
+            assert all(r.status == OK for r in out) and not m.faults
+            assert readback.count == 2 * m.windows + 2 * m.prefills
+            streams.append({r.id: r.tokens for r in out})
+        assert rep.layout.is_paged_path("k")
+        assert not rep.layout.is_paged_path("k_ring")
+        assert m.pages_allocated == m.pages_freed > 0
+        rep.alloc.check()
+        assert streams[0] == streams[1], overlap
+
+
+def test_paged_window_reaches_flash_decode(cuda):
+    """qwen3's smoke model in bf16 on the card: a decode window over pages
+    scattered through a shuffled table equals the contiguous window on the
+    same cache, bit for bit (tokens, words, next token and position, the
+    cache read back through the table); the gathered leaf has the
+    contiguous cache's shape, dtype and strides, and every step of the
+    paged window launches the decode kernel once per layer, with nothing
+    read back."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.device_channel import readback
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.paging import PagedLayout
+    from repro_torch.launch.steps import make_decode_window
+    from repro_torch.models import Model
+
+    cfg = smoke_config("qwen3-1.7b").replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    S, max_len, page, K = 3, 64, 8, 4
+    layout = PagedLayout(model.init_cache(1, max_len), max_len, page_size=page,
+                         num_pages=S * max_len // page)
+    rng = np.random.default_rng(6)
+    caches = model.init_cache(S, max_len)
+    for t in caches.values():
+        t.copy_(_randn(rng, tuple(t.shape), t.dtype, cuda))
+    table = torch.from_numpy(rng.permutation(layout.num_pages).reshape(
+        S, layout.max_pages).astype(np.int32)).to(cuda)
+    hybrid = layout.init_hybrid(model.init_cache(1, max_len), S)
+    layout.scatter(hybrid, caches, table)
+    view = layout.gather(hybrid, table)
+    for name, t in caches.items():
+        assert torch.equal(view[name], t)
+        assert view[name].stride() == t.stride() and view[name].dtype == t.dtype
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, S).astype(np.int32)).to(cuda)
+    pos = torch.tensor([0, 17, 55], dtype=torch.int32, device=cuda)
+    want = make_decode_window(model, window=K)(caches, tokens, pos)
+    reset_launch_counts()
+    readback.count = 0
+    got = make_decode_window(model, window=K, paged=layout)(hybrid, tokens, pos,
+                                                            table)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert readback.count == 0
+    assert counts["flash_decode"] == counts["flash_attention"] == K * cfg.num_layers
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    view = layout.gather(hybrid, table)
+    for name, t in caches.items():
+        assert torch.equal(view[name], t), name

@@ -386,20 +386,30 @@ GRID = [dict(window=w, overlap=o, paged=p, speculate=s, tp=t)
                                                (False, True), (False, True), (1, 2))]
 GRID += [dict(num_slots=0), dict(max_len=0), dict(max_request_retries=-1),
          dict(window=-1), dict(prefill_budget=0), dict(tp=0)]
+# the page fields: their limits, with and without paging and a window
+GRID += [dict(paged=p, window=w, **f) for p, w in ((True, 4), (True, 0), (False, 0))
+         for f in (dict(page_size=0), dict(page_size=1), dict(page_size=16),
+                   dict(page_budget=0), dict(page_budget=1), dict(page_budget=64),
+                   dict(page_watermark=-1), dict(page_watermark=0),
+                   dict(page_watermark=3))]
+PAGE_FIELDS = ("page_size", "page_budget", "page_watermark")
 
 
 @pytest.mark.parametrize("fields", GRID, ids=lambda f: ",".join(
     f"{k}={int(v)}" for k, v in f.items()))
 def test_engine_config_parity(fields):
     """Each combination is accepted by both packages, or refused by both
-    with ``ValueError``; ``EngineConfig()`` is the stepwise engine in
-    both."""
+    with ``ValueError`` (the same message for a page field); the defaults
+    are the same — ``EngineConfig()`` is the stepwise engine in both."""
     def outcome(cls):
         try:
             cls(**fields)
-        except ValueError:
-            return "refused"
-        return "accepted"
+        except ValueError as exc:
+            return ("refused", str(exc) if set(fields) & set(PAGE_FIELDS)
+                    and "page" in str(exc) else "")
+        return ("accepted", "")
 
     assert outcome(EngineConfig) == outcome(JaxEngineConfig)
     assert EngineConfig().window == JaxEngineConfig().window == 0
+    for name in PAGE_FIELDS:
+        assert getattr(EngineConfig(), name) == getattr(JaxEngineConfig(), name)
