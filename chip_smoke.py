@@ -17,7 +17,9 @@ Phases, each printing one JSON line (``"phase": ...``):
    times the kernel, the plain version and (where one exists) one PyTorch
    library call computing the same function, beside the least time the card
    could take; flash's fp32 route (``flash_f32``) at the same decode and
-   forward shapes in fp32;
+   forward shapes in fp32; the speculative verify's route
+   (``flash_verify``, 8 slots x 4 rows) also bit for bit against 4 decode
+   launches at pos + t, and the probe over the verify's 32 logit rows;
 4. serve      — full-width qwen3-1.7b (28 layers, bf16, seeded random
    weights) served by ``Replica(window=8, overlap=True, num_slots=8,
    max_len=1024)``: 16 requests with 16–256-token prompts and 64 new tokens
@@ -44,15 +46,28 @@ Phases, each printing one JSON line (``"phase": ...``):
    consistent. The line adds the pool's size and the device time of one
    whole-tree gather + scatter beside its bytes bound. The NaN goes into
    the lane's first pool page, and the streams must be bit-equal;
-9. page_fault — the same run with one decoding lane's page-table row
-   unmapped mid-run: PAGE_FAULT raised at the wait on that slot, one
-   ``page_reclaim`` record, every stream equal to phase 8's;
-10. paged_pressure — the same traffic through a pool of 64 pages: lanes are
-   preempted back into the queue (evictions > 0), the pool's peak stays
-   within it, and the streams equal phase 4's;
+9. page_fault — the same run, on the first 8 requests, with one decoding
+   lane's page-table row unmapped mid-run: PAGE_FAULT raised at the wait on
+   that slot, one ``page_reclaim`` record, every stream equal to phase 8's;
+10. paged_pressure — the first 8 requests through a pool of 64 pages:
+   lanes are preempted back into the queue (evictions > 0), the pool's
+   peak stays within it, and the streams equal phase 4's;
 11. engines_paged — the engines traffic through the blocking engine over
    the pool (``window=8, overlap=False, paged=True``): streams equal the
    blocking engine's, syncs within its rule;
+11a. serve_spec, lflr_spec, serve_spec_paged — phases 4, 5 and 8 through
+   the speculative windows (``speculate=True, draft_len=3,
+   draft_layers=1``): the streams equal phase 4's token for token, at 2
+   host syncs a window; a step launches the decode kernel 3 times (the
+   draft), the verify route once per layer and the probe once. Each line
+   adds the drafts accepted and rejected and serve's ms per step beside
+   its own; no fault record carries DRAFT_REJECT;
+11b. serve_spec_deep — the seeded init makes qwen3 repeat its input token
+   at every exit depth, so the drafts above all match: with the embedding
+   drawn at a tenth of its scale, the engines traffic through the overlap
+   engine and the speculative one drafting from 27 layers gives equal
+   streams and drafts both accepted and rejected (one phase at least
+   must);
 12. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
@@ -94,9 +109,10 @@ Phases, each printing one JSON line (``"phase": ...``):
    answer is held against the forward;
 23. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
    first full layer, as in the JAX replica;
-24. serve_g3_paged, lflr_g3_paged — phases 22 and 23 through the pool: the
-   4 full layers paged, the 512-entry rings dense; the streams must equal
-   phase 22's, and the NaN goes into K of layer 5, now a pool page;
+24. serve_g3_paged, lflr_g3_paged — phases 22 and 23 through the pool, on
+   the first 8 requests: the 4 full layers paged, the 512-entry rings
+   dense; the streams must equal phase 22's, and the NaN goes into K of
+   layer 5, now a pool page;
 25. prefill_g3 — ``make_prefill_step`` at B 2, S 4096: flash forward once per
    layer, one probe.
 
@@ -134,6 +150,11 @@ ENGINES = {"stepwise": dict(window=0),
 # 64 pages), and a pool of 64 pages for the pressure phase
 PAGE_SIZE, PRESSURE_BUDGET = 16, 64
 PAGED = dict(paged=True, page_size=PAGE_SIZE)
+# the speculative phases: 3 drafts a step from the first layer; the deep
+# draft's phase draws the embedding at a tenth of its init scale
+SPEC = dict(speculate=True, draft_len=3, draft_layers=1)
+SPEC_DEEP_EMBED = 0.1
+SERVE_LINES: dict = {}              # a serve phase's ms per step and tokens/s
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
 # flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
 # every bf16 row is also held, element by element, to 2 bf16 ulps of itself
@@ -232,7 +253,8 @@ def flash_call(flash_attention, *args, **kwargs):
     moved = [k for k, n in flash_attention.kernel_launches.items() if n != before[k]]
     if len(moved) != 1:
         fail(f"flash_attention launched {moved}, not one kernel")
-    return out, {"kernel": moved[0], "source": f"{FLASH_CSRC}/{moved[0]}.cu"}
+    source = "flash_decode" if moved[0] == "flash_verify" else moved[0]
+    return out, {"kernel": moved[0], "source": f"{FLASH_CSRC}/{source}.cu"}
 
 
 def flash_excess(got, want) -> float:
@@ -291,7 +313,8 @@ PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu", "ssd_chunk_tc.cu",
 
 def ptxas_report(log: str) -> list:
     """Each kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
-    head_dim (flash's template argument), registers, static shared memory,
+    head_dim (flash's template argument; for flash_decode also whether it is
+    the verify's instantiation), registers, static shared memory,
     stack and spills (the flash and SSD kernels' shared memory is dynamic:
     see their sources)."""
     import re
@@ -307,9 +330,11 @@ def ptxas_report(log: str) -> list:
                 i += len(d)
                 names.append(mangled[i:i + int(d)])
                 i += int(d)
-            hd = re.match(r"ILi(\d+)E", mangled[i:])
+            hd = re.match(r"ILi(\d+)E(?:Lb([01])E)?", mangled[i:])
             cur = {"kernel": names[-1] if names else mangled,
                    "head_dim": int(hd.group(1)) if hd else None}
+            if hd and hd.group(2):          # flash_decode's verify instantiation
+                cur["verify"] = hd.group(2) == "1"
             rows.append(cur)
             continue
         if cur is None:
@@ -403,6 +428,58 @@ def phase_kernels(torch, card: str) -> dict:
         "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
             *t, attn_mask=mask, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
+
+    # -- flash verify: the speculative verify's T = D + 1 rows per slot over
+    #    the same cache in one launch (flash_decode.cu with nq = T), rows at
+    #    split and tile edges and past the capacity
+    T = SPEC["draft_len"] + 1
+    vpos = [0, 1, 61, 509, 700, MAX_LEN - T, MAX_LEN - 2, 1500]
+    q = randn(B, T, Hq, D)
+    voff = torch.tensor(vpos, dtype=torch.int32, device=dev)
+    got, route = flash_call(flash_attention, q, k, v, voff, causal=True,
+                            seq_kv=MAX_LEN, verify=True)
+    want = sdpa_ref(q, k, v, q_offset=voff, causal=True, seq_kv=MAX_LEN)
+    rows = torch.cat([flash_attention(q[:, t:t + 1].contiguous(), k, v, voff + t,
+                                      causal=True, seq_kv=MAX_LEN) for t in range(T)],
+                     dim=1)
+    err = (got.float() - want.float()).abs().max().item()
+    excess = flash_excess(got, want)
+    dropped = flash_excess(flash_attention(q, k, v, voff, causal=True,
+                                           seq_kv=MAX_LEN - 1, verify=True), want)
+    doubled = flash_excess(flash_attention(q, *key_doubled(k, v, edge), voff,
+                                           causal=True, seq_kv=MAX_LEN, verify=True),
+                           want)
+    bit_equal = torch.equal(got, rows)
+    if not (route["kernel"] == "flash_verify" and bit_equal and err <= FLASH_TOL
+            and excess <= 1 < min(dropped, doubled)):
+        fail(f"flash verify: {route['kernel']}, rows bit-equal to decode: "
+             f"{bit_equal}, error {err} (limit {FLASH_TOL}), {excess} x the "
+             f"relative limit; one key dropped reads {dropped} x, key {edge} "
+             f"replaced by key {edge - 1} reads {doubled} x (both must exceed 1)")
+    qp = voff[:, None] + torch.arange(T, device=dev)                    # (B, T)
+    vmask = (kpos[None, None, :] <= qp[:, :, None])[:, None]            # (B, 1, T, cap)
+    vctx = [min(p + T, MAX_LEN) for p in vpos]
+    nbytes = 2 * B * T * Hq * D * 2 + 2 * sum(vctx) * Hkv * D * 2 + 4 * B
+    flops = sum(4 * Hq * D * min(p + t + 1, MAX_LEN) for p in vpos for t in range(T))
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(B, T, Hq, D), randn(B, MAX_LEN, Hkv, D),
+                          randn(B, MAX_LEN, Hkv, D)),
+                 (B * T * Hq + 2 * B * MAX_LEN * Hkv) * D * 2)
+    out["flash_verify"] = {
+        "shape": f"q {B}x{T}x{Hq}x{D}, kv {B}x{MAX_LEN}x{Hkv}x{D} bf16, pos {vpos}",
+        **route, "max_abs_err": err, "tol": FLASH_TOL,
+        "rel_tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+        "err_over_tol": excess, "one_key_dropped_over_tol": dropped,
+        f"key_{edge}_doubled_over_tol": doubled,
+        "rows_bit_equal_decode": bit_equal, "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, voff, causal=True, seq_kv=MAX_LEN, verify=True), qkv),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
+            q, k, v, q_offset=voff, causal=True, seq_kv=MAX_LEN), qkv),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=vmask, enable_gqa=True), [heads_first(*t) for t in qkv]),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del qkv
 
     # -- flash forward: B 1, S 512, causal (Model.forward's shape)
     S = 512
@@ -513,6 +590,31 @@ def phase_kernels(torch, card: str) -> dict:
         "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
             x, math.inf, nonfinite_code=nf, overflow_code=ov), clean),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+    # -- probe over the speculative verify's logits: (slots x rows, vocab)
+    rows = NUM_SLOTS * T
+    x = torch.from_numpy(rng.standard_normal((rows, V)).astype(np.float32)).to(dev)
+    x[5, 0] = float("nan")
+    x[rows - 1, V - 1] = float("-inf")
+    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    hit = got.nonzero().flatten().tolist()
+    if not torch.equal(got, want) or hit != [5, rows - 1]:
+        fail(f"probe_rows over the verify's logits: words at {hit}, "
+             f"{got.tolist()} vs {want.tolist()}")
+    b_ms, b_by = bound(rows * V * 4 + rows * 4, 3 * rows * V, PEAK_FP32_FLOPS)
+    clean = copies(lambda: (torch.from_numpy(rng.standard_normal(
+        (rows, V)).astype(np.float32)).to(dev),), rows * V * 4)
+    out["probe_verify"] = {
+        "shape": f"{rows}x{V} fp32 ({NUM_SLOTS} slots x {T} verify rows), threshold inf",
+        "words_at": hit, "max_abs_err": (got - want).abs().max().item(),
+        "timing_copies": len(clean),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), clean),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, math.inf, nonfinite_code=nf, overflow_code=ov), clean),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del x, clean
     emit({"phase": "kernels", "card": card, **out})
     return out
 
@@ -591,16 +693,21 @@ def build_model(torch, cfg):
 
 def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                 long: int = 0, poison_layers=None, paged: bool = False,
-                want=None, n: int = NUM_REQUESTS):
+                want=None, n: int = NUM_REQUESTS, spec=None):
     """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
-    traffic clean, then again with an injected state fault. ``long``
-    requests get ``LONG_PROMPT``-token prompts, and the longest answer is
-    then the one held against the forward; ``poison_layers``, where given,
-    is where the fault must land. ``paged`` serves through the page pool
-    (``PAGED``), whose clean streams must equal ``want`` (the contiguous
-    run's), and adds the pool's numbers and the time of one whole-tree
-    gather + scatter to the line. ``n`` cuts the traffic to its first
-    requests. Returns the clean run's kernel launches and streams."""
+    traffic clean, then again with an injected state fault (no second run
+    where ``names[1]`` is None). ``long`` requests get
+    ``LONG_PROMPT``-token prompts, and the longest answer is then the one
+    held against the forward; ``poison_layers``, where given, is where the
+    fault must land. ``paged`` serves through the page pool (``PAGED``),
+    whose clean streams must equal ``want`` (the contiguous run's), and adds
+    the pool's numbers and the time of one whole-tree gather + scatter to
+    the line. ``spec`` (an engine's draft fields, ``SPEC``) serves through
+    the speculative windows: the streams must equal ``want`` (serve's), and
+    the line adds the drafted,
+    accepted and rejected tokens and serve's ms per step and tokens/s from
+    the same call. ``n`` cuts the traffic to its first requests. Returns
+    the clean run's kernel launches and streams."""
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -610,7 +717,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     rep = Replica(cfg, model, config=EngineConfig(
         window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN,
-        **(PAGED if paged else {})))
+        **(PAGED if paged else {}), **(spec or {})))
     t0 = time.perf_counter()
     rep.warmup()
     torch.cuda.synchronize()
@@ -635,11 +742,14 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     recurrent = model.state_leaf is not None
     # per window step: flash once per attention layer, through the decode
     # kernel; the probe over the logits, and over the recurrent state where
-    # there is one; no scan
+    # there is one; no scan. Speculating: spec_launches
     expected = dict.fromkeys(launches, 0)
-    expected.update({"flash_attention": len(model.attn_layers) * steps,
-                     "flash_decode": len(model.attn_layers) * steps,
-                     "probe_rows": (2 if recurrent else 1) * steps})
+    if spec:
+        expected.update(spec_launches(model, spec, steps))
+    else:
+        expected.update({"flash_attention": len(model.attn_layers) * steps,
+                         "flash_decode": len(model.attn_layers) * steps,
+                         "probe_rows": (2 if recurrent else 1) * steps})
     if launches != expected:
         fail(f"{names[0]}: kernel launches {launches} != {expected} "
              f"({len(model.attn_layers)} attention layers, "
@@ -651,8 +761,10 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
         fail(f"{names[0]}: clean run recorded faults: {m.faults}")
     if want is not None and streams(clean) != want:
         diff = [i for i in want if clean[i].tokens != want[i]]
-        fail(f"{names[0]}: streams differ from the contiguous run for requests {diff}")
+        fail(f"{names[0]}: streams differ from the {'serve' if spec else 'contiguous'} "
+             f"run for requests {diff}")
     pool = paged_report(torch, rep, names[0]) if paged else {}
+    drafts = spec_report(m, spec, syncs) if spec else {}
     tokens = sum(len(r.tokens) for r in clean.values())
     reqs = make_requests(cfg, Request, long, n)
     forward = check_against_forward(torch, model, clean, reqs, longest=bool(long))
@@ -673,16 +785,26 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
           "syncs": syncs, "window_waits": m.window_waits, "launches": launches,
           "ttft_p50_s": m.ttft_percentiles()["p50"],
           "latency_p99_s": m.latency_percentiles()["p99"],
-          "peak_mem_gb": peak, "forward_check": forward, **pool})
+          "peak_mem_gb": peak, "forward_check": forward, **pool, **drafts})
+    SERVE_LINES[names[0]] = {"ms_per_step": wall / steps * 1e3,
+                             "tokens_per_s": tokens / wall,
+                             "accepted": m.accepted_draft_tokens,
+                             "rejected": m.draft_tokens - m.accepted_draft_tokens}
+    if names[1] is None:
+        return launches, streams(clean)
 
     # ---- same traffic, a NaN in an active slot's state mid-run, in a slot
-    # decoding and busy past the in-flight and the next window
+    # decoding and busy past the in-flight and the next window (speculating,
+    # past the in-flight window: it may commit K (D + 1) tokens)
     rep.metrics = ServeMetrics()
-    inject, state = injector(2 * WINDOW, 6, MAX_NEW)
+    horizon = WINDOW * (spec["draft_len"] + 1) if spec else 2 * WINDOW
+    inject, state = injector(horizon, 6, MAX_NEW)
+    readback.count = 0
     t0 = time.perf_counter()
     faulted, injected = drive(rep, make_requests(cfg, Request, long, n), inject)
     torch.cuda.synchronize()
     lflr_wall = time.perf_counter() - t0
+    lflr_syncs = readback.count
     fm = rep.metrics
     if not injected:
         fail(f"{names[1]}: no decoding slot to poison")
@@ -701,6 +823,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
             or not faulted[i].ok or faulted[i].tokens != clean[i].tokens]
     if diff:
         fail(f"{names[1]}: streams differ from the clean run for requests {diff}")
+    if spec and any(f.code & int(ErrorCode.DRAFT_REJECT) for f in fm.faults):
+        fail(f"{names[1]}: a fault record carries DRAFT_REJECT: {fm.faults}")
     emit({"phase": names[1], "card": card, "model": cfg.name,
           "poisoned_slot": state["slot"], "poisoned_layers": state["layers"],
           "latched": code.name,
@@ -708,8 +832,37 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                       "slots": list(f.slots)} for f in fm.faults],
           "recovery_action": latched[0].action,
           "retries": sum(r.retries for r in faulted.values()),
+          **({"ms_per_step": lflr_wall / (WINDOW * fm.windows) * 1e3,
+              "tokens_per_s": sum(len(r.tokens) for r in faulted.values()) / lflr_wall,
+              **spec_report(fm, spec, lflr_syncs)} if spec else {}),
           "streams_bit_equal": True, "wall_s": lflr_wall})
     return launches, streams(clean)
+
+
+def spec_launches(model, spec: dict, steps: int) -> dict:
+    """A speculative run's kernel launches over ``steps`` window steps: the
+    draft's decode kernel once per draft step and drafting layer, the
+    verify route once per layer, one probe over the verify's logits."""
+    drafts = spec["draft_len"] * spec["draft_layers"] * steps
+    verify = len(model.attn_layers) * steps
+    return {"flash_attention": drafts + verify, "flash_decode": drafts,
+            "flash_verify": verify, "probe_rows": steps}
+
+
+def spec_report(m, spec: dict, syncs: int) -> dict:
+    """A speculative serve run's drafts: drafted, accepted and rejected
+    tokens, the acceptance rate, the tokens a window step commits, host
+    syncs per window, and serve's ms per window step and tokens/s from the
+    same call beside them."""
+    return {"draft_len": spec["draft_len"], "draft_layers": spec["draft_layers"],
+            "drafted": m.draft_tokens, "accepted": m.accepted_draft_tokens,
+            "rejected": m.draft_tokens - m.accepted_draft_tokens,
+            "acceptance_rate": m.acceptance_rate(),
+            "tokens_per_step": m.tokens_per_step(),
+            "syncs_per_window": syncs / m.windows,
+            "serve_ms_per_step": SERVE_LINES["serve"]["ms_per_step"],
+            "serve_tokens_per_s": SERVE_LINES["serve"]["tokens_per_s"],
+            "streams_equal_serve": True}
 
 
 def paged_report(torch, rep, name: str) -> dict:
@@ -746,12 +899,13 @@ def paged_report(torch, rep, name: str) -> dict:
             "streams_equal_contiguous": True}
 
 
-def phase_page_fault(torch, card: str, model, want: dict) -> None:
-    """The serve_paged run with one lane's page-table row unmapped behind
-    the allocator's back, mid-run: the page probe latches PAGE_FAULT at the
-    wait, attributed to that slot, one ``page_reclaim`` record follows, the
-    LFLR re-queue rebuilds the mapping, and every stream equals
-    serve_paged's (``want``)."""
+def phase_page_fault(torch, card: str, model, want: dict,
+                     n: int = NUM_SLOTS) -> None:
+    """The serve_paged run, on its first ``n`` requests, with one lane's
+    page-table row unmapped behind the allocator's back, mid-run: the page
+    probe latches PAGE_FAULT at the wait, attributed to that slot, one
+    ``page_reclaim`` record follows, the LFLR re-queue rebuilds the mapping,
+    and every stream equals serve_paged's (``want``)."""
     from repro_torch.core.errors import ErrorCode
     from repro_torch.serve import EngineConfig, Replica, Request
 
@@ -772,7 +926,7 @@ def phase_page_fault(torch, card: str, model, want: dict) -> None:
         return False
 
     t0 = time.perf_counter()
-    out, injected = drive(rep, make_requests(model.cfg, Request), corrupt)
+    out, injected = drive(rep, make_requests(model.cfg, Request, n=n), corrupt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m = rep.metrics
@@ -784,7 +938,7 @@ def phase_page_fault(torch, card: str, model, want: dict) -> None:
         fail(f"page_fault: PAGE_FAULT not raised on slot {state['slot']}: {m.faults}")
     if len(reclaims) != 1 or reclaims[0].slots != (state["slot"],):
         fail(f"page_fault: page_reclaim records {reclaims}")
-    bad = [i for i in want if out.get(i) is None or not out[i].ok
+    bad = [i for i in range(n) if out.get(i) is None or not out[i].ok
            or out[i].tokens != want[i]]
     if bad:
         fail(f"page_fault: streams differ from serve_paged for requests {bad}")
@@ -793,18 +947,19 @@ def phase_page_fault(torch, card: str, model, want: dict) -> None:
     except AssertionError as exc:
         fail(f"page_fault: page ledger: {exc}")
     emit({"phase": "page_fault", "card": card, "model": model.cfg.name,
-          "corrupted_slot": state["slot"],
+          "requests": n, "corrupted_slot": state["slot"],
           "faults": [{"step": f.step, "code": f.code, "action": f.action,
                       "slots": list(f.slots)} for f in m.faults],
           "retries": sum(r.retries for r in out.values()),
           "streams_bit_equal": True, "wall_s": wall})
 
 
-def phase_paged_pressure(torch, card: str, model, want: dict) -> None:
-    """serve's traffic through a pool of ``PRESSURE_BUDGET`` pages, an
-    eighth of what 8 slots of 1024 would take: growth must preempt the
-    oldest lanes back into the queue, the pool's peak stays within it,
-    every request is answered OK, and the streams equal serve's
+def phase_paged_pressure(torch, card: str, model, want: dict,
+                         n: int = NUM_SLOTS) -> None:
+    """serve's first ``n`` requests through a pool of ``PRESSURE_BUDGET``
+    pages, an eighth of what 8 slots of 1024 would take: growth must
+    preempt the oldest lanes back into the queue, the pool's peak stays
+    within it, every request is answered OK, and the streams equal serve's
     (``want``)."""
     from repro_torch.serve import EngineConfig, Replica, Request
 
@@ -812,7 +967,7 @@ def phase_paged_pressure(torch, card: str, model, want: dict) -> None:
         window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN,
         **PAGED, page_budget=PRESSURE_BUDGET))
     t0 = time.perf_counter()
-    out, _ = drive(rep, make_requests(model.cfg, Request))
+    out, _ = drive(rep, make_requests(model.cfg, Request, n=n))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m = rep.metrics
@@ -820,7 +975,7 @@ def phase_paged_pressure(torch, card: str, model, want: dict) -> None:
         fail("paged_pressure: the pool never ran dry (no eviction)")
     if m.peak_pages_in_use > PRESSURE_BUDGET:
         fail(f"paged_pressure: {m.peak_pages_in_use} pages in use > {PRESSURE_BUDGET}")
-    bad = [i for i in want if out.get(i) is None or not out[i].ok
+    bad = [i for i in range(n) if out.get(i) is None or not out[i].ok
            or out[i].tokens != want[i]]
     if bad:
         fail(f"paged_pressure: streams differ from serve for requests {bad}")
@@ -829,7 +984,8 @@ def phase_paged_pressure(torch, card: str, model, want: dict) -> None:
     except AssertionError as exc:
         fail(f"paged_pressure: page ledger: {exc}")
     emit({"phase": "paged_pressure", "card": card, "model": model.cfg.name,
-          "page_budget": PRESSURE_BUDGET, "page_evictions": m.page_evictions,
+          "requests": n, "page_budget": PRESSURE_BUDGET,
+          "page_evictions": m.page_evictions,
           "peak_pages_in_use": m.peak_pages_in_use,
           "peak_active_slots": m.peak_active_slots,
           "pages_allocated": m.pages_allocated, "windows": m.windows,
@@ -923,6 +1079,90 @@ def phase_engines(torch, card: str, model) -> dict:
           "ms_per_step_note": "wall less the blocking prefills' stall, over "
                               "the decode steps", **rows})
     return {"streams": runs, "launches": launches}
+
+
+def phase_spec(torch, card: str, model, init_s: float, want: dict) -> dict:
+    """The speculative phases on qwen3: serve's traffic through
+    ``Replica(window=8, overlap=True, speculate=True, draft_len=3,
+    draft_layers=1)``, clean (streams equal serve's, ``want``) and with
+    serve's injected fault (streams bit-equal to the clean run), then over
+    the default page pool (every page back at drain), then
+    :func:`phase_spec_deep`. One phase at least must show drafts both
+    accepted and rejected. Returns each clean run's launches by path."""
+    paths = {}
+    paths["serve_spec"], _ = phase_serve(
+        torch, card, model, init_s, ("serve_spec", "lflr_spec"), spec=SPEC,
+        want=want)
+    paths["serve_spec_paged"], _ = phase_serve(
+        torch, card, model, init_s, ("serve_spec_paged", None), paged=True,
+        spec=SPEC, want=want)
+    paths["serve_spec_deep"] = phase_spec_deep(torch, card, model)
+    if not any(SERVE_LINES[p]["accepted"] and SERVE_LINES[p]["rejected"]
+               for p in paths):
+        fail(f"speculative phases: no phase both accepted and rejected a draft: "
+             f"{ {p: SERVE_LINES[p] for p in paths} }")
+    return paths
+
+
+def phase_spec_deep(torch, card: str, model) -> dict:
+    """Drafts that both match and miss. Under the seeded init the tied
+    embedding's term dominates the residual stream, so every exit depth of
+    qwen3 predicts the token it was given: the serve traffic's drafts all
+    match, at any ``draft_layers``. Here the embedding is drawn at
+    ``SPEC_DEEP_EMBED`` of its init scale (restored after), so the layers
+    move the argmax, and a draft from ``num_layers - 1`` layers matches the
+    full model only in part. The engines traffic goes through the overlap
+    engine and the speculative one with that draft on the same weights: the
+    streams must be equal, syncs at most 2 a window, the draft's decode
+    kernel 3 x 27 times a step, and drafts both accepted and rejected.
+    Returns the speculative run's launches."""
+    from repro_torch.serve import Request
+
+    cfg = model.cfg
+    spec = dict(SPEC, draft_layers=cfg.num_layers - 1)
+    embed = model.embed.detach().clone()
+    with torch.no_grad():
+        model.embed.mul_(SPEC_DEEP_EMBED)
+    model.tie_unembed()
+    try:
+        plain = serve_engine(torch, model, ENGINES["overlap"], engine_requests(cfg, Request))
+        run = serve_engine(torch, model, dict(ENGINES["overlap"], **spec),
+                           engine_requests(cfg, Request))
+    finally:
+        with torch.no_grad():
+            model.embed.copy_(embed)
+        model.tie_unembed()
+        del embed
+    out, m = run["answers"], run["metrics"]
+    bad = [i for i in plain["answers"] if out.get(i) is None or not out[i].ok
+           or out[i].tokens != plain["answers"][i].tokens]
+    if bad or m.faults:
+        fail(f"serve_spec_deep: streams differ from the overlap engine's for "
+             f"requests {bad}, faults {m.faults}")
+    if run["syncs"] > 2 * m.windows:
+        fail(f"serve_spec_deep: {run['syncs']} host syncs for {m.windows} windows")
+    steps = m.decode_steps
+    expected = dict.fromkeys(run["launches"], 0)
+    expected.update(spec_launches(model, spec, steps))
+    if run["launches"] != expected:
+        fail(f"serve_spec_deep: kernel launches {run['launches']} != {expected}")
+    rejected = m.draft_tokens - m.accepted_draft_tokens
+    SERVE_LINES["serve_spec_deep"] = {"accepted": m.accepted_draft_tokens,
+                                      "rejected": rejected}
+    tokens = sum(len(r.tokens) for r in out.values())
+    pm = plain["metrics"]
+    emit({"phase": "serve_spec_deep", "card": card, "model": cfg.name,
+          "embed_scale": SPEC_DEEP_EMBED, "config": dict(ENGINES["overlap"], **spec),
+          "requests": ENGINE_REQUESTS, "tokens": tokens, "wall_s": run["wall"],
+          "tokens_per_s": tokens / run["wall"], "windows": m.windows, "steps": steps,
+          "ms_per_step": run["wall"] / steps * 1e3, "syncs": run["syncs"],
+          "drafted": m.draft_tokens, "accepted": m.accepted_draft_tokens,
+          "rejected": rejected, "acceptance_rate": m.acceptance_rate(),
+          "launches": run["launches"],
+          "overlap_tokens_per_s": tokens / plain["wall"],
+          "overlap_ms_per_step": plain["wall"] / pm.decode_steps * 1e3,
+          "overlap_windows": pm.windows, "streams_equal_overlap": True})
+    return run["launches"]
 
 
 def phase_engines_paged(torch, card: str, model, want: dict) -> dict:
@@ -1737,10 +1977,14 @@ def main() -> None:
     serve_paged, paged_streams = phase_serve(
         torch, card, model, init_s, ("serve_paged", "lflr_paged"), paged=True,
         want=serve_streams)
+    # the first 8 requests only (cut when the speculative phases came, to
+    # keep the run's time): page_fault still corrupts a decoding lane, and
+    # 8 lanes still outgrow the 64-page pool
     phase_page_fault(torch, card, model, paged_streams)
     phase_paged_pressure(torch, card, model, serve_streams)
     engines_paged = phase_engines_paged(torch, card, model,
                                         engines["streams"]["blocking"])
+    spec_paths = phase_spec(torch, card, model, init_s, serve_streams)
     del model                                     # free qwen3 before rg
     gc.collect()
     torch.cuda.empty_cache()
@@ -1771,16 +2015,20 @@ def main() -> None:
     serve_g3, g3_streams = phase_serve(torch, card, model, init_s,
                                        ("serve_g3", "lflr_g3"), long=2,
                                        poison_layers=[5])
-    # the same through the pool: the 4 full layers paged, the rings dense;
-    # the fault goes into K of layer 5, now a pool page
+    # the same through the pool, on the first 8 requests (the two long
+    # prompts among them; cut when the speculative phases came, to keep the
+    # run's time): the 4 full layers paged, the rings dense; the fault goes
+    # into K of layer 5, now a pool page
     serve_g3_paged, _ = phase_serve(
         torch, card, model, init_s, ("serve_g3_paged", "lflr_g3_paged"), long=2,
-        poison_layers=[5], paged=True, want=g3_streams)
+        poison_layers=[5], paged=True, n=NUM_SLOTS,
+        want={i: g3_streams[i] for i in range(NUM_SLOTS)})
     prefill_g3 = phase_prefill(torch, card, model, "prefill_g3")
     del model
     paths = {"serve": serve_q,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              "serve_paged": serve_paged, "engines_paged": engines_paged,
+             **spec_paths,
              "serve_g3_paged": serve_g3_paged,
              "serve_rg": serve_rg, "prefill_rg": prefill_rg,
              "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm,
@@ -1792,6 +2040,7 @@ def main() -> None:
             "src/repro/kernels/flash_attention/kernel.py:81",
             by_path("flash_attention"), kern["flash_decode"],
             {"flash_decode": kern["flash_decode"],
+             "flash_verify": kern["flash_verify"],
              "flash_forward": kern["flash_forward"],
              "flash_f32_decode": kern["flash_f32_decode"],
              "flash_f32_forward": kern["flash_f32_forward"],
@@ -1800,12 +2049,13 @@ def main() -> None:
              **{n: kern_g3[n] for n in ("flash_g3_decode", "flash_g3_ring_decode",
                                         "flash_g3_sliding_forward", "flash_g3_forward")}},
             launches_by_kernel={k: by_path(k) for k in (
-                "flash_decode", "flash_forward", "flash_f32")}),
+                "flash_decode", "flash_verify", "flash_forward", "flash_f32")}),
         kernel_entry(
             "probe_rows", "src/repro_torch/kernels/fault_probe/csrc/fault_probe.cu",
             "src/repro/kernels/fault_probe/kernel.py:44",
             by_path("probe_rows"), kern["probe_rows"],
-            {"probe_rows": kern["probe_rows"], "probe_state": kern_rg["probe_state"],
+            {"probe_rows": kern["probe_rows"], "probe_verify": kern["probe_verify"],
+             "probe_state": kern_rg["probe_state"],
              "probe_prefill": kern_rg["probe_prefill"],
              "probe_ssm": kern_ssm["probe_ssm"],
              "probe_g3_logits": kern_g3["probe_g3_logits"],

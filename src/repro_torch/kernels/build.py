@@ -31,9 +31,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signature of each exported launcher; every one returns cudaGetLastError()
 SIGNATURES = {
     # q, k, v, q_offset, out, B, T, Hq, Hkv, D, causal, window, seq_kv,
-    # splits, keys_per_split, stream
+    # splits, keys_per_split, rows per slot, stream
     "repro_flash_decode": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _L,
-                           _I, _L, _P),
+                           _I, _L, _I, _P),
     # q, k, v, q_offset, out, B, S, T, Hq, Hkv, D, causal, window, seq_kv,
     # stream
     "repro_flash_forward": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,

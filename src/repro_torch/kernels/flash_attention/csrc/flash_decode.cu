@@ -1,18 +1,20 @@
-// Flash-attention decode for Hopper (sm_90a) on the tensor cores, bf16: one
-// query row per slot, the slot's KV range split across the blocks of a
-// thread-block cluster. Plain C interface.
+// Flash-attention decode and verify for Hopper (sm_90a) on the tensor cores,
+// bf16: `nq` query rows per slot (decode: 1; the speculative verify: the
+// draft length + 1), row t of slot b at position q_offset[b] + t, the slot's
+// KV range split across the blocks of a thread-block cluster. Plain C
+// interface.
 //
-// Replaces, for S == 1 in bf16, the TPU kernel
-// repro/kernels/flash_attention/kernel.py:81 flash_attention_fwd (pallas_call
-// at :103, body _flash_kernel at :26): online-softmax attention with fp32
-// (acc, m, l) state, causal and sliding masks from positions, a kpos < seq_kv
-// padding mask, GQA (query head h reads KV head h / group), masked scores set
-// to NEG_INF = -1e30, masked tiles skipped, output acc / max(l, 1e-30) in
-// bf16. Serving decode gives each slot its own runtime position: q_offset is
-// an int32 DEVICE array (B,).
+// Replaces, for S == 1 in bf16 and for the verify's S == nq rows over a
+// cache, the TPU kernel repro/kernels/flash_attention/kernel.py:81
+// flash_attention_fwd (pallas_call at :103, body _flash_kernel at :26):
+// online-softmax attention with fp32 (acc, m, l) state, causal and sliding
+// masks from positions, a kpos < seq_kv padding mask, GQA (query head h
+// reads KV head h / group), masked scores set to NEG_INF = -1e30, masked
+// tiles skipped, output acc / max(l, 1e-30) in bf16. Serving decode gives
+// each slot its own runtime position: q_offset is an int32 DEVICE array (B,).
 //
-// Layout is the JAX package's public one: q (B, 1, Hq, D), k/v (B, T, Hkv, D),
-// out (B, 1, Hq, D), contiguous bf16.
+// Layout is the JAX package's public one: q (B, nq, Hq, D), k/v (B, T, Hkv,
+// D), out (B, nq, Hq, D), contiguous bf16.
 //
 // What bounds it on the H100: one query row per slot does 4 * Hq * ctx * D
 // flops over 2 * ctx * Hkv * D * 2 bytes of K/V, group flop/byte (2 for
@@ -22,15 +24,18 @@
 // (fp32, q and P read from shared memory, a barrier between scores, softmax
 // and P V) it took most of the kernel's time, so it runs on the tensor
 // cores, where each warp does its share of a tile with no barrier between
-// the phases.
+// the phases. The verify's nq rows share each K/V read, so it stays
+// memory-bound at nq * group flop/byte (8 for qwen3 at nq 4).
 //
 // Design:
-// - Grid (splits, Hkv, B). A block serves ALL group = Hq / Hkv query heads of
-//   its KV head (one m16 tile, rows >= group zero), so each K/V byte is read
-//   from device memory once per slot. The slot's keys [0, seq_kv) are cut
-//   into `splits` ranges of keys_per_split (a multiple of the 64-key tile),
-//   so slots x KV heads x splits fills the SMs where slots x KV heads alone
-//   would not (MQA: 8 slots, one KV head).
+// - Grid (splits, Hkv * row tiles, B). A block serves ALL group = Hq / Hkv
+//   query heads of its KV head for its slot's nq rows, group * nq rows in
+//   m16 tiles (row r of the tile is slot row (16 m + r) / group, head (16 m +
+//   r) % group; rows past group * nq zero), so each K/V byte is read from
+//   device memory once per slot and row tile. The slot's keys [0, seq_kv)
+//   are cut into `splits` ranges of keys_per_split (a multiple of the 64-key
+//   tile), so slots x KV heads x splits fills the SMs where slots x KV heads
+//   alone would not (MQA: 8 slots, one KV head).
 // - K/V tiles of 64 keys are double-buffered in dynamic shared memory by
 //   cp.async (16 bytes a lane, coalesced), rows padded by 16 bytes so ldmatrix
 //   hits 8 bank groups. Each of the 4 warps takes 16 keys of a tile: S = Q K^T
@@ -45,12 +50,26 @@
 //
 // Determinism (the LFLR contract): split boundaries depend only on the launch
 // shape (seq_kv and the KV heads, chosen by ops.py::plan), never on the
-// other slots' positions; a split that lies past the slot's causal end (or
-// before its window) runs no tile and leaves m = -inf, which the merge
-// weighs 0. Every sum runs in a fixed order (warps, then splits, in index
-// order) and nothing is atomic, so a slot's output depends only on its own
-// data, its own position and the launch shape: a slot recomputed by LFLR in
-// the same window shape reproduces its clean-run values bit for bit.
+// other slots' positions nor on nq; a split that lies past the slot's causal
+// end (or before its window) runs no tile and leaves m = -inf, which the
+// merge weighs 0. Every sum runs in a fixed order (warps, then splits, in
+// index order) and nothing is atomic, so a slot's output depends only on its
+// own data, its own position and the launch shape: a slot recomputed by LFLR
+// in the same window shape reproduces its clean-run values bit for bit.
+//
+// The verify contract: row t's output is bit-equal to a decode (nq = 1) at
+// position q_offset + t. Each row keeps its own causal mask inside the tiles
+// (keys <= its position), and a block's key interval runs to the end of its
+// last row, so row t also visits tiles that a decode at its position never
+// runs. There, every score of row t is masked: where the row already holds a
+// key, its max is unchanged, the correction is exp2(0) = 1 and P is exactly
+// 0, so (m, l, O) keep their bits; where a warp or a whole split holds no key
+// of row t, its max is NEG_INF against the row's real max, so the merge
+// weighs it exp2(NEG_INF - max) = 0, as a decode weighs a warp whose keys are
+// all past the position. Windows are not taken with nq > 1 (a row whose
+// window holds no key would not read 0 as the decode does). The decode
+// (kVerify false) is its own instantiation, with the row arithmetic folded
+// away: it keeps its registers and its time.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,13 +108,13 @@ struct Cfg {
   static_assert(D % 16 == 0 && kDT % 2 == 0 && kSmall % 4 == 0, "tiles");
 };
 
-template <int D>
+template <int D, bool kVerify>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ q_offset,
                     bf16* __restrict__ out, long long T_, int Hq, int Hkv, int group,
                     int causal, int window, long long seq_kv, long long keys_per_split,
-                    float scale_log2) {
+                    int nq, int row_tiles, float scale_log2) {
   using C = Cfg<D>;
   constexpr int kRow = C::kRow, kCPR = C::kCPR, kDT = C::kDT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -112,16 +131,27 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* red = ow + kWarps * kRows * D;                       // [kRows][D] this split's O
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = kVerify ? blockIdx.y / row_tiles : blockIdx.y;
+  const int tile0 = kVerify ? (blockIdx.y % row_tiles) * kRows : 0;   // first row
+  const int rows = kVerify ? min(kRows, group * nq - tile0) : group;  // in use
   const int nsplit = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long qpos = q_offset[b];
+  const long long q0 = q_offset[b];
+  // row r of the tile: slot row (tile0 + r) / group at q0 + that row, head
+  // kvh * group + (tile0 + r) % group; a row past `rows` reads as the last
+  auto slot_row = [&](int r) { return kVerify ? (tile0 + min(r, rows - 1)) / group : 0; };
+  auto row_offset = [&](int r) {      // element offset of row r in q and out
+    const int rr = tile0 + r;
+    return ((static_cast<long long>(b) * nq + (kVerify ? rr / group : 0)) * Hq +
+            kvh * group + (kVerify ? rr % group : rr)) * D;
+  };
 
-  // the slot's valid keys are one interval [kv_begin, kv_end); this split's
-  // share of it is [lo, hi)
+  // the block's rows' valid keys lie in one interval [kv_begin, kv_end), to
+  // the end of its last row; this split's share of it is [lo, hi)
   long long kv_end = seq_kv;
-  if (causal) kv_end = min(kv_end, qpos + 1);
-  const long long kv_begin = window ? max(0LL, qpos - window + 1) : 0LL;
+  if (causal) kv_end = min(kv_end, q0 + slot_row(rows - 1) + 1);
+  const long long kv_begin = window ? max(0LL, q0 - window + 1) : 0LL;
   const long long lo = max(kv_begin, split * keys_per_split);
   const long long hi = min(kv_end, (split + 1) * keys_per_split);
   const long long t_first = lo / kBN;
@@ -131,11 +161,10 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kbase = k + (static_cast<long long>(b) * T_ * Hkv + kvh) * D;
   const bf16* vbase = v + (static_cast<long long>(b) * T_ * Hkv + kvh) * D;
 
-  // q of the group's heads (rows past the group zero), with the first tile
-  const bf16* qb = q + (static_cast<long long>(b) * Hq + kvh * group) * D;
+  // q of the tile's rows (rows past `rows` zero), with the first tile
   for (int c = tid; c < kRows * kCPR; c += kThreads) {
     const int r = c / kCPR, cc = c % kCPR;
-    cp_async16(qs + r * kRow + cc * 8, qb + (r < group ? r * D + cc * 8 : 0), r < group);
+    cp_async16(qs + r * kRow + cc * 8, q + (r < rows ? row_offset(r) + cc * 8 : 0), r < rows);
   }
   auto load_tile = [&](long long t, int st) {
     bf16* ks = kvs + st * 2 * C::kTileElems;
@@ -152,8 +181,13 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (t_first <= t_last) load_tile(t_first, 0);
   cp_async_commit();
 
-  // this thread's rows g and g + 8, keys 2 tq, 2 tq + 1 of each n-tile
+  // this thread's rows g and g + 8, keys 2 tq, 2 tq + 1 of each n-tile; each
+  // row's keys end after its own position
   const int g = lane >> 2, tq = lane & 3;
+  long long row_end[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    row_end[i] = causal ? min(seq_kv, q0 + slot_row(g + 8 * i) + 1) : seq_kv;
   float o[kDT][4];
 #pragma unroll
   for (int d = 0; d < kDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -186,7 +220,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mma(s[0], a, bk[0], bk[1]);
       mma(s[1], a, bk[2], bk[3]);
     }
-    // one position per slot: the same valid keys for every row
+    // elements 0, 1 hold row g, elements 2, 3 row g + 8
     const long long k0 = t * kBN + 16 * warp;
     float sc[2][4];
 #pragma unroll
@@ -194,7 +228,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const long long key = k0 + n * 8 + 2 * tq + (e & 1);
-        const bool valid = key >= kv_begin && key < kv_end;
+        const bool valid = key >= kv_begin && key < row_end[e >> 1];
         sc[n][e] = valid ? (sa[n][e] + sb[n][e]) * scale_log2 : kNegInf;
       }
 
@@ -277,7 +311,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ls[tid] = lsum;
   }
   __syncthreads();
-  for (int e = tid; e < group * D; e += kThreads) {
+  for (int e = tid; e < rows * D; e += kThreads) {
     const int r = e / D, d = e % D;
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += mw[w * kRows + r] * ow[(w * kRows + r) * D + d];
@@ -293,7 +327,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sl[e] = cluster.map_shared_rank(ls, sp)[r];
   }
   __syncthreads();
-  if (tid < group) {
+  if (tid < rows) {
     float mx = -INFINITY;
     for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, sw[sp * kRows + tid]);
     float lsum = 0.f;
@@ -308,9 +342,8 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     den[tid] = fmaxf(lsum, 1e-30f);
   }
   __syncthreads();
-  bf16* ob = out + (static_cast<long long>(b) * Hq + kvh * group) * D;
-  for (int e = split * kThreads + tid; e < group * D; e += nsplit * kThreads) {
-    const int r = e / D;
+  for (int e = split * kThreads + tid; e < rows * D; e += nsplit * kThreads) {
+    const int r = e / D, d = e % D;
     float part[kMaxSplits];
 #pragma unroll
     for (int sp = 0; sp < kMaxSplits; ++sp)
@@ -319,7 +352,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int sp = 0; sp < kMaxSplits; ++sp)
       if (sp < nsplit) acc += sw[sp * kRows + r] * part[sp];
-    ob[e] = __float2bfloat16(acc / den[r]);
+    out[row_offset(r) + d] = __float2bfloat16(acc / den[r]);
   }
   cluster.sync();   // no block leaves while another reads its shared memory
 }
@@ -327,20 +360,25 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, const int* q_offset, void* out,
            long long B, long long T_, int Hq, int Hkv, int causal, int window,
-           long long seq_kv, int splits, long long keys_per_split, cudaStream_t stream) {
+           long long seq_kv, int splits, long long keys_per_split, int nq,
+           cudaStream_t stream) {
   using C = Cfg<D>;
-  auto kernel = flash_decode_kernel<D>;
+  auto kernel = nq > 1 ? flash_decode_kernel<D, true> : flash_decode_kernel<D, false>;
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(C::kSmem));
+    cudaFuncSetAttribute(flash_decode_kernel<D, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+    cudaFuncSetAttribute(flash_decode_kernel<D, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
     configured = true;
   }
+  const int row_tiles = (Hq / Hkv * nq + kRows - 1) / kRows;
   if (splits < 1 || splits > kMaxSplits || keys_per_split % kBN ||
-      keys_per_split * splits < seq_kv || B > 65535 || Hkv > 65535)
+      keys_per_split * splits < seq_kv || B > 65535 || nq < 1 || (nq > 1 && window) ||
+      static_cast<long long>(Hkv) * row_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, Hkv, static_cast<unsigned>(B));
+  cfg.gridDim = dim3(splits, Hkv * row_tiles, static_cast<unsigned>(B));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = C::kSmem;
   cfg.stream = stream;
@@ -355,30 +393,31 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset, voi
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), q_offset, static_cast<bf16*>(out), T_, Hq, Hkv,
-      Hq / Hkv, causal, window, seq_kv, keys_per_split, scale_log2);
+      Hq / Hkv, causal, window, seq_kv, keys_per_split, nq, row_tiles, scale_log2);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 only. The Python wrapper has checked shapes (S == 1), types, devices,
-// contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in
-// {16, 32, 64, 128, 256}; `splits` and `keys_per_split` come from
-// ops.py::plan (a multiple of the 64-key tile, covering seq_kv).
+// bf16 only. The Python wrapper has checked shapes (nq query rows per slot:
+// 1 for decode, the verify's rows otherwise), types, devices, contiguity
+// and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in {16, 32, 64, 128,
+// 256}; `splits` and `keys_per_split` come from ops.py::plan (a multiple of
+// the 64-key tile, covering seq_kv), the same for every nq.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* q_offset, void* out, long long B, long long T,
                                   int Hq, int Hkv, int D, int causal, int window,
                                   long long seq_kv, int splits, long long keys_per_split,
-                                  void* stream) {
+                                  int nq, void* stream) {
   const int* qo = static_cast<const int*>(q_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv < 1 || Hq % Hkv || Hq / Hkv > kRows) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch<16>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, st);
-    case 32: return launch<32>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, st);
-    case 64: return launch<64>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, st);
-    case 128: return launch<128>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, st);
-    case 256: return launch<256>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, st);
+    case 16: return launch<16>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
+    case 32: return launch<32>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
+    case 64: return launch<64>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
+    case 128: return launch<128>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
+    case 256: return launch<256>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,15 +2,23 @@
 
 A tensor on the CPU goes to the plain version (``ref.py``); a CUDA tensor
 goes to a kernel or raises — there is no fallback. :func:`plan` picks the
-kernel from the shape and dtype alone:
+kernel from the shape, the dtype and whether the rows verify a cache:
 
 - ``flash_decode`` (``csrc/flash_decode.cu``): one query row per slot
   (S == 1) in bf16, on the tensor cores; each slot's keys split across the
   blocks of a cluster, merged in split order;
+- ``flash_verify`` (the same kernel, ``verify=True`` with S > 1): the
+  speculative verify's S rows per slot over its cache, row ``s`` at
+  ``q_offset + s`` and bit-equal to ``flash_decode`` there — the split is
+  the decode's, whatever S is;
 - ``flash_forward`` (``csrc/flash_forward.cu``): S > 1 in bf16, on the tensor
   cores;
 - ``flash_f32`` (``csrc/flash_f32.cu``): fp32, any S, on the CUDA cores (TF32
   would not hold fp32 results to 2e-5).
+
+A verify that takes no ``flash_verify`` launch — the CPU's plain version,
+or fp32 on the card — runs row by row at S = 1, so that its rows too are
+the decode's bits (both round otherwise at another row count).
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from .ref import sdpa_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels are instantiated for these
 MAX_GROUP = 16                  # a block holds the group's query rows
-KERNELS = ("flash_decode", "flash_forward", "flash_f32")
+KERNELS = ("flash_decode", "flash_verify", "flash_forward", "flash_f32")
 DECODE_TILE = 64                # keys per tile of flash_decode
 MAX_SPLITS = 8                  # blocks of one decode cluster (flash_decode.cu)
 SPLIT_TARGET = 32               # decode blocks wanted per slot: KV heads x splits
@@ -37,34 +45,40 @@ class Plan:
     keys_per_split: int = 0     # decode: a multiple of DECODE_TILE
 
 
-def plan(S: int, seq_kv: int, Hkv: int, dtype: torch.dtype) -> Plan:
-    """The kernel a launch of this shape and dtype takes and, for decode,
-    how the keys ``[0, seq_kv)`` are split.
+def plan(S: int, seq_kv: int, Hkv: int, dtype: torch.dtype, *,
+         verify: bool = False) -> Plan:
+    """The kernel a launch of this shape and dtype takes and, for decode
+    and verify, how the keys ``[0, seq_kv)`` are split.
 
-    The split depends on the launch shape alone — never on the slots'
-    positions, so a slot's output depends only on its own data, its own
-    position and the launch shape (bit-exact LFLR replays). Slots x KV
-    heads x splits is aimed at ``SPLIT_TARGET`` blocks per slot; a split
-    holds whole tiles, and none is empty for every position."""
+    The split depends on ``seq_kv`` and the KV heads alone — never on the
+    slots' positions nor on S, so a slot's output depends only on its own
+    data, its own position and the launch shape (bit-exact LFLR replays),
+    and a verify row is the decode's. Slots x KV heads x splits is aimed at
+    ``SPLIT_TARGET`` blocks per slot; a split holds whole tiles, and none is
+    empty for every position."""
     if dtype != torch.bfloat16:
         return Plan("flash_f32")
-    if S != 1:
+    if S != 1 and not verify:
         return Plan("flash_forward")
     tiles = max(1, -(-seq_kv // DECODE_TILE))
     splits = max(1, min(MAX_SPLITS, tiles, SPLIT_TARGET // Hkv))
     per = -(-tiles // splits)                           # tiles per split
-    return Plan("flash_decode", -(-tiles // per), per * DECODE_TILE)
+    return Plan("flash_decode" if S == 1 else "flash_verify",
+                -(-tiles // per), per * DECODE_TILE)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: torch.Tensor, *, causal: bool, window: int = 0,
-                    seq_kv: int | None = None) -> torch.Tensor:
+                    seq_kv: int | None = None,
+                    verify: bool = False) -> torch.Tensor:
     """q (B, S, Hq, D), k/v (B, T, Hkv, D) → (B, S, Hq, D) in q's dtype.
 
     ``q_offset`` is an int32 tensor (B,) on q's device: row ``s`` of batch
     ``b`` sits at position ``q_offset[b] + s`` (decode: S = 1 and the slot's
     position; a full forward: zeros). Keys at positions ``>= seq_kv`` (default
-    T) are masked.
+    T) are masked. ``verify`` marks S rows per slot over a decode cache (the
+    speculative verify): each row's output is then bit-equal to this
+    function's at S = 1 and ``q_offset + s``; no window.
     """
     kind = check_device("flash_attention", q, k, v, q_offset)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -93,6 +107,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 <= seq_kv <= T or window < 0:
         raise ValueError(f"flash_attention: seq_kv {seq_kv} not in [0, {T}] "
                          f"or window {window} < 0")
+    if verify and window:
+        raise ValueError("flash_attention: a verify reads a full-attention "
+                         "cache (no window)")
+    p = plan(S, seq_kv, Hkv, q.dtype, verify=verify)
+    if verify and S > 1 and p.kernel != "flash_verify":
+        # the plain version and flash_f32 round by row count: row by row
+        return torch.cat([flash_attention(
+            q[:, s:s + 1].contiguous(), k, v, q_offset + s, causal=causal,
+            seq_kv=seq_kv) for s in range(S)], dim=1)
     if kind == "cpu":
         return sdpa_ref(q, k, v, q_offset=q_offset, causal=causal,
                         window=window, seq_kv=seq_kv)
@@ -100,14 +123,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads rows as 16-byte vectors)")
     out = torch.empty_like(q)
-    p = plan(S, seq_kv, Hkv, q.dtype)
     lib = library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
             out.data_ptr())
-    if p.kernel == "flash_decode":
+    if p.kernel in ("flash_decode", "flash_verify"):
         rc = lib.repro_flash_decode(
             *args, B, T, Hq, Hkv, D, int(bool(causal)), int(window), seq_kv,
-            p.splits, p.keys_per_split, stream_of(q))
+            p.splits, p.keys_per_split, S, stream_of(q))
     else:
         rc = getattr(lib, f"repro_{p.kernel}")(
             *args, B, S, T, Hq, Hkv, D, int(bool(causal)), int(window), seq_kv,

@@ -1,13 +1,14 @@
 """Step factories: the decode steps (one word for the batch, or one per
-slot), the decode windows (plain, and fused with prompt chunks), the
-cache-building prefills (chunked and whole) and the full-sequence prefill
-step.
+slot), the decode windows (plain, fused with prompt chunks, and
+speculative), the cache-building prefills (chunked and whole) and the
+full-sequence prefill step.
 
 The port of ``repro/launch/steps.py:226 make_decode_step``, ``:244
 make_slot_decode_step``, ``:271 _paged_slot_step``, ``:404
-make_decode_window``, ``:491 make_prefill_decode_window``, ``:791
-make_chunked_prefill``, ``:867 make_cache_prefill`` and ``:208
-make_prefill_step``, each window and cache prefill also in its paged form
+make_decode_window``, ``:491 make_prefill_decode_window``, ``:594
+make_speculative_decode_window``, ``:791 make_chunked_prefill``, ``:867
+make_cache_prefill`` and ``:208 make_prefill_step``, each window and cache
+prefill also in its paged form
 (``paged=`` a :class:`~repro_torch.launch.paging.PagedLayout`). The JAX package vmaps
 a batch-1 decode step over slots and scans K of them in one jitted program;
 PyTorch runs eagerly, so the slots are the batch dimension of one decode
@@ -30,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..core.detect import logits_probe, state_probe
+from ..core.errors import ErrorCode
 from ..models.model import CACHE_LAYOUT, Model
 from .paging import PagedLayout
 
@@ -226,6 +228,125 @@ def make_prefill_decode_window(model: Model, *, window: int,
     def window_step(caches, tokens, pos, chunk, rem):
         return _window_loop(slot_step, window, caches, tokens, pos,
                             feed(chunk, rem))
+
+    return window_step
+
+
+def make_speculative_decode_window(model: Model, *, window: int,
+                                   draft_len: int, draft_layers: int,
+                                   paged: Optional[PagedLayout] = None):
+    """Speculative decode window: draft and verify inside one dispatch.
+
+    Each of the K window steps
+
+    1. drafts ``D = draft_len`` tokens per slot with the shallow-exit
+       self-draft (:meth:`Model.draft_chain`: the first ``draft_layers``
+       layers of the same weights and caches, the final norm and the
+       unembedding);
+    2. verifies all ``D + 1`` positions in one full-model pass
+       (:meth:`Model.verify_step`), greedy: draft ``d_{i+1}`` survives iff it
+       equals the full model's argmax after ``d_i``, so every emitted token
+       is a full-model argmax and the stream equals the plain window's;
+    3. latches a rejected draft as the attribution-only ``DRAFT_REJECT``
+       lane of the ``(K, slots)`` word history, beside the verify's logits
+       probe (one ``probe_rows`` launch over the ``S * (D + 1)`` rows, folded
+       per slot).
+
+    A rejected draft's cache writes are not rolled back: full-attention
+    writes are positional, and every stale entry lies past the accepted
+    prefix, so it is overwritten before a masked read could reach it::
+
+      window_step(caches, tokens, pos, chunk, rem)
+        tokens  (S,) int32        greedy feedback feed per slot
+        pos     (S,) int32        per-slot position (device-resident: the
+                                  advance is data-dependent)
+        chunk   (K, D+1, S) int32 prompt tokens per step x row x slot
+        rem     (S,) int32        pending prompt tokens per slot this window
+      → (tokens (K, S, D+1) int32 the full model's argmaxes,
+         counts (K, S) int32      positions consumed per step and slot: the
+                                  prompt rows and the accepted tokens,
+                                  1 <= count <= D+1,
+         words (K, S) int32, next_tok (S,) int32, next_pos (S,) int32)
+                                  all on the device
+
+    Step k of slot s feeds its next ``clip(rem - k (D+1), 0, D+1)`` prompt
+    tokens into the verify rows (forced, accepted as given); rows past the
+    prompt chain off the drafter, so speculation starts inside the flip
+    step. With ``paged`` the caches argument is the hybrid cache and a
+    trailing ``table`` follows: each step gathers once, drafts and
+    verifies on the views, scatters once, and the page probe checks the
+    pages up to the last accepted position ``pos + a - 1``.
+    """
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if draft_len < 1:
+        raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+    cfg = model.cfg
+    if not 0 < draft_layers < cfg.num_layers:
+        raise ValueError(
+            f"draft_layers must be in [1, num_layers), got {draft_layers} "
+            f"for {cfg.num_layers} layers")
+    if not model.supports_speculation():
+        raise ValueError(
+            f"{cfg.name}: speculative decode windows require a pure "
+            "full-attention, non-MoE architecture (ring buffers and "
+            "recurrent states cannot absorb rejected-draft over-writes)")
+    D = int(draft_len)
+    reject = int(ErrorCode.DRAFT_REJECT)
+
+    def macro_step(caches, tok, p, chunk_rows, k, rem):
+        """One draft + verify step: ``chunk_rows`` is this step's (D+1, S)
+        prompt feed, ``rem`` the slots' pending prompt tokens for the whole
+        window. Returns ``(next_tok, next_pos, argmaxes (S, D+1), counts
+        (S,), words (S,))``."""
+        rem_k = (rem - k * (D + 1)).clamp(0, D + 1)        # prompt rows
+        t0 = torch.where(rem_k > 0, chunk_rows[0], tok)
+        proposals = model.draft_chain(
+            t0[:, None], caches, p, draft_layers=draft_layers, draft_len=D,
+            override=chunk_rows[1:].t(), n_forced=rem_k)
+        seq = torch.cat([t0[:, None], proposals], dim=1)    # (S, D+1)
+        logits = model.verify_step(seq, caches, p)          # (S, D+1, V)
+        S = seq.shape[0]
+        words = logits_probe(logits.view(S * (D + 1), -1)).view(S, D + 1).amax(1)
+        g = torch.argmax(logits, dim=-1).to(torch.int32)
+        # acceptance: the prompt rows are given, then the leading run of
+        # drafts that match the full model's argmax chain, plus the bonus
+        # token after the run
+        rows = torch.arange(1, D + 1, device=p.device)
+        ok = (rows < rem_k[:, None]) | (g[:, :D] == seq[:, 1:])
+        a = (1 + torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)).to(torch.int32)
+        # a miss latches iff an actual draft (a row past the forced ones;
+        # row 0 is always given) was rejected
+        forced = rem_k.clamp(min=1)
+        words = words | torch.where((forced <= D) & (a < D + 1), reject, 0)
+        next_tok = g.gather(1, (a - 1).long()[:, None])[:, 0]
+        return next_tok, p + a, g, a, words.to(torch.int32)
+
+    def loop(step, tokens, pos, chunk, rem):
+        toks, counts, words = [], [], []
+        tok, p = tokens, pos
+        for k in range(window):
+            tok, p_next, g, a, w = step(tok, p, chunk[k], k, rem)
+            toks.append(g)
+            counts.append(a)
+            words.append(w)
+            p = p_next
+        return (torch.stack(toks), torch.stack(counts), torch.stack(words),
+                tok, p)
+
+    if paged is not None:
+        def paged_window_step(hybrid, tokens, pos, chunk, rem, table):
+            def step(tok, p, chunk_rows, k, rem):
+                views = paged.gather(hybrid, table)
+                out = macro_step(views, tok, p, chunk_rows, k, rem)
+                paged.scatter(hybrid, views, table)
+                return (*out[:4], out[4] | paged.probe(table, out[1] - 1))
+            return loop(step, tokens, pos, chunk, rem)
+
+        return paged_window_step
+
+    def window_step(caches, tokens, pos, chunk, rem):
+        return loop(lambda *a: macro_step(caches, *a), tokens, pos, chunk, rem)
 
     return window_step
 

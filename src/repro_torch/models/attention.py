@@ -13,7 +13,9 @@ Decode caches: a full layer writes at ``min(pos, cap - 1)`` (the JAX
 package's capacity clamp, :func:`cache_write_index`); a sliding layer keeps a
 ring of capacity ``cap = min(window, max_len)`` and writes at ``pos % cap``
 (:func:`ring_write_index`). Both then read with the same kernel mask — see
-:func:`attention_decode`.
+:func:`attention_decode`. The speculative verify (:func:`attention_verify`)
+writes T entries of a full layer at once and drops those at or past ``cap``
+(:func:`verify_write`).
 """
 from __future__ import annotations
 
@@ -126,3 +128,62 @@ def attention_decode(p: Attention, x: torch.Tensor, k_cache: torch.Tensor,
     out = flash_attention(q, k_cache, v_cache, pos, causal=True,
                           seq_kv=k_cache.shape[1])
     return _out_proj(p, out)
+
+
+def verify_write(cache: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """Write ``new (B, T, ...)`` into a full layer's ``cache (B, cap, ...)``
+    IN PLACE at positions ``pos .. pos + T - 1`` of each row, dropping the
+    positions ``>= cap`` — the JAX package's ``.at[:, qpos].set(...,
+    mode="drop")``. A clamp would overwrite the last entry before a row
+    that attends to it reads it.
+
+    Torch indexing has no drop mode, and ``index_put_`` with repeated
+    indices has no defined winner. So each dropped entry goes to ``cap - 1``
+    carrying the bits that entry ends with — the new one if the row writes
+    position ``cap - 1``, else the cache's own: the repeated writes agree,
+    and one launch with no sync does the whole write."""
+    B, T = new.shape[:2]
+    cap = cache.shape[1]
+    p = pos.long()
+    rows = torch.arange(B, device=pos.device)
+    idx = p[:, None] + torch.arange(T, device=pos.device)             # (B, T)
+    keep = (idx < cap).view(B, T, *(1,) * (new.dim() - 2))
+    writes_last = ((p <= cap - 1) & (p + T > cap - 1)).view(
+        B, *(1,) * (new.dim() - 2))
+    last = torch.where(writes_last, new[rows, (cap - 1 - p).clamp(0, T - 1)],
+                       cache[:, cap - 1])
+    cache.index_put_((rows[:, None].expand(B, T), idx.clamp(max=cap - 1)),
+                     torch.where(keep, new, last[:, None]))
+
+
+def attention_verify(p: Attention, xs: list, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, ropes: list,
+                     cfg) -> list:
+    """T new tokens per batch row at positions ``pos .. pos + T - 1``
+    against a full layer's cache (the speculative verify).
+
+    ``xs`` holds row t's input ``(B, 1, d)`` for each t and ``ropes`` the
+    tables at ``pos + t``; returns each row's attention output ``(B, 1, d)``.
+    All T new K/V entries are written first (:func:`verify_write`, positions
+    past capacity dropped), then ONE flash launch reads them (``verify=True``:
+    the ``flash_verify`` route on the card), each row with its own causal
+    mask. A row's projections, rope and output projection run at the decode
+    step's shape, B rows, as in :func:`attention_decode`: a product's
+    rounding may depend on how many rows it is given (cuBLAS, the CPU
+    libraries), and so row t — its output and the K/V entry it leaves —
+    is bit-equal to a decode at ``pos + t``.
+    """
+    qs, ks, vs = [], [], []
+    for x, rope in zip(xs, ropes):
+        q, k_new, v_new = _project_qkv(p, x, cfg)
+        qs.append(apply_rope(q, rope))
+        ks.append(apply_rope(k_new, rope))
+        vs.append(v_new)
+    verify_write(k_cache, torch.cat(ks, dim=1), pos)
+    verify_write(v_cache, torch.cat(vs, dim=1), pos)
+    out = flash_attention(torch.cat(qs, dim=1), k_cache, v_cache, pos,
+                          causal=True, seq_kv=k_cache.shape[1], verify=True)
+    # each row contiguous, as the decode's: a strided view into the product
+    # rounds otherwise on the CPU
+    return [_out_proj(p, out[:, t:t + 1].contiguous()) for t in range(len(xs))]

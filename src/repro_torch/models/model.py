@@ -35,7 +35,7 @@ from .rglru import CONV_WIDTH
 from .ssm import conv_dim
 from .transformer import (ATTN_KINDS, RECURRENT_STATE, Block,
                           apply_block_decode, apply_block_train,
-                          check_block_kind)
+                          apply_block_verify, check_block_kind)
 
 
 class CacheLeaf(NamedTuple):
@@ -221,17 +221,18 @@ class Model(nn.Module):
                 else max_len)
 
     def decode_step(self, token: torch.Tensor, cache: dict,
-                    pos: Union[int, torch.Tensor]) -> torch.Tensor:
+                    pos: Union[int, torch.Tensor], *,
+                    layers: Optional[int] = None) -> torch.Tensor:
         """One new token per batch row against ``cache`` (updated in place).
 
         token (B, 1) int; pos an int (every row at that position, as the JAX
         package's scalar ``pos``) or an int32 (B,) tensor on the model's
         device (per-slot positions). Returns fp32 logits (B, 1, V).
+        ``layers`` runs the first that many layers only, then the final norm
+        and the unembedding (the speculative draft's shallow exit).
         """
         cfg = self.cfg
-        B = token.shape[0]
-        if isinstance(pos, int):
-            pos = torch.full((B,), pos, dtype=torch.int32, device=self.device)
+        pos = self._positions(pos, token.shape[0])
         x = self._embed(token)
         # every attention layer rotates at the same positions, and every
         # layer of one kind writes its cache at the same index
@@ -241,15 +242,90 @@ class Model(nn.Module):
             write_idx["attn"] = cache_write_index(pos, cache["k"].shape[2])
         if "k_ring" in cache:
             write_idx["sliding"] = ring_write_index(pos, cache["k_ring"].shape[2])
-        for blk, j in zip(self.blocks, self.cache_index):
+        for blk, j in zip(self.blocks[:layers], self.cache_index[:layers]):
             if blk.btype in RECURRENT_STATE:
                 state = (cache[self.state_leaf][:, j], cache["conv"][:, j])
             else:
                 k, v = KV_LEAVES[blk.btype]
                 state = (cache[k][j], cache[v][j], write_idx[blk.btype])
             x = apply_block_decode(blk, x, state, pos, rope, cfg)
-        x = apply_norm(self.final_norm, x, cfg.norm)
-        return unembed(x, self.embed_f32, softcap=cfg.logit_softcap)
+        return self._head(x)
+
+    # -------------------------------------------------------------- speculate
+    def supports_speculation(self) -> bool:
+        """Speculative decode windows need every cache write to be
+        positional and idempotent, so that a rejected draft's entries are
+        overwritten before anything reads them: pure full-attention stacks
+        only (rings and recurrent states advance destructively), and no MoE
+        (the router couples the tokens of a verify batch)."""
+        return (all(b == "attn" for b in self.cfg.pattern_layers)
+                and not self.cfg.is_moe)
+
+    def verify_step(self, tokens: torch.Tensor, cache: dict,
+                    pos: Union[int, torch.Tensor]) -> torch.Tensor:
+        """T new tokens per batch row ("speculative verify") against
+        ``cache`` (updated in place): tokens (B, T) int at positions ``pos ..
+        pos + T - 1``, pos an int or an int32 (B,) device tensor. Returns fp32
+        logits (B, T, V).
+
+        Row t is bit-equal to :meth:`decode_step` at ``pos + t`` after the
+        rows before it — its logits and the K/V entries it leaves: every
+        product, norm and elementwise op of a row runs at the decode step's
+        shape (B rows), and the T rows meet only in each layer's one flash
+        launch (:func:`~repro_torch.models.attention.attention_verify`)."""
+        cfg = self.cfg
+        if not self.supports_speculation():
+            raise ValueError(f"{cfg.name}: the speculative verify takes pure "
+                             "full-attention stacks only")
+        T = tokens.shape[1]
+        pos = self._positions(pos, tokens.shape[0])
+        xs = [self._embed(tokens[:, t:t + 1]) for t in range(T)]
+        ropes = [self._rope((pos + t)[:, None]) for t in range(T)]
+        for blk, j in zip(self.blocks, self.cache_index):
+            xs = apply_block_verify(blk, xs, (cache["k"][j], cache["v"][j]),
+                                    pos, ropes, cfg)
+        return torch.cat([self._head(x) for x in xs], dim=1)
+
+    def draft_chain(self, token: torch.Tensor, cache: dict,
+                    pos: Union[int, torch.Tensor], *, draft_layers: int,
+                    draft_len: int, override: Optional[torch.Tensor] = None,
+                    n_forced: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``draft_len`` greedy proposals per batch row from the first
+        ``draft_layers`` layers, the final norm and the unembedding (the
+        shallow-exit self-draft), each a :meth:`decode_step` over those
+        layers at ``pos + d`` writing their caches in place (the verify
+        rewrites those entries).
+
+        token (B, 1) int at ``pos``; returns proposals (B, draft_len) int32.
+        ``override (B, draft_len)`` with ``n_forced (B,)`` feeds a row's
+        pending prompt through the chain: proposal ``d`` is replaced by
+        ``override[:, d]`` while ``d + 1 < n_forced`` (the speculative
+        window's prompt feed at verify width)."""
+        if not 0 < draft_layers <= self.cfg.num_layers:
+            raise ValueError(f"draft layers must be in [1, {self.cfg.num_layers}]"
+                             f", got {draft_layers}")
+        pos = self._positions(pos, token.shape[0])
+        tok, out = token, []
+        for d in range(draft_len):
+            logits = self.decode_step(tok, cache, pos + d, layers=draft_layers)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            if override is not None:
+                tok = torch.where((d + 1 < n_forced)[:, None],
+                                  override[:, d:d + 1], tok)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+    def _positions(self, pos: Union[int, torch.Tensor], B: int) -> torch.Tensor:
+        """``pos`` as an int32 (B,) tensor on the model's device (an int:
+        every row there)."""
+        if isinstance(pos, int):
+            return torch.full((B,), pos, dtype=torch.int32, device=self.device)
+        return pos
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the unembedding: fp32 logits."""
+        x = apply_norm(self.final_norm, x, self.cfg.norm)
+        return unembed(x, self.embed_f32, softcap=self.cfg.logit_softcap)
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .attention import Attention, attention_decode, attention_train
+from .attention import (Attention, attention_decode, attention_train,
+                        attention_verify)
 from .layers import apply_mlp, apply_norm, dense_init
 from .rglru import RGLRU, rglru_decode, rglru_mixer
 from .ssm import Mamba2, mamba2_decode, mamba2_mixer
@@ -128,3 +129,21 @@ def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
         x = x + attention_decode(p.attn, h, k_cache, v_cache, pos, rope,
                                  write_idx, cfg)
     return _mlp(p, x, cfg)
+
+
+def apply_block_verify(p: Block, xs: list, state: tuple, pos: torch.Tensor,
+                       ropes: list, cfg) -> list:
+    """The speculative verify through one block: ``xs`` holds row t's input
+    ``(B, 1, d)`` for each t, at position ``pos + t``; ``state`` the layer's
+    ``(k_cache, v_cache)``, written IN PLACE. Each row's norms and MLP run at
+    the decode step's shape (see :func:`~repro_torch.models.attention.
+    attention_verify`). Full attention only: a ring or a recurrent state
+    advances destructively and cannot take the writes a rejected draft
+    leaves behind."""
+    if p.btype != "attn":
+        raise ValueError("speculative verify supports full-attention blocks "
+                         f"only, got {p.btype!r}")
+    k_cache, v_cache = state
+    hs = [apply_norm(p.norm1, x, cfg.norm) for x in xs]
+    attn = attention_verify(p.attn, hs, k_cache, v_cache, pos, ropes, cfg)
+    return [_mlp(p, x + a, cfg) for x, a in zip(xs, attn)]

@@ -19,12 +19,13 @@ class EngineConfig:
     packages. ``paged=True`` (window mode only) pools the K/V leaves of
     capacity ``max_len`` into ``page_budget`` pages of ``page_size``
     positions (``None``: ``num_slots * max_len // page_size``), and admits a
-    request only while ``page_watermark`` pages stay free. The knobs of
-    modes the port does not run yet (draft shape, trace sampling, donation)
-    are left out; their switches stay, so the port's
-    :class:`~repro_torch.serve.Replica` can raise ``NotImplementedError`` on
-    ``speculate``, ``tp > 1`` and ``trace``, naming the ROADMAP item that
-    ports each.
+    request only while ``page_watermark`` pages stay free.
+    ``speculate=True`` (window and overlap) drafts ``draft_len`` tokens a
+    step with the first ``draft_layers`` layers. The knobs of modes the port
+    does not run yet (trace sampling, donation) are left out; their switches
+    stay, so the port's :class:`~repro_torch.serve.Replica` can raise
+    ``NotImplementedError`` on ``tp > 1`` and ``trace``, naming the ROADMAP
+    item that ports each.
     """
 
     num_slots: int = 4
@@ -40,8 +41,11 @@ class EngineConfig:
     page_size: int = 8
     page_budget: Optional[int] = None
     page_watermark: int = 0
-    # ---- modes not ported yet --------------------------------------------
+    # ---- speculative windows -------------------------------------------
     speculate: bool = False
+    draft_len: int = 3
+    draft_layers: int = 1
+    # ---- modes not ported yet --------------------------------------------
     tp: int = 1
     trace: bool = False
 
@@ -66,6 +70,11 @@ class EngineConfig:
         if self.page_watermark < 0:
             raise ValueError("page_watermark must be >= 0, got "
                              f"{self.page_watermark}")
+        if self.draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1, got {self.draft_len}")
+        if self.draft_layers < 1:
+            raise ValueError("draft_layers must be >= 1, got "
+                             f"{self.draft_layers}")
         # cross-field rules
         if self.paged and not self.window:
             raise ValueError("paged=True requires window mode (window=K)")

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/serve/metrics.py: the counters of the stepwise, window, overlap and paged engines (no speculation counters).
+# Trimmed copy of repro/serve/metrics.py: the counters of the stepwise, window, overlap, paged and speculative engines.
 """Serving metrics: per-request latency, throughput, fault counters.
 
 Feeds the same :class:`~repro_torch.core.resilient.EventLog` record the
@@ -56,6 +56,12 @@ class ServeMetrics:
         self.pages_freed = 0                 # pages reclaimed
         self.peak_pages_in_use = 0           # high-water mark of the pool
         self.page_evictions = 0              # lanes preempted for pages
+        self.draft_tokens = 0                # speculation: tokens proposed by
+                                             # the shallow-exit drafter
+        self.accepted_draft_tokens = 0       # ... accepted by the verify
+                                             # (DRAFT_REJECT carries the
+                                             # misses in-band)
+        self._spec_per_slot: dict[int, list] = {}   # slot -> [drafted, accepted]
 
     # ------------------------------------------------------------- recording
     def record_step(self, committed_tokens: int) -> None:
@@ -113,6 +119,19 @@ class ServeMetrics:
         with self._lock:
             self.page_evictions += 1
 
+    def record_spec(self, drafted: int, accepted: int,
+                    per_slot: Optional[dict] = None) -> None:
+        """One retired speculative window's drafts and accepts; ``per_slot``
+        maps slot -> (drafted, accepted), so a lane that always rejects
+        shows as itself, not only in the global rate."""
+        with self._lock:
+            self.draft_tokens += drafted
+            self.accepted_draft_tokens += accepted
+            for slot, (d, a) in (per_slot or {}).items():
+                cell = self._spec_per_slot.setdefault(slot, [0, 0])
+                cell[0] += d
+                cell[1] += a
+
     def record_active_slots(self, n: int) -> None:
         with self._lock:
             self.peak_active_slots = max(self.peak_active_slots, n)
@@ -164,6 +183,18 @@ class ServeMetrics:
                 return 0.0
             return self.decode_tokens / self.decode_steps
 
+    def acceptance_rate(self) -> float:
+        """Fraction of the drafted tokens the full-model verify accepted."""
+        with self._lock:
+            if not self.draft_tokens:
+                return 0.0
+            return self.accepted_draft_tokens / self.draft_tokens
+
+    def acceptance_rate_per_slot(self) -> dict[int, float]:
+        with self._lock:
+            return {slot: (a / d if d else 0.0)
+                    for slot, (d, a) in sorted(self._spec_per_slot.items())}
+
     def _percentiles(self, values, ps) -> dict[str, float]:
         if not values:
             return {f"p{p}": float("nan") for p in ps}
@@ -200,6 +231,12 @@ class ServeMetrics:
             "pages_freed": self.pages_freed,
             "page_evictions": self.page_evictions,
             "peak_pages_in_use": self.peak_pages_in_use,
+            "draft_tokens": self.draft_tokens,
+            "accepted_draft_tokens": self.accepted_draft_tokens,
+            "rejected_draft_tokens": (self.draft_tokens
+                                      - self.accepted_draft_tokens),
+            "acceptance_rate": self.acceptance_rate(),
+            "acceptance_rate_per_slot": self.acceptance_rate_per_slot(),
             "tokens_per_step": self.tokens_per_step(),
             "tokens_per_s": self.tokens_per_s(),
             "faults": self.fault_counts(),
@@ -231,3 +268,39 @@ class ServeMetrics:
         for _, ev in sorted(entries, key=lambda p: p[0]):
             log.add(ev)
         return log
+
+    # ---------------------------------------------------------------- merging
+    @classmethod
+    def merged(cls, parts: "list[ServeMetrics]") -> "ServeMetrics":
+        """One accumulator equal to the union of ``parts``: counters sum,
+        peaks take the max, responses and faults pool (percentiles over the
+        whole population), and the wall window spans the earliest start to
+        the latest tick."""
+        out = cls()
+        for m in parts:
+            with m._lock:
+                out.responses.extend(m.responses)
+                out._resp_t.extend(m._resp_t)
+                out.faults.extend(m.faults)
+                for name in ("decode_steps", "prefills", "decode_tokens",
+                             "windows", "discarded_tokens", "prefill_chunks",
+                             "prefill_chunk_tokens", "host_stalls",
+                             "host_stall_s", "window_waits",
+                             "pages_allocated", "pages_freed",
+                             "page_evictions", "draft_tokens",
+                             "accepted_draft_tokens"):
+                    setattr(out, name, getattr(out, name) + getattr(m, name))
+                out.peak_pages_in_use = max(out.peak_pages_in_use,
+                                            m.peak_pages_in_use)
+                out.peak_active_slots = max(out.peak_active_slots,
+                                            m.peak_active_slots)
+                for slot, (d, a) in m._spec_per_slot.items():
+                    cell = out._spec_per_slot.setdefault(slot, [0, 0])
+                    cell[0] += d
+                    cell[1] += a
+                if m._t0 is not None:
+                    out._t0 = m._t0 if out._t0 is None else min(out._t0, m._t0)
+                if m._t_last is not None:
+                    out._t_last = (m._t_last if out._t_last is None
+                                   else max(out._t_last, m._t_last))
+        return out

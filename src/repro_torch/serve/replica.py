@@ -1,8 +1,9 @@
 """Serving replica: the stepwise engine, and zero-sync decode windows with
-blocking or overlapped prefill, with per-sequence LFLR, on one device.
+blocking or overlapped prefill, plain or speculative, with per-sequence
+LFLR, on one device.
 
 The port of ``repro/serve/replica.py`` in its three engines, each window
-engine also paged:
+engine also paged, and the overlapped one also speculative:
 
 - ``window=0`` (``EngineConfig()``'s default): the stepwise engine. Every
   step decodes every slot once (:func:`~repro_torch.launch.steps.
@@ -30,6 +31,17 @@ engine also paged:
   host table; growth is planned from a host mirror of the positions, never
   from a device read. The streams are bit-equal to the contiguous
   engine's.
+- ``speculate=True`` (``window=K, overlap=True``; pure full-attention
+  models): each window step drafts ``draft_len`` tokens per slot with the
+  first ``draft_layers`` layers and verifies them in one full-model pass
+  (:func:`~repro_torch.launch.steps.make_speculative_decode_window`),
+  emitting 1 to ``draft_len + 1`` tokens a step — the plain engine's stream,
+  since each is a full-model argmax. The prompt feed rides the verify
+  width, the position chain stays on the device (the advance depends on
+  the data; the host mirror learns it from the accepted counts at
+  retirement), the commit takes each lane's variable-length block, and a
+  rejected draft rides the word history as the attribution-only
+  ``DRAFT_REJECT`` lane, masked out of the word the wait raises on.
 
 Recovery is the paper's use case 1 applied to inference: non-finite logits
 on slot *i* (the probe kernel's word) → LFLR: slot *i* recomputes its cache
@@ -48,9 +60,9 @@ the arithmetic of a batch-1 prefill on a step that is host-bound anyway.
 
 Host syncs: two :func:`~repro_torch.core.device_channel.readback` calls per
 stepwise step or retired window (the error word with its enumeration table,
-then the tokens) and per blocking prefill (its word, then its token), plus
-the window history on the fault path (and the per-slot codes when
-paged).
+then the tokens — speculating, the tokens and the accepted counts in one
+copy) and per blocking prefill (its word, then its token), plus the window
+history on the fault path (and the per-slot codes when paged).
 """
 from __future__ import annotations
 
@@ -74,7 +86,8 @@ from ..core.faults import INJECTABLE_CODE_MASK
 from ..core.recovery import Action, RecoveryPolicy
 from ..launch.paging import PagedLayout
 from ..launch.steps import (make_cache_prefill, make_decode_window,
-                            make_prefill_decode_window, make_slot_decode_step)
+                            make_prefill_decode_window, make_slot_decode_step,
+                            make_speculative_decode_window)
 from ..models.model import (KV_LEAVES, Model, insert_cache_slot,
                             reset_cache_slot, slot_layer_view)
 from .config import EngineConfig
@@ -87,8 +100,6 @@ from .scheduler import (ContinuousBatchingScheduler, PageAllocator,
 def _check_supported(config: EngineConfig, tracer: Any) -> None:
     """The modes of the JAX replica this port does not run yet."""
     missing = [
-        (config.speculate, "speculate=True",
-         "ROADMAP Queue 1, item 8 (speculative windows)"),
         (config.tp > 1, "tp>1", "ROADMAP Queue 1, item 11 (tensor parallel)"),
         (config.trace or tracer is not None, "tracing",
          "ROADMAP Queue 1, item 9 (tracing and fuzz kits)"),
@@ -110,14 +121,17 @@ def slot_enum(words: torch.Tensor, mask: torch.Tensor):
     return or_reduce(words, dim=0), count, table
 
 
-def window_enum(history: torch.Tensor, mask: torch.Tensor):
+def window_enum(history: torch.Tensor, mask: torch.Tensor, ignore: int = 0):
     """``(history (K, S), mask (S,)) -> (combined, count, table, hist)``:
     the window variant of :func:`slot_enum`. Free slots are masked out of
     the whole word history, each slot's words are OR-folded over the window
     (one check per K tokens), and the folds go through the same per-slot
-    enumeration, so the engines cannot diverge in attribution."""
+    enumeration, so the engines cannot diverge in attribution. ``ignore``
+    strips attribution-only bits (``DRAFT_REJECT``) from the fold, so a
+    window whose only events are speculation misses waits clean; the
+    history keeps them for :meth:`DeviceFuture.fault_codes`."""
     hist = history * mask[None, :]
-    return (*slot_enum(or_reduce(hist, dim=0), mask), hist)
+    return (*slot_enum(or_reduce(hist & ~ignore, dim=0), mask), hist)
 
 
 @dataclass
@@ -130,13 +144,18 @@ class _WindowInFlight:
     while this window is in flight — its tokens and words are then stale.
     ``start`` is the first committable step per lane: 0 for a decoding slot,
     ``rem - 1`` for a lane whose prompt chunk ends in this window, K for a
-    lane still mid-prefill.
+    lane still mid-prefill. A speculative window adds, per lane, the flip
+    step's first committable verify row (``start_row``), the prompt tokens
+    fed in this window (``rem0``) and whether the lane was deferred.
     """
 
     fut: DeviceFuture
     req_ids: tuple
     valid: np.ndarray
     start: np.ndarray
+    start_row: Optional[np.ndarray] = None
+    rem0: Optional[np.ndarray] = None
+    deferred: Optional[np.ndarray] = None
 
 
 class Replica:
@@ -175,6 +194,18 @@ class Replica:
         self._injector = fault_injector
         self.window = int(config.window)
         self.overlap = bool(self.window) and bool(config.overlap)
+        # speculative windows: up to draft_len + 1 tokens a full-model step;
+        # the commit reads each (step, slot)'s accepted count
+        self.speculate = bool(config.speculate)
+        self.draft_len = int(config.draft_len)
+        self.draft_layers = int(config.draft_layers)
+        if self.speculate and not self.model.supports_speculation():
+            raise ValueError(
+                f"{cfg.name}: speculation requires a pure full-attention"
+                ", non-MoE architecture")
+        # attribution-only codes stripped from the word the wait raises on
+        self._ignore_codes = (int(ErrorCode.DRAFT_REJECT) if self.speculate
+                              else 0)
         num_slots = config.num_slots
         # ---- paged KV pool (paged=True, window mode only): the K/V leaves
         # of capacity max_len become one shared page pool addressed through
@@ -212,6 +243,10 @@ class Replica:
         if not self.window:
             self._decode = make_slot_decode_step(self.model)
             self._slot_logits: Optional[torch.Tensor] = None
+        elif self.speculate:
+            self._decode_window = make_speculative_decode_window(
+                self.model, window=self.window, draft_len=self.draft_len,
+                draft_layers=self.draft_layers, paged=paged)
         elif self.overlap:
             self._decode_window = make_prefill_decode_window(
                 self.model, window=self.window, paged=paged)
@@ -236,7 +271,8 @@ class Replica:
                                     device=self.device)
         # the host mirror of _dev_pos, advanced by what the host knows (K
         # per window, 0 at a lane's restart, the sequence after a blocking
-        # prefill): page growth is planned from it, never from a readback
+        # prefill; speculating, the accepted counts of each retired window):
+        # page growth is planned from it, never from an extra readback
         self._host_pos = np.zeros(num_slots, np.int64)
 
     # ------------------------------------------------------------- page ledger
@@ -338,6 +374,11 @@ class Replica:
         2. **Growth**: every lane that writes in this window gets the pages
            holding positions ``[pos, pos + K)`` (``pos`` from the host
            mirror); exhaustion preempts the oldest lanes into the queue.
+           Speculating, a window advances a lane by 1 to ``K (D + 1)``
+           positions, known only at its retirement, and the mirror lags the
+           window in flight: growth covers the worst case, the retired
+           position plus this window's horizon ``K (D + 1)`` plus the
+           in-flight window's.
         3. **Scrub**: the new pages are zeroed on the device stream before
            the window, so a recycled page never leaks a previous owner's
            (possibly poisoned) state.
@@ -354,11 +395,14 @@ class Replica:
         if not self.layout.has_paged_leaves:
             return
         deferred = {slot for slot, cp in plan.items() if cp.rem == 0}
+        horizon = K * (self.draft_len + 1) if self.speculate else K
+        slack = horizon if self.speculate and self._pending is not None else 0
         new_ids: list[int] = []
         for s in sched.slots:
             if not s.active or s.idx in deferred:
                 continue
-            got = self._grow_slot(s.idx, int(self._host_pos[s.idx]) + K)
+            got = self._grow_slot(s.idx,
+                                  int(self._host_pos[s.idx]) + horizon + slack)
             if got:
                 new_ids.extend(got)
         if new_ids:
@@ -723,41 +767,56 @@ class Replica:
         self._step_count += 1
         sched, K = self.sched, self.window
         S = sched.num_slots
-        plan = sched.plan_prefill(K) if self.overlap else {}
+        # speculating, the prompt feed rides the verify width: up to
+        # K (D + 1) prompt tokens per lane a window
+        width = self.draft_len + 1 if self.speculate else 1
+        plan = sched.plan_prefill(K * width) if self.overlap else {}
         if self.paged:
             # page maintenance first: lane restarts recycle their pages,
             # every writing lane gets its growth pages, eviction preempts
             # under pressure — host bookkeeping and queued device work
             self._paged_prepare(plan)
         mask = sched.active_mask().astype(np.int32)
-        start = np.zeros(S, np.int64)
-        feed = self._plan_chunks(plan, mask, start) if self.overlap else ()
+        req_ids = tuple(s.req.id if s.active else None for s in sched.slots)
+        lanes = {"start": np.zeros(S, np.int64)}
+        if self.speculate:
+            lanes.update(start_row=np.zeros(S, np.int64),
+                         rem0=np.zeros(S, np.int64), deferred=np.zeros(S, bool))
+        feed = self._plan_chunks(plan, mask, lanes) if self.overlap else ()
         # one upload per window, from a copy: the host table may change
         # before the copy engine reads it
         table = ((self._to_device(self.page_table.copy()),) if self.paged
                  else ())
-        toks, words, self._dev_tokens, self._dev_pos = self._decode_window(
-            self.caches, self._dev_tokens, self._dev_pos, *feed, *table)
-        self._host_pos += K
+        out = self._decode_window(self.caches, self._dev_tokens, self._dev_pos,
+                                  *feed, *table)
+        if self.speculate:
+            # the position chain stays on the device; tokens and counts go
+            # back in one copy
+            toks, counts, words, self._dev_tokens, self._dev_pos = out
+            outputs = torch.cat([toks.flatten(), counts.flatten()])
+        else:
+            outputs, words, self._dev_tokens, self._dev_pos = out
+            self._host_pos += K
         words = self._inject_words(words, (K, S))
-        combined, count, table, hist = window_enum(words, self._to_device(mask))
-        fut = DeviceFuture(outputs=toks, word=combined, count=count,
+        combined, count, table, hist = window_enum(
+            words, self._to_device(mask), self._ignore_codes)
+        fut = DeviceFuture(outputs=outputs, word=combined, count=count,
                            table=table, history=hist,
                            event=record_event(self.device))
-        return _WindowInFlight(
-            fut=fut,
-            req_ids=tuple(s.req.id if s.active else None for s in sched.slots),
-            valid=np.ones(S, bool), start=start)
+        return _WindowInFlight(fut=fut, req_ids=req_ids,
+                               valid=np.ones(S, bool), **lanes)
 
-    def _plan_chunks(self, plan: dict, mask: np.ndarray,
-                     start: np.ndarray) -> tuple:
-        """The overlapped window's prompt feed ``(chunk (K, S), rem (S,))``
-        on the device, from the scheduler's ``plan``; deferred lanes are
-        masked out and ``start`` set to each lane's first committable step,
-        in place."""
+    def _plan_chunks(self, plan: dict, mask: np.ndarray, lanes: dict) -> tuple:
+        """The overlapped window's prompt feed on the device, ``(chunk (K,
+        S), rem (S,))`` or, speculating, ``(chunk (K, D + 1, S), rem (S,))``,
+        from the scheduler's ``plan``; deferred lanes are masked out, and
+        the per-lane arrays of ``lanes`` (:class:`_WindowInFlight`'s
+        ``start`` and, speculating, ``start_row``, ``rem0`` and
+        ``deferred``) set in place."""
         sched, K = self.sched, self.window
         S = sched.num_slots
-        chunk = np.zeros((K, S), np.int32)
+        width = self.draft_len + 1 if self.speculate else 1
+        chunk = np.zeros((K, width, S), np.int32)
         rem = np.zeros((S,), np.int32)
         for slot, cp in plan.items():
             if not sched.slots[slot].active:
@@ -765,7 +824,9 @@ class Replica:
             if cp.rem == 0:
                 # deferred fresh lane: no valid state yet — fully masked
                 mask[slot] = 0
-                start[slot] = K
+                lanes["start"][slot] = K
+                if self.speculate:
+                    lanes["deferred"][slot] = True
                 continue
             if cp.fresh and not self.paged:
                 # lane (re)start: the slot's row of EVERY cache tensor (K/V,
@@ -776,12 +837,18 @@ class Replica:
                 reset_cache_slot(self.caches, slot)
                 self._dev_pos[slot] = 0
                 self._host_pos[slot] = 0
-            chunk[:cp.rem, slot] = cp.tokens
+            chunk.reshape(K * width, S)[:cp.rem, slot] = cp.tokens
             rem[slot] = cp.rem
             # flip point: the argmax after the last prompt token is the first
-            # committable token
-            start[slot] = cp.rem - 1 if cp.exhausts else K
+            # committable token — step kf, verify row rf
+            kf, rf = divmod(cp.rem - 1, width)
+            lanes["start"][slot] = kf if cp.exhausts else K
+            if self.speculate:
+                lanes["start_row"][slot] = rf if cp.exhausts else 0
+                lanes["rem0"][slot] = cp.rem
             self.metrics.record_chunk(cp.rem)
+        if not self.speculate:
+            chunk = np.ascontiguousarray(chunk[:, 0])   # one token a step
         return self._to_device(chunk), self._to_device(rem)
 
     def _retire_window(self, win: _WindowInFlight) -> list[Response]:
@@ -793,14 +860,80 @@ class Replica:
             block = win.fut.wait()
         except PropagatedError as exc:
             return self._recover_window(win, exc)
-        return self._commit_window(win, readback(block))
+        toks, counts = self._read_block(block)
+        if counts is not None:
+            self._note_advance(win, counts)
+        return self._commit_window(win, toks, counts=counts)
+
+    def _read_block(self, block: torch.Tensor):
+        """A retired window's outputs on the host, in one copy: the tokens
+        ``(K, S)`` and None, or, speculating, the tokens ``(K, S, D + 1)``
+        and the accepted counts ``(K, S)``."""
+        host = readback(block)
+        if not self.speculate:
+            return host, None
+        K, S = self.window, self.sched.num_slots
+        n = K * S * (self.draft_len + 1)
+        return host[:n].reshape(K, S, -1), host[n:].reshape(K, S)
+
+    def _note_advance(self, win: _WindowInFlight, counts: np.ndarray,
+                      metric_limits: Optional[np.ndarray] = None) -> None:
+        """Fold a retired speculative window's accepted counts into the host
+        position mirror — the one place the host learns how far the device
+        chain advanced — for the lanes still held by the request they were
+        dispatched for and not restarted meanwhile (a restart reset the
+        mirror with the device position). Also counts the drafted and
+        accepted tokens: step k of a lane fed ``rem0`` prompt tokens forces
+        ``f_k = max(clip(rem0 - k (D + 1), 0, D + 1), 1)`` rows, drafts the
+        other ``D + 1 - f_k``, and accepted drafts are what the count shows
+        past the forced rows. ``metric_limits`` (each lane's first faulting
+        step) caps the counters — steps from a real fault on ran on
+        corrupted state — while the mirror folds the whole window, as the
+        device chain advanced through every step."""
+        D1, K = self.draft_len + 1, self.window
+        drafted = accepted = 0
+        per_slot: dict[int, tuple[int, int]] = {}
+        for slot, rid in enumerate(win.req_ids):
+            if rid is None or not win.valid[slot] or win.deferred[slot]:
+                continue
+            s = self.sched.slots[slot]
+            if s.active and s.req.id == rid:
+                self._host_pos[slot] += int(counts[:, slot].sum())
+            lim = K if metric_limits is None else int(metric_limits[slot])
+            forced = np.maximum(
+                np.clip(int(win.rem0[slot]) - np.arange(lim) * D1, 0, D1), 1)
+            d = int((D1 - forced).sum())
+            if d > 0:
+                a = int(counts[:lim, slot].sum() - forced.sum())
+                drafted += d
+                accepted += a
+                per_slot[slot] = (d, a)
+        if drafted:
+            self.metrics.record_spec(drafted, accepted, per_slot)
+
+    def _flat_block(self, win: _WindowInFlight, toks: np.ndarray,
+                    counts: np.ndarray, slot: int, lo: int,
+                    hi: int) -> list[int]:
+        """A speculative lane's committable tokens, flattened: window steps
+        ``lo .. hi - 1``, each contributing its accepted rows, from the
+        lane's flip row in its flip step (the rows before it are the
+        argmaxes at prompt positions, fed, not generated)."""
+        out = []
+        for k in range(lo, hi):
+            j0 = int(win.start_row[slot]) if k == lo else 0
+            out.extend(int(toks[k, slot, j])
+                       for j in range(j0, int(counts[k, slot])))
+        return out
 
     def _commit_window(self, win: _WindowInFlight, toks: np.ndarray,
-                       limits: Optional[np.ndarray] = None) -> list[Response]:
+                       limits: Optional[np.ndarray] = None,
+                       counts: Optional[np.ndarray] = None) -> list[Response]:
         """Commit each lane's block from its first real step up to EOS /
         token budget / its fault boundary (``limits``, in window steps);
         trailing tokens are discarded. Lanes whose request left the slot, or
-        whose state was restarted mid-flight, are skipped."""
+        whose state was restarted mid-flight, are skipped. Speculating
+        (``counts`` given), a step contributes its accepted tokens, 1 to
+        ``D + 1``, instead of one."""
         now = self.clock()
         K = self.window
         out: list[Response] = []
@@ -809,13 +942,23 @@ class Replica:
             if rid is None:
                 continue                         # lane was free at dispatch
             lo = int(win.start[slot])
-            emitted = K - lo
+            if counts is None:
+                emitted = K - lo
+            else:
+                # the flip step's leading prompt rows are fed, not generated
+                emitted = max(int(counts[lo:, slot].sum())
+                              - int(win.start_row[slot]), 0)
             s = self.sched.slots[slot]
             if not s.active or s.req.id != rid or not win.valid[slot]:
                 discarded += emitted
                 continue
             limit = K if limits is None else int(limits[slot])
-            block = toks[lo:limit, slot] if limit > lo else []
+            if limit <= lo:
+                block = []
+            elif counts is None:
+                block = toks[lo:limit, slot]
+            else:
+                block = self._flat_block(win, toks, counts, slot, lo, limit)
             k, done = (self.sched.commit_block(slot, block, now)
                        if len(block) else (0, None))
             committed += k
@@ -838,13 +981,21 @@ class Replica:
         # a lane restarted while this window was in flight re-reports its old
         # fault (the window computed with the poisoned state) — stale: drop it
         faulted = [s for s in faulted if win.valid[s]]
-        toks = readback(win.fut.outputs)
+        toks, counts = self._read_block(win.fut.outputs)
         if not faulted:
-            return self._commit_window(win, toks)
-        steps = win.fut.fault_steps()
+            if counts is not None:
+                self._note_advance(win, counts)
+            return self._commit_window(win, toks, counts=counts)
+        # each lane's first *faulting* step: attribution-only lanes
+        # (speculation misses) are masked out, so a rejected draft never
+        # cuts the clean prefix, and a real fault drops every token from its
+        # step on (no stale draft token commits)
+        steps = win.fut.fault_steps(ignore=self._ignore_codes)
         limits = np.full(num_slots, K, np.int64)
         for slot in faulted:
             limits[slot] = steps[slot] if steps[slot] >= 0 else 0
+        if counts is not None:
+            self._note_advance(win, counts, metric_limits=limits)
         decision = self.policy.decide(exc, self._step_count)
         self.metrics.record_fault(self._step_count, int(exc.combined_code),
                                   decision.action.value, tuple(faulted))
@@ -867,7 +1018,7 @@ class Replica:
             targets, fail_now = faulted, True
         else:   # SKIP_BATCH / RESTORE_GOOD / CONTINUE / ... → per-sequence LFLR
             targets, fail_now = faulted, False
-        out = self._commit_window(win, toks, limits=limits)
+        out = self._commit_window(win, toks, limits=limits, counts=counts)
         faulted_set = set(faulted)
         for slot in targets:
             s = self.sched.slots[slot]

@@ -428,7 +428,12 @@ class ContinuousBatchingScheduler:
         where ``response`` is non-None iff the lane finished mid-block —
         everything after that boundary is discarded by the caller.
 
-        EOS and the token budget are checked token-by-token.
+        ``tokens`` is a variable-length sequence: the plain window engine
+        hands K tokens, the speculative engine each lane's flattened
+        accepted runs (1 to K (D + 1) tokens, cut at the lane's fault
+        boundary). EOS and the token budget are checked token by token, so a
+        request that ends inside an accepted run finishes on the same token
+        as in the plain engine, and the accepts after it are discarded.
         """
         now = self.clock() if now is None else now
         limit = len(tokens) if limit is None else min(limit, len(tokens))

@@ -586,3 +586,168 @@ def test_paged_window_reaches_flash_decode(cuda):
     view = layout.gather(hybrid, table)
     for name, t in caches.items():
         assert torch.equal(view[name], t), name
+
+
+# verify shapes (B, T, cap, Hq, Hkv, D): qwen3's serve verify, T 1..8 and a
+# second row tile, caps 64-2048, gemma3's and recurrentgemma's heads
+VERIFY_SHAPES = [(8, 4, 1024, 16, 8, 128), (8, 1, 1024, 16, 8, 128),
+                 (8, 2, 64, 16, 8, 128), (8, 3, 2048, 16, 8, 128),
+                 (8, 5, 1024, 16, 8, 128), (8, 8, 1024, 16, 8, 128),
+                 (4, 9, 2048, 16, 8, 128), (8, 4, 1024, 4, 1, 256),
+                 (8, 3, 2048, 10, 1, 256), (3, 6, 100, 4, 2, 16)]
+
+
+def _verify_positions(B, T, cap, Hkv):
+    """Positions at split and tile edges (each row's, not only the
+    first's), at the capacity and past it."""
+    p = plan(1, cap, Hkv, torch.bfloat16)
+    edges = [0, 1, 63, 64, p.keys_per_split - T, p.keys_per_split - 1,
+             cap - T, cap - 1, cap + 3, p.keys_per_split * (p.splits - 1) - 2]
+    return [max(0, e) for e in edges][:B] + [cap // 3] * max(0, B - len(edges))
+
+
+@pytest.mark.parametrize("shape", VERIFY_SHAPES)
+def test_flash_verify_matches_plain(cuda, shape):
+    """The verify route (one launch, T rows per slot) against the plain
+    version with S = T over the cache: bf16, held as the decode is (2 ulps
+    of each element plus 1e-4)."""
+    B, T, cap, Hq, Hkv, D = shape
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (B, T, Hq, D), torch.bfloat16, cuda)
+    k = _randn(rng, (B, cap, Hkv, D), torch.bfloat16, cuda)
+    v = _randn(rng, (B, cap, Hkv, D), torch.bfloat16, cuda)
+    off = torch.tensor(_verify_positions(B, T, cap, Hkv), dtype=torch.int32,
+                       device=cuda)
+    kernel = "flash_verify" if T > 1 else "flash_decode"
+    before = flash_attention.kernel_launches[kernel]
+    got = flash_attention(q, k, v, off, causal=True, seq_kv=cap, verify=True)
+    torch.cuda.synchronize()
+    assert flash_attention.kernel_launches[kernel] == before + 1
+    want = sdpa_ref(q, k, v, q_offset=off, causal=True, seq_kv=cap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -6, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", VERIFY_SHAPES)
+def test_flash_verify_rows_bit_equal_decode(cuda, shape):
+    """Row t of the verify is bit-equal to a decode launch (S = 1) at
+    ``q_offset + t`` over the same cache — the contract the speculative
+    window's bit-exact streams rest on — and two verify launches repeat bit
+    for bit."""
+    B, T, cap, Hq, Hkv, D = shape
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (B, T, Hq, D), torch.bfloat16, cuda)
+    k = _randn(rng, (B, cap, Hkv, D), torch.bfloat16, cuda)
+    v = _randn(rng, (B, cap, Hkv, D), torch.bfloat16, cuda)
+    off = torch.tensor(_verify_positions(B, T, cap, Hkv), dtype=torch.int32,
+                       device=cuda)
+    got = flash_attention(q, k, v, off, causal=True, seq_kv=cap, verify=True)
+    again = flash_attention(q, k, v, off, causal=True, seq_kv=cap, verify=True)
+    before = flash_attention.kernel_launches["flash_decode"]
+    rows = torch.cat([flash_attention(q[:, t:t + 1].contiguous(), k, v, off + t,
+                                      causal=True, seq_kv=cap) for t in range(T)],
+                     dim=1)
+    assert flash_attention.kernel_launches["flash_decode"] == before + T
+    assert torch.equal(got, rows)
+    assert torch.equal(got, again)
+
+
+def test_verify_step_rows_bit_equal_decode_on_the_card(cuda):
+    """qwen3's smoke model in bf16 on the card: ``verify_step`` row t equals
+    ``decode_step`` at ``pos + t`` bit for bit (logits and cache), through
+    one flash_verify launch per layer. Prints whether the products of the
+    full-width qwen3 step give the same bits at M = slots x T rows as at M =
+    slots, and the rms norm and activation too — the reason each verify
+    row runs at the decode step's shape; run with ``-s`` to see the line."""
+    import json
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.models.layers import rms_norm_vec, silu
+
+    cfg = smoke_config("qwen3-1.7b").replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    S, T, cap = 8, 4, 64
+    rng = np.random.default_rng(13)
+    a = model.init_cache(S, cap)
+    pre = torch.from_numpy(rng.integers(0, cfg.vocab_size, (S, 9))).to(cuda)
+    for p in range(9):
+        model.decode_step(pre[:, p:p + 1], a, p)
+    b = {n: t.clone() for n, t in a.items()}
+    pos = torch.tensor([9, 9, 20, 31, 32, 40, 55, 59], dtype=torch.int32, device=cuda)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (S, T))).to(cuda)
+    reset_launch_counts()
+    got = model.verify_step(toks, a, pos)
+    counts = launch_counts()
+    want = torch.cat([model.decode_step(toks[:, t:t + 1], b, pos + t)
+                      for t in range(T)], dim=1)
+    assert counts["flash_verify"] == counts["flash_attention"] == cfg.num_layers
+    assert torch.equal(got, want)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+
+    full = get_config("qwen3-1.7b")
+    d, ff, hd = full.d_model, full.d_ff, full.resolved_head_dim
+    equal = {}
+    for name, (din, dout, dtype) in {
+            "wq": (d, full.num_heads * hd, torch.bfloat16),
+            "wk_wv": (d, full.num_kv_heads * hd, torch.bfloat16),
+            "wo": (full.num_heads * hd, d, torch.bfloat16),
+            "mlp_wi_wg": (d, ff, torch.bfloat16), "mlp_wo": (ff, d, torch.bfloat16),
+            "unembed_fp32": (d, full.vocab_size, torch.float32)}.items():
+        w = _randn(rng, (din, dout), dtype, cuda) * 0.02
+        x = _randn(rng, (S, T, din), dtype, cuda)
+        per_row = torch.cat([x[:, t:t + 1] @ w for t in range(T)], dim=1)
+        equal[name] = bool(torch.equal(x @ w, per_row))
+    x = _randn(rng, (S, T, d), torch.bfloat16, cuda)
+    scale = torch.ones(d, device=cuda)
+    equal["rms_norm"] = bool(torch.equal(rms_norm_vec(x, scale), torch.cat(
+        [rms_norm_vec(x[:, t:t + 1], scale) for t in range(T)], dim=1)))
+    equal["silu"] = bool(torch.equal(silu(x), torch.cat(
+        [silu(x[:, t:t + 1]) for t in range(T)], dim=1)))
+    print(json.dumps({"test": "verify_products_by_row_count",
+                      "card": torch.cuda.get_device_name(0), "slots": S, "T": T,
+                      "bits_at_slots_x_T_equal_slots": equal}))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_spec_engine_bit_equal_on_the_card(cuda, paged):
+    """qwen3's smoke model in bf16 on the card, seeded: the speculative
+    engine serves the overlap engine's streams token for token, contiguous
+    and over the page pool, at 2 host syncs a window, with drafts both
+    accepted and rejected; every page back at drain. The embedding is drawn
+    at 0.3 of its init scale: at the init scale its term dominates the
+    residual stream, the model repeats its input token at every depth and
+    no draft misses."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.device_channel import readback
+    from repro_torch.models import Model
+    from repro_torch.serve import OK, EngineConfig, Replica, Request
+
+    cfg = smoke_config("qwen3-1.7b").replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    with torch.no_grad():
+        model.embed.mul_(0.3)
+    model.tie_unembed()
+    rng = np.random.default_rng(14)
+    traffic = [(tuple(int(t) for t in rng.integers(1, cfg.vocab_size,
+                                                   int(rng.integers(2, 30)))),
+                int(rng.integers(3, 20))) for _ in range(6)]
+    streams = []
+    for spec in (False, True):
+        rep = Replica(cfg, model, config=EngineConfig(
+            num_slots=3, max_len=64, window=4, speculate=spec, draft_len=3,
+            draft_layers=1, paged=paged and spec, page_size=8))
+        for i, (prompt, n) in enumerate(traffic):
+            assert rep.submit(Request(id=i, prompt=prompt, max_new_tokens=n)) is None
+        readback.count = 0
+        out = rep.run()
+        m = rep.metrics
+        assert all(r.status == OK for r in out) and not m.faults
+        assert readback.count == 2 * m.windows
+        streams.append({r.id: r.tokens for r in out})
+    assert streams[0] == streams[1]
+    assert m.draft_tokens > m.accepted_draft_tokens > 0
+    if paged:
+        assert m.pages_allocated == m.pages_freed > 0
+        rep.alloc.check()

@@ -393,23 +393,34 @@ GRID += [dict(paged=p, window=w, **f) for p, w in ((True, 4), (True, 0), (False,
                    dict(page_watermark=-1), dict(page_watermark=0),
                    dict(page_watermark=3))]
 PAGE_FIELDS = ("page_size", "page_budget", "page_watermark")
+# the draft fields: their limits, with and without speculation and a window
+GRID += [dict(speculate=s, window=w, overlap=o, **f)
+         for s, w, o in ((True, 4, True), (True, 4, False), (True, 0, True),
+                         (False, 0, True))
+         for f in (dict(draft_len=0), dict(draft_len=1), dict(draft_len=5),
+                   dict(draft_layers=0), dict(draft_layers=1),
+                   dict(draft_layers=3), dict(draft_len=2, draft_layers=2))]
+DRAFT_FIELDS = ("draft_len", "draft_layers")
 
 
 @pytest.mark.parametrize("fields", GRID, ids=lambda f: ",".join(
     f"{k}={int(v)}" for k, v in f.items()))
 def test_engine_config_parity(fields):
     """Each combination is accepted by both packages, or refused by both
-    with ``ValueError`` (the same message for a page field); the defaults
-    are the same — ``EngineConfig()`` is the stepwise engine in both."""
+    with ``ValueError`` (the same message for a page or draft field); the
+    defaults are the same — ``EngineConfig()`` is the stepwise engine in
+    both."""
     def outcome(cls):
         try:
             cls(**fields)
         except ValueError as exc:
-            return ("refused", str(exc) if set(fields) & set(PAGE_FIELDS)
-                    and "page" in str(exc) else "")
+            return ("refused", str(exc) if (
+                set(fields) & set(PAGE_FIELDS) and "page" in str(exc)
+                or set(fields) & set(DRAFT_FIELDS) and "draft" in str(exc))
+                else "")
         return ("accepted", "")
 
     assert outcome(EngineConfig) == outcome(JaxEngineConfig)
     assert EngineConfig().window == JaxEngineConfig().window == 0
-    for name in PAGE_FIELDS:
+    for name in PAGE_FIELDS + DRAFT_FIELDS:
         assert getattr(EngineConfig(), name) == getattr(JaxEngineConfig(), name)

@@ -224,7 +224,7 @@ def test_kernel_sources_cover_both_kernels():
     for fn in (flash_attention, probe_rows, rglru_scan, ssd_scan):
         assert isinstance(fn.launches, int)
     assert set(launch_counts()) == {"flash_attention", "flash_decode",
-                                    "flash_forward", "flash_f32",
+                                    "flash_verify", "flash_forward", "flash_f32",
                                     "probe_rows", "rglru_scan", "ssd_scan",
                                     "ssd_chunk_tc", "ssd_f32"}
     exported = set()
@@ -303,6 +303,28 @@ def test_plan_picks_the_kernel_by_shape_and_dtype(shape, kernel):
     """bf16 on the tensor cores, decode (S == 1) or forward; fp32 on the
     CUDA cores: a choice by dtype, not a fallback."""
     assert plan(*shape).kernel == kernel
+
+
+# (S, seq_kv, Hkv, dtype) of a verify -> kernel
+VERIFY_PLANS = [
+    ((4, 1024, 8, torch.bfloat16), "flash_verify"),
+    ((9, 2048, 1, torch.bfloat16), "flash_verify"),
+    ((1, 1024, 8, torch.bfloat16), "flash_decode"),
+    ((4, 1024, 8, torch.float32), "flash_f32"),
+]
+
+
+@pytest.mark.parametrize("shape, kernel", VERIFY_PLANS)
+def test_plan_verify_takes_the_decode_split(shape, kernel):
+    """A verify's rows go to the decode kernel (``flash_verify``; one row is
+    the decode itself) with the decode's split, whatever the rows: a row's
+    bits are then the decode's at its position. fp32 stays on flash_f32."""
+    S, seq_kv, Hkv, dtype = shape
+    p = plan(S, seq_kv, Hkv, dtype, verify=True)
+    assert p.kernel == kernel
+    if kernel != "flash_f32":
+        decode = plan(1, seq_kv, Hkv, dtype)
+        assert (p.splits, p.keys_per_split) == (decode.splits, decode.keys_per_split)
 
 
 @pytest.mark.parametrize("dtype, kernel", [(torch.bfloat16, "ssd_chunk_tc"),

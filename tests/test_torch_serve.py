@@ -302,8 +302,7 @@ def test_host_sync_budget(env):
 
 def test_unported_modes_raise(env):
     _, cfg, _, _, model = env
-    for bad in (dict(window=4, speculate=True), dict(window=4, tp=2),
-                dict(window=4, trace=True)):
+    for bad in (dict(window=4, tp=2), dict(window=4, trace=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Replica(cfg, model, config=EngineConfig(**bad))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
