@@ -61,13 +61,29 @@ Phases, each printing one JSON line (``"phase": ...``):
    host syncs a window; a step launches the decode kernel 3 times (the
    draft), the verify route once per layer and the probe once. Each line
    adds the drafts accepted and rejected and serve's ms per step beside
-   its own; no fault record carries DRAFT_REJECT;
+   its own; no fault record carries DRAFT_REJECT; serve_spec_paged runs the
+   first 8 requests (cut when the group phases came, for the run's time);
 11b. serve_spec_deep — the seeded init makes qwen3 repeat its input token
    at every exit depth, so the drafts above all match: with the embedding
    drawn at a tenth of its scale, the engines traffic through the overlap
    engine and the speculative one drafting from 27 layers gives equal
    streams and drafts both accepted and rejected (one phase at least
    must);
+11c. group, group_kill, group_soft, group_replay — the first 6 requests of
+   phase 4's traffic through ``ServeGroup(cfg, 3, model=model,
+   config=EngineConfig(window=8, num_slots=8, max_len=1024))``: three
+   replicas of the qwen3 model, rank threads over the paper's host
+   protocols. Clean: every stream equals phase 4's, every rank answers, 2
+   host syncs per retired window summed over the ranks. Rank 1 killed at
+   round 2: the survivors shrink once to 2 ranks, re-route its requests
+   and answer everything with phase 4's streams. A NaN in rank 0's KV at
+   round 2: one fault record on rank 0, no shrink, no re-route, phase 4's
+   streams. The fleet stopped at round 18 with a write-ahead log, then a
+   fresh group with a spare restarts from the log and summons the spare:
+   the answered requests come back from their ``retire`` records, the rest
+   with phase 4's streams. Each line prints rounds, the median ms per
+   round, fleet tokens/s and requests per rank, and device memory before
+   and after; any rank that failed, or died unscheduled, fails the run;
 12. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
@@ -126,6 +142,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -154,6 +171,14 @@ PAGED = dict(paged=True, page_size=PAGE_SIZE)
 # draft's phase draws the embedding at a tenth of its init scale
 SPEC = dict(speculate=True, draft_len=3, draft_layers=1)
 SPEC_DEEP_EMBED = 0.1
+# the group phases: a fleet of 3 qwen3 replicas with serve's engine on the
+# first 6 requests of serve's traffic (cut from 8, which took 104 s of a
+# 525 s run: a rank's rounds follow its longest prompt, and the first 6
+# drop the 225- and 254-token ones); rank 1 killed, or a NaN in rank 0's
+# KV, at round 2; the fleet stopped at round GROUP_CRASH_AT, when the two
+# 63-token prompts are answered (round 16) and the rest are not (the next,
+# 83 tokens, about round 19)
+GROUP_RANKS, GROUP_REQUESTS, GROUP_FAULT_ROUND, GROUP_CRASH_AT = 3, 6, 2, 18
 SERVE_LINES: dict = {}              # a serve phase's ms per step and tokens/s
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
 # flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
@@ -1093,14 +1118,176 @@ def phase_spec(torch, card: str, model, init_s: float, want: dict) -> dict:
     paths["serve_spec"], _ = phase_serve(
         torch, card, model, init_s, ("serve_spec", "lflr_spec"), spec=SPEC,
         want=want)
+    # the first 8 requests only (cut when the group phases came, to keep the
+    # run's time)
     paths["serve_spec_paged"], _ = phase_serve(
         torch, card, model, init_s, ("serve_spec_paged", None), paged=True,
-        spec=SPEC, want=want)
+        spec=SPEC, n=NUM_SLOTS, want={i: want[i] for i in range(NUM_SLOTS)})
     paths["serve_spec_deep"] = phase_spec_deep(torch, card, model)
     if not any(SERVE_LINES[p]["accepted"] and SERVE_LINES[p]["rejected"]
                for p in paths):
         fail(f"speculative phases: no phase both accepted and rejected a draft: "
              f"{ {p: SERVE_LINES[p] for p in paths} }")
+    return paths
+
+
+def group_run(torch, card: str, model, name: str, serve, want: dict, *,
+              killed=(), answered=None, exact: bool = False) -> tuple:
+    """One group phase: ``serve()`` (a ``ServeGroup`` entry point) with the
+    kernel counts and host syncs from 0, then the gates every group phase
+    shares: no rank raised, only the ``killed`` ranks died, every request of
+    ``want`` (serve's streams) answered OK with serve's stream (``answered``
+    adds responses from an earlier run). ``exact`` also holds the launches
+    and syncs to the clean rule: per window step, flash decode once per
+    layer and one probe; 2 syncs per retired window, summed over the ranks.
+    Returns the result, its launches and the line's common fields."""
+    from repro_torch.core.device_channel import readback
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    readback.count = 0
+    t0 = time.perf_counter()
+    res = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, syncs = launch_counts(), readback.count
+    bad = [(rr.rank, repr(rr.exception)) for rr in res.reports
+           if rr.exception is not None]
+    if bad:
+        fail(f"{name}: ranks raised: {bad}")
+    died = sorted(rr.rank for rr in res.reports if rr.killed)
+    if died != sorted(killed):
+        fail(f"{name}: ranks {died} died, {sorted(killed)} scheduled")
+    reports = [rr.value for rr in res.reports
+               if not rr.killed and rr.value is not None]
+    if res.crashed:
+        reports = []
+    responses = {**(answered or {}), **res.responses}
+    if not res.crashed:
+        diff = [i for i in want if i not in responses or not responses[i].ok
+                or responses[i].tokens != want[i]]
+        if diff or len(responses) != len(want):
+            fail(f"{name}: requests {diff} not OK or not serve's stream "
+                 f"({len(responses)} answers for {len(want)})")
+    windows = sum(r.metrics.windows for r in reports)
+    if exact:
+        # per window step flash decode once per layer and one probe, over
+        # every dispatched window: the retired ones, and at most one per
+        # rank still in flight when the group closed (its requests were
+        # answered by the window before; nothing waits on it)
+        layers = len(model.attn_layers)
+        steps = launches["probe_rows"]
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"flash_attention": layers * steps,
+                         "flash_decode": layers * steps, "probe_rows": steps})
+        dispatched, part = divmod(steps, WINDOW)
+        if (launches != expected or part
+                or not 0 <= dispatched - windows <= len(reports)):
+            fail(f"{name}: kernel launches {launches} for {windows} retired "
+                 f"windows of {WINDOW} steps and {layers} layers")
+        if syncs != 2 * windows:
+            fail(f"{name}: {syncs} host syncs for {windows} retired windows")
+    elif not res.crashed and not (launches["flash_decode"] > 0
+                                  and launches["probe_rows"] > 0):
+        fail(f"{name}: the fleet did not go through the kernels: {launches}")
+    round_ms = sorted(1e3 * t for r in reports for t in r.round_s)
+    tokens = sum(len(r.tokens) for r in res.responses.values())
+    gc.collect()
+    line = {"phase": name, "card": card, "ranks": len(res.reports),
+            "requests": len(res.responses),
+            "rounds": max((r.rounds for r in reports), default=0),
+            "ms_per_round_median": (round_ms[len(round_ms) // 2]
+                                    if round_ms else None),
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "requests_per_rank": {str(k): v for k, v in sorted(Counter(
+                r.replica for r in res.responses.values()).items())},
+            "windows": windows, "syncs": syncs, "launches": launches,
+            "mem_before_gb": mem0 / 1e9,
+            "mem_after_gb": torch.cuda.memory_allocated() / 1e9}
+    return res, launches, line
+
+
+def phase_group(torch, card: str, model, want: dict) -> dict:
+    """The group phases (qwen3 at full width, module docstring 11c):
+    ``want`` is serve's streams. Returns each phase's launches by path."""
+    from repro_torch.core.faults import FaultSchedule, FaultSpec
+    from repro_torch.serve import EngineConfig, Request, ServeGroup
+
+    cfg = model.cfg
+    conf = EngineConfig(window=WINDOW, num_slots=NUM_SLOTS, max_len=MAX_LEN)
+    group = ServeGroup(cfg, GROUP_RANKS, model=model, config=conf)
+    reqs = lambda: make_requests(cfg, Request, n=GROUP_REQUESTS)  # noqa: E731
+    want = {i: want[i] for i in range(GROUP_REQUESTS)}
+    paths = {}
+
+    res, paths["group"], line = group_run(
+        torch, card, model, "group", lambda: group.serve(reqs()), want, exact=True)
+    if len(line["requests_per_rank"]) != GROUP_RANKS:
+        fail(f"group: not every rank answered: {line['requests_per_rank']}")
+    emit(line)
+    clean_wall = line["wall_s"]
+
+    kill = FaultSchedule([FaultSpec(step=GROUP_FAULT_ROUND, kind="kill", rank=1)])
+    res, paths["group_kill"], line = group_run(
+        torch, card, model, "group_kill", lambda: group.serve(reqs(), faults=kill),
+        want, killed=(1,))
+    for rank in (0, 2):
+        shrinks = [e for e in res.report(rank).events if e[0] == "shrink"]
+        if shrinks != [("shrink", GROUP_FAULT_ROUND, 2)]:
+            fail(f"group_kill: rank {rank} shrank {shrinks}, not once to 2 "
+                 f"ranks at round {GROUP_FAULT_ROUND}")
+    if not res.rerouted or set(line["requests_per_rank"]) - {"0", "2"}:
+        fail(f"group_kill: re-routed {res.rerouted}, answered by "
+             f"{line['requests_per_rank']}")
+    emit({**line, "group_wall_s": clean_wall,
+          "shrink_round": GROUP_FAULT_ROUND, "rerouted": list(res.rerouted)})
+
+    soft = FaultSchedule([FaultSpec(step=GROUP_FAULT_ROUND, kind="state_nan",
+                                    rank=0)])
+    res, paths["group_soft"], line = group_run(
+        torch, card, model, "group_soft", lambda: group.serve(reqs(), faults=soft),
+        want)
+    events = {r: res.report(r).events for r in range(GROUP_RANKS)}
+    faults = {r: res.report(r).metrics.faults for r in range(GROUP_RANKS)}
+    if (res.rerouted or any(e[0] in ("shrink", "reroute")
+                            for ev in events.values() for e in ev)
+            or len(faults[0]) != 1 or faults[1] or faults[2]
+            or [e[0] for e in events[0]] != ["inject"]):
+        fail(f"group_soft: the fault did not stay on rank 0: events {events}, "
+             f"faults {faults}, rerouted {res.rerouted}")
+    f = faults[0][0]
+    emit({**line, "group_wall_s": clean_wall, "injected": events[0][0],
+          "fault": {"step": f.step, "code": f.code, "action": f.action,
+                    "slots": list(f.slots)}})
+
+    wal = os.path.join(ROOT, "build", "group_replay.wal")
+    if os.path.exists(wal):
+        os.remove(wal)
+    res1, crash_launches, line1 = group_run(
+        torch, card, model, "group_replay", lambda: group.serve(
+            reqs(), ledger_path=wal, crash_at=GROUP_CRASH_AT), want,
+        killed=range(GROUP_RANKS))
+    if not res1.crashed or not res1.responses or len(res1.responses) == len(want):
+        fail(f"group_replay: crashed {res1.crashed} with "
+             f"{sorted(res1.responses)} answered: some, not all, expected")
+    spare = ServeGroup(cfg, GROUP_RANKS, model=model, config=conf,
+                       max_ranks=GROUP_RANKS + 1)
+    res2, paths["group_replay"], line = group_run(
+        torch, card, model, "group_replay", lambda: spare.serve_from_ledger(
+            wal, joins=[1]), want, answered=res1.responses)
+    back = [i for i, r in res1.responses.items() if res2.responses.get(i) != r]
+    if back or res2.joined != (GROUP_RANKS,) or not res2.replayed:
+        fail(f"group_replay: answered {back} came back changed, joined "
+             f"{res2.joined}, replayed {res2.replayed}")
+    for k, v in crash_launches.items():
+        paths["group_replay"][k] += v
+    emit({**line, "crash_at": GROUP_CRASH_AT, "crash_wall_s": line1["wall_s"],
+          "answered_before_crash": sorted(res1.responses),
+          "replayed": list(res2.replayed), "joined": list(res2.joined),
+          "epoch": res2.epoch, "launches": paths["group_replay"]})
+    os.remove(wal)
     return paths
 
 
@@ -1985,6 +2172,7 @@ def main() -> None:
     engines_paged = phase_engines_paged(torch, card, model,
                                         engines["streams"]["blocking"])
     spec_paths = phase_spec(torch, card, model, init_s, serve_streams)
+    group_paths = phase_group(torch, card, model, serve_streams)
     del model                                     # free qwen3 before rg
     gc.collect()
     torch.cuda.empty_cache()
@@ -2028,7 +2216,7 @@ def main() -> None:
     paths = {"serve": serve_q,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              "serve_paged": serve_paged, "engines_paged": engines_paged,
-             **spec_paths,
+             **spec_paths, **group_paths,
              "serve_g3_paged": serve_g3_paged,
              "serve_rg": serve_rg, "prefill_rg": prefill_rg,
              "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm,

@@ -14,6 +14,7 @@ Every device-to-host copy of the port goes through :func:`readback`, whose
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -36,11 +37,16 @@ WORD_DTYPE = torch.int32
 _WORD_BITS = 31            # codes stop at 1 << 25: the sign bit is never set
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def readback(t: torch.Tensor) -> np.ndarray:
     """Copy ``t`` to the host as numpy — for a CUDA tensor a host sync.
     The only device-to-host path of the port; ``readback.count`` counts
-    the calls."""
-    readback.count += 1
+    the calls, atomically (a serve group's rank threads read back at
+    once)."""
+    with _COUNT_LOCK:
+        readback.count += 1
     return t.detach().cpu().numpy()
 
 

@@ -1,11 +1,15 @@
-# Trimmed copy of repro/core/errors.py: the code lattice and the exceptions the serve path raises.
+# Trimmed copy of repro/core/errors.py: the code lattice and the paper's exception taxonomy.
 """Exception hierarchy and error-code lattice (paper §III-A).
 
 * ``PropagatedError``    <- ``MPICXX::Propagated_exception``: one or more
   ranks (here: serving slots) signalled a recoverable error; carries every
   ``(rank, code)`` pair;
 * ``CommCorruptedError`` <- ``MPICXX::Comm_corrupted_exception``: the
-  communicator is unusable.
+  communicator is unusable;
+* ``MpiError``           <- ``MPICXX::MPI_error_exception``: any other
+  transport error, with its raw status;
+* ``RevokedError``       <- ULFM ``MPI_ERR_COMM_REVOKED``;
+* ``RankFailedError``    <- ULFM ``MPI_ERR_PROC_FAILED``: a peer is dead.
 
 :class:`ErrorCode` is the device-representable bitmask the in-band channel
 reduces with bitwise-or. The highest code is ``COMM_CORRUPTED = 1 << 25``, so
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -51,6 +55,9 @@ class ErrorCode(enum.IntFlag):
         return [c for c in ErrorCode if c != ErrorCode.OK and c & self and c.value & (c.value - 1) == 0]
 
 
+# Encoded "no error" word for device-side channels.
+OK_WORD = 0
+
 # Codes that attribute expected in-band events rather than faults.
 ATTRIBUTION_ONLY = ErrorCode.DRAFT_REJECT
 
@@ -68,6 +75,17 @@ class RankError:
 
 class ReproError(Exception):
     """Base class for all errors raised by this framework."""
+
+
+class LocalError(ReproError):
+    """A purely local failure detected before any propagation happened.
+
+    Carries the code so the catch-site can decide to ``signal_error`` it (the
+    paper's Listing 1 inner try/catch)."""
+
+    def __init__(self, code: int | ErrorCode, msg: str = ""):
+        self.code = int(code)
+        super().__init__(msg or f"local error: {ErrorCode(self.code)!r}")
 
 
 class PropagatedError(ReproError):
@@ -93,6 +111,44 @@ class CommCorruptedError(ReproError):
     def __init__(self, errors: Iterable[RankError] = (), msg: str = ""):
         self.errors: tuple[RankError, ...] = tuple(errors)
         super().__init__(msg or ("communicator corrupted: " + "; ".join(str(e) for e in self.errors) if self.errors else "communicator corrupted"))
+
+
+class RevokedError(ReproError):
+    """Operation on a revoked communicator (ULFM ``MPI_ERR_COMM_REVOKED``)."""
+
+    def __init__(self, msg: str = "communicator revoked"):
+        super().__init__(msg)
+
+
+class RankFailedError(ReproError):
+    """A peer involved in this operation is dead (ULFM ``MPI_ERR_PROC_FAILED``)."""
+
+    def __init__(self, failed_ranks: Sequence[int] = (), msg: str = ""):
+        self.failed_ranks = tuple(failed_ranks)
+        super().__init__(msg or f"rank(s) failed: {list(self.failed_ranks)}")
+
+
+class MpiError(ReproError):
+    """Any other transport error (paper: ``MPI_error_exception``)."""
+
+    def __init__(self, status: int, msg: str = ""):
+        self.status = status
+        super().__init__(msg or f"transport error, status={status}")
+
+
+class CancelledError(ReproError):
+    """A request was cancelled (``MPI_Cancel`` analogue)."""
+
+
+class TimeoutError_(ReproError):
+    """A wait exceeded its deadline (used by the straggler watchdog)."""
+
+
+def combine_codes(codes: Iterable[int]) -> int:
+    out = 0
+    for c in codes:
+        out |= int(c)
+    return out
 
 
 def strip_codes(words, ignore: int = 0):

@@ -9,6 +9,11 @@ a hash of the sources, the headers and the flags, so an edited source or
 header is never served a stale build; what ``nvcc -Xptxas -v`` printed for
 each source is kept beside its object (:func:`compile_log`). Nothing is built when this module is
 imported: the first kernel launch (or an explicit :func:`build`) does it.
+
+Several threads may launch at once (the rank threads of a serve group), so
+the first load is built once under a lock, and every wrapper counts its
+launches through :func:`count_launch`, which no thread can lose an
+increment of.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -53,6 +59,8 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> list[Path]:
@@ -117,16 +125,28 @@ def compile_log(so: Path, source: str) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use (once, whichever
+    threads ask for it first)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with _LIB_LOCK:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
+
+
+def count_launch(wrapper, kernel: Optional[str] = None) -> None:
+    """Add one to ``wrapper.launches`` (and to its ``kernel_launches[kernel]``
+    where it has several kernels), atomically."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if kernel is not None:
+            wrapper.kernel_launches[kernel] += 1
 
 
 def check_launch(name: str, rc: int) -> None:

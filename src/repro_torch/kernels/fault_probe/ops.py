@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from ..build import (DTYPE_CODES, check_device, check_launch, library,
-                     stream_of)
+from ..build import (DTYPE_CODES, check_device, check_launch, count_launch,
+                     library, stream_of)
 from .ref import probe_rows_ref
 
 MAX_ROWS = 2 ** 31 - 2 ** 16    # the kernel's row loop counts in int32
@@ -44,7 +44,7 @@ def probe_rows(x: torch.Tensor, threshold: float, *, nonfinite_code: int,
         x.data_ptr(), rows, cols, DTYPE_CODES[x.dtype], float(threshold),
         int(nonfinite_code), int(overflow_code), out.data_ptr(), stream_of(x))
     check_launch("probe_rows", rc)
-    probe_rows.launches += 1
+    count_launch(probe_rows)
     return out
 
 

@@ -26,8 +26,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..build import (DTYPE_CODES, check_device, check_launch, library,
-                     stream_of)
+from ..build import (DTYPE_CODES, check_device, check_launch, count_launch,
+                     library, stream_of)
 from .ref import sdpa_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels are instantiated for these
@@ -135,8 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *args, B, S, T, Hq, Hkv, D, int(bool(causal)), int(window), seq_kv,
             stream_of(q))
     check_launch(p.kernel, rc)
-    flash_attention.launches += 1
-    flash_attention.kernel_launches[p.kernel] += 1
+    count_launch(flash_attention, p.kernel)
     return out
 
 

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from ..build import check_device, check_launch, library, stream_of
+from ..build import (check_device, check_launch, count_launch, library,
+                     stream_of)
 from .ref import rglru_scan_ref
 
 CHUNK = 128                     # steps per chunk, whatever the length
@@ -41,7 +42,7 @@ def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
                                     out.data_ptr(), agg.data_ptr(), B, S, W, CHUNK,
                                     stream_of(x_in))
     check_launch("rglru_scan", rc)
-    rglru_scan.launches += 1
+    count_launch(rglru_scan)
     return out
 
 

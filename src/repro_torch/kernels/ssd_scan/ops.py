@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..build import (DTYPE_CODES, check_device, check_launch, library,
-                     stream_of)
+from ..build import (DTYPE_CODES, check_device, check_launch, count_launch,
+                     library, stream_of)
 from .ref import check_scan_shapes, ssd_inter_chunk, ssd_intra_chunk_ref
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128   # the kernels' tiles
@@ -69,8 +69,7 @@ def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), states.data_ptr(), b, s, h, p, g, n, L, stream_of(x))
     check_launch(kernel, rc)
-    ssd_scan.launches += 1
-    ssd_scan.kernel_launches[kernel] += 1
+    count_launch(ssd_scan, kernel)
     return y, states
 
 

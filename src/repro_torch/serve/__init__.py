@@ -1,11 +1,20 @@
 """repro_torch.serve — fault-tolerant continuous-batching inference on the card.
 
-The port of ``repro.serve`` in window+overlap mode: :class:`Replica` wraps
-each K-step decode window in a ``DeviceFuture``, attributes faults to their
-``(step, slot)`` through the paper's enumeration, and recovers a faulted
-sequence by LFLR without stalling the other slots.
+The port of ``repro.serve``: :class:`Replica` wraps each step or K-step
+decode window in a ``DeviceFuture``, attributes faults to their ``(step,
+slot)`` through the paper's enumeration, and recovers a faulted sequence by
+LFLR without stalling the other slots; :class:`ServeGroup` runs a fleet of
+replicas over the paper's host protocols (ULFM shrink and re-route on a
+replica's death, a write-ahead log to restart a crashed fleet from).
 """
 from .config import EngineConfig  # noqa: F401
+from .group import (  # noqa: F401
+    AgreeDecision,
+    GroupResult,
+    RankReport,
+    ServeGroup,
+    agree_round,
+)
 from .metrics import FaultRecord, ServeMetrics  # noqa: F401
 from .queue import (  # noqa: F401
     EXPIRED,

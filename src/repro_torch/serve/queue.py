@@ -12,8 +12,8 @@ never a silent drop, never a hang. Statuses:
   re-faults on every recompute — the serving counterpart of ABORT).
 
 The queue orders by earliest deadline first (EDF) with FIFO tie-break, and is
-thread-safe (the JAX package's serve group re-routes a dead replica's
-requests into survivor queues from other rank threads).
+thread-safe because a :class:`~repro_torch.serve.group.ServeGroup` re-routes a
+dead replica's requests into survivor queues from other rank threads.
 """
 from __future__ import annotations
 
@@ -42,6 +42,9 @@ class Request:
     deadline: Optional[float] = None     # absolute, in the queue's clock domain
     arrival_t: Optional[float] = None    # stamped once by RequestQueue.submit
     retries: int = 0                     # LFLR recomputes consumed so far
+    trace_id: Optional[int] = None       # the request's trace id: None until
+                                         # the tracer is ported (ROADMAP item
+                                         # 9); the WAL carries it
 
     def __post_init__(self):
         self.prompt = tuple(int(t) for t in self.prompt)
@@ -67,6 +70,7 @@ class Response:
     retries: int = 0                     # faults recovered while serving it
     replica: Optional[int] = None        # rank that answered it
     detail: str = ""
+    trace_id: Optional[int] = None       # the request's trace id, if traced
 
     @property
     def ok(self) -> bool:

@@ -434,6 +434,26 @@ class Replica:
             self.metrics.record_response(resp)
         return resp
 
+    def readmit(self, req: Request) -> Optional[Response]:
+        """Idempotent re-admission after a ledger replay (crash-restart).
+
+        A request the write-ahead log proves was already *accepted* re-enters
+        through the negative-sequence requeue lane: admission checks are
+        bypassed (it was admitted once and is owed a terminal answer), it
+        sorts ahead of its deadline class, and its original ``arrival_t``
+        and ``trace_id`` are kept, so latency spans the whole crash-recovery
+        window. A request the log shows as submitted but never accepted
+        goes through normal admission."""
+        if req.arrival_t is None:
+            return self.submit(req)
+        self.queue.requeue(req)
+        return None
+
+    def load(self) -> int:
+        """Queued + in-flight requests — the group's take limit and
+        autoscale pressure signal."""
+        return len(self.queue) + self.sched.in_flight()
+
     # ---------------------------------------------------------- fault surface
     def inject_state_fault(self, slot: Optional[int] = None, *,
                            rng: Optional[np.random.Generator] = None
@@ -564,7 +584,8 @@ class Replica:
             out.append(Response(id=req.id, status=EXPIRED,
                                 latency_s=now - req.arrival_t,
                                 replica=self.rank,
-                                detail="deadline passed in queue"))
+                                detail="deadline passed in queue",
+                                trace_id=req.trace_id))
         out.extend(self.sched.expire_active(now))
         for slot, _req in self.sched.backfill(now):
             if self.overlap:

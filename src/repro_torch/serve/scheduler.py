@@ -475,7 +475,8 @@ class ContinuousBatchingScheduler:
             id=req.id, status=status, tokens=tuple(s.generated),
             latency_s=now - req.arrival_t,
             ttft_s=(s.t_first - req.arrival_t) if s.t_first is not None else None,
-            retries=req.retries, replica=self.replica, detail=detail)
+            retries=req.retries, replica=self.replica, detail=detail,
+            trace_id=req.trace_id)
         s.clear()
         if self.on_release is not None:
             self.on_release(s.idx)

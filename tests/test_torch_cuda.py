@@ -751,3 +751,54 @@ def test_spec_engine_bit_equal_on_the_card(cuda, paged):
     if paged:
         assert m.pages_allocated == m.pages_freed > 0
         rep.alloc.check()
+
+
+def test_group_survives_a_kill_on_the_card(cuda):
+    """A 3-rank fleet of qwen3's smoke model in bf16 on the card (one model
+    shared, the overlap engine, the ranks as threads on the default
+    stream): rank 1 dies at round 2 with its window queued; the survivors
+    shrink once to 2 ranks, re-route its requests and answer every one
+    with the stream one replica gives, at most 2 host syncs per retired
+    window summed over the ranks, through the flash decode and probe
+    kernels."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.device_channel import readback
+    from repro_torch.core.faults import FaultSchedule, FaultSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serve import (OK, EngineConfig, Replica, Request,
+                                   ServeGroup)
+
+    cfg = smoke_config("qwen3-1.7b").replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    conf = EngineConfig(num_slots=4, max_len=64, window=4)
+    rng = np.random.default_rng(19)
+    traffic = [(tuple(int(t) for t in rng.integers(1, cfg.vocab_size,
+                                                   int(rng.integers(2, 30)))),
+                int(rng.integers(3, 20))) for _ in range(9)]
+    reqs = lambda: [Request(id=i, prompt=p, max_new_tokens=n)  # noqa: E731
+                    for i, (p, n) in enumerate(traffic)]
+    rep = Replica(cfg, model, config=conf)
+    for r in reqs():
+        assert rep.submit(r) is None
+    want = {r.id: r.tokens for r in rep.run()}
+    group = ServeGroup(cfg, 3, model=model, config=conf)
+    reset_launch_counts()
+    readback.count = 0
+    res = group.serve(reqs(), faults=FaultSchedule(
+        [FaultSpec(step=2, kind="kill", rank=1)]))
+    torch.cuda.synchronize()
+    assert [rr.rank for rr in res.reports if rr.killed] == [1]
+    assert all(rr.exception is None for rr in res.reports)
+    for rank in (0, 2):
+        assert [e for e in res.report(rank).events if e[0] == "shrink"] == [
+            ("shrink", 2, 2)]
+    assert res.rerouted
+    assert all(r.status == OK for r in res.responses.values())
+    assert {r.replica for r in res.responses.values()} <= {0, 2}
+    assert {i: r.tokens for i, r in res.responses.items()} == want
+    # rank 1 retired at most one window in each of its 2 rounds
+    windows = sum(res.report(r).metrics.windows for r in (0, 2)) + 2
+    assert readback.count <= 2 * windows
+    counts = launch_counts()
+    assert counts["flash_decode"] > 0 and counts["probe_rows"] > 0

@@ -12,7 +12,7 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.core.device_channel import DeviceFuture
 from repro_torch.models import Model
-from repro_torch.serve import EngineConfig, Replica
+from repro_torch.serve import EngineConfig, Replica, ServeGroup
 from repro_torch.weights import cache_from_jax
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -33,9 +33,18 @@ def _imports(path):
             yield node.module or ""
 
 
+# the port's copies of modules of the JAX package that import no JAX
+COPIES = ("core/transport.py", "core/future.py", "core/blackchannel.py",
+          "core/ulfm.py", "core/comm.py", "core/instance.py",
+          "core/faults.py", "serve/ledger.py", "serve/group.py")
+
+
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in files if "repro_torch" in p.parts}
+    assert set(COPIES) <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files for name in _imports(p)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -51,6 +60,8 @@ def test_entry_points_default_to_the_card():
         Model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         Replica(cfg, config=EngineConfig(window=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeGroup(cfg, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         cache_from_jax({"periods": {}, "rest": []}, cfg.replace(num_layers=0))
     Model(cfg, device="cpu")                    # the CPU only when asked
