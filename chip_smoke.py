@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (``"phase": ...``):
+Phases, each printing one JSON line (``"phase": ...``, with ``t_s``, the
+seconds since the script started, when the line was printed):
 
 1. device     — the card, its capability (Hopper, 9.0 required) and the
    ``nvidia-smi`` name and power limit (also printed raw on a line of its own);
@@ -28,9 +29,19 @@ Phases, each printing one JSON line (``"phase": ...``):
    prefill step's forward;
 5. lflr       — the same traffic again with a NaN injected into an active
    slot's KV cache mid-run: the probe kernel must latch NONFINITE_LOSS, and
-   every stream must be bit-equal to phase 4;
+   every stream must be bit-equal to phase 4. The same faulted traffic
+   then runs again through a fresh replica with a
+   ``repro_torch.obs.Tracer``: the untraced run's streams, fault words,
+   recovery actions, kernel launches and host syncs (exactly 2 per window
+   plus one history readback per faulted window), the trace's
+   ``validate()`` empty, one fault event per attributed slot of each fault
+   record with its word and action, the poisoned slot's carrying
+   NONFINITE_LOSS, each fault closed by a recovered recovery span; the line
+   adds the event count and ms per window step of the two faulted runs,
+   traced and untraced (reported, not gated);
 6. engines    — qwen3-1.7b through the reference's three unpaged engines
-   on one traffic (8 requests, 8–32-token prompts, 12 new tokens):
+   on one traffic (6 requests, 8–32-token prompts, 12 new tokens; 8 before
+   the fuzz phase came, cut for the run's time):
    stepwise (``window=0``), decode windows with blocking prefill
    (``window=8, overlap=False``) and with overlapped prefill. The three
    streams must be equal token for token, host syncs at most 2 per step or
@@ -45,7 +56,9 @@ Phases, each printing one JSON line (``"phase": ...``):
    same launches per step; every page comes back at drain and the ledger is
    consistent. The line adds the pool's size and the device time of one
    whole-tree gather + scatter beside its bytes bound. The NaN goes into
-   the lane's first pool page, and the streams must be bit-equal;
+   the lane's first pool page, and the streams must be bit-equal. Both run
+   the first 10 requests (cut from 16 when the traced and fuzz phases came,
+   for the run's time; two freed slots are still refilled);
 9. page_fault — the same run, on the first 8 requests, with one decoding
    lane's page-table row unmapped mid-run: PAGE_FAULT raised at the wait on
    that slot, one ``page_reclaim`` record, every stream equal to phase 8's;
@@ -62,7 +75,9 @@ Phases, each printing one JSON line (``"phase": ...``):
    draft), the verify route once per layer and the probe once. Each line
    adds the drafts accepted and rejected and serve's ms per step beside
    its own; no fault record carries DRAFT_REJECT; serve_spec_paged runs the
-   first 8 requests (cut when the group phases came, for the run's time);
+   first 8 requests (cut when the group phases came), serve_spec and
+   lflr_spec the first 10 (cut from 16 when the traced and fuzz phases came,
+   for the run's time; two freed slots are still refilled);
 11b. serve_spec_deep — the seeded init makes qwen3 repeat its input token
    at every exit depth, so the drafts above all match: with the embedding
    drawn at a tenth of its scale, the engines traffic through the overlap
@@ -83,7 +98,22 @@ Phases, each printing one JSON line (``"phase": ...``):
    the answered requests come back from their ``retire`` records, the rest
    with phase 4's streams. Each line prints rounds, the median ms per
    round, fleet tokens/s and requests per rank, and device memory before
-   and after; any rank that failed, or died unscheduled, fails the run;
+   and after; any rank that failed, or died unscheduled, fails the run.
+   group_kill and group_replay run with ``trace=True``: ``validate()``
+   empty over the kill's trace and over the crash's and the restart's
+   merged; the kill's chain replica_kill → ulfm_shrink (ranks 0 and 2) →
+   reroute for each re-routed request, answered OK where it went, and the
+   dead rank's events in the merged trace; every rank's fleet_stop, then
+   the restart's ledger_replay, replica_join and completed state_transfer;
+11d. fuzz — on the qwen3 model still loaded, the reference corpus entries
+   of ``FUZZ_ENTRIES`` (one per single-replica engine: stepwise, window,
+   overlap, overlap_paged, spec, spec_paged; JSON read from
+   ``tests/fuzz_corpus``) replay through ``repro_torch.fuzz`` with the
+   kits built over the full-width model on the card (2 slots, windows of
+   4): zero violations (complete, bit-exact against the kit's clean run,
+   the page ledger, the trace's ``validate()``, no wedge), every answer OK
+   or FAILED, each kit's clean run bit-equal on a second call; the line
+   reports the cells each entry covered;
 12. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
@@ -92,9 +122,12 @@ Phases, each printing one JSON line (``"phase": ...``):
    the probe over the recurrent state and over the prefill logits;
 13. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
    RG-LRU, 8 sliding-window attention; bf16, seeded random weights), the
-   qwen3 model freed first;
-14. lflr_rg   — phase 5 for recurrentgemma-2b: the NaN goes into the slots'
-   recurrent state and the state probe must latch STATE_FAULT;
+   qwen3 model freed first, on the first 10 requests (cut from 16 when the
+   traced and fuzz phases came, for the run's time; two freed recurrent
+   slots are still refilled);
+14. lflr_rg   — phase 5 for recurrentgemma-2b, on the same 10 requests: the
+   NaN goes into the slots' recurrent state and the state probe must latch
+   STATE_FAULT;
 15. lflr_stepwise_rg — recurrentgemma's stepwise engine, 4 requests, clean
    and with a NaN in ``h``: the re-prefill rebuilds the lane across the
    state's (batch, layer) layout, and the streams are bit-equal;
@@ -145,6 +178,7 @@ import time
 from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
@@ -156,10 +190,14 @@ MAX_COPIES = 48                     # keeps a plain run's launches under the
 SPIN_CYCLES = 5 * 10 ** 7           # ~25 ms at 1.98 GHz: the host's head start
 NUM_SLOTS, MAX_LEN, WINDOW = 8, 1024, 8
 NUM_REQUESTS, MAX_NEW = 16, 64
+# the cut serve phases (paged, speculative, recurrentgemma): two requests
+# more than the slots, so that two freed slots are refilled
+REFILL_REQUESTS = NUM_SLOTS + 2
 LONG_PROMPT = 560                   # gemma3: past its 512-entry rings
 # the engines phases: the three engines of the reference's serving
-# benchmark on one short traffic
-ENGINE_REQUESTS, ENGINE_NEW = 8, 12
+# benchmark on one short traffic (6 requests, cut from 8 when the fuzz
+# phase came, for the run's time; serve_spec_deep's too)
+ENGINE_REQUESTS, ENGINE_NEW = 6, 12
 ENGINES = {"stepwise": dict(window=0),
            "blocking": dict(window=WINDOW, overlap=False),
            "overlap": dict(window=WINDOW, overlap=True)}
@@ -203,6 +241,9 @@ FLASH_F32_TOL = 2e-5                # abs + rel, as the card tests
 FORWARD_GAP_TOL = 2.0               # decode vs forward logits, bf16 and fp32
 PREFILL_B, PREFILL_S = 2, 4096      # prefill_32k cut to 1 card: 2x the window
 PREFILL_32K = 32768                 # prefill_32k's length, for the scan's timing
+# the fuzz phase: one corpus entry per single-replica engine
+FUZZ_ENTRIES = ("seed_stepwise_0_01", "seed_window_0_08", "seed_overlap_0_07",
+                "seed_overlap_paged_0_03", "seed_spec_0_04", "seed_spec_paged_0_00")
 
 
 def fail(msg: str) -> None:
@@ -211,6 +252,8 @@ def fail(msg: str) -> None:
 
 
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -718,7 +761,7 @@ def build_model(torch, cfg):
 
 def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                 long: int = 0, poison_layers=None, paged: bool = False,
-                want=None, n: int = NUM_REQUESTS, spec=None):
+                want=None, n: int = NUM_REQUESTS, spec=None, traced: bool = False):
     """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
     traffic clean, then again with an injected state fault (no second run
     where ``names[1]`` is None). ``long`` requests get
@@ -731,8 +774,12 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     the speculative windows: the streams must equal ``want`` (serve's), and
     the line adds the drafted,
     accepted and rejected tokens and serve's ms per step and tokens/s from
-    the same call. ``n`` cuts the traffic to its first requests. Returns
-    the clean run's kernel launches and streams."""
+    the same call. ``n`` cuts the traffic to its first requests. ``traced``
+    serves the faulted traffic a second time, through a fresh replica with
+    a ``Tracer``, holds it to the untraced faulted run and its trace to
+    :func:`check_lflr_trace`. Returns the kernel launches by path (the
+    clean run's under ``names[0]``, the traced run's under ``names[1]``)
+    and the clean streams."""
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -816,22 +863,30 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                              "accepted": m.accepted_draft_tokens,
                              "rejected": m.draft_tokens - m.accepted_draft_tokens}
     if names[1] is None:
-        return launches, streams(clean)
+        return {names[0]: launches}, streams(clean)
 
     # ---- same traffic, a NaN in an active slot's state mid-run, in a slot
     # decoding and busy past the in-flight and the next window (speculating,
     # past the in-flight window: it may commit K (D + 1) tokens)
-    rep.metrics = ServeMetrics()
     horizon = WINDOW * (spec["draft_len"] + 1) if spec else 2 * WINDOW
-    inject, state = injector(horizon, 6, MAX_NEW)
-    readback.count = 0
-    t0 = time.perf_counter()
-    faulted, injected = drive(rep, make_requests(cfg, Request, long, n), inject)
-    torch.cuda.synchronize()
-    lflr_wall = time.perf_counter() - t0
-    lflr_syncs = readback.count
-    fm = rep.metrics
-    if not injected:
+
+    def lflr_run(rep):
+        inject, state = injector(horizon, 6, MAX_NEW)
+        reset_launch_counts()
+        readback.count = 0
+        t0 = time.perf_counter()
+        answers, injected = drive(rep, make_requests(cfg, Request, long, n), inject)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(answers=answers, injected=injected, state=state, wall=wall,
+                    syncs=readback.count, launches=launch_counts(), m=rep.metrics,
+                    ms_per_step=wall / (WINDOW * rep.metrics.windows) * 1e3)
+
+    rep.metrics = ServeMetrics()
+    run = lflr_run(rep)
+    faulted, state, fm = run["answers"], run["state"], run["m"]
+    lflr_wall, lflr_syncs = run["wall"], run["syncs"]
+    if not run["injected"]:
         fail(f"{names[1]}: no decoding slot to poison")
     if poison_layers is not None and state["layers"] != poison_layers:
         fail(f"{names[1]}: the fault landed in layers {state['layers']}, not "
@@ -850,6 +905,46 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
         fail(f"{names[1]}: streams differ from the clean run for requests {diff}")
     if spec and any(f.code & int(ErrorCode.DRAFT_REJECT) for f in fm.faults):
         fail(f"{names[1]}: a fault record carries DRAFT_REJECT: {fm.faults}")
+    paths = {names[0]: launches}
+    trace_line = {}
+    if traced:
+        # the same faulted traffic again through a fresh replica with a
+        # Tracer: the same streams, fault words, recovery actions, host
+        # syncs and launches as the untraced run, and its trace's gates
+        from repro_torch.obs import Tracer
+        conf = rep.config
+        del rep
+        gc.collect()
+        tracer = Tracer()
+        rep = Replica(cfg, model, config=conf, tracer=tracer)
+        rep.warmup()                     # clears the warm-up's events
+        torch.cuda.synchronize()
+        traced_run = lflr_run(rep)
+        tm = traced_run["m"]
+        got = {i: r.tokens for i, r in traced_run["answers"].items()
+               if r.ok}
+        if got != streams(clean) or traced_run["state"]["slot"] != state["slot"]:
+            fail(f"{names[1]}: the traced run's streams or poisoned slot differ "
+                 "from the untraced run's")
+        decisions = [[(f.code, f.action, f.slots) for f in r.faults]
+                     for r in (fm, tm)]
+        if decisions[0] != decisions[1]:
+            fail(f"{names[1]}: fault words or actions traced {decisions[1]}, "
+                 f"untraced {decisions[0]}")
+        # tracing adds no sync: 2 per window, and the fault path's one
+        # readback of the window's word history (its steps, its per-slot
+        # words and the trace's fault events share the copy)
+        if (traced_run["syncs"] != lflr_syncs
+                or traced_run["syncs"] != 2 * tm.windows + len(tm.faults)):
+            fail(f"{names[1]}: {traced_run['syncs']} host syncs traced, "
+                 f"{lflr_syncs} untraced, for {tm.windows} windows and "
+                 f"{len(tm.faults)} faulted windows (2 per window, 1 per fault)")
+        if traced_run["launches"] != run["launches"]:
+            fail(f"{names[1]}: kernel launches traced {traced_run['launches']}, "
+                 f"untraced {run['launches']}")
+        paths[names[1]] = traced_run["launches"]
+        trace_line = check_lflr_trace(names[1], tracer, tm, state["slot"],
+                                      traced_run["ms_per_step"], run["ms_per_step"])
     emit({"phase": names[1], "card": card, "model": cfg.name,
           "poisoned_slot": state["slot"], "poisoned_layers": state["layers"],
           "latched": code.name,
@@ -857,11 +952,60 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                       "slots": list(f.slots)} for f in fm.faults],
           "recovery_action": latched[0].action,
           "retries": sum(r.retries for r in faulted.values()),
-          **({"ms_per_step": lflr_wall / (WINDOW * fm.windows) * 1e3,
+          **({"ms_per_step": run["ms_per_step"],
               "tokens_per_s": sum(len(r.tokens) for r in faulted.values()) / lflr_wall,
               **spec_report(fm, spec, lflr_syncs)} if spec else {}),
+          "syncs": lflr_syncs, "windows": fm.windows, **trace_line,
           "streams_bit_equal": True, "wall_s": lflr_wall})
-    return launches, streams(clean)
+    return paths, streams(clean)
+
+
+def check_lflr_trace(name: str, tracer, m, slot: int, ms_traced: float,
+                     ms_untraced: float) -> dict:
+    """The gates of a traced LFLR run: ``validate()`` empty; one fault
+    event per attributed ``(window, slot)`` of each fault record, carrying
+    the record's action and a word within the record's (together, the
+    record's word), the poisoned slot's with the probe's NONFINITE_LOSS;
+    every fault resolved by a recovery span that closed as recovered.
+    Returns the line's trace fields: the event count, and ms per window
+    step of the same faulted traffic traced and untraced, in the same call
+    (reported, not gated: steps move between runs, PERF.md §5)."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.obs import fault_report, merge_traces, validate
+
+    trace = merge_traces(tracer)
+    problems = validate(trace)
+    if problems:
+        fail(f"{name}: the trace does not validate: {problems[:5]}")
+    report = fault_report(trace)
+    want = sorted((f.action, s) for f in m.faults for s in f.slots)
+    got = sorted((fr.action, fr.slot) for fr in report)
+    if got != want:
+        fail(f"{name}: fault events {got}, fault records {want}")
+    for f in m.faults:
+        word = 0
+        for fr in report:
+            if fr.action == f.action and fr.slot in f.slots:
+                word |= fr.code
+        if word != f.code:
+            fail(f"{name}: the fault events' words OR to {word}, the record's "
+                 f"is {f.code}")
+    mine = [fr for fr in report if fr.slot == slot]
+    if not mine or not all(fr.code & int(ErrorCode.NONFINITE_LOSS) for fr in mine):
+        fail(f"{name}: no NONFINITE_LOSS fault event on the poisoned slot {slot}")
+    unclosed = [(fr.window, fr.step, fr.slot) for fr in report
+                if fr.recovery is None
+                or fr.recovery["args"].get("outcome") != "recovered"]
+    if unclosed:
+        fail(f"{name}: faults without a closed recovery span: {unclosed}")
+    return {"trace_events": tracer.num_events,
+            "trace_faults": [{"window": fr.window, "step": fr.step,
+                              "slot": fr.slot, "code": fr.code,
+                              "action": fr.action, "recovery_ms": fr.recovery_s * 1e3}
+                             for fr in report],
+            "ms_per_step_traced": ms_traced,
+            "ms_per_step_untraced": ms_untraced,
+            "traced_over_untraced": ms_traced / ms_untraced}
 
 
 def spec_launches(model, spec: dict, steps: int) -> dict:
@@ -1114,15 +1258,16 @@ def phase_spec(torch, card: str, model, init_s: float, want: dict) -> dict:
     the default page pool (every page back at drain), then
     :func:`phase_spec_deep`. One phase at least must show drafts both
     accepted and rejected. Returns each clean run's launches by path."""
-    paths = {}
-    paths["serve_spec"], _ = phase_serve(
+    # the first 10 requests only (cut from 16 when the traced and fuzz phases
+    # came, for the run's time: two freed slots still refilled)
+    paths, _ = phase_serve(
         torch, card, model, init_s, ("serve_spec", "lflr_spec"), spec=SPEC,
-        want=want)
+        n=REFILL_REQUESTS, want={i: want[i] for i in range(REFILL_REQUESTS)})
     # the first 8 requests only (cut when the group phases came, to keep the
     # run's time)
-    paths["serve_spec_paged"], _ = phase_serve(
+    paths.update(phase_serve(
         torch, card, model, init_s, ("serve_spec_paged", None), paged=True,
-        spec=SPEC, n=NUM_SLOTS, want={i: want[i] for i in range(NUM_SLOTS)})
+        spec=SPEC, n=NUM_SLOTS, want={i: want[i] for i in range(NUM_SLOTS)})[0])
     paths["serve_spec_deep"] = phase_spec_deep(torch, card, model)
     if not any(SERVE_LINES[p]["accepted"] and SERVE_LINES[p]["rejected"]
                for p in paths):
@@ -1211,13 +1356,18 @@ def group_run(torch, card: str, model, name: str, serve, want: dict, *,
 
 def phase_group(torch, card: str, model, want: dict) -> dict:
     """The group phases (qwen3 at full width, module docstring 11c):
-    ``want`` is serve's streams. Returns each phase's launches by path."""
+    ``want`` is serve's streams. ``group_kill`` and ``group_replay`` run
+    with ``trace=True`` (:func:`check_group_traces`). Returns each phase's
+    launches by path."""
     from repro_torch.core.faults import FaultSchedule, FaultSpec
     from repro_torch.serve import EngineConfig, Request, ServeGroup
 
     cfg = model.cfg
     conf = EngineConfig(window=WINDOW, num_slots=NUM_SLOTS, max_len=MAX_LEN)
+    traced = EngineConfig(window=WINDOW, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+                          trace=True)
     group = ServeGroup(cfg, GROUP_RANKS, model=model, config=conf)
+    tgroup = ServeGroup(cfg, GROUP_RANKS, model=model, config=traced)
     reqs = lambda: make_requests(cfg, Request, n=GROUP_REQUESTS)  # noqa: E731
     want = {i: want[i] for i in range(GROUP_REQUESTS)}
     paths = {}
@@ -1231,7 +1381,7 @@ def phase_group(torch, card: str, model, want: dict) -> dict:
 
     kill = FaultSchedule([FaultSpec(step=GROUP_FAULT_ROUND, kind="kill", rank=1)])
     res, paths["group_kill"], line = group_run(
-        torch, card, model, "group_kill", lambda: group.serve(reqs(), faults=kill),
+        torch, card, model, "group_kill", lambda: tgroup.serve(reqs(), faults=kill),
         want, killed=(1,))
     for rank in (0, 2):
         shrinks = [e for e in res.report(rank).events if e[0] == "shrink"]
@@ -1241,8 +1391,10 @@ def phase_group(torch, card: str, model, want: dict) -> dict:
     if not res.rerouted or set(line["requests_per_rank"]) - {"0", "2"}:
         fail(f"group_kill: re-routed {res.rerouted}, answered by "
              f"{line['requests_per_rank']}")
+    kill_trace = check_group_traces("group_kill", res.trace(), res.rerouted)
     emit({**line, "group_wall_s": clean_wall,
-          "shrink_round": GROUP_FAULT_ROUND, "rerouted": list(res.rerouted)})
+          "shrink_round": GROUP_FAULT_ROUND, "rerouted": list(res.rerouted),
+          **kill_trace})
 
     soft = FaultSchedule([FaultSpec(step=GROUP_FAULT_ROUND, kind="state_nan",
                                     rank=0)])
@@ -1266,13 +1418,13 @@ def phase_group(torch, card: str, model, want: dict) -> dict:
     if os.path.exists(wal):
         os.remove(wal)
     res1, crash_launches, line1 = group_run(
-        torch, card, model, "group_replay", lambda: group.serve(
+        torch, card, model, "group_replay", lambda: tgroup.serve(
             reqs(), ledger_path=wal, crash_at=GROUP_CRASH_AT), want,
         killed=range(GROUP_RANKS))
     if not res1.crashed or not res1.responses or len(res1.responses) == len(want):
         fail(f"group_replay: crashed {res1.crashed} with "
              f"{sorted(res1.responses)} answered: some, not all, expected")
-    spare = ServeGroup(cfg, GROUP_RANKS, model=model, config=conf,
+    spare = ServeGroup(cfg, GROUP_RANKS, model=model, config=traced,
                        max_ranks=GROUP_RANKS + 1)
     res2, paths["group_replay"], line = group_run(
         torch, card, model, "group_replay", lambda: spare.serve_from_ledger(
@@ -1283,11 +1435,118 @@ def phase_group(torch, card: str, model, want: dict) -> dict:
              f"{res2.joined}, replayed {res2.replayed}")
     for k, v in crash_launches.items():
         paths["group_replay"][k] += v
-    emit({**line, "crash_at": GROUP_CRASH_AT, "crash_wall_s": line1["wall_s"],
+    from repro_torch.obs import merge_trace_dicts
+    replay_trace = check_group_traces(
+        "group_replay", merge_trace_dicts(res1.trace(), res2.trace()), (),
+        crashed=res1.trace())
+    emit({**line, **replay_trace,
+          "crash_at": GROUP_CRASH_AT, "crash_wall_s": line1["wall_s"],
           "answered_before_crash": sorted(res1.responses),
           "replayed": list(res2.replayed), "joined": list(res2.joined),
           "epoch": res2.epoch, "launches": paths["group_replay"]})
     os.remove(wal)
+    return paths
+
+
+def check_group_traces(name: str, trace: dict, rerouted, crashed=None) -> dict:
+    """The trace gates of a traced group phase: ``validate()`` empty over the
+    (merged) trace. After a kill: one chain, rank 1's ``replica_kill`` then
+    a ``ulfm_shrink`` on each survivor and a ``reroute`` from rank 1 for
+    each re-routed request, each answered OK on the rank it went to, and
+    the dead rank's own events in the merged trace. After a crash and the
+    restart (``crashed``: the first incarnation's trace): each rank's
+    ``fleet_stop``, and the restart's ``ledger_replay`` instant and
+    ``replica_join`` and completed ``state_transfer`` spans. Returns the
+    line's trace fields."""
+    from repro_torch.obs import group_chains, validate
+    from repro_torch.serve import OK
+
+    evs = trace["traceEvents"]
+    problems = validate(trace)
+    if problems:
+        fail(f"{name}: the trace does not validate: {problems[:5]}")
+    names = Counter(e["name"] for e in evs if e["cat"] == "group")
+    out = {"trace_events": len(evs), "group_events": dict(sorted(names.items()))}
+    if crashed is None:
+        chains = group_chains(trace)
+        if len(chains) != 1 or chains[0]["dead_rank"] != 1:
+            fail(f"{name}: chains {[c['dead_rank'] for c in chains]}, not one of rank 1")
+        (chain,) = chains
+        shrunk = sorted(e["pid"] for e in chain["shrinks"])
+        moved = sorted(e["args"]["request"] for e in chain["reroutes"])
+        answered = {tid: (t["pid"], t["args"]["status"])
+                    for tid, t in chain["terminals"].items() if t is not None}
+        to = {e["args"]["request"]: e["args"]["to_rank"] for e in chain["reroutes"]}
+        if (shrunk != [0, 2] or moved != sorted(rerouted)
+                or any(answered.get(i) != (to[i], OK) for i in moved)):
+            fail(f"{name}: chain shrinks on {shrunk}, re-routes {moved} (want "
+                 f"{sorted(rerouted)}), answered {answered}")
+        dead = [e["name"] for e in evs if e["pid"] == 1]
+        if "replica_kill" not in dead or len(dead) < 2:
+            fail(f"{name}: the dead rank's events are not in the trace: {dead[:5]}")
+        out.update(chain=["replica_kill", "ulfm_shrink", "reroute"],
+                   chain_requests=moved, dead_rank_events=len(dead))
+    else:
+        stops = sorted(e["pid"] for e in crashed["traceEvents"]
+                       if e["name"] == "fleet_stop")
+        done = [e for e in evs if e["name"] == "state_transfer"
+                and e["args"].get("complete")]
+        if (stops != list(range(GROUP_RANKS)) or names["ledger_replay"] != 1
+                or names["replica_join"] != 1 or len(done) != 1):
+            fail(f"{name}: fleet stops on {stops}, group events {dict(names)}")
+    return out
+
+
+def phase_fuzz(torch, card: str, model) -> dict:
+    """The fuzz kits at full width (module docstring 11d): each of
+    ``FUZZ_ENTRIES`` (the reference corpus's JSON, read from the checkout)
+    replays through ``repro_torch.fuzz.run_trajectory`` with the kits built
+    over ``model`` on the card. Gates: zero violations (complete, bit-exact
+    against the kit's clean run, the page ledger, ``validate()``, no wedge
+    or crash); every response OK or FAILED; the kit's clean run bit-equal
+    to itself on a second call; the path through the kernels. The counts
+    go to 0 before each entry (its clean run, cached per load, included).
+    Returns each engine's launches by path (``fuzz_<engine>``)."""
+    from repro_torch.fuzz import load_entry, run_trajectory, runner, use_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import FAILED, OK
+
+    use_model(model)
+    paths, rows = {}, {}
+    try:
+        for entry_name in FUZZ_ENTRIES:
+            traj = load_entry(os.path.join(ROOT, "tests", "fuzz_corpus",
+                                           entry_name + ".json"))["trajectory"]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_trajectory(traj)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            statuses = Counter(r.status for r in res.responses.values())
+            if res.violations or set(statuses) - {OK, FAILED}:
+                fail(f"fuzz/{entry_name}: violations {res.violations[:5]}, "
+                     f"statuses {dict(statuses)}")
+            if not (launches["flash_decode"] and launches["probe_rows"]):
+                fail(f"fuzz/{entry_name}: not through the kernels: {launches}")
+            # the kit's clean run once more: the cache dropped, run anew
+            clean = runner.reference_tokens(traj.engine, *traj.load_key)
+            runner.reference_tokens.cache_clear()
+            if runner.reference_tokens(traj.engine, *traj.load_key) != clean:
+                fail(f"fuzz/{entry_name}: the {traj.engine} kit's clean run "
+                     "differs on a second call")
+            paths[f"fuzz_{traj.engine}"] = launches
+            rows[entry_name] = {
+                "engine": traj.engine, "ops": len(traj.ops), "wall_s": wall,
+                "statuses": dict(statuses), "cells": sorted("|".join(c) for c in res.cells),
+                "trace_events": res.summary.get("trace_events"),
+                "faults": res.summary.get("faults"), "launches": launches}
+    finally:
+        use_model(None)
+    emit({"phase": "fuzz", "card": card, "model": model.cfg.name,
+          "entries": rows, "violations": 0,
+          "cells": sorted({c for r in rows.values() for c in r["cells"]}),
+          "wall_s": sum(r["wall_s"] for r in rows.values())})
     return paths
 
 
@@ -2156,14 +2415,16 @@ def main() -> None:
 
     kern = phase_kernels(torch, card)
     model, init_s = build_model(torch, get_config("qwen3-1.7b"))
-    serve_q, serve_streams = phase_serve(torch, card, model, init_s)
+    serve_paths, serve_streams = phase_serve(torch, card, model, init_s, traced=True)
     engines = phase_engines(torch, card, model)
     for name, engine in (("lflr_stepwise", "stepwise"), ("lflr_blocking", "blocking")):
         phase_lflr_engine(torch, card, model, name, ENGINES[engine],
                           engines["streams"][engine])
+    # the first 10 requests only (cut from 16 when the traced and fuzz
+    # phases came, for the run's time; two freed slots still refilled)
     serve_paged, paged_streams = phase_serve(
         torch, card, model, init_s, ("serve_paged", "lflr_paged"), paged=True,
-        want=serve_streams)
+        n=REFILL_REQUESTS, want={i: serve_streams[i] for i in range(REFILL_REQUESTS)})
     # the first 8 requests only (cut when the speculative phases came, to
     # keep the run's time): page_fault still corrupts a decoding lane, and
     # 8 lanes still outgrow the 64-page pool
@@ -2173,13 +2434,18 @@ def main() -> None:
                                         engines["streams"]["blocking"])
     spec_paths = phase_spec(torch, card, model, init_s, serve_streams)
     group_paths = phase_group(torch, card, model, serve_streams)
+    fuzz_paths = phase_fuzz(torch, card, model)
     del model                                     # free qwen3 before rg
     gc.collect()
     torch.cuda.empty_cache()
 
     kern_rg = phase_kernels_rg(torch, card)
     model, init_s = build_model(torch, get_config("recurrentgemma-2b"))
-    serve_rg, _ = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"))
+    # the first 10 requests only (cut from 16 when the traced and fuzz
+    # phases came, for the run's time; two freed recurrent slots still
+    # refilled)
+    serve_rg, _ = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"),
+                              n=REFILL_REQUESTS)
     phase_lflr_stepwise_rg(torch, card, model)
     prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
     del model                                     # free rg before mamba2
@@ -2213,14 +2479,13 @@ def main() -> None:
         want={i: g3_streams[i] for i in range(NUM_SLOTS)})
     prefill_g3 = phase_prefill(torch, card, model, "prefill_g3")
     del model
-    paths = {"serve": serve_q,
+    paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
-             "serve_paged": serve_paged, "engines_paged": engines_paged,
-             **spec_paths, **group_paths,
-             "serve_g3_paged": serve_g3_paged,
-             "serve_rg": serve_rg, "prefill_rg": prefill_rg,
-             "serve_ssm": serve_ssm, "prefill_ssm": prefill_ssm,
-             "serve_g3": serve_g3, "prefill_g3": prefill_g3}
+             **serve_paged, "engines_paged": engines_paged,
+             **spec_paths, **group_paths, **fuzz_paths, **serve_g3_paged,
+             **serve_rg, "prefill_rg": prefill_rg,
+             **serve_ssm, "prefill_ssm": prefill_ssm,
+             **serve_g3, "prefill_g3": prefill_g3}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
         kernel_entry(

@@ -8,7 +8,14 @@ in-band error word and ``DeviceFuture``, and the recovery policy.
 from .blackchannel import ERR_TAG, BlackChannel  # noqa: F401
 from .comm import Comm  # noqa: F401
 from .detect import SERVE_PROBES, ProbeConfig, logits_probe  # noqa: F401
-from .device_channel import DeviceFuture, readback  # noqa: F401
+from .device_channel import (  # noqa: F401
+    MAX_ERRORS,
+    DeviceFuture,
+    combine_words,
+    decode_table,
+    enumerate_errors_ref,
+    readback,
+)
 from .errors import (  # noqa: F401
     OK_WORD,
     CancelledError,
@@ -29,6 +36,7 @@ from .faults import FaultSchedule, FaultSpec  # noqa: F401
 from .future import AsyncOp, Future  # noqa: F401
 from .instance import Instance, initialize  # noqa: F401
 from .recovery import Action, RecoveryDecision, RecoveryPolicy  # noqa: F401
+from .resilient import Event, EventLog  # noqa: F401
 from .transport import (  # noqa: F401
     ANY_SOURCE,
     ANY_TAG,

@@ -124,6 +124,7 @@ class DeviceFuture:
     history: Optional[torch.Tensor] = None   # (K, ranks) per-step words
     event: Optional["torch.cuda.Event"] = None
     _waited: bool = False
+    _history_host: Optional[np.ndarray] = None
 
     def wait(self) -> Any:
         if self._waited:
@@ -146,15 +147,23 @@ class DeviceFuture:
             raise CommCorruptedError(errors)
         raise PropagatedError(errors or [RankError(rank=-1, code=word)])
 
+    def result(self) -> Any:
+        return self.wait()
+
     def done(self) -> bool:
         """Non-blocking readiness probe (the paper's ``MPI_Test``): True iff
         ``wait()`` would not block — a CUDA ``Event.query()``."""
         return self._waited or self.event is None or self.event.query()
 
     def _host_history(self, ignore: int) -> Optional[np.ndarray]:
+        """The ``(K, ranks)`` history on the host, read back once: the
+        fault path's step attribution, its per-rank codes and the tracer's
+        fault events share one copy."""
         if self.history is None:
             return None
-        return strip_codes(readback(self.history).astype(np.uint32), ignore)
+        if self._history_host is None:
+            self._history_host = readback(self.history).astype(np.uint32)
+        return strip_codes(self._history_host, ignore)
 
     def fault_steps(self, *, ignore: int = 0) -> Optional[np.ndarray]:
         """Per-rank index of the first faulting window step, or -1 if clean

@@ -50,6 +50,16 @@ class ErrorCode(enum.IntFlag):
     RANK_FAILED = 1 << 24          # peer process/node lost
     COMM_CORRUPTED = 1 << 25       # communicator destroyed during unwinding
 
+    @property
+    def is_hard(self) -> bool:
+        """A hard fault (ULFM territory): a rank lost or a communicator
+        destroyed; the rest are soft, survivable in place."""
+        return bool(self & (ErrorCode.RANK_FAILED | ErrorCode.COMM_CORRUPTED))
+
+    @property
+    def is_soft(self) -> bool:
+        return bool(self) and not self.is_hard
+
     def classes(self) -> list["ErrorCode"]:
         """Decompose a combined code into its constituent single-bit classes."""
         return [c for c in ErrorCode if c != ErrorCode.OK and c & self and c.value & (c.value - 1) == 0]
@@ -68,6 +78,10 @@ class RankError:
 
     rank: int
     code: int
+
+    @property
+    def error_code(self) -> ErrorCode:
+        return ErrorCode(self.code)
 
     def __str__(self) -> str:  # pragma: no cover - repr sugar
         return f"rank {self.rank}: {ErrorCode(self.code)!r}"
@@ -96,6 +110,10 @@ class PropagatedError(ReproError):
         super().__init__(
             "propagated error(s): " + "; ".join(str(e) for e in self.errors)
         )
+
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        return tuple(e.rank for e in self.errors)
 
     @property
     def combined_code(self) -> ErrorCode:

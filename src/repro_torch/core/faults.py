@@ -7,7 +7,9 @@ able to communicate and hard faults (rank/node loss), plus stragglers. A
 group executes ``kill``/``shard_kill`` as a rank death and ``state_nan``
 through ``Replica.inject_state_fault``. The JAX package's device helpers
 (``inject_loss``/``grads``/``batch``/``state``) belong to the training path
-(ROADMAP Queue 1, item 13) and are not copied yet.
+(ROADMAP Queue 1, item 13) and are not copied yet; the integer functions of
+the plan (``inject_word``, ``code_word``, ``device_faults``,
+``host_faults``) are.
 """
 from __future__ import annotations
 
@@ -107,6 +109,38 @@ class FaultSchedule:
     def at(self, step: int, rank: int | None = None) -> list[FaultSpec]:
         return [s for s in self.specs
                 if s.step == step and (rank is None or s.rank == rank)]
+
+    def inject_word(self, step: int, rank: int | None = None) -> int:
+        """OR of the INJ_* device-injection bits scheduled for (step, rank).
+        Unknown kinds are rejected: a spec that matches no injection surface
+        would otherwise be dropped and its test would assert nothing."""
+        word = 0
+        for s in self.at(step, rank):
+            if s.kind not in KNOWN_KINDS:
+                raise ValueError(
+                    f"unknown fault kind {s.kind!r} (known: "
+                    f"{sorted(KNOWN_KINDS)})")
+            if s.kind == "code":
+                # validated here, so a bad spec fails at schedule time even
+                # if the consumer reads only the INJ word
+                validate_injectable_code(s.code)
+            word |= s.inject_bit
+        return word
+
+    def code_word(self, step: int, rank: int | None = None) -> int:
+        """OR of the validated in-band ErrorCode words scheduled for
+        (step, rank) through ``kind="code"`` specs."""
+        word = 0
+        for s in self.at(step, rank):
+            if s.kind == "code":
+                word |= validate_injectable_code(s.code)
+        return word
+
+    def device_faults(self) -> list[FaultSpec]:
+        return [s for s in self.specs if s.inject_bit or s.kind == "code"]
+
+    def host_faults(self) -> list[FaultSpec]:
+        return [s for s in self.specs if s.kind in _HOST_KINDS]
 
     def rng_for(self, rank: int, step: int) -> np.random.Generator:
         """Per-(rank, step) generator derived from the schedule seed."""

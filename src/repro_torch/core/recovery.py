@@ -97,3 +97,7 @@ class RecoveryPolicy:
         if code & ErrorCode.USER:
             return RecoveryDecision(Action.SKIP_BATCH, reason="user-signalled")
         return RecoveryDecision(Action.SKIP_BATCH, reason=f"default for {code!r}")
+
+    def reset(self) -> None:
+        """Forget the escalation window's fault history."""
+        self._recent_faults.clear()

@@ -23,3 +23,11 @@ class EventLog:
 
     def add(self, ev: Event) -> None:
         self.events.append(ev)
+
+    def faults(self) -> list[Event]:
+        return [e for e in self.events if e.kind == "fault"]
+
+    def by_action(self, action) -> list[Event]:
+        """The events whose recovery action is ``action`` (an
+        :class:`~repro_torch.core.recovery.Action`)."""
+        return [e for e in self.events if e.action == action.value]

@@ -6,6 +6,9 @@ slot)`` through the paper's enumeration, and recovers a faulted sequence by
 LFLR without stalling the other slots; :class:`ServeGroup` runs a fleet of
 replicas over the paper's host protocols (ULFM shrink and re-route on a
 replica's death, a write-ahead log to restart a crashed fleet from).
+Tracing (:mod:`repro_torch.obs`): pass ``tracer=Tracer(...)`` to a replica,
+or ``trace=True`` to a :class:`ServeGroup`, and each request's life becomes
+a causal chain of ``trace_event`` spans.
 """
 from .config import EngineConfig  # noqa: F401
 from .group import (  # noqa: F401
@@ -27,4 +30,10 @@ from .queue import (  # noqa: F401
     Response,
 )
 from .replica import Replica  # noqa: F401
-from .scheduler import ChunkPlan, ContinuousBatchingScheduler, Slot  # noqa: F401
+from .scheduler import (  # noqa: F401
+    ChunkPlan,
+    ContinuousBatchingScheduler,
+    PageAllocator,
+    PagePoolExhausted,
+    Slot,
+)

@@ -1,8 +1,10 @@
-# Trimmed copy of repro/serve/config.py: EngineConfig without the knobs of unported modes or the flag parser.
+# Trimmed copy of repro/serve/config.py: EngineConfig and its flag parser, without buffer donation.
 """EngineConfig — the one validated construction surface for serving engines.
 
-Every engine-shape knob lives here, validated once in ``__post_init__``.
-Runtime wiring (queues, clocks, injectors) stays out.
+Every engine-shape knob lives here, validated once in ``__post_init__``;
+:meth:`EngineConfig.from_flags` parses the ``"win=8,spec=1,dlen=3"`` strings
+of command-line tools. Runtime wiring (queues, tracers, clocks, injectors)
+stays out.
 """
 from __future__ import annotations
 
@@ -21,11 +23,13 @@ class EngineConfig:
     positions (``None``: ``num_slots * max_len // page_size``), and admits a
     request only while ``page_watermark`` pages stay free.
     ``speculate=True`` (window and overlap) drafts ``draft_len`` tokens a
-    step with the first ``draft_layers`` layers. The knobs of modes the port
-    does not run yet (trace sampling, donation) are left out; their switches
-    stay, so the port's :class:`~repro_torch.serve.Replica` can raise
-    ``NotImplementedError`` on ``tp > 1`` and ``trace``, naming the ROADMAP
-    item that ports each.
+    step with the first ``draft_layers`` layers. ``trace=True`` gives a
+    :class:`~repro_torch.serve.ServeGroup` one tracer per rank, keeping the
+    request-scoped events of a ``trace_sample`` share of the requests (a
+    :class:`~repro_torch.serve.Replica` takes a ``Tracer`` directly).
+    ``tp > 1`` stays a switch only: the port's replica raises
+    ``NotImplementedError`` on it, naming ROADMAP item 11. JAX's buffer
+    donation (``donate``) has no field: the port's caches update in place.
     """
 
     num_slots: int = 4
@@ -45,9 +49,11 @@ class EngineConfig:
     speculate: bool = False
     draft_len: int = 3
     draft_layers: int = 1
-    # ---- modes not ported yet --------------------------------------------
+    # ---- tensor parallelism (not ported yet: ROADMAP item 11) -----------
     tp: int = 1
+    # ---- tracing (consumed by ServeGroup; a Replica takes a Tracer) -------
     trace: bool = False
+    trace_sample: float = 1.0
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -75,6 +81,9 @@ class EngineConfig:
         if self.draft_layers < 1:
             raise ValueError("draft_layers must be >= 1, got "
                              f"{self.draft_layers}")
+        if not 0.0 <= self.trace_sample <= 1.0:
+            raise ValueError("trace_sample must be in [0, 1], got "
+                             f"{self.trace_sample}")
         # cross-field rules
         if self.paged and not self.window:
             raise ValueError("paged=True requires window mode (window=K)")
@@ -95,3 +104,56 @@ class EngineConfig:
             raise ValueError(
                 "tp>1 requires overlap=True: admission/LFLR must ride the "
                 "sharded windows (the blocking prefill path is single-device)")
+
+    # ------------------------------------------------------------ construction
+    @classmethod
+    def from_flags(cls, spec: str, **overrides) -> "EngineConfig":
+        """Parse ``"win=8,spec=1,dlen=3,paged=1,page=16"`` into an
+        EngineConfig. Bare keys are boolean shorthand (``"paged,spec"`` is
+        ``"paged=1,spec=1"``); ``overrides`` apply on top. Unknown keys
+        raise: a typo must not configure the default engine."""
+        bool_fields = {"overlap", "paged", "speculate", "trace"}
+        alias = {
+            "win": "window", "window": "window",
+            "slots": "num_slots", "num_slots": "num_slots",
+            "max_len": "max_len", "eos": "eos_id", "eos_id": "eos_id",
+            "retries": "max_request_retries",
+            "max_request_retries": "max_request_retries",
+            "overlap": "overlap",
+            "budget": "prefill_budget", "prefill_budget": "prefill_budget",
+            "page": "page_size", "page_size": "page_size",
+            "paged": "paged", "pages": "page_budget",
+            "page_budget": "page_budget",
+            "watermark": "page_watermark", "page_watermark": "page_watermark",
+            "spec": "speculate", "speculate": "speculate",
+            "dlen": "draft_len", "draft_len": "draft_len",
+            "dlayers": "draft_layers", "draft_layers": "draft_layers",
+            "tp": "tp", "trace": "trace", "trace_sample": "trace_sample",
+        }
+        kw: dict = {}
+        for part in (spec or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            k, _, v = part.partition("=")
+            if k not in alias:
+                raise ValueError(
+                    f"unknown engine flag {k!r} (known: "
+                    f"{sorted(set(alias))})")
+            field = alias[k]
+            if not v:
+                if field not in bool_fields and field != "window":
+                    raise ValueError(f"engine flag {k!r} needs a value")
+                kw[field] = True if field in bool_fields else kw.get(field, 0)
+                continue
+            if field in bool_fields:
+                kw[field] = bool(int(v))
+            elif field == "trace_sample":
+                kw[field] = float(v)
+            else:
+                kw[field] = int(v)
+            # ``page=16`` means a paged pool of 16-position pages
+            if k == "page" and int(v) > 0:
+                kw["paged"] = True
+        kw.update(overrides)
+        return cls(**kw)

@@ -41,9 +41,10 @@ One interpreter runs one thread's launches at a time anyway, and threads
 left to contend for it were slower: on an H100 a full-width qwen3 round of
 three ranks took 1.05–1.11 s that way, about twice the three windows one
 after another (likely each torch call that lets the interpreter go hands
-it to another rank and waits to get it back). Tracing waits for
-ROADMAP Queue 1, item 9, and ``tp > 1`` for item 11: both raise
-``NotImplementedError``.
+it to another rank and waits to get it back). With ``trace=True`` each rank
+records into its own :class:`~repro_torch.obs.Tracer` (``pid`` = rank), the
+replica's events under the step lock, the group's outside it; none calls
+into torch. ``tp > 1`` raises ``NotImplementedError`` (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -66,6 +67,7 @@ from .ledger import GroupLedger, WriteAheadLog
 from .ledger import replay as replay_ledger
 from .metrics import ServeMetrics
 from .queue import AdmissionPolicy, Request, RequestQueue, Response
+from ..obs.trace import NULL_TRACER, Tracer, merge_traces
 from .replica import Replica, _check_supported
 
 # chunking of the simulated join-time state transfer: enough chunks (with a
@@ -142,6 +144,7 @@ class GroupResult:
     epoch: int = 0                               # final membership epoch
     crashed: bool = False                        # fleet stopped mid-serve
     replayed: tuple[int, ...] = ()               # ids re-admitted from a WAL
+    tracers: dict[int, Tracer] = field(default_factory=dict)
 
     @property
     def ok(self) -> dict[int, Response]:
@@ -183,9 +186,10 @@ class GroupResult:
         return out
 
     def trace(self) -> dict:
-        raise NotImplementedError(
-            "group traces are not ported yet: ROADMAP Queue 1, item 9 "
-            "(tracing and fuzz kits)")
+        """All ranks' tracers (dead ones included: their events are the
+        cause half of the kill → shrink → re-route chain) merged into one
+        trace_event object."""
+        return merge_traces(*(self.tracers[r] for r in sorted(self.tracers)))
 
 
 class ServeGroup:
@@ -203,7 +207,7 @@ class ServeGroup:
                  transfer_pause_s: float = _TRANSFER_PAUSE_S):
         # the reference group's default engine: the stepwise engine, 2 slots
         config = config if config is not None else EngineConfig(num_slots=2)
-        _check_supported(config, None)
+        _check_supported(config)
         if nranks < 2:
             raise ValueError("a ServeGroup needs >= 2 replicas")
         if model is not None and device is not None and (
@@ -220,6 +224,8 @@ class ServeGroup:
         self.max_len = config.max_len
         self.timeout = timeout
         self.paged = bool(config.paged)
+        self.trace = bool(config.trace)
+        self.trace_sample = float(config.trace_sample)
         # one model on the device, shared by every rank's replica
         self.model = model if model is not None else Model(cfg, device=device,
                                                            seed=seed)
@@ -302,13 +308,13 @@ class ServeGroup:
             epoch0=rep.epoch, epoch_reason="replay", log_submits=False)
         return self._run(ledger, actives=members, faults=faults,
                          max_rounds=max_rounds, crash_at=crash_at,
-                         joins=joins)
+                         joins=joins, replay_info=rep)
 
     # ------------------------------------------------------------- the machine
     def _run(self, ledger: GroupLedger, *, actives: tuple[int, ...],
              faults: FaultSchedule | None, max_rounds: int,
-             crash_at: Optional[int],
-             joins: Optional[Sequence[int]]) -> GroupResult:
+             crash_at: Optional[int], joins: Optional[Sequence[int]],
+             replay_info=None) -> GroupResult:
         faults = (faults or FaultSchedule()).resolve(sorted(actives))
         policy = self.autoscale
         joins_at = Counter(int(r) for r in (joins or ()))
@@ -334,14 +340,30 @@ class ServeGroup:
         })
         epoch0 = ledger.epoch
         step_lock = threading.Lock()     # the rank threads' turns (docstring)
+        tracers: dict[int, Tracer] = {}
+        leader0 = min(actives)
 
-        def build_replica(rank: int) -> Replica:
+        def make_tracer(rank: int) -> Tracer:
+            if not self.trace:
+                return NULL_TRACER
+            tracer = Tracer(pid=rank, sample=self.trace_sample)
+            # registered up front, so a killed rank's events outlive it
+            tracers[rank] = tracer
+            return tracer
+
+        def build_replica(rank: int, tracer: Tracer) -> Replica:
             queue = RequestQueue(AdmissionPolicy(
-                max_queue=10_000, max_total_len=pool_cap))
+                max_queue=10_000, max_total_len=pool_cap), tracer=tracer)
             return Replica(self.cfg, self.model, config=self.config,
                            queue=queue, rank=rank)
 
-        def serve_rounds(ctx, comm, replica, report, my_epoch, *,
+        def reroutes(tracer: Tracer, moved) -> None:
+            for rid, old, new in moved:
+                tracer.instant("reroute", "group",
+                               trace_id=ledger.requests[rid].trace_id,
+                               request=rid, from_rank=old, to_rank=new)
+
+        def serve_rounds(ctx, comm, replica, tracer, report, my_epoch, *,
                          inject_faults=True):
             """The per-rank round loop — initial actives and joiners alike.
 
@@ -363,12 +385,19 @@ class ServeGroup:
                 if (crash_at is not None and round_i == crash_at
                         and inject_faults) or ledger.crashed:
                     ledger.crash()
+                    if tracer.enabled:
+                        tracer.instant("fleet_stop", "group", rank=ctx.rank,
+                                       round=round_i)
                     ctx.die()                           # never returns
                 for spec in (faults.at(round_i, ctx.rank)
                              if inject_faults else ()):
                     if spec.kind in ("kill", "shard_kill"):
                         # a TP shard loss takes its whole replica (one SPMD
-                        # program) down: the same hard fault as a kill
+                        # program) down: the same hard fault as a kill (its
+                        # shard_loss event waits for ROADMAP item 11)
+                        if tracer.enabled:
+                            tracer.instant("replica_kill", "group",
+                                           rank=ctx.rank, round=round_i)
                         ctx.die()                       # never returns
                     elif spec.kind == "state_nan":
                         slot = replica.inject_state_fault(
@@ -384,12 +413,16 @@ class ServeGroup:
                                 ("summon", round_i, summoned))
                     if policy is not None:
                         self._autoscale_tick(ledger, policy, replica,
-                                             round_i, report)
+                                             round_i, report, tracer)
                 # ---- graceful autoscale leave: drain, then propose the
                 # epoch that excludes us and keep exchanging until agreed
                 if ledger.leaving == ctx.rank and replica.idle():
                     left = ledger.depart(ctx.rank)
                     report.events.append(("depart", round_i, left))
+                    if tracer.enabled:
+                        tracer.instant("autoscale", "group", action="depart",
+                                       rank=ctx.rank, epoch=left,
+                                       round=round_i)
                 if ledger.leaving != ctx.rank:
                     limit = (None if not elastic else
                              max(0, 2 * self.num_slots - replica.load()))
@@ -425,6 +458,11 @@ class ServeGroup:
                     comm.shrink_to_survivors()
                     survivors = list(comm.context.members)
                     moved = ledger.on_death(set(prev) - set(survivors))
+                    if tracer.enabled:
+                        tracer.instant("ulfm_shrink", "group", rank=ctx.rank,
+                                       round=round_i,
+                                       survivors=sorted(survivors))
+                        reroutes(tracer, moved)
                     report.events.append(("shrink", round_i, len(survivors)))
                     if moved:
                         report.events.append(
@@ -442,6 +480,8 @@ class ServeGroup:
                     # member list, everyone re-keys the comm
                     moved = ledger.enter_epoch(decision.epoch)
                     members = ledger.members_of(decision.epoch)
+                    if tracer.enabled:
+                        reroutes(tracer, moved)
                     if moved:
                         report.events.append(
                             ("rebalance", round_i, [r for r, _, _ in moved]))
@@ -463,15 +503,25 @@ class ServeGroup:
                 f"rank {ctx.rank}: no global progress in {max_rounds} rounds "
                 f"({ledger.remaining()} requests unanswered)")
 
-        def join_rank(ctx, inst, replica, reason: str):
+        def join_rank(ctx, inst, tracer, replica, reason: str,
+                      t_join0: float):
             """Warm spare → serving member, without stalling survivors:
             receive state as a background lane, propose the widened epoch,
             meet the group on the repaired communicator."""
+            snap = ledger.state_snapshot or {}
+            t_xfer0 = time.monotonic()
             for _ in range(self.transfer_chunks):
                 if ledger.stopped:
                     ledger.abandon_join(ctx.rank)
                     return None             # fleet gone mid-transfer
                 time.sleep(self.transfer_pause_s)
+            if tracer.enabled:
+                tracer.span("state_transfer", "group", t_xfer0,
+                            time.monotonic(), rank=ctx.rank,
+                            bytes=snap.get("params_bytes", 0),
+                            num_pages=snap.get("num_pages", 0),
+                            chunks=self.transfer_chunks, reason=reason,
+                            complete=True)
             epoch = ledger.request_join(ctx.rank)
             if epoch is None:
                 return None                 # group finished while we warmed
@@ -487,30 +537,44 @@ class ServeGroup:
             epoch = ledger.agreed_epoch
             comm = inst.comm_world().repair(
                 ledger.members_of(epoch), ("serve-epoch", epoch))
+            if tracer.enabled:
+                tracer.span("replica_join", "group", t_join0,
+                            time.monotonic(), rank=ctx.rank, epoch=epoch,
+                            reason=reason, complete=True)
             report = RankReport(rank=ctx.rank, metrics=replica.metrics)
             report.events.append(("join", epoch, reason))
-            return serve_rounds(ctx, comm, replica, report, epoch,
+            return serve_rounds(ctx, comm, replica, tracer, report, epoch,
                                 inject_faults=False)
 
         def rank_fn(ctx):
             if ctx.rank in actives:
+                tracer = make_tracer(ctx.rank)
                 inst = initialize(ctx, default_timeout=self.timeout)
                 if launched == len(actives):
                     comm = inst.comm_world()
                 else:
                     comm = inst.comm_world().repair(
                         tuple(sorted(actives)), ("serve-epoch", epoch0))
-                replica = build_replica(ctx.rank)
+                if (replay_info is not None and ctx.rank == leader0
+                        and tracer.enabled):
+                    tracer.instant(
+                        "ledger_replay", "group", rank=ctx.rank,
+                        records=replay_info.records, torn=replay_info.torn,
+                        epoch=epoch0, outstanding=len(ledger.replayed),
+                        answered=len(replay_info.responses))
+                replica = build_replica(ctx.rank, tracer)
                 report = RankReport(rank=ctx.rank, metrics=replica.metrics)
-                return serve_rounds(ctx, comm, replica, report, epoch0)
+                return serve_rounds(ctx, comm, replica, tracer, report,
+                                    epoch0)
             # dormant spare: pre-warm at spawn, off the fleet's collective
             # path, then wait for a summons (join schedule or autoscale
             # grow) and exit quietly if the group stops first
             if ledger.stopped:
                 return None
             inst = initialize(ctx, default_timeout=self.timeout)
-            replica = build_replica(ctx.rank)
-            replica.warmup()
+            tracer = make_tracer(ctx.rank)
+            replica = build_replica(ctx.rank, tracer)
+            replica.warmup()                # clears the warm-up's events
             deadline = time.monotonic() + self.timeout * 3
             while time.monotonic() < deadline:
                 if ledger.stopped:
@@ -521,7 +585,8 @@ class ServeGroup:
                     return None             # nobody left to join
                 reason = ledger.summoned(ctx.rank)
                 if reason is not None:
-                    return join_rank(ctx, inst, replica, reason)
+                    return join_rank(ctx, inst, tracer, replica, reason,
+                                     time.monotonic())
                 time.sleep(0.002)
             ledger.abandon_join(ctx.rank)
             return None
@@ -532,7 +597,7 @@ class ServeGroup:
             ledger.wal.close()
         return GroupResult(
             responses=dict(ledger.responses), reports=results,
-            rerouted=tuple(ledger.rerouted),
+            rerouted=tuple(ledger.rerouted), tracers=tracers,
             rebalanced=tuple(ledger.rebalanced),
             joined=tuple(ledger.joined),
             autoscale=tuple(ledger.autoscale_events),
@@ -541,8 +606,8 @@ class ServeGroup:
 
     # -------------------------------------------------------------- autoscaler
     def _autoscale_tick(self, ledger: GroupLedger, policy: AutoscalePolicy,
-                        replica: Replica, round_i: int,
-                        report: RankReport) -> None:
+                        replica: Replica, round_i: int, report: RankReport,
+                        tracer: Tracer = NULL_TRACER) -> None:
         """One leader-side policy sample. Grow and shrink both land on the
         ledger's epoch path — the same reconfiguration the fault handler
         drives — so elasticity adds no second membership mechanism."""
@@ -565,6 +630,9 @@ class ServeGroup:
                 st["last_change"] = round_i
                 ledger.autoscale_events.append(
                     {"round": round_i, "action": "grow", "rank": rank})
+                if tracer.enabled:
+                    tracer.instant("autoscale", "group", action="grow",
+                                   rank=rank, round=round_i)
                 report.events.append(("autoscale", round_i, ("grow", rank)))
         elif (st["idle"] >= policy.shrink_idle and since >= policy.cooldown
                 and len(members) > max(2, policy.min_ranks)
@@ -575,5 +643,8 @@ class ServeGroup:
                 st["last_change"] = round_i
                 ledger.autoscale_events.append(
                     {"round": round_i, "action": "shrink", "rank": victim})
+                if tracer.enabled:
+                    tracer.instant("autoscale", "group", action="shrink",
+                                   rank=victim, round=round_i)
                 report.events.append(
                     ("autoscale", round_i, ("shrink", victim)))

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/serve/queue.py: the request types and the EDF queue, without tracing.
+# Copy of repro/serve/queue.py: the request types and the EDF queue, with its tracer hooks.
 """Request/response types, admission control and the deadline-aware queue.
 
 The serving analogue of the paper's contract is applied at the *request*
@@ -22,7 +22,9 @@ import itertools
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
+
+from ..obs.trace import NULL_TRACER, Tracer
 
 
 # Terminal request statuses.
@@ -42,9 +44,11 @@ class Request:
     deadline: Optional[float] = None     # absolute, in the queue's clock domain
     arrival_t: Optional[float] = None    # stamped once by RequestQueue.submit
     retries: int = 0                     # LFLR recomputes consumed so far
-    trace_id: Optional[int] = None       # the request's trace id: None until
-                                         # the tracer is ported (ROADMAP item
-                                         # 9); the WAL carries it
+    trace_id: Optional[int] = None       # stamped once by RequestQueue.submit
+                                         # (None = untraced / sampled out);
+                                         # survives re-routes, requeues and
+                                         # the WAL, so a post-mortem sees one
+                                         # causal chain
 
     def __post_init__(self):
         self.prompt = tuple(int(t) for t in self.prompt)
@@ -102,9 +106,11 @@ class RequestQueue:
     """
 
     def __init__(self, policy: AdmissionPolicy | None = None, *,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 tracer: Tracer | None = None):
         self.policy = policy or AdmissionPolicy()
         self.clock = clock
+        self.tracer = tracer or NULL_TRACER
         self._lock = threading.Lock()
         self._heap: list[tuple[float, int, Request]] = []
         self._seq = itertools.count()
@@ -120,13 +126,26 @@ class RequestQueue:
         with self._lock:
             reason = self.policy.reject_reason(req, len(self._heap))
             if reason is not None:
+                if self.tracer.enabled:
+                    self.tracer.instant("reject", "request", ts=now,
+                                        request_id=req.id, reason=reason)
                 return Response(id=req.id, status=REJECTED, detail=reason)
-            if req.arrival_t is None:
+            stamp = req.arrival_t is None
+            if stamp:
                 # stamp once: a re-submitted request keeps its original
-                # acceptance time, so latency/TTFT include the whole delay
+                # acceptance time, so latency/TTFT include the whole delay,
+                # and its trace id, so a post-mortem stitches both replicas
+                # into one causal chain
                 req.arrival_t = now
             key = req.deadline if req.deadline is not None else float("inf")
             heapq.heappush(self._heap, (key, next(self._seq), req))
+        if stamp and self.tracer.enabled and req.trace_id is None:
+            req.trace_id = self.tracer.start_request(req, now)
+        elif not stamp and self.tracer.enabled and req.trace_id is not None:
+            # re-submission of an accepted request (a ledger re-route after
+            # a kill): a causal hop, not a new request
+            self.tracer.instant("resubmit", "request", ts=now,
+                                trace_id=req.trace_id)
         return None
 
     def requeue(self, req: Request) -> None:
@@ -141,9 +160,20 @@ class RequestQueue:
         eviction under memory pressure."""
         if req.arrival_t is None:
             raise ValueError("requeue is for accepted requests")
+        if self.tracer.enabled and req.trace_id is not None:
+            self.tracer.instant("requeue", "sched", trace_id=req.trace_id)
         with self._lock:
             key = req.deadline if req.deadline is not None else float("inf")
             heapq.heappush(self._heap, (key, next(self._rseq), req))
+
+    def submit_all(self, reqs: Iterable[Request]) -> list[Response]:
+        """Submit many; returns the rejections (accepted ones return later)."""
+        out = []
+        for r in reqs:
+            resp = self.submit(r)
+            if resp is not None:
+                out.append(resp)
+        return out
 
     def pop(self, now: Optional[float] = None) -> Optional[Request]:
         """Earliest-deadline request still able to start; expired ones are set

@@ -62,7 +62,16 @@ Host syncs: two :func:`~repro_torch.core.device_channel.readback` calls per
 stepwise step or retired window (the error word with its enumeration table,
 then the tokens — speculating, the tokens and the accepted counts in one
 copy) and per blocking prefill (its word, then its token), plus the window
-history on the fault path (and the per-slot codes when paged).
+history on the fault path, read once for the fault steps, the per-slot codes
+and the trace's fault events.
+
+Tracing: with a :class:`~repro_torch.obs.Tracer` (given, or the queue's),
+the replica emits the JAX replica's events — slot assignment, prompt
+chunks, window and decode spans, first tokens, page allocation, frees and
+evictions, speculation counts, one ``fault`` event per attributed slot with
+its exact word, and a recovery lane from each decision to the lane's first
+healthy token — each from values the host already holds; the
+``NULL_TRACER`` default records nothing.
 """
 from __future__ import annotations
 
@@ -90,6 +99,7 @@ from ..launch.steps import (make_cache_prefill, make_decode_window,
                             make_speculative_decode_window)
 from ..models.model import (KV_LEAVES, Model, insert_cache_slot,
                             reset_cache_slot, slot_layer_view)
+from ..obs.trace import NULL_TRACER, Tracer
 from .config import EngineConfig
 from .metrics import ServeMetrics
 from .queue import EXPIRED, FAILED, AdmissionPolicy, Request, RequestQueue, Response
@@ -97,16 +107,12 @@ from .scheduler import (ContinuousBatchingScheduler, PageAllocator,
                         PagePoolExhausted)
 
 
-def _check_supported(config: EngineConfig, tracer: Any) -> None:
-    """The modes of the JAX replica this port does not run yet."""
-    missing = [
-        (config.tp > 1, "tp>1", "ROADMAP Queue 1, item 11 (tensor parallel)"),
-        (config.trace or tracer is not None, "tracing",
-         "ROADMAP Queue 1, item 9 (tracing and fuzz kits)"),
-    ]
-    for bad, what, item in missing:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet: {item}")
+def _check_supported(config: EngineConfig) -> None:
+    """The mode of the JAX replica this port does not run yet."""
+    if config.tp > 1:
+        raise NotImplementedError(
+            "tp>1 is not ported yet: ROADMAP Queue 1, item 11 (tensor "
+            "parallel)")
 
 
 def slot_enum(words: torch.Tensor, mask: torch.Tensor):
@@ -156,6 +162,15 @@ class _WindowInFlight:
     start_row: Optional[np.ndarray] = None
     rem0: Optional[np.ndarray] = None
     deferred: Optional[np.ndarray] = None
+    # tracing only: the dispatch's wall time and index (``_step_count`` at
+    # dispatch), so the retire-side span covers the window's whole life and
+    # a fault event names its window; ``trace_ids`` snapshots the lanes'
+    # trace ids at dispatch (empty when tracing is off), so a fault goes to
+    # the request whose state the window computed with, even if it left the
+    # slot before the deferred detection surfaced the fault
+    t_dispatch: float = 0.0
+    index: int = 0
+    trace_ids: tuple = ()
 
 
 class Replica:
@@ -169,10 +184,10 @@ class Replica:
                  metrics: ServeMetrics | None = None,
                  rank: int = 0,
                  clock: Callable[[], float] = time.monotonic,
-                 tracer: Any = None,
+                 tracer: Optional[Tracer] = None,
                  fault_injector: Optional[Callable] = None):
         config = config if config is not None else EngineConfig()
-        _check_supported(config, tracer)
+        _check_supported(config)
         if model is not None and device is not None and (
                 torch.device(device) != model.device):
             raise ValueError(f"model lives on {model.device}, not {device}")
@@ -186,6 +201,21 @@ class Replica:
         self.clock = clock
         self.policy = policy or RecoveryPolicy()
         self.metrics = metrics or ServeMetrics(clock=clock)
+        # fault-causality tracing: an explicit tracer, else the given
+        # queue's (a ServeGroup threads one per rank through both), else the
+        # NullTracer. Every emit site checks ``self.trace.enabled`` first,
+        # and builds its event from values the host already holds
+        if tracer is not None:
+            self.trace = tracer
+        elif queue is not None and queue.tracer.enabled:
+            self.trace = queue.tracer
+        else:
+            self.trace = NULL_TRACER
+        # slot -> open recovery lane (trace_id, t0, code, action, window):
+        # opened at the recovery decision, closed by the lane's first
+        # healthy committed token, or swept as abandoned when its request
+        # leaves the slot without one (its terminal response resolves it)
+        self._recovering: dict[int, dict] = {}
         self.max_request_retries = config.max_request_retries
         # deterministic in-band fault-word injection: called once per
         # dispatch with the dispatch index and the (K, slots) words shape;
@@ -233,7 +263,8 @@ class Replica:
         else:
             self.caches = self.model.init_cache(num_slots, config.max_len)
         self.queue = queue or RequestQueue(
-            AdmissionPolicy(max_total_len=pool_cap), clock=clock)
+            AdmissionPolicy(max_total_len=pool_cap), clock=clock,
+            tracer=self.trace)
         self.sched = ContinuousBatchingScheduler(
             num_slots, self.queue, replica=rank, eos_id=config.eos_id,
             clock=clock, prefill_budget=config.prefill_budget,
@@ -301,6 +332,10 @@ class Replica:
             self.page_table[slot, :] = self.layout.sentinel
             self.metrics.record_pages(freed=len(freed),
                                       in_use=self.alloc.pages_in_use)
+            if self.trace.enabled:
+                self.trace.instant("page_free", "page", tid=slot, slot=slot,
+                                   pages=len(freed),
+                                   in_use=self.alloc.pages_in_use)
 
     def _oldest_active(self, exclude: frozenset) -> Optional[int]:
         """Eviction victim: the oldest-arrival active lane that owns pages."""
@@ -320,6 +355,9 @@ class Replica:
         prompt on its next slot; no request is dropped). The window in
         flight's lane is invalidated so its stale block is skipped."""
         req = self.sched.preempt(victim)          # on_release frees the pages
+        if self.trace.enabled:
+            self.trace.instant("page_evict", "page", tid=victim, slot=victim,
+                               trace_id=req.trace_id)
         self.queue.requeue(req)
         self.metrics.record_page_eviction()
         if self._pending is not None:
@@ -362,6 +400,9 @@ class Replica:
         self.page_table[slot, n_owned - len(got):n_owned] = got
         self.metrics.record_pages(allocated=len(got),
                                   in_use=self.alloc.pages_in_use)
+        if self.trace.enabled:
+            self.trace.instant("page_alloc", "page", tid=slot, slot=slot,
+                               pages=len(got), in_use=self.alloc.pages_in_use)
         return got
 
     def _paged_prepare(self, plan: dict) -> None:
@@ -424,6 +465,7 @@ class Replica:
             raise RuntimeError("warmup request rejected")
         self.run()
         self.metrics = ServeMetrics(clock=self.clock)
+        self.trace.clear()       # the warm-up's events would pollute the trace
 
     # ------------------------------------------------------------- submission
     def submit(self, req: Request) -> Optional[Response]:
@@ -588,6 +630,9 @@ class Replica:
                                 trace_id=req.trace_id))
         out.extend(self.sched.expire_active(now))
         for slot, _req in self.sched.backfill(now):
+            if self.trace.enabled and _req.trace_id is not None:
+                self.trace.instant("slot_assign", "sched", ts=now, tid=slot,
+                                   trace_id=_req.trace_id, slot=slot)
             if self.overlap:
                 # admission is a background lane: the scheduler chunks the
                 # prompt into subsequent decode windows — no blocking prefill
@@ -604,6 +649,11 @@ class Replica:
             out.extend(self._decode_step())
         for resp in out:
             self.metrics.record_response(resp)
+        if self.trace.enabled:
+            t_done = self.clock()
+            for resp in out:
+                self.trace.end_request(resp, t_done)
+            self._sweep_recoveries(t_done)
         return out
 
     def run(self, *, max_steps: int = 100_000) -> list[Response]:
@@ -624,6 +674,63 @@ class Replica:
     def idle(self) -> bool:
         return (not len(self.queue) and not self.sched.has_active()
                 and self._pending is None)
+
+    # ------------------------------------------------------ recovery lanes
+    def _trace_recovery_begin(self, slot: int, trace_id: Optional[int],
+                              code: int, action: str, window: int,
+                              now: float) -> None:
+        """Open a recovery lane for ``slot``, first closing as re-faulted
+        any lane the slot still had open (its recompute faulted again
+        before a healthy token)."""
+        old = self._recovering.pop(slot, None)
+        if old is not None:
+            self.trace.span("recovery", "recovery", old["t0"], now, tid=slot,
+                            trace_id=old["trace_id"], slot=slot,
+                            window=old["window"], action=old["action"],
+                            code=old["code"], outcome="refaulted")
+        if trace_id is None:
+            return
+        self._recovering[slot] = {"trace_id": trace_id, "t0": now,
+                                  "code": code, "action": action,
+                                  "window": window}
+
+    def _trace_recovery_end(self, slot: int, trace_id: Optional[int],
+                            now: float, outcome: str) -> None:
+        """Close ``slot``'s recovery lane: the span runs from the recovery
+        decision to the first healthy token after it."""
+        ctx = self._recovering.get(slot)
+        if ctx is None or ctx["trace_id"] != trace_id:
+            return
+        del self._recovering[slot]
+        self.trace.span("recovery", "recovery", ctx["t0"], now, tid=slot,
+                        trace_id=trace_id, slot=slot, window=ctx["window"],
+                        action=ctx["action"], code=ctx["code"],
+                        outcome=outcome)
+
+    def _sweep_recoveries(self, now: float) -> None:
+        """Close the recovery lanes whose request left the slot without a
+        token after the recovery (FAILED, EXPIRED, preempted): its terminal
+        response resolves the fault, and the span records the recompute as
+        abandoned."""
+        for slot, ctx in list(self._recovering.items()):
+            s = self.sched.slots[slot]
+            if s.active and s.req.trace_id == ctx["trace_id"]:
+                continue
+            del self._recovering[slot]
+            self.trace.span("recovery", "recovery", ctx["t0"], now, tid=slot,
+                            trace_id=ctx["trace_id"], slot=slot,
+                            window=ctx["window"], action=ctx["action"],
+                            code=ctx["code"], outcome="abandoned")
+
+    def _fault_event(self, t: float, slot: int, trace_id: Optional[int],
+                     word: int, action: str, **where) -> None:
+        """One ``fault`` event: the slot's exact error word, its classes,
+        the recovery action, and where it latched (``window``/``step``)."""
+        self.trace.instant(
+            "fault", "fault", ts=t, tid=slot, trace_id=trace_id, slot=slot,
+            **where, code=word,
+            code_names=[c.name for c in ErrorCode(word).classes()],
+            action=action)
 
     # ------------------------------------------------------- stepwise engine
     def _decode_step(self) -> list[Response]:
@@ -672,6 +779,20 @@ class Replica:
             faulted = list(self.sched.active_slots())
         self.metrics.record_fault(self._step_count, int(exc.combined_code),
                                   decision.action.value, tuple(faulted))
+        slot_codes: dict[int, int] = {}
+        if self.trace.enabled:
+            # no window history: the enumeration's (slot, code) pairs are
+            # the exact attribution
+            for e in exc.errors:
+                if 0 <= e.rank < num_slots:
+                    slot_codes[e.rank] = slot_codes.get(e.rank, 0) | int(e.code)
+            t_fault = self.clock()
+            for slot in faulted:
+                s = self.sched.slots[slot]
+                self._fault_event(
+                    t_fault, slot, s.req.trace_id if s.active else None,
+                    slot_codes.get(slot, int(exc.combined_code)),
+                    decision.action.value, step=self._step_count)
         self._slot_logits = fut.outputs
         if decision.action is Action.ROLLBACK:
             # escalation: recompute every lane (whole-batch recompute is the
@@ -697,6 +818,12 @@ class Replica:
                     slot, FAILED,
                     detail=f"{decision.reason} (retries={retries})"))
                 continue
+            if self.trace.enabled:
+                word = (slot_codes.get(slot, int(exc.combined_code))
+                        if slot in faulted_set else 0)
+                self._trace_recovery_begin(
+                    slot, self.sched.request(slot).trace_id, word,
+                    decision.action.value, self._step_count, self.clock())
             resp = self._prefill_slot(slot)  # LFLR: recompute, don't restart
             if resp is not None:
                 out.append(resp)
@@ -727,6 +854,10 @@ class Replica:
         block is skipped at retirement."""
         t0 = self.clock()
         S = self.sched.num_slots
+        if self.trace.enabled:
+            # read before the commit: a finishing lane clears its slot
+            tr = self.sched.request(slot).trace_id
+            first_before = self.sched.slots[slot].t_first
         try:
             while True:
                 seq = np.asarray(self.sched.sequence_tokens(slot), np.int32)
@@ -752,6 +883,14 @@ class Replica:
                     self.metrics.record_fault(self._step_count,
                                               int(exc.combined_code),
                                               "prefill_retry", (slot,))
+                    if self.trace.enabled:
+                        word = int(exc.combined_code)
+                        self._fault_event(self.clock(), slot, tr, word,
+                                          "prefill_retry",
+                                          step=self._step_count)
+                        self._trace_recovery_begin(
+                            slot, tr, word, "prefill_retry",
+                            self._step_count, self.clock())
                     if retries > self.max_request_retries:
                         return self.sched.evict(
                             slot, FAILED,
@@ -759,8 +898,16 @@ class Replica:
             tok = int(readback(torch.argmax(logits[slot, -1])))
             if not self.paged:
                 insert_cache_slot(self.caches, self._scratch, slot, slot)
-            resp = self.sched.commit_token(slot, tok, self.clock())
+            t_commit = self.clock()
+            resp = self.sched.commit_token(slot, tok, t_commit)
             self.metrics.record_prefill(1)
+            if self.trace.enabled and tr is not None:
+                self.trace.span("prefill", "prefill", t0, t_commit, tid=slot,
+                                trace_id=tr, slot=slot, tokens=len(seq))
+                if first_before is None:
+                    self.trace.instant("first_token", "request", ts=t_commit,
+                                       tid=slot, trace_id=tr)
+                self._trace_recovery_end(slot, tr, t_commit, "recovered")
             if self.window:
                 s = self.sched.slots[slot]
                 self._dev_tokens[slot] = tok
@@ -788,6 +935,7 @@ class Replica:
         self._step_count += 1
         sched, K = self.sched, self.window
         S = sched.num_slots
+        t_disp = self.clock() if self.trace.enabled else 0.0
         # speculating, the prompt feed rides the verify width: up to
         # K (D + 1) prompt tokens per lane a window
         width = self.draft_len + 1 if self.speculate else 1
@@ -803,7 +951,8 @@ class Replica:
         if self.speculate:
             lanes.update(start_row=np.zeros(S, np.int64),
                          rem0=np.zeros(S, np.int64), deferred=np.zeros(S, bool))
-        feed = self._plan_chunks(plan, mask, lanes) if self.overlap else ()
+        feed = (self._plan_chunks(plan, mask, lanes, t_disp) if self.overlap
+                else ())
         # one upload per window, from a copy: the host table may change
         # before the copy engine reads it
         table = ((self._to_device(self.page_table.copy()),) if self.paged
@@ -824,10 +973,15 @@ class Replica:
         fut = DeviceFuture(outputs=outputs, word=combined, count=count,
                            table=table, history=hist,
                            event=record_event(self.device))
-        return _WindowInFlight(fut=fut, req_ids=req_ids,
-                               valid=np.ones(S, bool), **lanes)
+        return _WindowInFlight(
+            fut=fut, req_ids=req_ids, valid=np.ones(S, bool), **lanes,
+            t_dispatch=t_disp, index=self._step_count,
+            trace_ids=(tuple(s.req.trace_id if s.active else None
+                             for s in sched.slots)
+                       if self.trace.enabled else ()))
 
-    def _plan_chunks(self, plan: dict, mask: np.ndarray, lanes: dict) -> tuple:
+    def _plan_chunks(self, plan: dict, mask: np.ndarray, lanes: dict,
+                     t_disp: float) -> tuple:
         """The overlapped window's prompt feed on the device, ``(chunk (K,
         S), rem (S,))`` or, speculating, ``(chunk (K, D + 1, S), rem (S,))``,
         from the scheduler's ``plan``; deferred lanes are masked out, and
@@ -868,6 +1022,14 @@ class Replica:
                 lanes["start_row"][slot] = rf if cp.exhausts else 0
                 lanes["rem0"][slot] = cp.rem
             self.metrics.record_chunk(cp.rem)
+            if self.trace.enabled:
+                tr = sched.slots[slot].req.trace_id
+                if tr is not None:
+                    self.trace.instant(
+                        "chunk", "prefill", ts=t_disp, tid=slot,
+                        trace_id=tr, slot=slot, tokens=cp.rem,
+                        fresh=cp.fresh, exhausts=cp.exhausts,
+                        window=self._step_count)
         if not self.speculate:
             chunk = np.ascontiguousarray(chunk[:, 0])   # one token a step
         return self._to_device(chunk), self._to_device(rem)
@@ -877,10 +1039,18 @@ class Replica:
             # the device is still computing this window at its retirement —
             # the pipeline, not the host, is the bottleneck right now
             self.metrics.record_window_wait()
+            if self.trace.enabled:
+                self.trace.instant("window_wait", "window", window=win.index)
         try:
             block = win.fut.wait()
         except PropagatedError as exc:
+            if self.trace.enabled:
+                self.trace.span("window", "window", win.t_dispatch,
+                                self.clock(), window=win.index, faulted=True)
             return self._recover_window(win, exc)
+        if self.trace.enabled:
+            self.trace.span("window", "window", win.t_dispatch, self.clock(),
+                            window=win.index, faulted=False)
         toks, counts = self._read_block(block)
         if counts is not None:
             self._note_advance(win, counts)
@@ -931,6 +1101,9 @@ class Replica:
                 per_slot[slot] = (d, a)
         if drafted:
             self.metrics.record_spec(drafted, accepted, per_slot)
+            if self.trace.enabled:
+                self.trace.instant("speculate", "spec", window=win.index,
+                                   drafted=drafted, accepted=accepted)
 
     def _flat_block(self, win: _WindowInFlight, toks: np.ndarray,
                     counts: np.ndarray, slot: int, lo: int,
@@ -980,10 +1153,23 @@ class Replica:
                 block = toks[lo:limit, slot]
             else:
                 block = self._flat_block(win, toks, counts, slot, lo, limit)
+            if self.trace.enabled:
+                # read before the commit: a finishing lane clears its slot
+                tr = s.req.trace_id
+                first_before = s.t_first
             k, done = (self.sched.commit_block(slot, block, now)
                        if len(block) else (0, None))
             committed += k
             discarded += emitted - k
+            if self.trace.enabled and tr is not None:
+                self.trace.span("decode", "window", win.t_dispatch, now,
+                                tid=slot, trace_id=tr, window=win.index,
+                                committed=k, discarded=emitted - k)
+                if k and first_before is None:
+                    self.trace.instant("first_token", "request", ts=now,
+                                       tid=slot, trace_id=tr)
+                if k:
+                    self._trace_recovery_end(slot, tr, now, "recovered")
             if done is not None:
                 out.append(done)
         self.metrics.record_window(committed, discarded, K)
@@ -1020,19 +1206,34 @@ class Replica:
         decision = self.policy.decide(exc, self._step_count)
         self.metrics.record_fault(self._step_count, int(exc.combined_code),
                                   decision.action.value, tuple(faulted))
+        # the per-slot words: the window history's OR-fold, which never
+        # truncates (unlike the enumeration table), read back once with the
+        # fault steps above
+        codes = (win.fut.fault_codes()
+                 if (self.paged or self.trace.enabled) else None)
         if self.paged:
             # a page-ownership fault gets its own record: the LFLR re-queue
             # repairs it too (free + re-acquire rebuilds the mapping), but a
-            # PAGE_FAULT means the host ledger and the device table diverged.
-            # The per-slot codes are the window history's OR-fold, which
-            # never truncates
-            codes = win.fut.fault_codes()
+            # PAGE_FAULT means the host ledger and the device table diverged
             page_slots = tuple(s for s in faulted
                                if int(codes[s]) & int(ErrorCode.PAGE_FAULT))
             if page_slots:
                 self.metrics.record_fault(self._step_count,
                                           int(ErrorCode.PAGE_FAULT),
                                           "page_reclaim", page_slots)
+        if self.trace.enabled:
+            # one fault event per attributed slot: its exact word, and the
+            # (window, step) the history latched it at. Speculating, the
+            # word keeps the DRAFT_REJECT bits of the steps (attribution);
+            # the step is the first that faulted without them
+            t_fault = self.clock()
+            for slot in faulted:
+                self._fault_event(
+                    t_fault, slot,
+                    win.trace_ids[slot] if win.trace_ids else None,
+                    int(codes[slot]), decision.action.value,
+                    window=win.index,
+                    step=int(steps[slot]) if steps[slot] >= 0 else None)
         if decision.action is Action.ROLLBACK:
             targets, fail_now = list(self.sched.active_slots()), False
         elif decision.action is Action.ABORT:
@@ -1058,6 +1259,11 @@ class Replica:
                     # state; its lane would re-raise this fault at retire
                     self._pending.valid[slot] = False
                 continue
+            if self.trace.enabled:
+                word = int(codes[slot]) if slot in faulted_set else 0
+                self._trace_recovery_begin(
+                    slot, s.req.trace_id, word, decision.action.value,
+                    win.index, self.clock())
             resp = self._lflr_slot(slot)     # LFLR: recompute, don't restart
             if resp is not None:
                 out.append(resp)

@@ -252,6 +252,9 @@ class ContinuousBatchingScheduler:
     def free_slots(self) -> list[int]:
         return [s.idx for s in self.slots if not s.active]
 
+    def prefilling_slots(self) -> list[int]:
+        return [s.idx for s in self.slots if s.prefilling]
+
     def has_active(self) -> bool:
         return any(s.active for s in self.slots)
 
@@ -498,3 +501,18 @@ class ContinuousBatchingScheduler:
         if self.on_release is not None:
             self.on_release(slot)
         return req
+
+    # ------------------------------------------------------------- re-route
+    def drain_in_flight(self) -> list[Request]:
+        """Pull every in-flight request out of its slot (progress discarded:
+        the receiving replica recomputes from the prompt), for a caller that
+        rebalances work off a live replica. A serve group re-routes a dead
+        replica's requests through its ledger instead."""
+        out = []
+        for s in self.slots:
+            if s.active:
+                out.append(s.req)
+                s.clear()
+                if self.on_release is not None:
+                    self.on_release(s.idx)
+        return out

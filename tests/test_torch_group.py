@@ -255,8 +255,9 @@ def test_group_defaults_to_the_card_and_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeGroup(cfg, 3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServeGroup(cfg, 3, device="cpu", config=EngineConfig(trace=True))
+    # tracing is ported: a traced group builds; tp > 1 is not
+    assert ServeGroup(cfg, 3, device="cpu",
+                      config=EngineConfig(trace=True, trace_sample=0.5)).trace
     with pytest.raises(NotImplementedError, match="item 11"):
         ServeGroup(cfg, 3, device="cpu", config=EngineConfig(tp=2, window=4))
     with pytest.raises(ValueError, match=">= 2"):

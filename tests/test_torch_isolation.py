@@ -36,7 +36,9 @@ def _imports(path):
 # the port's copies of modules of the JAX package that import no JAX
 COPIES = ("core/transport.py", "core/future.py", "core/blackchannel.py",
           "core/ulfm.py", "core/comm.py", "core/instance.py",
-          "core/faults.py", "serve/ledger.py", "serve/group.py")
+          "core/faults.py", "serve/ledger.py", "serve/group.py",
+          "obs/trace.py", "obs/postmortem.py", "fuzz/trajectory.py",
+          "fuzz/coverage.py")
 
 
 def test_port_imports_neither_jax_nor_repro():

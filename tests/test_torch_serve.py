@@ -32,6 +32,7 @@ from repro.serve import Request as JaxRequest
 from repro_torch.configs import smoke_config
 from repro_torch.core.device_channel import readback
 from repro_torch.core.errors import ErrorCode
+from repro_torch.obs import Tracer
 from repro_torch.serve import OK, EngineConfig, Replica, Request
 from repro_torch.weights import cache_from_jax, params_from_jax
 
@@ -302,11 +303,13 @@ def test_host_sync_budget(env):
 
 def test_unported_modes_raise(env):
     _, cfg, _, _, model = env
-    for bad in (dict(window=4, tp=2), dict(window=4, trace=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Replica(cfg, model, config=EngineConfig(**bad))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Replica(cfg, model, config=EngineConfig(window=4), tracer=object())
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Replica(cfg, model, config=EngineConfig(window=4, tp=2))
+    # tracing is ported (ROADMAP item 9): an explicit tracer is taken
+    tracer = Tracer()
+    rep = Replica(cfg, model, config=EngineConfig(window=4, trace=True),
+                  tracer=tracer)
+    assert rep.trace is tracer and rep.queue.tracer is tracer
 
 
 def test_default_config_serves(env):
