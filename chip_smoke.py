@@ -23,8 +23,9 @@ seconds since the script started, when the line was printed):
    launches at pos + t, and the probe over the verify's 32 logit rows;
 4. serve      — full-width qwen3-1.7b (28 layers, bf16, seeded random
    weights) served by ``Replica(window=8, overlap=True, num_slots=8,
-   max_len=1024)``: 16 requests with 16–256-token prompts and 64 new tokens
-   each. Every request must be answered OK, the kernels' launch counts must
+   max_len=1024)``: the first 10 of 16 requests with 16–256-token prompts
+   and 64 new tokens each (cut from 16 when the train phase came, for the
+   run's time; two freed slots are still refilled). Every request must be answered OK, the kernels' launch counts must
    show the path went through them, and one answer is held against the
    prefill step's forward;
 5. lflr       — the same traffic again with a NaN injected into an active
@@ -114,6 +115,28 @@ seconds since the script started, when the line was printed):
    the page ledger, the trace's ``validate()``, no wedge), every answer OK
    or FAILED, each kit's clean run bit-equal on a second call; the line
    reports the cells each entry covered;
+11e. train — on the qwen3 model still loaded (after the fuzz phase): the
+   train path's kernels at its shapes first — the flash forward with its
+   row lse at B 4 x S 256 (16/8 heads, D 128, causal) against the plain
+   lse (a control with one key dropped must exceed the limit) and bit-equal
+   in its output to the launch without lse, FlashAttention's dq/dk/dv
+   against autograd through the plain version in fp32 (a control against
+   the mask shifted by one key must exceed the limit), the probe over the
+   151936 x 2048 bf16 embedding gradient — each timed. Then three runs of
+   12 steps of ``ResilientExecutor`` over ``make_train_step`` at B 4 x S
+   256, each from a fresh copy of the serving model's weights with zero
+   moments (the model itself unchanged), a snapshot every 5 steps, no
+   checkpointer: clean — every step ok, exactly one host sync a step (the
+   port's counter and torch's sync debug mode), ``flash_forward`` 28
+   launches a step and ``probe_rows`` one per gradient leaf, finite losses;
+   faulted — nan_grad at 3, bad_data at 5, spike_loss at 7, nan_loss at 9
+   give ``TRAIN_FAULT_EVENTS`` (skip, restore, optimizer reset, rollback),
+   the list the CPU tests get from the JAX executor; LFLR — nan_grad at 3
+   and 8 (skip, restore to the snapshot after step 5) ends ``torch.equal``
+   on every leaf with a clean run over the kept batches. The line reports
+   ms per step, tokens/s, a snapshot's ms, the state's and the peak GB, the
+   losses and the phase's seconds. No checkpoint of the 17 GB state is
+   written (the card tests hold the ``Checkpointer`` at smoke width);
 12. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
@@ -153,9 +176,10 @@ seconds since the script started, when the line was printed):
    the sliding (window 512) and the full forward at 2 × 4096, the probe
    over 8 × 262144 logits, each flash row with controls;
 22. serve_g3   — phase 4 for full-width gemma3-1b (26 layers: 22 sliding,
-   4 full; bf16, seeded random weights), the mamba2 model freed first; two
-   of the 16 prompts have 560 tokens, so the rings wrap, and the longest
-   answer is held against the forward;
+   4 full; bf16, seeded random weights), the mamba2 model freed first, on
+   the first 10 requests (cut from 16 when the train phase came; two slots
+   refilled); two of the prompts have 560 tokens, so the rings wrap, and
+   the longest answer is held against the forward;
 23. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
    first full layer, as in the JAX replica;
 24. serve_g3_paged, lflr_g3_paged — phases 22 and 23 through the pool, on
@@ -244,6 +268,47 @@ PREFILL_32K = 32768                 # prefill_32k's length, for the scan's timin
 # the fuzz phase: one corpus entry per single-replica engine
 FUZZ_ENTRIES = ("seed_stepwise_0_01", "seed_window_0_08", "seed_overlap_0_07",
                 "seed_overlap_paged_0_03", "seed_spec_0_04", "seed_spec_paged_0_00")
+
+# the train phase: qwen3 at full width, B 4 x S 256 a step, three runs of 12
+# steps with a known-good snapshot every 5 steps and no checkpointer
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_GOOD_INTERVAL = 4, 256, 12, 5
+# the faulted run's schedule and the events (step, kind, code, action) the
+# reference's policy gives for it (straggler events aside):
+# tests/test_torch_train.py holds the JAX executor (and the port's) to the
+# same list at smoke width
+TRAIN_FAULTS = ((3, "nan_grad"), (5, "bad_data"), (7, "spike_loss"), (9, "nan_loss"))
+TRAIN_FAULT_EVENTS = (
+    (0, "ok", 0, None), (1, "ok", 0, None), (2, "ok", 0, None),
+    (3, "fault", 0x2, "skip_batch"),            # NONFINITE_GRAD, transient
+    (4, "ok", 0, None),
+    (5, "fault", 0x20, "restore_good"),         # DATA_FAULT, the second
+    (6, "ok", 0, None),
+    (7, "fault", 0x10, "reset_optimizer"),      # DIVERGENCE
+    (8, "ok", 0, None),
+    (9, "fault", 0x1, "rollback"),              # NONFINITE_LOSS, the fourth
+    (10, "ok", 0, None), (11, "ok", 0, None))
+# the LFLR run: skip at 3, restore at 8 to the snapshot taken after step 5;
+# its state must equal a clean run's over the batches its log kept
+TRAIN_LFLR_FAULTS = ((3, "nan_grad"), (8, "nan_grad"))
+TRAIN_LFLR_KEPT = (0, 1, 2, 4, 5, 9, 10, 11)
+# the divergence threshold of the train phase's probes. build_train_setup's
+# is the reference's 50, set for the smoke model (its first loss ~41); under
+# the seeded init the tied embedding dominates the residual stream, so at
+# d_model 2048 a token's own logit is ~|e|^2 ~ 2000 and the clean loss is
+# that order: 1e5 stays above every clean step and far below a spiked one
+# (spike_loss multiplies the loss by 1e6)
+TRAIN_DIVERGENCE = 1e5
+# the training forward's row lse against the plain one: fp32 sums in another
+# order, exp2 in place of exp (abs, rel); a control with one key dropped
+# moves the last row's lse by ~0.04 and must exceed it
+LSE_TOL = (1e-5, 1e-5)
+# FlashAttention's dq/dk/dv (bf16) against autograd through the plain
+# version in fp32 over the same bf16 inputs: 1% of the largest |grad| plus
+# 2 bf16 ulps of each — the gradients round to bf16, and delta = sum(do out)
+# reads the bf16 out, whose rounding cancels in dp - delta (0.23 of this
+# limit on the CPU at the training shape). A control against the mask
+# shifted by one key (each row sees the next key) must exceed it
+TRAIN_GRAD_TOL = (1e-2, 2.0 ** -6)
 
 
 def fail(msg: str) -> None:
@@ -401,8 +466,9 @@ def ptxas_report(log: str) -> list:
             hd = re.match(r"ILi(\d+)E(?:Lb([01])E)?", mangled[i:])
             cur = {"kernel": names[-1] if names else mangled,
                    "head_dim": int(hd.group(1)) if hd else None}
-            if hd and hd.group(2):          # flash_decode's verify instantiation
-                cur["verify"] = hd.group(2) == "1"
+            if hd and hd.group(2):          # flash_decode's verify flag,
+                flag = "lse" if "forward" in cur["kernel"] else "verify"
+                cur[flag] = hd.group(2) == "1"   # flash_forward's lse flag
             rows.append(cur)
             continue
         if cur is None:
@@ -1550,6 +1616,320 @@ def phase_fuzz(torch, card: str, model) -> dict:
     return paths
 
 
+def train_kernels(torch, cfg) -> dict:
+    """The train path's kernels at its shapes (``cfg``'s heads, B x S =
+    ``TRAIN_B x TRAIN_S``): the flash forward with its row lse
+    (``flash_forward``) against the plain lse and its own output without
+    lse, FlashAttention's gradients against autograd through the plain
+    version, and the probe over the largest gradient leaf (the vocab x
+    d_model embedding, 151936 x 2048 in bf16 for qwen3); each timed beside
+    its bound, its plain version and the library call."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import flash_attention, probe_rows
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+    from repro_torch.kernels.flash_attention import FlashAttention, sdpa_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 7)
+    randn = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    out = {}
+    B, S = TRAIN_B, TRAIN_S
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    before = dict(flash_attention.kernel_launches)
+    got, lse = flash_attention(q, k, v, zero, causal=True, lse=True)
+    moved = [n for n, c in flash_attention.kernel_launches.items() if c != before[n]]
+    want, want_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, return_lse=True)
+    a, r = LSE_TOL
+    lse_excess = ((lse - want_lse).abs() / (a + r * want_lse.abs())).max().item()
+    _, short_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, seq_kv=S - 1,
+                            return_lse=True)
+    lse_control = ((lse - short_lse).abs() / (a + r * short_lse.abs())).max().item()
+    same_out = torch.equal(got, flash_attention(q, k, v, zero, causal=True))
+    err = (got.float() - want.float()).abs().max().item()
+    excess = flash_excess(got, want)
+    if not (moved == ["flash_forward"] and same_out and lse_excess <= 1 < lse_control
+            and err <= FLASH_TOL and excess <= 1):
+        fail(f"flash forward with lse: launched {moved}, out equal without lse "
+             f"{same_out}, lse {lse_excess} x its limit (control {lse_control}, "
+             f"must exceed 1), out error {err} ({excess} x the relative limit)")
+    # the gradients: FlashAttention (the kernel forward, the plain recompute
+    # backward) against autograd through the plain version in fp32
+    do = randn(B, S, Hq, D)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(FlashAttention.apply(*leaves, True, 0, 2048, 2048),
+                                leaves, do)
+    ga, gr = TRAIN_GRAD_TOL
+
+    def grad_excess(offset):
+        f = [t.float().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(sdpa_ref(*f, q_offset=offset, causal=True), f,
+                                  do.float())
+        return [((g.float() - w).abs() / (ga * w.abs().max() + gr * w.abs())).max().item()
+                for g, w in zip(grads, ref)]
+
+    g_excess, g_control = grad_excess(zero), grad_excess(zero + 1)
+    if not (max(g_excess) <= 1 < min(g_control)):
+        fail(f"FlashAttention gradients dq, dk, dv: {g_excess} x the limit; "
+             f"against the shifted mask {g_control} (each must exceed 1)")
+    nbytes = 2 * B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2 + B * S * Hq * 4 + 4 * B
+    flops = 4 * Hq * D * B * S * (S + 1) // 2
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)),
+                 B * S * (Hq + 2 * Hkv) * D * 2)
+    heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
+    out["flash_train_forward"] = {
+        "shape": f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16, causal, with lse",
+        "kernel": "flash_forward", "source": f"{FLASH_CSRC}/flash_forward.cu",
+        "max_abs_err": err, "tol": FLASH_TOL, "err_over_tol": excess,
+        "lse_max_abs_err": (lse - want_lse).abs().max().item(),
+        "lse_tol": f"{LSE_TOL[0]} abs + {LSE_TOL[1]} rel",
+        "lse_over_tol": lse_excess, "lse_one_key_dropped_over_tol": lse_control,
+        "out_equal_without_lse": same_out,
+        "grad_tol": f"{ga} x max + {gr} rel", "grad_over_tol": g_excess,
+        "grad_shifted_mask_over_tol": g_control, "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, zero, causal=True, lse=True), qkv),
+        # one call per copy: ~40 launches a call, and the device queues
+        # about 1000
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
+            q, k, v, q_offset=zero, causal=True, return_lse=True), qkv,
+            launches=len(qkv)),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, is_causal=True, enable_gqa=True), [heads_first(*t) for t in qkv]),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v, do, leaves, grads, qkv
+
+    # the probe over the largest gradient leaf, the tied embedding's (drawn
+    # on the card: 311 M numbers from numpy would take seconds)
+    rows, cols = cfg.vocab_size, cfg.d_model
+    nf, ov = int(ErrorCode.NONFINITE_GRAD), int(ErrorCode.OVERFLOW)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    big = lambda: torch.randn((1, rows * cols), generator=gen, device=dev,  # noqa: E731
+                              dtype=torch.bfloat16)
+    x = big()
+    words = {}
+    for name, (i, val) in {"clean": (0, None), "nan": (rows * cols - 1, float("nan")),
+                           "overflow": (rows * cols // 2, 3e4)}.items():
+        if val is not None:
+            keep = x[0, i].clone()
+            x[0, i] = val
+        got = probe_rows(x, 1e4, nonfinite_code=nf, overflow_code=ov)
+        ref = probe_rows_ref(x, 1e4, nonfinite_code=nf, overflow_code=ov)
+        if not torch.equal(got, ref):
+            fail(f"probe over the embedding's gradient ({name}): {got.tolist()} "
+                 f"vs {ref.tolist()}")
+        words[name] = got.item()
+        if val is not None:
+            x[0, i] = keep
+    if words != {"clean": 0, "nan": nf, "overflow": ov}:
+        fail(f"probe over the embedding's gradient: words {words}")
+    b_ms, b_by = bound(rows * cols * 2 + 4, 3 * rows * cols, PEAK_FP32_FLOPS)
+    xs = [(x,), (big(),)]                                   # 1.2 GB: past the L2
+    out["probe_grad_embed"] = {
+        "shape": f"1 x {rows * cols} bf16 (the {rows}x{cols} embedding's gradient), "
+                 "threshold 1e4", "words": words, "max_abs_err": 0,
+        "timing_copies": len(xs),
+        "kernel_ms": time_ms(torch, lambda x: probe_rows(
+            x, 1e4, nonfinite_code=nf, overflow_code=ov), xs),
+        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+            x, 1e4, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del x, xs
+    return out
+
+
+def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
+    """Where a train step's time goes: torch's profiler (CUPTI, device
+    activity only) over one clean step from ``state`` (after one more as
+    warm-up): the kernels' device time, the device's idle share of the
+    unprofiled step (``ms_step``), and the kernels taking the most device
+    time, each with its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn(state, batch, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch, 0)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    return {"device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1 - busy_ms / ms_step,
+            "kernel_launches_per_step": sum(n for _, _, n in kernels),
+            "top_kernels": [{"name": name[:90], "ms_per_step": ms, "launches": n}
+                            for name, ms, n in top]}
+
+
+def phase_train(torch, card: str, model) -> tuple:
+    """Full-width training on the card (module docstring 11e): the train
+    path's kernels at its shapes, then three runs of ``TRAIN_STEPS`` steps
+    of ``ResilientExecutor`` over ``make_train_step``, each from a fresh
+    copy of ``model``'s weights (the serving model is not changed) with zero
+    moments: clean, faulted, LFLR. Returns ``(kernel rows, the clean run's
+    launches)``."""
+    import warnings
+    from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
+                                  ResilientExecutor)
+    from repro_torch.core.detect import ProbeConfig
+    from repro_torch.core.device_channel import readback
+    from repro_torch.core.recovery import RecoveryPolicy
+    from repro_torch.core.resilient import snapshot
+    from repro_torch.data.pipeline import DataIterator, make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_reset_opt_fn
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import train_params
+
+    t_parts = {"start": time.perf_counter()}
+    cfg = model.cfg
+    kern = train_kernels(torch, cfg)
+    t_parts["kernels"] = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated() / 1e9
+    _, step_fn, state, pipe, opt_cfg = build_train_setup(
+        cfg, batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED, model=model,
+        probe_cfg=ProbeConfig(loss_divergence_threshold=TRAIN_DIVERGENCE))
+    n_leaves = len(state["params"])
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
+    weights = {n: p.detach().clone() for n, p in list(model.named_parameters())[:3]}
+    del state
+
+    def fresh():
+        """The run's start: a copy of the model's weights, zero moments."""
+        params = train_params(model)
+        return {"params": params, "opt": init_opt_state(params),
+                "step": torch.zeros((), dtype=torch.int32, device=model.device),
+                "lr_scale": torch.ones((), dtype=torch.float32, device=model.device)}
+
+    losses = []
+
+    def step_kept(state, batch, inject):
+        new, metrics, word = step_fn(state, batch, inject)
+        losses.append(metrics["loss"])
+        return new, metrics, word
+
+    def run(plan):
+        ex = ResilientExecutor(step_kept, policy=RecoveryPolicy(can_shrink=False),
+                               config=ExecutorConfig(good_state_interval=TRAIN_GOOD_INTERVAL),
+                               reset_opt_fn=make_reset_opt_fn(cfg))
+        losses.clear()
+        return ex.run(fresh(), DataIterator(pipe.cfg, device=model.device),
+                      TRAIN_STEPS, faults=FaultSchedule(
+                          [FaultSpec(step=s, kind=k) for s, k in plan]))
+
+    # 1. clean: one host sync a step (the port's counter, and torch's sync
+    #    debug mode counting every synchronising call), the kernels' launches
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    syncs = readback.count
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            state, log = run(())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()           # the last update, queued after its word
+    clean_s = time.perf_counter() - t0
+    launches = launch_counts()
+    syncs = readback.count - syncs
+    sync_sites = Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                         for w in caught
+                         if "called a synchronizing CUDA operation" in str(w.message))
+    torch_syncs = sum(sync_sites.values())
+    clean_losses = readback(torch.stack(losses)).tolist()
+    step_ms = sorted(e.duration_s * 1e3 for e in log.events if e.kind == "ok" and e.step)
+    ms_step = step_ms[len(step_ms) // 2]
+    expected = dict.fromkeys(launches, 0)
+    expected.update(flash_attention=TRAIN_STEPS * len(model.attn_layers),
+                    flash_forward=TRAIN_STEPS * len(model.attn_layers),
+                    probe_rows=TRAIN_STEPS * n_leaves)
+    ok = [e.step for e in log.events if e.kind == "ok"]
+    if (ok != list(range(TRAIN_STEPS)) or int(readback(state["step"])) != TRAIN_STEPS
+            or syncs != TRAIN_STEPS or torch_syncs != TRAIN_STEPS
+            or launches != expected or not all(map(math.isfinite, clean_losses))):
+        fail(f"train (clean): ok steps {ok}, step {int(readback(state['step']))}, "
+             f"syncs {syncs} (torch's sync debug mode: {torch_syncs} at "
+             f"{dict(sync_sites)}; want {TRAIN_STEPS}), launches {launches} != {expected}, losses {clean_losses}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = snapshot(state)
+    torch.cuda.synchronize()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    del snap, state, log
+    t_parts["clean"] = time.perf_counter()
+    profile = train_profile(torch, step_fn, fresh(), make_batch(pipe.cfg, 0, model.device),
+                            ms_step)
+    t_parts["profile"] = time.perf_counter()
+    stragglers = 0
+
+    # 2. faulted: the reference policy's decisions, the constant the CPU
+    #    test ties to the JAX executor
+    state, log = run(TRAIN_FAULTS)
+    events = tuple((e.step, e.kind, e.code, e.action) for e in log.events
+                   if e.kind != "straggler")
+    stragglers += sum(e.kind == "straggler" for e in log.events)
+    if events != TRAIN_FAULT_EVENTS:
+        fail(f"train (faulted): events {events} != {TRAIN_FAULT_EVENTS}")
+    fault_losses = readback(torch.stack(losses)).tolist()
+    del state, log
+    t_parts["faulted"] = time.perf_counter()
+
+    # 3. LFLR: skip, then restore to the snapshot after step 5; bit-equal to
+    #    a clean run over the kept batches (the step is deterministic)
+    state, log = run(TRAIN_LFLR_FAULTS)
+    stragglers += sum(e.kind == "straggler" for e in log.events)
+    acts = [(e.step, e.action) for e in log.faults()]
+    clean = fresh()
+    for i in TRAIN_LFLR_KEPT:
+        clean, _, _ = step_fn(clean, make_batch(pipe.cfg, i, model.device), 0)
+    a, b = tree_leaves(state), tree_leaves(clean)
+    equal = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    unequal = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    if acts != [(3, "skip_batch"), (8, "restore_good")] or not equal:
+        fail(f"train (LFLR): actions {acts}, leaves unequal to the clean run "
+             f"over {TRAIN_LFLR_KEPT}: {len(unequal)} of {len(b)} (first {unequal[:5]})")
+    del state, clean, a, b, log
+    t_parts["lflr"] = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    untouched = (all(torch.equal(p, weights[n]) for n, p in model.named_parameters()
+                     if n in weights)
+                 and not any(p.requires_grad for p in model.parameters()))
+    if not untouched:
+        fail("train: the serving model's weights changed or require a gradient")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "card": card, "model": cfg.name, "batch": TRAIN_B,
+          "seq": TRAIN_S, "steps": TRAIN_STEPS, "leaves": n_leaves,
+          "ms_per_step_median": ms_step, "ms_per_step": step_ms,
+          "tokens_per_s": TRAIN_B * TRAIN_S / (ms_step / 1e3),
+          "clean_run_s": clean_s, "syncs_per_step": syncs / TRAIN_STEPS,
+          "torch_syncs": torch_syncs, "torch_sync_sites": dict(sync_sites),
+          "snapshot_ms": snapshot_ms,
+          "state_gb": state_gb, "mem_before_gb": mem_before, "peak_mem_gb": peak,
+          "losses": clean_losses, "faulted_losses": fault_losses,
+          "fault_events": [list(e) for e in events if e[1] == "fault"],
+          "lflr_bit_equal": equal, "stragglers_flagged": stragglers,
+          "divergence_threshold": TRAIN_DIVERGENCE, "lr_warmup": opt_cfg.warmup_steps,
+          "launches": launches, "profile": profile, "kernels": kern,
+          "seconds": time.perf_counter() - t_parts["start"],
+          "seconds_by_part": {k: t_parts[k] - t_parts[j] for j, k in zip(
+              list(t_parts)[:-1], list(t_parts)[1:])}})
+    return kern, launches
+
+
 def phase_spec_deep(torch, card: str, model) -> dict:
     """Drafts that both match and miss. Under the seeded init the tied
     embedding's term dominates the residual stream, so every exit depth of
@@ -2415,7 +2795,11 @@ def main() -> None:
 
     kern = phase_kernels(torch, card)
     model, init_s = build_model(torch, get_config("qwen3-1.7b"))
-    serve_paths, serve_streams = phase_serve(torch, card, model, init_s, traced=True)
+    # the first 10 requests only (cut from 16 when the train phase came, for
+    # the run's time; two freed slots still refilled, and every later qwen3
+    # phase serves at most these 10)
+    serve_paths, serve_streams = phase_serve(torch, card, model, init_s, traced=True,
+                                             n=REFILL_REQUESTS)
     engines = phase_engines(torch, card, model)
     for name, engine in (("lflr_stepwise", "stepwise"), ("lflr_blocking", "blocking")):
         phase_lflr_engine(torch, card, model, name, ENGINES[engine],
@@ -2435,6 +2819,7 @@ def main() -> None:
     spec_paths = phase_spec(torch, card, model, init_s, serve_streams)
     group_paths = phase_group(torch, card, model, serve_streams)
     fuzz_paths = phase_fuzz(torch, card, model)
+    kern_train, train_launches = phase_train(torch, card, model)
     del model                                     # free qwen3 before rg
     gc.collect()
     torch.cuda.empty_cache()
@@ -2465,10 +2850,13 @@ def main() -> None:
 
     kern_g3 = phase_kernels_g3(torch, card)
     model, init_s = build_model(torch, get_config("gemma3-1b"))
-    # the fault: K of layer 5, the first full layer (max_len > the window)
+    # the fault: K of layer 5, the first full layer (max_len > the window);
+    # the first 10 requests only (cut from 16 when the train phase came, for
+    # the run's time: 79 windows against 93; the two long prompts among
+    # them, two slots refilled)
     serve_g3, g3_streams = phase_serve(torch, card, model, init_s,
                                        ("serve_g3", "lflr_g3"), long=2,
-                                       poison_layers=[5])
+                                       poison_layers=[5], n=REFILL_REQUESTS)
     # the same through the pool, on the first 8 requests (the two long
     # prompts among them; cut when the speculative phases came, to keep the
     # run's time): the 4 full layers paged, the rings dense; the fault goes
@@ -2482,7 +2870,8 @@ def main() -> None:
     paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              **serve_paged, "engines_paged": engines_paged,
-             **spec_paths, **group_paths, **fuzz_paths, **serve_g3_paged,
+             **spec_paths, **group_paths, **fuzz_paths, "train": train_launches,
+             **serve_g3_paged,
              **serve_rg, "prefill_rg": prefill_rg,
              **serve_ssm, "prefill_ssm": prefill_ssm,
              **serve_g3, "prefill_g3": prefill_g3}
@@ -2495,6 +2884,7 @@ def main() -> None:
             {"flash_decode": kern["flash_decode"],
              "flash_verify": kern["flash_verify"],
              "flash_forward": kern["flash_forward"],
+             "flash_train_forward": kern_train["flash_train_forward"],
              "flash_f32_decode": kern["flash_f32_decode"],
              "flash_f32_forward": kern["flash_f32_forward"],
              "flash_ring_decode": kern_rg["flash_ring_decode"],
@@ -2512,7 +2902,8 @@ def main() -> None:
              "probe_prefill": kern_rg["probe_prefill"],
              "probe_ssm": kern_ssm["probe_ssm"],
              "probe_g3_logits": kern_g3["probe_g3_logits"],
-             "probe_g3_prefill": kern_g3["probe_g3_prefill"]}),
+             "probe_g3_prefill": kern_g3["probe_g3_prefill"],
+             "probe_grad_embed": kern_train["probe_grad_embed"]}),
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:36",

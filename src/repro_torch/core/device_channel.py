@@ -15,6 +15,7 @@ Every device-to-host copy of the port goes through :func:`readback`, whose
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -26,6 +27,7 @@ from .errors import (
     ErrorCode,
     PropagatedError,
     RankError,
+    TimeoutError_,
     strip_codes,
 )
 
@@ -126,9 +128,21 @@ class DeviceFuture:
     _waited: bool = False
     _history_host: Optional[np.ndarray] = None
 
-    def wait(self) -> Any:
+    def wait(self, timeout: Optional[float] = None) -> Any:
+        """Read the word back and raise the paper's exception for a fault.
+        With ``timeout`` (seconds), first poll the work's event until it is
+        done and raise :class:`TimeoutError_` past the deadline (the
+        straggler watchdog's bound on one step); on the CPU, with no event,
+        the work is done at dispatch."""
         if self._waited:
             return self.outputs
+        if timeout is not None and self.event is not None:
+            deadline = time.monotonic() + timeout
+            while not self.event.query():
+                if time.monotonic() > deadline:
+                    raise TimeoutError_(f"device step exceeded {timeout}s "
+                                        "(straggler watchdog)")
+                time.sleep(0.001)
         parts = [self.word.reshape(1)]
         with_table = self.count is not None and self.table is not None
         if with_table:
@@ -147,8 +161,8 @@ class DeviceFuture:
             raise CommCorruptedError(errors)
         raise PropagatedError(errors or [RankError(rank=-1, code=word)])
 
-    def result(self) -> Any:
-        return self.wait()
+    def result(self, timeout: Optional[float] = None) -> Any:
+        return self.wait(timeout=timeout)
 
     def done(self) -> bool:
         """Non-blocking readiness probe (the paper's ``MPI_Test``): True iff

@@ -1,15 +1,18 @@
-# Trimmed copy of repro/core/faults.py: the fault plan, the injectable-code mask and the host faults.
-"""Deterministic fault injection: the plan and its host-level half.
+# Port of repro/core/faults.py: the plan, the injectable-code mask, the host faults and the device helpers.
+"""Deterministic fault injection (testing + benchmarks).
 
 Covers the paper's fault taxonomy (§II-A): soft faults that leave the rank
 able to communicate and hard faults (rank/node loss), plus stragglers. A
 :class:`FaultSchedule` is a seeded list of :class:`FaultSpec`; the serve
 group executes ``kill``/``shard_kill`` as a rank death and ``state_nan``
-through ``Replica.inject_state_fault``. The JAX package's device helpers
-(``inject_loss``/``grads``/``batch``/``state``) belong to the training path
-(ROADMAP Queue 1, item 13) and are not copied yet; the integer functions of
-the plan (``inject_word``, ``code_word``, ``device_faults``,
-``host_faults``) are.
+through ``Replica.inject_state_fault``. Two injection surfaces:
+
+* **inside-step** (device): the train step takes an ``inject`` word (an
+  int32 0-d tensor on the step's device) and the helpers below turn its bits
+  into a NaN'd loss, corrupted gradients or an invalid token id with device
+  ops — no host sync, so detection is exercised on the real path;
+* **host-level** (simulated cluster): kill a rank thread, delay a rank
+  (straggler), a user error.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..tree import tree_leaves
 from .errors import ATTRIBUTION_ONLY, ErrorCode
 
 # injection bits (distinct from ErrorCode — these say what to *break*, the
@@ -163,6 +168,51 @@ class FaultSchedule:
         return FaultSchedule(tuple(out), seed=self.seed)
 
 
+# ------------------------------------------------------------------ device helpers
+def _bit(inject: torch.Tensor, bit: int) -> torch.Tensor:
+    """0-d bool tensor: is ``bit`` set in the device word ``inject``?"""
+    return (inject.to(torch.int32) & bit) != 0
+
+
+def inject_loss(loss: torch.Tensor, inject: torch.Tensor) -> torch.Tensor:
+    """Apply the loss-level injections: NaN for INJ_NAN_LOSS, times 1e6 for
+    INJ_SPIKE_LOSS."""
+    loss = torch.where(_bit(inject, INJ_NAN_LOSS), float("nan"), loss)
+    return torch.where(_bit(inject, INJ_SPIKE_LOSS), loss * 1e6, loss)
+
+
+def _poison_first(tree, on: torch.Tensor):
+    """NaN the first element of every floating leaf of ``tree`` where ``on``
+    (a 0-d bool device tensor), IN PLACE: one masked fill per leaf, no
+    sync. Returns ``tree``."""
+    for leaf in tree_leaves(tree):
+        if torch.is_floating_point(leaf):
+            leaf.view(-1)[:1].masked_fill_(on, float("nan"))
+    return tree
+
+
+def inject_grads(grads, inject: torch.Tensor):
+    """NaN the first element of every gradient leaf when INJ_NAN_GRAD is
+    set. The leaves are the step's own gradients and are written in place
+    (the JAX package returns new arrays with the same values)."""
+    return _poison_first(grads, _bit(inject, INJ_NAN_GRAD))
+
+
+def inject_batch(tokens: torch.Tensor, inject: torch.Tensor) -> torch.Tensor:
+    """Make the first token id invalid (-1) when INJ_BAD_DATA is set (tripped
+    by ``data_probe``); a new tensor, ``tokens`` is left as it was."""
+    out = tokens.clone()
+    out.view(-1)[:1].masked_fill_(_bit(inject, INJ_BAD_DATA), -1)
+    return out
+
+
+def inject_state(state, inject: torch.Tensor):
+    """NaN the first element of every floating leaf of ``state`` when
+    INJ_STATE_NAN is set, in place (as :func:`inject_grads`)."""
+    return _poison_first(state, _bit(inject, INJ_STATE_NAN))
+
+
+# -------------------------------------------------------------------- host helpers
 def apply_host_fault(spec: FaultSpec, ctx=None) -> Optional[ErrorCode]:
     """Execute a host-level fault on the simulated cluster. Returns the error
     code a detector would raise locally, or None for silent faults (kill).

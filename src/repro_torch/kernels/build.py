@@ -40,12 +40,12 @@ SIGNATURES = {
     # splits, keys_per_split, rows per slot, stream
     "repro_flash_decode": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _L,
                            _I, _L, _I, _P),
-    # q, k, v, q_offset, out, B, S, T, Hq, Hkv, D, causal, window, seq_kv,
-    # stream
-    "repro_flash_forward": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
-                            _L, _P),
-    "repro_flash_f32": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _L,
-                        _P),
+    # q, k, v, q_offset, out, lse (null, or the training forward's), B, S,
+    # T, Hq, Hkv, D, causal, window, seq_kv, stream
+    "repro_flash_forward": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
+                            _I, _L, _P),
+    "repro_flash_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
+                        _L, _P),
     # x, rows, cols, dtype, threshold, nonfinite_code, overflow_code, out,
     # stream
     "repro_probe_rows": (_P, _I, _L, _I, _F, _I, _I, _P, _P),
@@ -163,6 +163,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the raw handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``tensors``: a kernel
+    writes its output through a raw pointer, so the output would come back
+    silently detached. The attention gradient goes through
+    ``flash_attention.FlashAttention``; the scans have none yet."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: its inputs need a gradient and the kernel has no "
+            "backward (attention: use FlashAttention; the RG-LRU and SSD "
+            "scans: ROADMAP Queue 1, item 13, their training paths)")
 
 
 def check_device(name: str, *tensors: torch.Tensor) -> str:

@@ -1,2 +1,2 @@
-from .ops import flash_attention  # noqa: F401
-from .ref import sdpa_ref  # noqa: F401
+from .ops import FlashAttention, flash_attention  # noqa: F401
+from .ref import flash_backward, sdpa_ref  # noqa: F401

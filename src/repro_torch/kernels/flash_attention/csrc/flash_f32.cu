@@ -33,6 +33,10 @@
 // Shared memory is static: qs and accs hold kMaxRows x D floats each, 32 KB
 // together at D 256, under the 48 KB limit for static shared memory.
 //
+// The training forward also writes each row's log-sum-exp in fp32, lse (B, S,
+// Hq) = m + log(max(l, 1e-30)) (the JAX package's _flash_fwd_impl), behind the
+// template flag kLse: the instantiations without it are compiled as they were.
+//
 // Determinism: no split across blocks, no atomics. A row's tiles, their
 // partition and the merge order depend only on the launch shape and the
 // row's own position, never on the other rows' data.
@@ -91,10 +95,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ q_offset, T* __restrict__ out, int S, int T_,
+                 const int* __restrict__ q_offset, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int T_,
                  int Hq, int Hkv, int group, int bq, int parts, int causal, int window,
                  int seq_kv, float scale) {
   constexpr int kDPL = D >= 32 ? D / 32 : 1;  // output features per lane
@@ -201,15 +206,16 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = 0; i < kDPL; ++i) res[i] += accs[w][lane * kDPL + i] * wgt;
   }
   const float denom = fmaxf(lsum, 1e-30f);
+  if (kLse && lane == 0) lse[(static_cast<long long>(b) * S + s) * Hq + h] = mx + logf(denom);
   T* o = out + ((static_cast<long long>(b) * S + s) * Hq + h) * D + lane * kDPL;
 #pragma unroll
   for (int i = 0; i < kDPL; ++i) o[i] = from_f32<T>(res[i] / denom);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, const int* q_offset, void* out,
-           int B, int S, int T_, int Hq, int Hkv, int causal, int window, int seq_kv,
-           cudaStream_t stream) {
+           float* lse, int B, int S, int T_, int Hq, int Hkv, int causal, int window,
+           int seq_kv, cudaStream_t stream) {
   const int group = Hq / Hkv;
   const int bq = max(1, min(S, kMaxRows / group));
   const int rows = group * bq;
@@ -217,22 +223,32 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset, voi
   const dim3 grid((S + bq - 1) / bq, Hkv, B);
   const dim3 block(32 * rows * parts);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_f32_kernel<T, D><<<grid, block, 0, stream>>>(
+  flash_f32_kernel<T, D, kLse><<<grid, block, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      q_offset, static_cast<T*>(out), S, T_, Hq, Hkv, group, bq, parts, causal, window,
+      q_offset, static_cast<T*>(out), lse, S, T_, Hq, Hkv, group, bq, parts, causal, window,
       seq_kv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_lse(const void* q, const void* k, const void* v, const int* q_offset, void* out,
+               float* lse, int B, int S, int T_, int Hq, int Hkv, int causal, int window,
+               int seq_kv, cudaStream_t st) {
+  return lse ? launch<float, D, true>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal,
+                                      window, seq_kv, st)
+             : launch<float, D, false>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal,
+                                       window, seq_kv, st);
+}
+
 int launch_d(const void* q, const void* k, const void* v, const int* q_offset, void* out,
-             int B, int S, int T_, int Hq, int Hkv, int D, int causal, int window,
+             float* lse, int B, int S, int T_, int Hq, int Hkv, int D, int causal, int window,
              int seq_kv, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<float, 16>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 32: return launch<float, 32>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 64: return launch<float, 64>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 128: return launch<float, 128>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
-    case 256: return launch<float, 256>(q, k, v, q_offset, out, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 16: return launch_lse<16>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 32: return launch_lse<32>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 64: return launch_lse<64>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 128: return launch_lse<128>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 256: return launch_lse<256>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -241,14 +257,15 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_offset, v
 
 // fp32 only. The Python wrapper has checked shapes, types, devices,
 // contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in
-// {16, 32, 64, 128, 256}.
+// {16, 32, 64, 128, 256}. lse is null, or (B, S, Hq) fp32 for the training
+// forward.
 extern "C" int repro_flash_f32(const void* q, const void* k, const void* v,
-                               const void* q_offset, void* out, long long B, long long S,
-                               long long T, int Hq, int Hkv, int D, int causal,
+                               const void* q_offset, void* out, void* lse, long long B,
+                               long long S, long long T, int Hq, int Hkv, int D, int causal,
                                int window, long long seq_kv, void* stream) {
   if (B > 65535 || S > 0x7fffffffLL || T > 0x7fffffffLL || Hkv < 1 || Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d(q, k, v, static_cast<const int*>(q_offset), out, static_cast<int>(B),
-                  static_cast<int>(S), static_cast<int>(T), Hq, Hkv, D, causal, window,
-                  static_cast<int>(seq_kv), static_cast<cudaStream_t>(stream));
+  return launch_d(q, k, v, static_cast<const int*>(q_offset), out, static_cast<float*>(lse),
+                  static_cast<int>(B), static_cast<int>(S), static_cast<int>(T), Hq, Hkv, D,
+                  causal, window, static_cast<int>(seq_kv), static_cast<cudaStream_t>(stream));
 }

@@ -45,6 +45,13 @@
 // Determinism: each output row is summed by one warp in key order, no split
 // across blocks, no atomics: a row depends only on its own data and position
 // and the launch shape.
+//
+// The training forward also writes each row's log-sum-exp in fp32, lse (B, S,
+// Hq) = m + log(max(l, 1e-30)) in natural units (the JAX package's
+// _flash_fwd_impl, models/attention.py:180), which the recompute backward
+// reads. It is a template flag (kLse), so the instantiations without it — the
+// prefill's — are compiled as they were; the outputs of the two are the same
+// bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,11 +78,11 @@ struct Cfg {
   static_assert(D % 16 == 0 && kDT % 2 == 0 && kNT % 2 == 0, "tiles");
 };
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ q_offset,
-                     bf16* __restrict__ out, long long S, long long T_, int Hq, int Hkv,
+                     bf16* __restrict__ out, float* __restrict__ lse, long long S, long long T_, int Hq, int Hkv,
                      int group, int causal, int window, long long seq_kv,
                      float scale_log2) {
   using C = Cfg<D>;
@@ -248,6 +255,9 @@ flash_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (gr >= rows) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     const long long s = gr / group, h = kvh * group + gr % group;
+    if (kLse && tq == 0)   // m is in log2 units: m ln 2 is the natural max
+      lse[(static_cast<long long>(b) * S + s) * Hq + h] =
+          m[i] * 0.6931471805599453f + logf(fmaxf(l[i], 1e-30f));
     bf16* orow = out + ((static_cast<long long>(b) * S + s) * Hq + h) * D + 2 * tq;
 #pragma unroll
     for (int d = 0; d < C::kDT; ++d)
@@ -256,12 +266,12 @@ flash_forward_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, const int* q_offset, void* out,
-           long long B, long long S, long long T_, int Hq, int Hkv, int causal, int window,
-           long long seq_kv, cudaStream_t stream) {
+           float* lse, long long B, long long S, long long T_, int Hq, int Hkv, int causal,
+           int window, long long seq_kv, cudaStream_t stream) {
   using C = Cfg<D>;
-  auto kernel = flash_forward_kernel<D>;
+  auto kernel = flash_forward_kernel<D, kLse>;
   static bool configured = false;
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,29 +286,41 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset, voi
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      q_offset, static_cast<bf16*>(out), S, T_, Hq, Hkv, group, causal, window, seq_kv,
+      q_offset, static_cast<bf16*>(out), lse, S, T_, Hq, Hkv, group, causal, window, seq_kv,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_lse(const void* q, const void* k, const void* v, const int* q_offset, void* out,
+               float* lse, long long B, long long S, long long T_, int Hq, int Hkv, int causal,
+               int window, long long seq_kv, cudaStream_t stream) {
+  return lse ? launch<D, true>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window,
+                               seq_kv, stream)
+             : launch<D, false>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window,
+                                seq_kv, stream);
 }
 
 }  // namespace
 
 // bf16 only. The Python wrapper has checked shapes, types, devices,
 // contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in
-// {16, 32, 64, 128, 256}.
+// {16, 32, 64, 128, 256}. lse is null, or (B, S, Hq) fp32 for the training
+// forward.
 extern "C" int repro_flash_forward(const void* q, const void* k, const void* v,
-                                   const void* q_offset, void* out, long long B, long long S,
-                                   long long T, int Hq, int Hkv, int D, int causal,
-                                   int window, long long seq_kv, void* stream) {
+                                   const void* q_offset, void* out, void* lse, long long B,
+                                   long long S, long long T, int Hq, int Hkv, int D,
+                                   int causal, int window, long long seq_kv, void* stream) {
   const int* qo = static_cast<const int*>(q_offset);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch<16>(q, k, v, qo, out, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
-    case 32: return launch<32>(q, k, v, qo, out, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
-    case 64: return launch<64>(q, k, v, qo, out, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
-    case 128: return launch<128>(q, k, v, qo, out, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
-    case 256: return launch<256>(q, k, v, qo, out, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
+    case 16: return launch_lse<16>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
+    case 32: return launch_lse<32>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
+    case 64: return launch_lse<64>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
+    case 128: return launch_lse<128>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
+    case 256: return launch_lse<256>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

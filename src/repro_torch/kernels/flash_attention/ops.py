@@ -16,6 +16,13 @@ kernel from the shape, the dtype and whether the rows verify a cache:
 - ``flash_f32`` (``csrc/flash_f32.cu``): fp32, any S, on the CUDA cores (TF32
   would not hold fp32 results to 2e-5).
 
+``lse=True`` also returns each row's log-sum-exp (the training forward's,
+read by the recompute backward) and takes ``flash_forward`` (bf16, any S) or
+``flash_f32``. :class:`FlashAttention` is the autograd Function around it:
+its forward is that launch, its backward the plain-torch port of the JAX
+package's chunked recompute (``ref.py::flash_backward``). The wrapper
+itself has no gradient and raises when autograd would need one.
+
 A verify that takes no ``flash_verify`` launch — the CPU's plain version,
 or fp32 on the card — runs row by row at S = 1, so that its rows too are
 the decode's bits (both round otherwise at another row count).
@@ -26,9 +33,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..build import (DTYPE_CODES, check_device, check_launch, count_launch,
-                     library, stream_of)
-from .ref import sdpa_ref
+from ..build import (DTYPE_CODES, check_device, check_launch, check_no_grad,
+                     count_launch, library, stream_of)
+from .ref import flash_backward, sdpa_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels are instantiated for these
 MAX_GROUP = 16                  # a block holds the group's query rows
@@ -46,7 +53,7 @@ class Plan:
 
 
 def plan(S: int, seq_kv: int, Hkv: int, dtype: torch.dtype, *,
-         verify: bool = False) -> Plan:
+         verify: bool = False, lse: bool = False) -> Plan:
     """The kernel a launch of this shape and dtype takes and, for decode
     and verify, how the keys ``[0, seq_kv)`` are split.
 
@@ -55,10 +62,11 @@ def plan(S: int, seq_kv: int, Hkv: int, dtype: torch.dtype, *,
     data, its own position and the launch shape (bit-exact LFLR replays),
     and a verify row is the decode's. Slots x KV heads x splits is aimed at
     ``SPLIT_TARGET`` blocks per slot; a split holds whole tiles, and none is
-    empty for every position."""
+    empty for every position. ``lse`` (the training forward) takes the
+    forward kernels whatever S is."""
     if dtype != torch.bfloat16:
         return Plan("flash_f32")
-    if S != 1 and not verify:
+    if (S != 1 and not verify) or lse:
         return Plan("flash_forward")
     tiles = max(1, -(-seq_kv // DECODE_TILE))
     splits = max(1, min(MAX_SPLITS, tiles, SPLIT_TARGET // Hkv))
@@ -69,8 +77,8 @@ def plan(S: int, seq_kv: int, Hkv: int, dtype: torch.dtype, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: torch.Tensor, *, causal: bool, window: int = 0,
-                    seq_kv: int | None = None,
-                    verify: bool = False) -> torch.Tensor:
+                    seq_kv: int | None = None, verify: bool = False,
+                    lse: bool = False):
     """q (B, S, Hq, D), k/v (B, T, Hkv, D) → (B, S, Hq, D) in q's dtype.
 
     ``q_offset`` is an int32 tensor (B,) on q's device: row ``s`` of batch
@@ -78,9 +86,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position; a full forward: zeros). Keys at positions ``>= seq_kv`` (default
     T) are masked. ``verify`` marks S rows per slot over a decode cache (the
     speculative verify): each row's output is then bit-equal to this
-    function's at S = 1 and ``q_offset + s``; no window.
+    function's at S = 1 and ``q_offset + s``; no window. ``lse`` returns
+    ``(out, lse)`` with ``lse (B, S, Hq)`` fp32, ``m + log(max(l, 1e-30))``
+    of each row; not with ``verify``.
     """
     kind = check_device("flash_attention", q, k, v, q_offset)
+    check_no_grad("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q (B,S,Hq,D) and k, v (B,T,Hkv,D) "
                          f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -107,10 +118,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 <= seq_kv <= T or window < 0:
         raise ValueError(f"flash_attention: seq_kv {seq_kv} not in [0, {T}] "
                          f"or window {window} < 0")
-    if verify and window:
+    if verify and (window or lse):
         raise ValueError("flash_attention: a verify reads a full-attention "
-                         "cache (no window)")
-    p = plan(S, seq_kv, Hkv, q.dtype, verify=verify)
+                         "cache (no window) and returns no lse")
+    p = plan(S, seq_kv, Hkv, q.dtype, verify=verify, lse=lse)
     if verify and S > 1 and p.kernel != "flash_verify":
         # the plain version and flash_f32 round by row count: row by row
         return torch.cat([flash_attention(
@@ -118,11 +129,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             seq_kv=seq_kv) for s in range(S)], dim=1)
     if kind == "cpu":
         return sdpa_ref(q, k, v, q_offset=q_offset, causal=causal,
-                        window=window, seq_kv=seq_kv)
+                        window=window, seq_kv=seq_kv, return_lse=lse)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads rows as 16-byte vectors)")
     out = torch.empty_like(q)
+    row_lse = (torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
+               if lse else None)
     lib = library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
             out.data_ptr())
@@ -132,12 +145,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p.splits, p.keys_per_split, S, stream_of(q))
     else:
         rc = getattr(lib, f"repro_{p.kernel}")(
-            *args, B, S, T, Hq, Hkv, D, int(bool(causal)), int(window), seq_kv,
-            stream_of(q))
+            *args, row_lse.data_ptr() if lse else None, B, S, T, Hq, Hkv, D,
+            int(bool(causal)), int(window), seq_kv, stream_of(q))
     check_launch(p.kernel, rc)
     count_launch(flash_attention, p.kernel)
-    return out
+    return (out, row_lse) if lse else out
 
 
 flash_attention.launches = 0          # wrapper calls that launched a kernel
 flash_attention.kernel_launches = dict.fromkeys(KERNELS, 0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal or sliding self-attention over a full sequence (positions
+    0..S-1) with a gradient: ``FlashAttention.apply(q, k, v, causal, window,
+    q_chunk, kv_chunk)`` → out, as :func:`flash_attention`.
+
+    The forward is one :func:`flash_attention` launch with ``lse=True`` (the
+    kernel on a CUDA tensor, the plain version on the CPU) and saves
+    ``(q, k, v, out, lse)``; the backward recomputes the probabilities chunk
+    by chunk from them (:func:`~.ref.flash_backward`, the JAX package's
+    ``_flash_bwd`` with ``q_chunk``/``kv_chunk``), in plain torch, as the
+    JAX package's backward is jnp and not a Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_chunk: int,
+                kv_chunk: int):
+        zeros = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+        out, lse = flash_attention(q, k, v, zeros, causal=causal,
+                                   window=window, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.config = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_chunk, kv_chunk = ctx.config
+        dq, dk, dv = flash_backward(q, k, v, out, lse, do, causal=causal,
+                                    window=window, q_chunk=q_chunk,
+                                    kv_chunk=kv_chunk)
+        return dq, dk, dv, None, None, None, None

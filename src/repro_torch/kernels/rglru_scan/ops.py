@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from ..build import (check_device, check_launch, count_launch, library,
-                     stream_of)
+from ..build import (check_device, check_launch, check_no_grad, count_launch,
+                     library, stream_of)
 from .ref import rglru_scan_ref
 
 CHUNK = 128                     # steps per chunk, whatever the length
@@ -20,6 +20,7 @@ def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     RG-LRU states h (B, S, W) fp32 — what the JAX package's ``ops.py
     rglru_scan`` and its Pallas kernel compute together."""
     kind = check_device("rglru_scan", x_in, log_a)
+    check_no_grad("rglru_scan", x_in, log_a)
     if x_in.dim() != 3 or log_a.shape != x_in.shape or 0 in x_in.shape:
         raise ValueError("rglru_scan: x_in and log_a must share one non-empty "
                          f"(B, S, W) shape, got {tuple(x_in.shape)} and "

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..build import (DTYPE_CODES, check_device, check_launch, count_launch,
-                     library, stream_of)
+from ..build import (DTYPE_CODES, check_device, check_launch, check_no_grad,
+                     count_launch, library, stream_of)
 from .ref import check_scan_shapes, ssd_inter_chunk, ssd_intra_chunk_ref
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128   # the kernels' tiles
@@ -38,6 +38,7 @@ def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
     fp32. The kernels' launches count on :func:`ssd_scan`, the wrapper the
     model calls (``launches``, and each kernel's in ``kernel_launches``)."""
     kind = check_device("ssd_scan", x, dt, A, B, C)
+    check_no_grad("ssd_scan", x, dt, A, B, C)
     L = check_scan_shapes(x, dt, A, B, C, chunk)
     if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x, B, C must share one of "

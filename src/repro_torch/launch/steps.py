@@ -3,7 +3,8 @@ slot), the decode windows (plain, fused with prompt chunks, and
 speculative), the cache-building prefills (chunked and whole) and the
 full-sequence prefill step.
 
-The port of ``repro/launch/steps.py:226 make_decode_step``, ``:244
+The port of ``repro/launch/steps.py:120 make_train_step``, ``:997
+make_reset_opt_fn``, ``:226 make_decode_step``, ``:244
 make_slot_decode_step``, ``:271 _paged_slot_step``, ``:404
 make_decode_window``, ``:491 make_prefill_decode_window``, ``:594
 make_speculative_decode_window``, ``:791 make_chunked_prefill``, ``:867
@@ -30,10 +31,98 @@ from typing import Optional
 
 import torch
 
-from ..core.detect import logits_probe, state_probe
+from ..core.detect import ProbeConfig, logits_probe, state_probe, step_probe
 from ..core.errors import ErrorCode
+from ..core.faults import inject_batch, inject_grads, inject_loss
 from ..models.model import CACHE_LAYOUT, Model
+from ..models.transformer import ATTN_KINDS
+from ..optim import AdamWConfig, adamw_update, reset_moments
 from .paging import PagedLayout
+
+
+def make_loss_and_grads(cfg):
+    """``(params, batch) → (loss, grads)``: the training loss of ``batch``
+    under a train state's ``params`` and its gradient, a dict in ``params``'
+    order. The model is a skeleton on the ``meta`` device (no weights of its
+    own): :meth:`Model.loss` runs on the given tensors, each taken as a
+    fresh autograd leaf, so the params themselves never require a gradient.
+    Attention stacks only: the RG-LRU and SSD kernels have no backward yet,
+    and their wrappers refuse a tensor that needs one."""
+    kinds = set(cfg.pattern_layers) - set(ATTN_KINDS)
+    if kinds:
+        raise NotImplementedError(
+            f"training {sorted(kinds)} blocks is not ported (their scans "
+            "have no backward): ROADMAP Queue 1, item 13")
+    skeleton = Model(cfg, device="meta", seed=None)
+
+    def loss_and_grads(params: dict, batch: dict):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            loss = skeleton.loss(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    return loss_and_grads
+
+
+def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
+                    probe_cfg: Optional[ProbeConfig] = None, *,
+                    microbatch: int = 0, ce_chunk: int = 0):
+    """``(state, batch, inject) → (state', metrics, error_word)``.
+
+    ``state`` is ``{"params", "opt": {"m", "v"}, "step", "lr_scale"}`` (the
+    JAX package's tree: dicts of tensors in its flatten order, the scalars
+    0-d tensors); ``batch`` ``{"tokens", "labels"}`` on the same device;
+    ``inject`` an int or an int32 0-d device tensor of ``INJ_*`` bits. The
+    word is the in-band device channel: the loss, the whole gradient stream
+    (one ``probe_rows`` launch per leaf) and the input tokens, OR-combined
+    into one int32 that the host's DeviceFuture turns into the paper's
+    exceptions. The injections, the probes, the AdamW update and the
+    metrics (``loss``, ``grad_norm``, ``lr``) all stay on the device: no
+    host sync. ``state`` is left as it was, so the executor may discard the
+    step. The JAX package's ``microbatch`` and ``ce_chunk`` levers wait for
+    ROADMAP Queue 1, item 15b.
+    """
+    if microbatch > 1 or ce_chunk:
+        raise NotImplementedError(
+            "microbatch and ce_chunk are not ported: ROADMAP Queue 1, item 15b")
+    opt_cfg = opt_cfg or AdamWConfig()
+    probe_cfg = probe_cfg or ProbeConfig()
+    loss_and_grads = make_loss_and_grads(cfg)
+
+    def train_step(state, batch, inject):
+        if not torch.is_tensor(inject):
+            inject = torch.full((), int(inject), dtype=torch.int32,
+                                device=state["step"].device)
+        tokens = inject_batch(batch["tokens"], inject)
+        loss, grads = loss_and_grads(state["params"], {**batch, "tokens": tokens})
+        loss = inject_loss(loss, inject)
+        grads = inject_grads(grads, inject)
+        word = step_probe(loss, grads, tokens=tokens, vocab_size=cfg.vocab_size,
+                          cfg=probe_cfg)
+        with torch.no_grad():
+            params, opt, stats = adamw_update(
+                opt_cfg, state["params"], grads, state["opt"], state["step"],
+                lr_scale=state["lr_scale"])
+        new_state = {"params": params, "opt": opt, "step": state["step"] + 1,
+                     "lr_scale": state["lr_scale"]}
+        metrics = {"loss": loss, "grad_norm": stats["grad_norm"],
+                   "lr": stats["lr"]}
+        return new_state, metrics, word
+
+    return train_step
+
+
+def make_reset_opt_fn(cfg):
+    """Paper use case 2: optimizer-moment reset + lr decay ('solver
+    restart'): ``(state, lr_scale) → state'`` with zero moments and
+    ``lr_scale`` multiplied in; the params are kept."""
+
+    def reset(state, lr_scale):
+        return {"params": state["params"], "opt": reset_moments(state["opt"]),
+                "step": state["step"], "lr_scale": state["lr_scale"] * lr_scale}
+
+    return reset
 
 
 def make_decode_step(model: Model):

@@ -22,8 +22,13 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..kernels.flash_attention import flash_attention, sdpa_ref  # noqa: F401
+from ..kernels.flash_attention import (FlashAttention, flash_attention,  # noqa: F401
+                                       sdpa_ref)
 from .layers import apply_rope, dense_init, rms_norm_vec
+
+
+# the backward's query and KV chunk (the JAX package's sdpa_chunked defaults)
+TRAIN_CHUNK = 2048
 
 
 class Attention(nn.Module):
@@ -72,11 +77,20 @@ def attention_train(p: Attention, x: torch.Tensor, rope, cfg, *,
     """Causal self-attention over a full sequence (x (B, S, d)); ``rope``
     from :func:`~repro_torch.models.layers.rope_tables` at positions 0..S-1;
     ``window > 0`` masks keys ``window`` or more positions back (the kernel
-    also skips their tiles)."""
+    also skips their tiles).
+
+    Where autograd needs the gradient (the train step), the attention goes
+    through :class:`FlashAttention` — the same kernel launch, with a
+    recompute backward; the plain wrapper would refuse such inputs, never
+    detach its output."""
     q, k, v = _project_qkv(p, x, cfg)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
-    zeros = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    out = flash_attention(q, k, v, zeros, causal=cfg.causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = FlashAttention.apply(q, k, v, cfg.causal, window, TRAIN_CHUNK,
+                                   TRAIN_CHUNK)
+    else:
+        zeros = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+        out = flash_attention(q, k, v, zeros, causal=cfg.causal, window=window)
     return _out_proj(p, out)
 
 

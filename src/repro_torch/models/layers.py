@@ -134,6 +134,59 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
     return embedding[tokens].to(dtype)
 
 
+class EmbedLookup(torch.autograd.Function):
+    """``embedding`` rows for ``tokens`` as the JAX package's ``jnp.take``
+    gives them in training: ids in ``[-V, V)`` wrap (-1 is the last row),
+    any other id gives a row of NaN (``mode="fill"``) — so no id outside the
+    table ever reaches a CUDA gather (a device-side assert there would end
+    the CUDA context).
+
+    Its backward sums each id's rows without atomics: the ids are sorted
+    (stable), each run of equal ids summed in order by ``segment_reduce``
+    (in fp32; float64 for float64), and each sum written to its row once;
+    rows of invalid ids go to a sink row that is dropped. ``index_add_``
+    would add the rows with
+    atomics on the card, in an order that changes from run to run, and
+    replays would not be bit-exact. The shapes are fixed by the number of
+    tokens: no host sync."""
+
+    @staticmethod
+    def forward(ctx, embedding: torch.Tensor, tokens: torch.Tensor):
+        V = embedding.shape[0]
+        t = tokens.long()
+        valid = (t >= -V) & (t < V)
+        idx = torch.where(valid, torch.remainder(t, V), 0)
+        ctx.save_for_backward(torch.where(valid, idx, V))
+        ctx.table = (V, embedding.dtype)
+        return embedding[idx].masked_fill(~valid[..., None], float("nan"))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (key,), (V, dtype) = ctx.saved_tensors, ctx.table
+        key = key.reshape(-1)
+        n, d = key.numel(), grad.shape[-1]
+        order = torch.sort(key, stable=True).indices
+        skey = key[order]
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        rows = grad.reshape(n, d)[order].to(acc)
+        start = torch.ones_like(skey, dtype=torch.bool)
+        start[1:] = skey[1:] != skey[:-1]
+        seg = torch.cumsum(start, dim=0) - 1                # run of each row
+        lengths = torch.zeros_like(skey).scatter_add_(0, seg, torch.ones_like(skey))
+        sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                                    unsafe=True)            # (n, d), empty runs 0
+        ids = torch.full_like(skey, V).scatter_(0, seg, skey)
+        out = torch.zeros((V + 1, d), dtype=acc, device=grad.device)
+        out[ids] = sums                                     # unique ids < V
+        return out[:V].to(dtype), None
+
+
+def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The training embedding: :class:`EmbedLookup`, cast to ``dtype``."""
+    return EmbedLookup.apply(embedding, tokens).to(dtype)
+
+
 def unembed(x: torch.Tensor, embed_f32: torch.Tensor, *,
             softcap: float = 0.0) -> torch.Tensor:
     """fp32 logits against the tied embedding. ``embed_f32`` is the fp32
@@ -143,3 +196,24 @@ def unembed(x: torch.Tensor, embed_f32: torch.Tensor, *,
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE; logits fp32 (batch, seq, vocab), labels (batch,
+    seq); with ``mask``, the mean over the masked-in tokens."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def chunked_cross_entropy(x, labels, unembed_fn, chunk: int):
+    """The JAX package's sequence-chunked CE (never the whole (B, S, V)
+    logits): not ported — ROADMAP Queue 1, item 15b (``ce_chunk``)."""
+    raise NotImplementedError(
+        "chunked cross-entropy (ce_chunk) is not ported: ROADMAP Queue 1, "
+        "item 15b")

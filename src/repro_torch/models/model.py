@@ -30,7 +30,8 @@ import torch.nn as nn
 
 from ..configs.base import ModelConfig
 from .attention import cache_write_index, ring_write_index
-from .layers import apply_norm, dense_init, embed_tokens, rope_tables, unembed
+from .layers import (_rounded, apply_norm, dense_init, embed_lookup,
+                     embed_tokens, rope_tables, softmax_cross_entropy, unembed)
 from .rglru import CONV_WIDTH
 from .ssm import conv_dim
 from .transformer import (ATTN_KINDS, RECURRENT_STATE, Block,
@@ -176,10 +177,21 @@ class Model(nn.Module):
                           else self.embed.detach().float())
 
     # ------------------------------------------------------------------ forward
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal forward: tokens (B, S) → fp32 logits (B, S, V)."""
+    def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence causal forward: tokens (B, S) → fp32 logits (B, S, V).
+
+        With ``labels`` (B, S), the training forward instead: the mean
+        next-token cross-entropy (over ``loss_mask``'s tokens, if given),
+        a differentiable function of the parameters. It reads the embedding
+        through :class:`~repro_torch.models.layers.EmbedLookup` (an invalid
+        id gives a NaN row, as the JAX package's ``jnp.take``) and unembeds
+        from the live ``embed`` cast to fp32 — not from ``embed_f32``, the
+        serving copy made once and detached — so the tied embedding gets
+        both gradients. :meth:`loss` calls it on a train state's params."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        train = labels is not None
+        x = self._embed(tokens, train=train)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device,
                                  dtype=torch.int32).expand(B, S)
@@ -187,7 +199,23 @@ class Model(nn.Module):
         for blk in self.blocks:
             x = apply_block_train(blk, x, rope, cfg)
         x = apply_norm(self.final_norm, x, cfg.norm)
-        return unembed(x, self.embed_f32, softcap=cfg.logit_softcap)
+        if not train:
+            return unembed(x, self.embed_f32, softcap=cfg.logit_softcap)
+        logits = unembed(x, self.embed.float(), softcap=cfg.logit_softcap)
+        return softmax_cross_entropy(logits, labels, loss_mask)
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """The training loss of ``batch`` (``tokens``, ``labels``, optional
+        ``loss_mask``) under ``params``, a dict of every parameter by its
+        ``named_parameters`` name (a train state's ``"params"``): the
+        forward runs on those tensors through ``torch.func.functional_call``,
+        so gradients reach them and this model's own weights are neither
+        read nor touched (its parameters never require a gradient, and may
+        lie on the ``meta`` device)."""
+        return torch.func.functional_call(
+            self, params, (batch["tokens"],),
+            {"labels": batch["labels"], "loss_mask": batch.get("loss_mask")},
+            strict=True)
 
     # ------------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -332,7 +360,14 @@ class Model(nn.Module):
         return rope_tables(positions, head_dim=cfg.resolved_head_dim,
                            theta=cfg.rope_theta, style=cfg.rope_style)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        if train:
+            # the scale rounded to the model dtype as a Python number: the
+            # same product as the serving path's 0-d tensor, with no
+            # host-to-device copy (a sync) inside the train step
+            x = embed_lookup(self.embed, tokens, self.dtype)
+            scale = self.cfg.embed_scale
+            return x * _rounded(scale, self.dtype) if scale != 1.0 else x
         x = embed_tokens(self.embed, tokens, self.dtype)
         if self.cfg.embed_scale != 1.0:
             x = x * torch.tensor(self.cfg.embed_scale, dtype=self.dtype,

@@ -63,7 +63,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _fill(param: torch.Tensor, arr, name: str) -> None:
-    src = _to_tensor(arr)
+    src = arr if torch.is_tensor(arr) else _to_tensor(arr)
     if tuple(src.shape) != tuple(param.shape) or src.dtype != param.dtype:
         raise ValueError(f"{name}: got {src.dtype} {tuple(src.shape)}, the "
                          f"model holds {param.dtype} {tuple(param.shape)}")
@@ -153,6 +153,126 @@ def _zip(trees: list, stack):
     if isinstance(trees[0], dict):
         return {k: _zip([t[k] for t in trees], stack) for k in trees[0]}
     return stack(trees)
+
+
+def _layer_leaves(cfg: ModelConfig, btype: str) -> list[tuple]:
+    """``(JAX path within a layer, port name suffix)`` of a layer's
+    parameters, in the JAX tree's flatten order (dict keys sorted)."""
+    key, names = _mixer(cfg, btype)
+    leaves = [(("norm1", "scale"), "norm1")]
+    leaves += [((key, n), f"{key}.{n}") for n in names]
+    if btype != "ssd":
+        leaves += [(("norm2", "scale"), "norm2")]
+        leaves += [(("mlp", n), f"mlp.{n}") for n in _mlp_names(cfg)]
+    return sorted(leaves)
+
+
+def param_order(cfg: ModelConfig) -> list[tuple]:
+    """Every parameter as ``(port name, JAX path, period index or None)``,
+    in the JAX params tree's flatten order, each period-stacked leaf
+    expanded into its layers in period order. The port name is the
+    ``named_parameters`` name; the JAX leaf is ``tree[path]`` (its row
+    ``index`` when stacked). A train state's dicts are built in this order,
+    so the optimizer's sums over the leaves run in it."""
+    order = [("embed", ("embed", "embedding"), None),
+             ("final_norm", ("final_norm", "scale"), None)]
+    n_scan = cfg.num_periods * cfg.period
+    for pos in sorted(range(cfg.period), key=lambda p: f"b{p}"):
+        if pos >= n_scan:
+            continue
+        for sub, suffix in _layer_leaves(cfg, cfg.pattern_layers[pos]):
+            for c in range(cfg.num_periods):
+                order.append((f"blocks.{c * cfg.period + pos}.{suffix}",
+                              ("stack", "periods", f"b{pos}", *sub), c))
+    for i, l in enumerate(range(n_scan, cfg.num_layers)):
+        for sub, suffix in _layer_leaves(cfg, cfg.pattern_layers[l]):
+            order.append((f"blocks.{l}.{suffix}", ("stack", "rest", i, *sub), None))
+    return order
+
+
+def train_params(model: Model) -> dict:
+    """A copy of ``model``'s weights as a train state's params: a dict by
+    ``named_parameters`` name, in :func:`param_order`. The model is left as
+    it was (its own weights never require a gradient)."""
+    named = dict(model.named_parameters())
+    names = [name for name, _, _ in param_order(model.cfg)]
+    if sorted(names) != sorted(named):
+        raise ValueError(f"{model.cfg.name}: param_order {sorted(names)} != "
+                         f"the model's {sorted(named)}")
+    return {name: named[name].detach().clone() for name in names}
+
+
+def load_train_params(model: Model, params: dict) -> Model:
+    """Copy a train state's ``params`` into ``model``'s weights (in place)
+    and remake its fp32 unembedding copy (:meth:`Model.tie_unembed`): the
+    serving forward reads that copy, not the embedding, so a model loaded
+    from a trained state without it would unembed with the old weights."""
+    named = dict(model.named_parameters())
+    if sorted(params) != sorted(named):
+        raise ValueError(f"params {sorted(params)} != the model's {sorted(named)}")
+    with torch.no_grad():
+        for name, t in params.items():
+            _fill(named[name], t, name)
+    model.tie_unembed()
+    return model
+
+
+def _get(tree, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _flat_from_jax(tree: dict, cfg: ModelConfig, dev: torch.device) -> dict:
+    return {name: _to_tensor(np.asarray(_get(tree, path)) if c is None
+                             else np.asarray(_get(tree, path))[c]).to(dev)
+            for name, path, c in param_order(cfg)}
+
+
+def _flat_to_jax(flat: dict, cfg: ModelConfig) -> dict:
+    tree: dict = {}
+    stacked: dict = {}
+    for name, path, c in param_order(cfg):
+        arr = _to_numpy(flat[name])
+        if c is not None:
+            stacked.setdefault(path, []).append(arr)    # periods in order
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    for path, arrs in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrs)
+    stack = tree.setdefault("stack", {})
+    stack.setdefault("periods", {})
+    rest = stack.get("rest", {})
+    stack["rest"] = [rest[i] for i in range(len(rest))]
+    return tree
+
+
+def train_state_from_jax(state: dict, cfg: ModelConfig, *, device=None) -> dict:
+    """A port train state on ``device`` from the JAX one (numpy: params,
+    ``opt.m``, ``opt.v``, ``step``, ``lr_scale``)."""
+    dev = resolve_device(device)
+    return {"params": _flat_from_jax(state["params"], cfg, dev),
+            "opt": {k: _flat_from_jax(state["opt"][k], cfg, dev)
+                    for k in ("m", "v")},
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "lr_scale": torch.tensor(float(np.asarray(state["lr_scale"])),
+                                     dtype=torch.float32, device=dev)}
+
+
+def train_state_to_numpy(state: dict, cfg: ModelConfig) -> dict:
+    """Inverse of :func:`train_state_from_jax`: the JAX train state tree, as
+    numpy under the JAX tree's names (bfloat16 leaves as float32)."""
+    return {"params": _flat_to_jax(state["params"], cfg),
+            "opt": {k: _flat_to_jax(state["opt"][k], cfg) for k in ("m", "v")},
+            "step": np.int32(_to_numpy(state["step"])),
+            "lr_scale": np.float32(_to_numpy(state["lr_scale"]))}
 
 
 def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,

@@ -97,3 +97,36 @@ def test_comm_corrupted_word_raises_comm_corrupted():
                             word=torch.tensor(word, dtype=torch.int32))
     with pytest.raises(CommCorruptedError):
         tfut.wait()
+
+
+class _NeverReady:
+    """A stand-in for a CUDA event whose work never finishes."""
+
+    def __init__(self):
+        self.queries = 0
+
+    def query(self) -> bool:
+        self.queries += 1
+        return False
+
+
+def test_wait_timeout_raises_as_jax():
+    """``wait(timeout=)`` polls the step's event until the deadline and
+    raises TimeoutError_ (the reference's straggler bound), without reading
+    the word back; with no event (the CPU) the work is ready at dispatch."""
+    from repro_torch.core.errors import TimeoutError_
+    event = _NeverReady()
+    fut = tdc.DeviceFuture(outputs="x", word=torch.zeros((), dtype=torch.int32),
+                           event=event)
+    before = tdc.readback.count
+    with pytest.raises(TimeoutError_, match="exceeded 0.01s"):
+        fut.wait(timeout=0.01)
+    with pytest.raises(TimeoutError_):
+        fut.result(timeout=0.0)
+    assert event.queries > 1 and tdc.readback.count == before and not fut.done()
+    ready = tdc.DeviceFuture(outputs="y", word=torch.zeros((), dtype=torch.int32))
+    assert ready.wait(timeout=0.0) == "y" and ready.result(timeout=1.0) == "y"
+    bad = tdc.DeviceFuture(outputs=None, word=torch.tensor(
+        int(ErrorCode.NONFINITE_GRAD), dtype=torch.int32))
+    with pytest.raises(PropagatedError):
+        bad.result(timeout=1.0)

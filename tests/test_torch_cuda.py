@@ -802,3 +802,152 @@ def test_group_survives_a_kill_on_the_card(cuda):
     assert readback.count <= 2 * windows
     counts = launch_counts()
     assert counts["flash_decode"] > 0 and counts["probe_rows"] > 0
+
+
+# ------------------------------------------------------------------ training
+def test_wait_timeout_on_the_card(cuda):
+    """A future whose step is still running (the device held by a spin)
+    raises TimeoutError_ at ``wait(timeout=1e-3)``, then waits normally."""
+    from repro_torch.core.device_channel import DeviceFuture, record_event
+    from repro_torch.core.errors import TimeoutError_
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 ** 9)                        # ~0.5 s of device time
+    word = torch.zeros((), dtype=torch.int32, device=cuda)
+    fut = DeviceFuture(outputs="x", word=word, event=record_event(cuda))
+    with pytest.raises(TimeoutError_):
+        fut.wait(timeout=1e-3)
+    with pytest.raises(TimeoutError_):
+        fut.result(timeout=1e-3)
+    assert fut.wait() == "x" and fut.done()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 33, 4, 2, 16, 0), (1, 130, 16, 8, 128, 0),
+                                   (2, 64, 4, 1, 64, 24), (1, 1, 4, 2, 32, 0)])
+def test_flash_lse_matches_plain(cuda, dtype, shape):
+    """The training forward's row lse (flash_forward in bf16, flash_f32 in
+    fp32) against the plain one: fp32 sums in another order (1e-5 of
+    |lse| + 1e-5); its output bit-equal to the launch without lse."""
+    B, S, Hq, Hkv, D, window = shape
+    rng = np.random.default_rng(S)
+    q = _randn(rng, (B, S, Hq, D), dtype, cuda)
+    k, v = (_randn(rng, (B, S, Hkv, D), dtype, cuda) for _ in range(2))
+    zero = torch.zeros(B, dtype=torch.int32, device=cuda)
+    out, lse = flash_attention(q, k, v, zero, causal=True, window=window, lse=True)
+    want_out, want_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True,
+                                  window=window, return_lse=True)
+    assert lse.shape == (B, S, Hq) and lse.dtype == torch.float32
+    assert ((lse - want_lse).abs() <= 1e-5 + 1e-5 * want_lse.abs()).all()
+    if S > 1:
+        assert torch.equal(out, flash_attention(q, k, v, zero, causal=True,
+                                                window=window))
+    tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+    assert (out.float() - want_out.float()).abs().max().item() <= tol
+
+
+def test_flash_function_gradients_on_the_card(cuda):
+    """FlashAttention (kernel forward, plain recompute backward) against
+    autograd through the plain forward in fp32 over the same bf16 inputs,
+    at a small training shape: each gradient within 1e-2 of its largest
+    value plus 2 bf16 ulps of itself (bf16 outputs of fp32 sums)."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (2, 96, 8, 64), torch.bfloat16, cuda).requires_grad_()
+    k = _randn(rng, (2, 96, 4, 64), torch.bfloat16, cuda).requires_grad_()
+    v = _randn(rng, (2, 96, 4, 64), torch.bfloat16, cuda).requires_grad_()
+    do = _randn(rng, (2, 96, 8, 64), torch.bfloat16, cuda)
+    got = torch.autograd.grad(FlashAttention.apply(q, k, v, True, 0, 2048, 2048),
+                              (q, k, v), do)
+    f = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    zero = torch.zeros(2, dtype=torch.int32, device=cuda)
+    want = torch.autograd.grad(sdpa_ref(*f, q_offset=zero, causal=True),
+                               f, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert ((g.float() - w).abs() <= 1e-2 * w.abs().max() + 2.0 ** -6 * w.abs()).all()
+
+
+def test_embed_lookup_backward_is_deterministic_on_the_card(cuda):
+    """The embedding gradient (sorted runs, segment sums) repeats bit for
+    bit on the card and equals the CPU's sequential index_add_."""
+    from repro_torch.models.layers import EmbedLookup
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(300, 64, generator=gen)
+    tokens = torch.randint(-300, 310, (4, 256), generator=gen, dtype=torch.int32)
+    tokens[0, :50] = 7                                # many repeats of one id
+    grad = torch.randn(4, 256, 64, generator=gen)
+    outs = []
+    for _ in range(3):
+        t = table.to(cuda).requires_grad_()
+        rows = EmbedLookup.apply(t, tokens.to(cuda))
+        outs.append(torch.autograd.grad(rows, t, grad.to(cuda))[0].cpu())
+    valid = (tokens >= -300) & (tokens < 300)
+    ref = torch.zeros(300, 64).index_add_(
+        0, torch.remainder(tokens.long(), 300)[valid], grad[valid])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    assert torch.equal(outs[0], ref)
+    assert torch.isnan(rows.detach()[~valid.to(cuda)]).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_lflr_equals_clean_on_the_card(cuda, dtype):
+    """The smoke qwen3 trained on the card: nan_grad at 3 (skip) and 8
+    (restore), bit-equal on every leaf to a clean run over the kept
+    batches; one host sync a step; an id past the vocabulary gives a NaN
+    row, not a device assert."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
+                                  ResilientExecutor)
+    from repro_torch.core.device_channel import readback
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import make_reset_opt_fn
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.tree import tree_leaves
+
+    cfg = smoke_config("qwen3-1.7b").replace(dtype=dtype)
+    _, step_fn, state0, pipe, _ = build_train_setup(cfg, batch_size=2, seq_len=16,
+                                                    device=cuda)
+    ex = ResilientExecutor(step_fn, config=ExecutorConfig(good_state_interval=5),
+                           reset_opt_fn=make_reset_opt_fn(cfg))
+    before = readback.count
+    state, log = ex.run(state0, pipe, 12, faults=FaultSchedule(
+        [FaultSpec(step=3, kind="nan_grad"), FaultSpec(step=8, kind="nan_grad")]))
+    assert readback.count == before + 12
+    assert [(e.step, e.action) for e in log.faults()] == [(3, "skip_batch"),
+                                                           (8, "restore_good")]
+    clean = state0
+    for i in (0, 1, 2, 4, 5, 9, 10, 11):
+        clean, _, _ = step_fn(clean, make_batch(pipe.cfg, i, cuda), 0)
+    assert all(a.device.type == "cuda" and torch.equal(a, b)
+               for a, b in zip(tree_leaves(state), tree_leaves(clean)))
+    bad = make_batch(pipe.cfg, 0, cuda)
+    bad["tokens"][1, 3] = cfg.vocab_size + 5
+    _, metrics, word = step_fn(state0, bad, 0)
+    assert int(word) & int(ErrorCode.DATA_FAULT) and torch.isnan(metrics["loss"])
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A smoke-width bf16 train state on the card saved and restored bit for
+    bit, each leaf back on the card; a corrupt newer checkpoint skipped."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.tree import tree_leaves
+
+    cfg = smoke_config("qwen3-1.7b").replace(dtype="bfloat16")
+    _, step_fn, state, pipe, _ = build_train_setup(cfg, batch_size=2, seq_len=16,
+                                                   device=cuda)
+    state, _, _ = step_fn(state, next(pipe), 0)
+    ck = Checkpointer(tmp_path)
+    ck.save(1, state, blocking=True)
+    newer, _, _ = step_fn(state, next(pipe), 0)
+    ck.save(2, newer, blocking=True)
+    leaf = tmp_path / "step-0000000002" / "leaf-00000.npy"
+    raw = bytearray(leaf.read_bytes())
+    raw[-1] ^= 0x40
+    leaf.write_bytes(bytes(raw))
+    step, got = ck.restore_latest(like=newer)
+    assert step == 1
+    for a, b in zip(tree_leaves(got), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)

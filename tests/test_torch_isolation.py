@@ -11,6 +11,9 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core.device_channel import DeviceFuture
+from repro_torch.data.pipeline import DataIterator, PipelineConfig, make_batch
+from repro_torch.launch.train import build_train_setup
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import Model
 from repro_torch.serve import EngineConfig, Replica, ServeGroup
 from repro_torch.weights import cache_from_jax
@@ -66,6 +69,15 @@ def test_entry_points_default_to_the_card():
         ServeGroup(cfg, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         cache_from_jax({"periods": {}, "rest": []}, cfg.replace(num_layers=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_train_setup(cfg, batch_size=2, seq_len=8)
+    pipe = PipelineConfig(vocab_size=cfg.vocab_size, seq_len=8, batch_size=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataIterator(pipe)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(pipe, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--arch", "qwen3-1.7b", "--steps", "1"])
     Model(cfg, device="cpu")                    # the CPU only when asked
 
 

@@ -255,7 +255,8 @@ def test_launch_signatures_are_64_bit_where_they_index():
     assert dec[5:7] == (L, L) and dec[12] is L and dec[14] is L
     for name in ("repro_flash_forward", "repro_flash_f32"):
         sig = build.SIGNATURES[name]
-        assert sig[5:8] == (L,) * 3 and sig[13] is L      # B, S, T; seq_kv
+        assert sig[5] is ctypes.c_void_p                  # the lse pointer
+        assert sig[6:9] == (L,) * 3 and sig[14] is L      # B, S, T; seq_kv
 
 
 def test_probe_wrapper_refuses_more_rows_than_the_kernel_counts(monkeypatch):
