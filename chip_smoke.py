@@ -12,7 +12,7 @@ seconds since the script started, when the line was printed):
    ``nvidia-smi`` name and power limit (also printed raw on a line of its own);
 2. build      — builds every kernel of the port from the checkout's sources,
    then a ``ptxas`` line: registers, static shared memory and spills of each
-   kernel of the tensor-core and scan sources (``PTXAS_SOURCES``);
+   kernel of the tensor-core, scan and probe sources (``PTXAS_SOURCES``);
 3. kernels    — holds each kernel against its plain PyTorch version on the
    card at the qwen3 serve path's shapes, with the stated tolerances, and
    times the kernel, the plain version and (where one exists) one PyTorch
@@ -122,13 +122,20 @@ seconds since the script started, when the line was printed):
    in its output to the launch without lse, FlashAttention's dq/dk/dv
    against autograd through the plain version in fp32 (a control against
    the mask shifted by one key must exceed the limit), the probe over the
-   151936 x 2048 bf16 embedding gradient — each timed. Then three runs of
+   151936 x 2048 bf16 embedding gradient (one row), and ``probe_tree``
+   over a tree of full-width qwen3's 310 gradient leaves (their shapes and
+   dtypes, 3.44 GB, drawn on the card; one leaf a view at an odd element
+   offset) bit-equal to ``probe_tree_ref`` clean, with a NaN in the last
+   element of the last leaf, an overflow in the first of the first leaf
+   and a -inf in the first of the misaligned leaf — each timed. Then three runs of
    12 steps of ``ResilientExecutor`` over ``make_train_step`` at B 4 x S
    256, each from a fresh copy of the serving model's weights with zero
    moments (the model itself unchanged), a snapshot every 5 steps, no
    checkpointer: clean — every step ok, exactly one host sync a step (the
    port's counter and torch's sync debug mode), ``flash_forward`` 28
-   launches a step and ``probe_rows`` one per gradient leaf, finite losses;
+   launches a step and one ``probe_tree`` launch over all 310 gradient
+   leaves (no ``probe_rows``, no leaf copied for being non-contiguous),
+   finite losses;
    faulted — nan_grad at 3, bad_data at 5, spike_loss at 7, nan_loss at 9
    give ``TRAIN_FAULT_EVENTS`` (skip, restore, optimizer reset, rollback),
    the list the CPU tests get from the JAX executor; LFLR — nan_grad at 3
@@ -179,7 +186,10 @@ seconds since the script started, when the line was printed):
    4 full; bf16, seeded random weights), the mamba2 model freed first, on
    the first 10 requests (cut from 16 when the train phase came; two slots
    refilled); two of the prompts have 560 tokens, so the rings wrap, and
-   the longest answer is held against the forward;
+   the longest answer is held against the forward. Its clean run counts
+   the host syncs by site with torch's sync debug mode: no site may lie
+   under ``src/repro_torch/models/`` (the model's step adds no sync), and
+   the line reports every site with its count;
 23. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
    first full layer, as in the JAX replica;
 24. serve_g3_paged, lflr_g3_paged — phases 22 and 23 through the pool, on
@@ -199,6 +209,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -441,13 +452,14 @@ def phase_device(torch) -> str:
 
 
 PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu", "ssd_chunk_tc.cu",
-                 "rglru_scan.cu")                        # reported by ptxas
+                 "rglru_scan.cu", "fault_probe.cu")      # reported by ptxas
 
 
 def ptxas_report(log: str) -> list:
     """Each kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
     head_dim (flash's template argument; for flash_decode also whether it is
-    the verify's instantiation), registers, static shared memory,
+    the verify's instantiation; the probe's table type), registers, static
+    shared memory,
     stack and spills (the flash and SSD kernels' shared memory is dynamic:
     see their sources)."""
     import re
@@ -466,6 +478,10 @@ def ptxas_report(log: str) -> list:
             hd = re.match(r"ILi(\d+)E(?:Lb([01])E)?", mangled[i:])
             cur = {"kernel": names[-1] if names else mangled,
                    "head_dim": int(hd.group(1)) if hd else None}
+            table = re.match(r"IN?S_(\d+)", mangled[i:])  # probe_kernel<RowTable>
+            if table:
+                cur["template"] = mangled[i + table.end():
+                                          i + table.end() + int(table.group(1))]
             if hd and hd.group(2):          # flash_decode's verify flag,
                 flag = "lse" if "forward" in cur["kernel"] else "verify"
                 cur[flag] = hd.group(2) == "1"   # flash_forward's lse flag
@@ -827,7 +843,8 @@ def build_model(torch, cfg):
 
 def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                 long: int = 0, poison_layers=None, paged: bool = False,
-                want=None, n: int = NUM_REQUESTS, spec=None, traced: bool = False):
+                want=None, n: int = NUM_REQUESTS, spec=None, traced: bool = False,
+                sync_sites: bool = False):
     """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
     traffic clean, then again with an injected state fault (no second run
     where ``names[1]`` is None). ``long`` requests get
@@ -843,9 +860,12 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     the same call. ``n`` cuts the traffic to its first requests. ``traced``
     serves the faulted traffic a second time, through a fresh replica with
     a ``Tracer``, holds it to the untraced faulted run and its trace to
-    :func:`check_lflr_trace`. Returns the kernel launches by path (the
-    clean run's under ``names[0]``, the traced run's under ``names[1]``)
-    and the clean streams."""
+    :func:`check_lflr_trace`. ``sync_sites`` counts the clean run's host
+    syncs by site with torch's sync debug mode (only its "synchronizing
+    CUDA operation" warnings): none may lie under ``src/repro_torch/models/``,
+    and the line reports every site. Returns the kernel launches by path
+    (the clean run's under ``names[0]``, the traced run's under
+    ``names[1]``) and the clean streams."""
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -865,10 +885,24 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     readback.count = 0
-    t0 = time.perf_counter()
-    clean, _ = drive(rep, make_requests(cfg, Request, long, n))
+    with warnings.catch_warnings(record=sync_sites) as caught:
+        if sync_sites:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            clean, _ = drive(rep, make_requests(cfg, Request, long, n))
+        finally:
+            if sync_sites:
+                torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    sites = Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught or ()
+                    if "called a synchronizing CUDA operation" in str(w.message))
+    in_model = {k: v for k, v in sites.items() if k.startswith("src/repro_torch/models/")}
+    if sync_sites and in_model:
+        fail(f"{names[0]}: host syncs inside the model's step: {in_model} "
+             f"(all sites: {dict(sites)})")
     launches = launch_counts()
     syncs = readback.count
     peak = torch.cuda.max_memory_allocated() / 1e9   # before the checks' own
@@ -923,7 +957,9 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
           "syncs": syncs, "window_waits": m.window_waits, "launches": launches,
           "ttft_p50_s": m.ttft_percentiles()["p50"],
           "latency_p99_s": m.latency_percentiles()["p99"],
-          "peak_mem_gb": peak, "forward_check": forward, **pool, **drafts})
+          "peak_mem_gb": peak, "forward_check": forward, **pool, **drafts,
+          **({"torch_syncs": sum(sites.values()), "torch_sync_sites": dict(sites)}
+             if sync_sites else {})})
     SERVE_LINES[names[0]] = {"ms_per_step": wall / steps * 1e3,
                              "tokens_per_s": tokens / wall,
                              "accepted": m.accepted_draft_tokens,
@@ -1616,14 +1652,15 @@ def phase_fuzz(torch, card: str, model) -> dict:
     return paths
 
 
-def train_kernels(torch, cfg) -> dict:
+def train_kernels(torch, cfg, leaf_specs) -> dict:
     """The train path's kernels at its shapes (``cfg``'s heads, B x S =
     ``TRAIN_B x TRAIN_S``): the flash forward with its row lse
     (``flash_forward``) against the plain lse and its own output without
     lse, FlashAttention's gradients against autograd through the plain
-    version, and the probe over the largest gradient leaf (the vocab x
-    d_model embedding, 151936 x 2048 in bf16 for qwen3); each timed beside
-    its bound, its plain version and the library call."""
+    version, the probe over the largest gradient leaf (the vocab x d_model
+    embedding, 151936 x 2048 in bf16 for qwen3), and the tree probe over
+    a gradient tree of ``leaf_specs`` (each leaf's shape and dtype); each
+    timed beside its bound, its plain version and the library call."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.core.errors import ErrorCode
@@ -1740,15 +1777,90 @@ def train_kernels(torch, cfg) -> dict:
             x, 1e4, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     del x, xs
+    out["probe_grad_tree"] = probe_grad_tree(torch, leaf_specs, gen)
     return out
+
+
+def probe_grad_tree(torch, leaf_specs, gen) -> dict:
+    """The tree probe over a gradient tree of ``leaf_specs`` (full-width
+    qwen3: 310 leaves, 1.72 G elements, 3.44 GB, far past the L2), drawn on
+    the card from ``gen``; leaf 5 is a view at an odd element offset into
+    a larger buffer, so its data is not 16-byte aligned. Held bit-equal to
+    ``probe_tree_ref`` clean, with a NaN in the last element of the last
+    leaf, an overflow in the first element of the first leaf and a -inf in
+    the first element of the misaligned leaf: one launch a call, no leaf
+    copied. Timed beside its bound and its plain version (no single
+    PyTorch call computes the word)."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import probe_tree
+    from repro_torch.kernels.fault_probe import probe_tree_ref
+
+    dev = torch.device("cuda")
+    nf, ov = int(ErrorCode.NONFINITE_GRAD), int(ErrorCode.OVERFLOW)
+    tree = {}
+    for i, (shape, dtype) in enumerate(leaf_specs):
+        n = math.prod(shape)
+        if i == 5:                   # a view at element 1 of n + 1
+            buf = torch.randn((n + 1,), generator=gen, device=dev, dtype=dtype)
+            tree[f"leaf{i}"] = buf[1:].view(shape)
+        else:
+            tree[f"leaf{i}"] = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    leaves = list(tree.values())
+    misaligned = leaves[5]
+    if misaligned.data_ptr() % 16 == 0 or not misaligned.is_contiguous():
+        fail(f"probe_grad_tree: leaf 5 at {misaligned.data_ptr()} is 16-byte "
+             "aligned or not contiguous")
+    words, launches = {}, []
+    copies = probe_tree.copies
+    for name, (leaf, i, val) in {
+            "clean": (leaves[-1], 0, None),
+            "nan_last_of_last": (leaves[-1], -1, float("nan")),
+            "overflow_first_of_first": (leaves[0], 0, 3e4),
+            "neg_inf_first_of_misaligned": (misaligned, 0, float("-inf"))}.items():
+        flat = leaf.view(-1)
+        if val is not None:
+            keep = flat[i].clone()
+            flat[i] = val
+        before = probe_tree.launches
+        got = probe_tree(tree, 1e4, nonfinite_code=nf, overflow_code=ov)
+        launches.append(probe_tree.launches - before)
+        ref = probe_tree_ref(tree, 1e4, nonfinite_code=nf, overflow_code=ov)
+        if not torch.equal(got, ref):
+            fail(f"probe_grad_tree ({name}): {got.item()} vs {ref.item()}")
+        words[name] = got.item()
+        if val is not None:
+            flat[i] = keep
+    want = {"clean": 0, "nan_last_of_last": nf, "overflow_first_of_first": ov,
+            "neg_inf_first_of_misaligned": nf}
+    if words != want or launches != [1] * 4 or probe_tree.copies != copies:
+        fail(f"probe_grad_tree: words {words} (want {want}), launches a call "
+             f"{launches}, leaves copied {probe_tree.copies - copies}")
+    elems = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    b_ms, b_by = bound(nbytes + 4, 3 * elems, PEAK_FP32_FLOPS)
+    row = {"shape": f"{len(leaves)} leaves, {elems} elements "
+                    f"({nbytes / 1e9:.3f} GB; dtypes "
+                    f"{dict(Counter(str(t.dtype) for t in leaves))}), threshold 1e4",
+           "leaves": len(leaves), "elements": elems, "bytes": nbytes,
+           "words": words, "launches_per_call": 1, "max_abs_err": 0,
+           "timing_copies": 1,
+           "kernel_ms": time_ms(torch, lambda t: probe_tree(
+               t, 1e4, nonfinite_code=nf, overflow_code=ov), [(tree,)]),
+           # ~8 launches a leaf: more than the device queues
+           "plain_ms": time_ms(torch, lambda t: probe_tree_ref(
+               t, 1e4, nonfinite_code=nf, overflow_code=ov), [(tree,)], launches=2,
+               queued=False),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del tree, leaves, misaligned
+    return row
 
 
 def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
     """Where a train step's time goes: torch's profiler (CUPTI, device
     activity only) over one clean step from ``state`` (after one more as
     warm-up): the kernels' device time, the device's idle share of the
-    unprofiled step (``ms_step``), and the kernels taking the most device
-    time, each with its launches."""
+    unprofiled step (``ms_step``), the kernels taking the most device
+    time, each with its launches, and the fault probe's time and launches."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn(state, batch, 0)
@@ -1760,9 +1872,12 @@ def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
+    probe = [(ms, n) for name, ms, n in kernels if "probe_kernel" in name]
     return {"device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1 - busy_ms / ms_step,
             "kernel_launches_per_step": sum(n for _, _, n in kernels),
+            "probe_ms_per_step": sum(ms for ms, _ in probe),
+            "probe_launches_per_step": sum(n for _, n in probe),
             "top_kernels": [{"name": name[:90], "ms_per_step": ms, "launches": n}
                             for name, ms, n in top]}
 
@@ -1774,7 +1889,6 @@ def phase_train(torch, card: str, model) -> tuple:
     copy of ``model``'s weights (the serving model is not changed) with zero
     moments: clean, faulted, LFLR. Returns ``(kernel rows, the clean run's
     launches)``."""
-    import warnings
     from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
                                   ResilientExecutor)
     from repro_torch.core.detect import ProbeConfig
@@ -1782,7 +1896,8 @@ def phase_train(torch, card: str, model) -> tuple:
     from repro_torch.core.recovery import RecoveryPolicy
     from repro_torch.core.resilient import snapshot
     from repro_torch.data.pipeline import DataIterator, make_batch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, probe_tree, reset_launch_counts
+    from repro_torch.kernels.fault_probe.ops import MAX_LEAVES
     from repro_torch.launch.steps import make_reset_opt_fn
     from repro_torch.launch.train import build_train_setup
     from repro_torch.optim import init_opt_state
@@ -1791,7 +1906,8 @@ def phase_train(torch, card: str, model) -> tuple:
 
     t_parts = {"start": time.perf_counter()}
     cfg = model.cfg
-    kern = train_kernels(torch, cfg)
+    kern = train_kernels(torch, cfg, [(tuple(p.shape), p.dtype)
+                                      for p in model.parameters()])
     t_parts["kernels"] = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1832,7 +1948,7 @@ def phase_train(torch, card: str, model) -> tuple:
     #    debug mode counting every synchronising call), the kernels' launches
     torch.cuda.synchronize()
     reset_launch_counts()
-    syncs = readback.count
+    syncs, copies = readback.count, probe_tree.copies
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1844,7 +1960,7 @@ def phase_train(torch, card: str, model) -> tuple:
     torch.cuda.synchronize()           # the last update, queued after its word
     clean_s = time.perf_counter() - t0
     launches = launch_counts()
-    syncs = readback.count - syncs
+    syncs, copies = readback.count - syncs, probe_tree.copies - copies
     sync_sites = Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
                          for w in caught
                          if "called a synchronizing CUDA operation" in str(w.message))
@@ -1852,17 +1968,21 @@ def phase_train(torch, card: str, model) -> tuple:
     clean_losses = readback(torch.stack(losses)).tolist()
     step_ms = sorted(e.duration_s * 1e3 for e in log.events if e.kind == "ok" and e.step)
     ms_step = step_ms[len(step_ms) // 2]
+    # one probe_tree launch a step over every gradient leaf (310 fit one
+    # table of MAX_LEAVES), no probe_rows
     expected = dict.fromkeys(launches, 0)
     expected.update(flash_attention=TRAIN_STEPS * len(model.attn_layers),
                     flash_forward=TRAIN_STEPS * len(model.attn_layers),
-                    probe_rows=TRAIN_STEPS * n_leaves)
+                    probe_tree=TRAIN_STEPS * math.ceil(n_leaves / MAX_LEAVES))
     ok = [e.step for e in log.events if e.kind == "ok"]
     if (ok != list(range(TRAIN_STEPS)) or int(readback(state["step"])) != TRAIN_STEPS
             or syncs != TRAIN_STEPS or torch_syncs != TRAIN_STEPS
-            or launches != expected or not all(map(math.isfinite, clean_losses))):
+            or launches != expected or copies
+            or not all(map(math.isfinite, clean_losses))):
         fail(f"train (clean): ok steps {ok}, step {int(readback(state['step']))}, "
              f"syncs {syncs} (torch's sync debug mode: {torch_syncs} at "
-             f"{dict(sync_sites)}; want {TRAIN_STEPS}), launches {launches} != {expected}, losses {clean_losses}")
+             f"{dict(sync_sites)}; want {TRAIN_STEPS}), launches {launches} != {expected}, "
+             f"non-contiguous leaves copied {copies}, losses {clean_losses}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     snap = snapshot(state)
@@ -1916,6 +2036,7 @@ def phase_train(torch, card: str, model) -> tuple:
           "ms_per_step_median": ms_step, "ms_per_step": step_ms,
           "tokens_per_s": TRAIN_B * TRAIN_S / (ms_step / 1e3),
           "clean_run_s": clean_s, "syncs_per_step": syncs / TRAIN_STEPS,
+          "probe_leaves_copied": copies,
           "torch_syncs": torch_syncs, "torch_sync_sites": dict(sync_sites),
           "snapshot_ms": snapshot_ms,
           "state_gb": state_gb, "mem_before_gb": mem_before, "peak_mem_gb": peak,
@@ -2856,7 +2977,8 @@ def main() -> None:
     # them, two slots refilled)
     serve_g3, g3_streams = phase_serve(torch, card, model, init_s,
                                        ("serve_g3", "lflr_g3"), long=2,
-                                       poison_layers=[5], n=REFILL_REQUESTS)
+                                       poison_layers=[5], n=REFILL_REQUESTS,
+                                       sync_sites=True)
     # the same through the pool, on the first 8 requests (the two long
     # prompts among them; cut when the speculative phases came, to keep the
     # run's time): the 4 full layers paged, the rings dense; the fault goes
@@ -2896,14 +3018,17 @@ def main() -> None:
         kernel_entry(
             "probe_rows", "src/repro_torch/kernels/fault_probe/csrc/fault_probe.cu",
             "src/repro/kernels/fault_probe/kernel.py:44",
-            by_path("probe_rows"), kern["probe_rows"],
+            {p: c["probe_rows"] + c["probe_tree"] for p, c in paths.items()},
+            kern["probe_rows"],
             {"probe_rows": kern["probe_rows"], "probe_verify": kern["probe_verify"],
              "probe_state": kern_rg["probe_state"],
              "probe_prefill": kern_rg["probe_prefill"],
              "probe_ssm": kern_ssm["probe_ssm"],
              "probe_g3_logits": kern_g3["probe_g3_logits"],
              "probe_g3_prefill": kern_g3["probe_g3_prefill"],
-             "probe_grad_embed": kern_train["probe_grad_embed"]}),
+             "probe_grad_embed": kern_train["probe_grad_embed"],
+             "probe_grad_tree": kern_train["probe_grad_tree"]},
+            launches_by_kernel={k: by_path(k) for k in ("probe_rows", "probe_tree")}),
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:36",

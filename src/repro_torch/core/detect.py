@@ -4,8 +4,9 @@ and train steps.
 The port of ``repro/core/detect.py``. Each probe returns an int32 error word
 on the device (the :class:`~repro_torch.core.errors.ErrorCode` lattice);
 words combine with bitwise-or and ride the in-band device channel. The heavy
-probes — the whole gradient or parameter stream, the logits, the recurrent
-state — run the ``probe_rows`` kernel.
+probes run the fault-probe kernel: the whole gradient or parameter stream in
+one ``probe_tree`` launch, the logits and the recurrent state through
+``probe_rows``.
 
 The JAX serving step probes ``loss_probe(max|logits|)`` with a divergence
 threshold of ``inf``: NONFINITE_LOSS exactly when some logit is NaN or ±inf.
@@ -24,9 +25,9 @@ from typing import Optional
 
 import torch
 
-from ..kernels.fault_probe import probe_rows
-from ..tree import tree_leaves
-from .device_channel import WORD_DTYPE, combine_words, or_reduce
+# probe_tree: the JAX package's name, one kernel launch over a whole tree
+from ..kernels.fault_probe import probe_rows, probe_tree
+from .device_channel import WORD_DTYPE, combine_words
 from .errors import ErrorCode
 
 
@@ -52,17 +53,6 @@ def loss_probe(loss: torch.Tensor, cfg: ProbeConfig = ProbeConfig()) -> torch.Te
     return (_flag(~finite, ErrorCode.NONFINITE_LOSS)
             | _flag(finite & (loss > cfg.loss_divergence_threshold),
                     ErrorCode.DIVERGENCE))
-
-
-def probe_tree(tree, threshold: float, *, nonfinite_code: int,
-               overflow_code: int) -> torch.Tensor:
-    """OR-fold of one ``probe_rows`` word per floating leaf, each leaf as one
-    row (the JAX package's loop over the leaves, one launch per leaf); 0-d
-    int32 on the leaves' device, no sync."""
-    words = [probe_rows(leaf.reshape(1, -1), threshold,
-                        nonfinite_code=nonfinite_code, overflow_code=overflow_code)
-             for leaf in tree_leaves(tree) if torch.is_floating_point(leaf)]
-    return or_reduce(torch.cat(words), dim=0)
 
 
 def grad_probe(grads, cfg: ProbeConfig = ProbeConfig()) -> torch.Tensor:

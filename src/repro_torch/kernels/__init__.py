@@ -1,12 +1,12 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version and a launch counter on its wrapper (``<wrapper>.launches``; a
 wrapper with several kernels also counts each in ``.kernel_launches``)."""
-from .fault_probe import probe_rows  # noqa: F401
+from .fault_probe import probe_rows, probe_tree  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .rglru_scan import rglru_scan  # noqa: F401
 from .ssd_scan import ssd_scan  # noqa: F401
 
-WRAPPERS = (flash_attention, probe_rows, rglru_scan, ssd_scan)
+WRAPPERS = (flash_attention, probe_rows, probe_tree, rglru_scan, ssd_scan)
 
 
 def reset_launch_counts() -> None:

@@ -49,6 +49,9 @@ SIGNATURES = {
     # x, rows, cols, dtype, threshold, nonfinite_code, overflow_code, out,
     # stream
     "repro_probe_rows": (_P, _I, _L, _I, _F, _I, _I, _P, _P),
+    # the leaves' pointers, counts, dtype codes and chunk ends (host arrays),
+    # leaves, threshold, nonfinite_code, overflow_code, out, zero_out, stream
+    "repro_probe_tree": (_P, _P, _P, _P, _I, _F, _I, _I, _P, _I, _P),
     # x_in, log_a, h_out, agg (scratch), B, S, W, T (chunk), stream
     "repro_rglru_scan": (_P, _P, _P, _P, _L, _L, _L, _L, _P),
     # x, dt, A, B, C, y, states, b, S, H, P, G, N, L, stream

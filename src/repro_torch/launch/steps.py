@@ -75,8 +75,8 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
     0-d tensors); ``batch`` ``{"tokens", "labels"}`` on the same device;
     ``inject`` an int or an int32 0-d device tensor of ``INJ_*`` bits. The
     word is the in-band device channel: the loss, the whole gradient stream
-    (one ``probe_rows`` launch per leaf) and the input tokens, OR-combined
-    into one int32 that the host's DeviceFuture turns into the paper's
+    (one ``probe_tree`` launch over every leaf) and the input tokens,
+    OR-combined into one int32 that the host's DeviceFuture turns into the paper's
     exceptions. The injections, the probes, the AdamW update and the
     metrics (``loss``, ``grad_norm``, ``lr``) all stay on the device: no
     host sync. ``state`` is left as it was, so the executor may discard the

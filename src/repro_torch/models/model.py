@@ -361,15 +361,9 @@ class Model(nn.Module):
                            theta=cfg.rope_theta, style=cfg.rope_style)
 
     def _embed(self, tokens: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        if train:
-            # the scale rounded to the model dtype as a Python number: the
-            # same product as the serving path's 0-d tensor, with no
-            # host-to-device copy (a sync) inside the train step
-            x = embed_lookup(self.embed, tokens, self.dtype)
-            scale = self.cfg.embed_scale
-            return x * _rounded(scale, self.dtype) if scale != 1.0 else x
-        x = embed_tokens(self.embed, tokens, self.dtype)
-        if self.cfg.embed_scale != 1.0:
-            x = x * torch.tensor(self.cfg.embed_scale, dtype=self.dtype,
-                                 device=x.device)
-        return x
+        # the scale rounded to the model dtype as a Python number: the same
+        # product as a 0-d tensor of the model dtype, with no host-to-device
+        # copy (a host sync) inside a train or decode step
+        x = (embed_lookup if train else embed_tokens)(self.embed, tokens, self.dtype)
+        scale = self.cfg.embed_scale
+        return x * _rounded(scale, self.dtype) if scale != 1.0 else x

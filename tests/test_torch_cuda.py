@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from repro_torch.core.errors import ErrorCode
-from repro_torch.kernels import flash_attention, probe_rows, rglru_scan, ssd_scan
-from repro_torch.kernels.fault_probe import probe_rows_ref
+from repro_torch.kernels import (flash_attention, probe_rows, probe_tree, rglru_scan,
+                                 ssd_scan)
+from repro_torch.kernels.fault_probe import probe_rows_ref, probe_tree_ref
+from repro_torch.kernels.fault_probe.ops import MAX_LEAVES
 from repro_torch.kernels.flash_attention import sdpa_ref
 from repro_torch.kernels.flash_attention.ops import plan
 from repro_torch.kernels.rglru_scan import rglru_scan_ref
@@ -951,3 +953,183 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     assert step == 1
     for a, b in zip(tree_leaves(got), tree_leaves(state)):
         assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- probe_tree
+TREE_THRESHOLDS = (1e4, float("inf"), 0.0, -1.0, 10000.0007)
+
+
+def _tree_word(tree, threshold, launches):
+    """probe_tree's word, its launches counted, held to probe_tree_ref."""
+    before = probe_tree.launches
+    got = probe_tree(tree, threshold, nonfinite_code=NF, overflow_code=OV)
+    torch.cuda.synchronize()
+    assert probe_tree.launches == before + launches
+    want = probe_tree_ref(tree, threshold, nonfinite_code=NF, overflow_code=OV)
+    assert got.dtype == torch.int32 and got.dim() == 0 and got.device.type == "cuda"
+    assert torch.equal(got, want), (threshold, got, want)
+    return int(got)
+
+
+def _mixed_tree(rng, cuda, n=60):
+    """fp32 and bf16 leaves of odd lengths, one-element, empty and integer
+    leaves, |x| < 1."""
+    tree = {}
+    for i in range(n):
+        size = int(rng.choice([0, 1, 2, 7, 2048, 8191, 8193, 40001, 300000]))
+        dtype = (torch.float32, torch.bfloat16)[i % 2]
+        tree[f"l{i}"] = 0.1 * _randn(rng, (size,), dtype, cuda)
+    tree["ids"] = torch.arange(7, device=cuda)
+    return tree
+
+
+def test_probe_tree_kernel_matches_plain(cuda):
+    """One launch for a tree of at most MAX_LEAVES leaves, at every
+    threshold, clean and with faults at leaves' first and last elements."""
+    rng = np.random.default_rng(11)
+    tree = _mixed_tree(rng, cuda)
+    for thr in TREE_THRESHOLDS:
+        assert _tree_word(tree, thr, 1) == (OV if thr <= 0 else 0)
+    for name, i, val in (("l3", -1, float("nan")), ("l8", 0, float("-inf")),
+                         ("l5", 0, 3e4), ("l4", -1, -2e4), ("l8", -1, 10000.0009765625)):
+        leaf = tree[name]
+        if not leaf.numel():
+            continue
+        keep = leaf[i].clone()
+        leaf[i] = val
+        words = [_tree_word(tree, thr, 1) for thr in TREE_THRESHOLDS]
+        leaf[i] = keep
+        assert any(words)
+    # a non-finite element counts as 0 in the threshold test, as in the
+    # plain version: at a negative threshold a leaf of NaNs alone sets both
+    nans = torch.full((2, 9), float("nan"), device=cuda)
+    assert _tree_word([nans[0]], -1.0, 1) == NF | OV
+    assert probe_rows(nans, -1.0, nonfinite_code=NF, overflow_code=OV).tolist() == [NF | OV] * 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_tree_views_at_every_offset(cuda, dtype):
+    """Views at element offsets 0-7 into one buffer (16-byte heads of every
+    length), of lengths around a vector and a chunk: a fault at a view's
+    first or last element is seen, and one just outside it is not."""
+    buf = torch.zeros(3 * 40000, dtype=dtype, device=cuda)
+    for n in (1, 5, 9, 16391, 16393, 40000):
+        for off in range(8):
+            start = off + 20000
+            for i in (start, start + n - 1):
+                buf[i] = float("nan")
+                assert _tree_word([buf[start:start + n]], 1e4, 1) == NF
+                buf[i] = 0
+            for i in (start - 1, start + n):
+                buf[i] = float("inf")
+                assert _tree_word([buf[start:start + n]], 1e4, 1) == 0
+                buf[i] = 0
+
+
+def test_probe_tree_more_leaves_than_one_table(cuda):
+    """MAX_LEAVES + 1 leaves: two launches into one word, a fault in the
+    first launch's leaves and in the second's seen alike."""
+    leaves = [torch.zeros(3 + i % 5, device=cuda) for i in range(MAX_LEAVES + 1)]
+    assert _tree_word(leaves, 1e4, 2) == 0
+    leaves[-1][2] = float("nan")
+    assert _tree_word(leaves, 1e4, 2) == NF
+    leaves[-1][2] = 0
+    leaves[0][0] = 2e4
+    assert _tree_word(leaves, 1e4, 2) == OV
+    assert _tree_word(leaves[:MAX_LEAVES], 1e4, 1) == OV
+
+
+def test_probe_tree_zero_size_leaves(cuda):
+    empty = [torch.empty(0, device=cuda), torch.empty((3, 0), dtype=torch.bfloat16,
+                                                      device=cuda)]
+    assert _tree_word(empty, -1.0, 0) == 0
+    x = torch.zeros(5, device=cuda)
+    x[4] = float("nan")
+    assert _tree_word(empty + [x] + empty, 1e4, 1) == NF
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_subnormals_at_threshold_zero(cuda, dtype):
+    """A subnormal is finite and above 0: OVERFLOW at threshold 0 in the
+    tree and the row probe alike (the kernel flushes nothing); -0.0 is not."""
+    tiny = 1e-44 if dtype == torch.float32 else 1e-39
+    x = torch.zeros((2, 9000), dtype=dtype, device=cuda)
+    assert 0 < abs(float(torch.tensor(tiny, dtype=dtype))) < torch.finfo(dtype).tiny
+    x[1, 8999] = tiny
+    x[0, 3] = -0.0
+    assert _tree_word([x[0], x[1]], 0.0, 1) == OV
+    assert _tree_word([x[0]], 0.0, 1) == 0
+    got = probe_rows(x, 0.0, nonfinite_code=NF, overflow_code=OV)
+    assert torch.equal(got, probe_rows_ref(x, 0.0, nonfinite_code=NF, overflow_code=OV))
+    assert got.tolist() == [0, OV]
+
+
+def test_probe_tree_leaf_past_2_31_elements(cuda):
+    """A bf16 leaf of 2^31 + 1000 elements (4.3 GB) beside a small one:
+    faults past element 2^31 are seen."""
+    n = 2 ** 31 + 1000
+    big = torch.zeros(n, dtype=torch.bfloat16, device=cuda)
+    small = torch.zeros(10, device=cuda)
+    assert probe_tree([small, big], 1e4, nonfinite_code=NF, overflow_code=OV).item() == 0
+    big[n - 1] = float("nan")
+    assert probe_tree([small, big], 1e4, nonfinite_code=NF, overflow_code=OV).item() == NF
+    big[n - 1] = 0
+    big[2 ** 31 + 5] = 3e4
+    assert probe_tree([small, big], 1e4, nonfinite_code=NF, overflow_code=OV).item() == OV
+
+
+def test_probe_tree_from_two_threads_on_two_streams(cuda):
+    """The same tree probed from two threads, each on its own stream, many
+    times over: every word is the plain version's (no scratch is shared
+    between calls)."""
+    import threading
+    rng = np.random.default_rng(12)
+    tree = _mixed_tree(rng, cuda)
+    first, second = [t for t in tree.values()
+                     if torch.is_floating_point(t) and t.numel()][:2]
+    first[0] = float("nan")
+    second[-1] = 5e4
+    want = probe_tree_ref(tree, 1e4, nonfinite_code=NF, overflow_code=OV)
+    torch.cuda.synchronize()
+    words, errors = {0: [], 1: []}, []
+
+    def run(k):
+        try:
+            stream = torch.cuda.Stream(device=cuda)
+            with torch.cuda.stream(stream):
+                for _ in range(50):
+                    words[k].append(probe_tree(tree, 1e4, nonfinite_code=NF,
+                                               overflow_code=OV))
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and int(want) == NF | OV
+    assert all(torch.equal(w, want) for k in (0, 1) for w in words[k])
+    assert len(words[0]) == len(words[1]) == 50
+
+
+def test_probe_rows_makes_no_fill_launch(cuda):
+    """One probe_rows call is one kernel on the device (its words zeroed by
+    a memset inside the entry point), and one probe_tree call too: no fill
+    kernel beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros((8, 151936), device=cuda)
+    tree = [torch.zeros(1000, device=cuda), torch.zeros(77, dtype=torch.bfloat16,
+                                                         device=cuda)]
+    probe_rows(x, 1e4, nonfinite_code=NF, overflow_code=OV)
+    probe_tree(tree, 1e4, nonfinite_code=NF, overflow_code=OV)
+    torch.cuda.synchronize()
+    for call in (lambda: probe_rows(x, 1e4, nonfinite_code=NF, overflow_code=OV),
+                 lambda: probe_tree(tree, 1e4, nonfinite_code=NF, overflow_code=OV)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.self_device_time_total > 0 and "memset" not in e.key.lower()]
+        assert len(kernels) == 1 and "probe_kernel" in kernels[0], kernels

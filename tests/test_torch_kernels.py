@@ -225,7 +225,7 @@ def test_kernel_sources_cover_both_kernels():
         assert isinstance(fn.launches, int)
     assert set(launch_counts()) == {"flash_attention", "flash_decode",
                                     "flash_verify", "flash_forward", "flash_f32",
-                                    "probe_rows", "rglru_scan", "ssd_scan",
+                                    "probe_rows", "probe_tree", "rglru_scan", "ssd_scan",
                                     "ssd_chunk_tc", "ssd_f32"}
     exported = set()
     for src in build.sources():

@@ -202,3 +202,26 @@ def test_cache_write_positions(env):
         written = (cache[k][0].abs().sum(dim=(-1, -2)) != 0)
         last = 2 if kind == "sliding" else cap - 1
         assert written.nonzero().tolist() == [[0, 0], [1, 3], [2, last]], kind
+
+
+@pytest.mark.parametrize("scale", ["smoke", "gemma3-1b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_embedding_scale_is_the_tensor_product(dtype, scale):
+    """The serving embedding multiplies by the scale rounded to the model
+    dtype as a Python number, so a decode step makes no tensor on the device
+    for it (a host-to-device copy, a hidden sync on the card): bit-equal to
+    the product with a 0-d tensor of the model dtype that it replaced, at
+    the smoke config's scale (8) and at full-width gemma3-1b's
+    (sqrt(1152), which neither dtype holds)."""
+    from repro_torch.models import Model
+    from repro_torch.models.layers import embed_tokens
+    cfg = dataclasses.replace(smoke_config("gemma3-1b"), dtype=dtype)
+    if scale != "smoke":
+        cfg = dataclasses.replace(cfg, embed_scale=float(np.sqrt(1152.0)))
+    model = Model(cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 9)))
+    old = embed_tokens(model.embed, tokens, model.dtype) * torch.tensor(
+        cfg.embed_scale, dtype=model.dtype)
+    got = model._embed(tokens)
+    assert got.dtype == model.dtype and torch.equal(got, old)
