@@ -27,7 +27,10 @@ seconds since the script started, when the line was printed):
    and 64 new tokens each (cut from 16 when the train phase came, for the
    run's time; two freed slots are still refilled). Every request must be answered OK, the kernels' launch counts must
    show the path went through them, and one answer is held against the
-   prefill step's forward;
+   prefill step's forward. The clean run counts its host syncs by site
+   with torch's sync debug mode: every one must lie in
+   ``core/device_channel.py::readback`` (none in ``serve/replica.py`` or
+   ``models/``), and the line reports every site with its count;
 5. lflr       — the same traffic again with a NaN injected into an active
    slot's KV cache mid-run: the probe kernel must latch NONFINITE_LOSS, and
    every stream must be bit-equal to phase 4. The same faulted traffic
@@ -115,7 +118,33 @@ seconds since the script started, when the line was printed):
    the page ledger, the trace's ``validate()``, no wedge), every answer OK
    or FAILED, each kit's clean run bit-equal on a second call; the line
    reports the cells each entry covered;
-11e. train — on the qwen3 model still loaded (after the fuzz phase): the
+11e. multihost, multihost_kill — after the fuzz phase, the first 10
+   requests of phase 4's traffic through ``MultiHostSupervisor(3,
+   backend="replica", width="full", device="cuda")``: three worker
+   processes (``python -m repro_torch.serve.multihost``), each building
+   qwen3-1.7b at full width from serve's seed with serve's engine, under
+   the heartbeat supervisor (1 s lease) over localhost sockets. Clean:
+   every stream equals phase 4's, nothing evicted or re-routed, every
+   worker's ``bye`` word 0 and its launches through ``flash_decode`` (a
+   multiple of 28) and ``probe_rows``, the merged trace's ``validate()``
+   empty; the line reports wall, fleet tokens/s beside ``group``'s, each
+   worker's seconds from spawn to ``hello``, suspicions and the card's
+   peak memory by ``nvidia-smi``. Kill: worker 1 SIGKILL'd at the first
+   retirement fleet-wide (``MULTIHOST_KILL_AT``): evicted within 2 s of the kill, its
+   requests re-routed, epoch >= 1, every stream phase 4's; what the
+   survivors computed after the kill (their workers' trace): each runs a
+   decode window that starts after the kill and ends before the eviction,
+   and one retires, before the eviction, a request whose last committing
+   window started after the kill; the trace's host_kill →
+   host_suspect → host_evict → ulfm_shrink → reroute → epoch chain and
+   ``rank_failed`` from the survivors only, whose ``bye`` words carry
+   RANK_FAILED; the line adds the detection times. The kernels line counts
+   the workers' ``bye`` launches (a killed worker's are lost with it);
+11f. elastic — ``elastic_train(4, steps=25, lr=0.2)`` with a NaN gradient
+   on rank 2 at step 5 and rank 1 killed at step 8, on the card and on the
+   CPU: the same events, steps and world sizes, weights within rtol 1e-5,
+   final losses under 5e-2 (seconds, no kernel: a 16-dim regression);
+11g. train — on the qwen3 model still loaded (after the fuzz phase): the
    train path's kernels at its shapes first — the flash forward with its
    row lse at B 4 x S 256 (16/8 heads, D 128, causal) against the plain
    lse (a control with one key dropped must exceed the limit) and bit-equal
@@ -187,9 +216,8 @@ seconds since the script started, when the line was printed):
    the first 10 requests (cut from 16 when the train phase came; two slots
    refilled); two of the prompts have 560 tokens, so the rings wrap, and
    the longest answer is held against the forward. Its clean run counts
-   the host syncs by site with torch's sync debug mode: no site may lie
-   under ``src/repro_torch/models/`` (the model's step adds no sync), and
-   the line reports every site with its count;
+   the host syncs by site with torch's sync debug mode, as phase 4's: every
+   one in ``readback``;
 23. lflr_g3    — phase 5 for gemma3-1b: the NaN goes into K of layer 5, its
    first full layer, as in the JAX replica;
 24. serve_g3_paged, lflr_g3_paged — phases 22 and 23 through the pool, on
@@ -252,6 +280,25 @@ SPEC_DEEP_EMBED = 0.1
 # 63-token prompts are answered (round 16) and the rest are not (the next,
 # 83 tokens, about round 19)
 GROUP_RANKS, GROUP_REQUESTS, GROUP_FAULT_ROUND, GROUP_CRASH_AT = 3, 6, 2, 18
+# the multi-host phases: 3 worker processes, each serving qwen3 at full
+# width with serve's engine and seed, on serve's first REFILL_REQUESTS
+# requests; a 1 s lease (eviction 1.8 s after the last beat); a serve
+# timeout that fails a fleet whose worker died at start-up within minutes.
+# Worker 1 is SIGKILL'd at the first retirement fleet-wide, when worker 2's
+# two 63-token prompts (ids 2 and 5, retired in one window) come in, so
+# worker 1 still holds all 3 of its requests. Id 5's retirement reaches the
+# supervisor just after the kill but was computed before it, so the gate
+# counts only what the survivors computed after the kill: every survivor
+# runs a decode window that starts after the kill and ends before the
+# eviction, and a survivor retires a request, before the eviction, whose
+# last committing window started after the kill (id 8, worker 2's 95-token
+# prompt: its retirement came 1.27-1.46 s into the 1.79 s window on an H100
+# host at 30-31 ms serve steps, its last window dispatched about 0.25 s
+# before)
+MULTIHOST_RANKS, MULTIHOST_SUSPECT_TIMEOUT, MULTIHOST_TIMEOUT = 3, 1.0, 150.0
+MULTIHOST_KILLED, MULTIHOST_KILL_AT = 1, 1
+# the elastic phase: the card's fp32 gradients against the CPU's
+ELASTIC_RTOL = 1e-5
 SERVE_LINES: dict = {}              # a serve phase's ms per step and tokens/s
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
 # flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
@@ -833,6 +880,17 @@ def drive(rep, reqs, inject=None):
     return out, inject is None
 
 
+def readback_sites() -> set:
+    """``file:line`` of every line of ``readback``, the port's one
+    device-to-host path: where sync debug mode may find a sync."""
+    import inspect
+
+    from repro_torch.core.device_channel import readback
+    lines, start = inspect.getsourcelines(readback)
+    path = os.path.relpath(inspect.getsourcefile(readback), ROOT)
+    return {f"{path}:{start + i}" for i in range(len(lines))}
+
+
 def build_model(torch, cfg):
     from repro_torch.models import Model
     t0 = time.perf_counter()
@@ -862,8 +920,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     a ``Tracer``, holds it to the untraced faulted run and its trace to
     :func:`check_lflr_trace`. ``sync_sites`` counts the clean run's host
     syncs by site with torch's sync debug mode (only its "synchronizing
-    CUDA operation" warnings): none may lie under ``src/repro_torch/models/``,
-    and the line reports every site. Returns the kernel launches by path
+    CUDA operation" warnings): every one must lie in ``readback``
+    (:func:`readback_sites`), and the line reports every site. Returns the kernel launches by path
     (the clean run's under ``names[0]``, the traced run's under
     ``names[1]``) and the clean streams."""
     from repro_torch.core.device_channel import readback
@@ -899,10 +957,10 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     wall = time.perf_counter() - t0
     sites = Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught or ()
                     if "called a synchronizing CUDA operation" in str(w.message))
-    in_model = {k: v for k, v in sites.items() if k.startswith("src/repro_torch/models/")}
-    if sync_sites and in_model:
-        fail(f"{names[0]}: host syncs inside the model's step: {in_model} "
-             f"(all sites: {dict(sites)})")
+    stray = {k: v for k, v in sites.items() if k not in readback_sites()}
+    if sync_sites and (stray or not sites):
+        fail(f"{names[0]}: host syncs outside core/device_channel.py::readback: "
+             f"{stray} (all sites: {dict(sites)})")
     launches = launch_counts()
     syncs = readback.count
     peak = torch.cuda.max_memory_allocated() / 1e9   # before the checks' own
@@ -1480,6 +1538,7 @@ def phase_group(torch, card: str, model, want: dict) -> dict:
         fail(f"group: not every rank answered: {line['requests_per_rank']}")
     emit(line)
     clean_wall = line["wall_s"]
+    SERVE_LINES["group"] = {"tokens_per_s": line["tokens_per_s"]}
 
     kill = FaultSchedule([FaultSpec(step=GROUP_FAULT_ROUND, kind="kill", rank=1)])
     res, paths["group_kill"], line = group_run(
@@ -1650,6 +1709,236 @@ def phase_fuzz(torch, card: str, model) -> dict:
           "cells": sorted({c for r in rows.values() for c in r["cells"]}),
           "wall_s": sum(r["wall_s"] for r in rows.values())})
     return paths
+
+
+class SmiPeak:
+    """The card's peak memory in use by ``nvidia-smi`` (every process's,
+    the worker processes' included), sampled every 0.25 s while open."""
+
+    def __init__(self):
+        import threading
+        self.peak_mib = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits",
+                 "-i", "0"], capture_output=True, text=True, timeout=30)
+            if out.returncode == 0 and out.stdout.strip():
+                self.peak_mib = max(self.peak_mib, int(out.stdout.split()[0]))
+            self._stop.wait(0.25)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=35)
+
+
+def multihost_run(torch, card: str, cfg, name: str, want: dict, faults=None) -> tuple:
+    """One multi-host phase: ``MULTIHOST_RANKS`` worker processes, each
+    serving full-width qwen3 on the card with serve's engine and serve's
+    seed, under the heartbeat supervisor, on the first ``REFILL_REQUESTS``
+    requests of serve's traffic. The gates every such phase shares: every
+    request answered OK with serve's stream (``want``), ``validate()``
+    empty over the merged trace, and every worker that said ``bye`` went
+    through the kernels: ``flash_decode`` a positive multiple of the layers
+    and ``probe_rows`` > 0. Returns the result, the launches summed over
+    the workers that sent a ``bye`` (a killed worker's are lost with it),
+    and the line's common fields."""
+    from repro_torch.obs import validate
+    from repro_torch.serve import EngineConfig, MultiHostSupervisor, Request
+
+    sup = MultiHostSupervisor(
+        MULTIHOST_RANKS, backend="replica", arch=cfg.name, width="full",
+        device="cuda", seed=SEED, suspect_timeout=MULTIHOST_SUSPECT_TIMEOUT,
+        trace=True, timeout=MULTIHOST_TIMEOUT,
+        config=EngineConfig(window=WINDOW, overlap=True, num_slots=NUM_SLOTS,
+                            max_len=MAX_LEN))
+    reqs = make_requests(cfg, Request, n=REFILL_REQUESTS)
+    with SmiPeak() as smi:
+        t0 = time.perf_counter()
+        res = sup.serve(reqs, faults=faults)
+        wall = time.perf_counter() - t0
+    diff = [i for i in want if i not in res.responses or not res.responses[i].ok
+            or res.responses[i].tokens != want[i]]
+    if diff or len(res.responses) != len(want):
+        fail(f"{name}: requests {diff} not OK or not serve's stream "
+             f"({len(res.responses)} answers for {len(want)})")
+    problems = validate(res.trace())
+    if problems:
+        fail(f"{name}: the merged trace does not validate: {problems[:5]}")
+    layers = cfg.num_layers
+    for rank, n in res.launches.items():
+        if not (n["flash_decode"] > 0 and n["flash_decode"] % layers == 0
+                and n["probe_rows"] > 0):
+            fail(f"{name}: worker {rank} did not go through the kernels: {n}")
+    launches = {k: sum(n[k] for n in res.launches.values())
+                for k in next(iter(res.launches.values()))}
+    tokens = sum(len(r.tokens) for r in res.responses.values())
+    # serving: from the last worker's hello (the lease start) to the end
+    serving = wall - max(res.ready_s.values())
+    line = {"phase": name, "card": card, "model": cfg.name,
+            "workers": MULTIHOST_RANKS, "requests": len(res.responses),
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "serving_s": serving, "serving_tokens_per_s": tokens / serving,
+            "spawn_to_hello_s": {str(r): v for r, v in sorted(res.ready_s.items())},
+            "suspected": list(res.suspected), "resumed": list(res.resumed),
+            "evicted": list(res.evicted), "rerouted": list(res.rerouted),
+            "epoch": res.epoch,
+            "requests_per_rank": {str(k): v for k, v in sorted(Counter(
+                r.replica for r in res.responses.values()).items())},
+            "bye_words": {str(r): w for r, w in sorted(res.words.items())},
+            "launches_by_worker": {str(r): n for r, n in sorted(res.launches.items())},
+            "trace_events": len(res.events), "card_peak_mib": smi.peak_mib}
+    return res, launches, line
+
+
+def after_kill(events: list, retires, det: dict, dead: int) -> tuple:
+    """What the survivors computed between a kill and its eviction, from
+    their workers' trace (one ``time.monotonic`` clock across the host's
+    processes): per survivor, the decode windows that start after
+    ``kill_ts`` and end before ``evict_ts``; and the survivor retirements
+    that reach the supervisor before ``evict_ts`` and whose last committing
+    window (a ``decode`` span of the request with ``committed`` > 0)
+    started after ``kill_ts``, as ``(retire ts, that start, rank, id)``. A
+    retirement sent just after the kill from a window that ran before it
+    is not counted."""
+    kill, evict = det["kill_ts"] * 1e6, det["evict_ts"] * 1e6
+    windows: dict = {}
+    last: dict = {}
+    for e in events:
+        rank, args = e.get("pid"), e.get("args") or {}
+        if rank == dead or e.get("ph") != "X":
+            continue
+        if e.get("name") == "window" and kill < e["ts"] and e["ts"] + e["dur"] < evict:
+            windows[rank] = windows.get(rank, 0) + 1
+        if e.get("name") == "decode" and args.get("committed", 0) > 0:
+            key = (rank, args.get("trace_id"))
+            last[key] = max(last.get(key, e["ts"]), e["ts"])
+    in_window = [(ts, last[(r, i)] / 1e6, r, i) for ts, r, i in retires
+                 if r != dead and ts * 1e6 < evict and last.get((r, i), kill) > kill]
+    return windows, in_window
+
+
+def phase_multihost(torch, card: str, cfg, want: dict) -> dict:
+    """The multi-host phases (qwen3 at full width, module docstring 11e):
+    ``want`` is serve's streams. ``multihost`` clean: nothing suspected out
+    of the lease, nothing evicted or re-routed, every ``bye`` word 0, every
+    worker through the kernels; fleet tokens/s beside ``group``'s.
+    ``multihost_kill``: worker 1 SIGKILL'd after ``MULTIHOST_KILL_AT``
+    retirements fleet-wide, evicted within 2 x the suspect timeout, its
+    requests re-routed, the survivors' work after the kill (``after_kill``),
+    their words carrying RANK_FAILED, and the trace's chain. Returns each
+    phase's launches by path."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.core.faults import FaultSchedule, FaultSpec
+
+    want = {i: want[i] for i in range(REFILL_REQUESTS)}
+    paths = {}
+    res, paths["multihost"], line = multihost_run(torch, card, cfg, "multihost", want)
+    if res.evicted or res.rerouted or res.epoch:
+        fail(f"multihost: evicted {res.evicted}, re-routed {res.rerouted}, "
+             f"epoch {res.epoch} in a clean run")
+    if res.words != dict.fromkeys(range(MULTIHOST_RANKS), 0):
+        fail(f"multihost: bye words {res.words}, all 0 expected")
+    group = SERVE_LINES.get("group", {})
+    emit({**line, "group_tokens_per_s": group.get("tokens_per_s"),
+          "group_requests": GROUP_REQUESTS})
+
+    kill = FaultSchedule([FaultSpec(step=MULTIHOST_KILL_AT, kind="host_kill",
+                                    rank=MULTIHOST_KILLED)])
+    res, paths["multihost_kill"], line = multihost_run(
+        torch, card, cfg, "multihost_kill", want, faults=kill)
+    dead, bound = MULTIHOST_KILLED, 2 * MULTIHOST_SUSPECT_TIMEOUT
+    det = res.detection.get(dead, {})
+    if res.evicted != (dead,) or not res.rerouted or res.epoch < 1:
+        fail(f"multihost_kill: evicted {res.evicted}, re-routed {res.rerouted}, "
+             f"epoch {res.epoch}: worker {dead} evicted and its requests "
+             "re-routed expected")
+    if not ("kill_ts" in det and "evict_ts" in det
+            and det["evict_ts"] - det["kill_ts"] <= bound):
+        fail(f"multihost_kill: detection {det} past the {bound} s bound")
+    events = res.trace()["traceEvents"]
+    windows, in_window = after_kill(events, res.retires, det, dead)
+    idle = [r for r in range(MULTIHOST_RANKS) if r != dead and not windows.get(r)]
+    if idle:
+        fail(f"multihost_kill: survivors {idle} ran no decode window between "
+             f"the kill and the eviction: detection {det}")
+    if not in_window:
+        fail(f"multihost_kill: no survivor retired, before the eviction, a "
+             f"request it decoded after the kill: retires {res.retires}, "
+             f"detection {det}")
+    names = {e.get("name") for e in events}
+    chain = {"host_kill", "host_suspect", "host_evict", "ulfm_shrink", "reroute",
+             "epoch", "rank_failed"}
+    latched = {e["pid"] for e in events if e.get("name") == "rank_failed"}
+    if not chain <= names or not latched or dead in latched:
+        fail(f"multihost_kill: trace chain {sorted(names & chain)} of "
+             f"{sorted(chain)}, rank_failed from {sorted(latched)}")
+    rank_failed = int(ErrorCode.RANK_FAILED)
+    survivors = sorted(set(range(MULTIHOST_RANKS)) - {dead})
+    if sorted(res.words) != survivors or not all(
+            res.words[r] & rank_failed for r in survivors):
+        fail(f"multihost_kill: bye words {res.words}: RANK_FAILED from each "
+             f"survivor {survivors} expected")
+    emit({**line, "killed": dead, "kill_at_retired": MULTIHOST_KILL_AT,
+          "suspect_timeout_s": MULTIHOST_SUSPECT_TIMEOUT,
+          "kill_to_suspect_s": det["suspect_ts"] - det["kill_ts"],
+          "kill_to_evict_s": det["evict_ts"] - det["kill_ts"],
+          "survivor_windows_in_window": {str(r): n for r, n in sorted(windows.items())},
+          "survivor_retires_in_window": [[ts - det["kill_ts"], start - det["kill_ts"], r, i]
+                                         for ts, start, r, i in in_window],
+          "retires_after_kill_s": [[ts - det["kill_ts"], r, i] for ts, r, i in res.retires],
+          "rank_failed_from": sorted(latched)})
+    return paths
+
+
+def phase_elastic(torch, card: str) -> None:
+    """The elastic trainer (module docstring 11f): the reference's 16-dim
+    regression on 4 rank threads, a NaN gradient on rank 2 at step 5 and
+    rank 1 killed at step 8, once with its gradients on the card and once
+    on the CPU. The survivors' events, steps and world sizes must be equal
+    exactly, their weights within ``ELASTIC_RTOL``, every final loss under
+    5e-2. No kernel: the model is a 16 x 1 product."""
+    import numpy as np
+
+    from repro_torch.core.faults import FaultSchedule, FaultSpec
+    from repro_torch.launch.elastic import elastic_train
+
+    faults = lambda: FaultSchedule([  # noqa: E731
+        FaultSpec(step=5, kind="nan_grad", rank=2), FaultSpec(step=8, kind="kill", rank=1)])
+    runs, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = elastic_train(4, steps=25, lr=0.2, faults=faults(), device=device)
+        walls[device] = time.perf_counter() - t0
+    outcome = lambda rr: (rr.rank, rr.killed, None if rr.value is None else (  # noqa: E731
+        rr.value.events, rr.value.steps_done, rr.value.world_sizes))
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    bad = [rr.rank for rr in gpu + cpu if rr.exception is not None]
+    if bad or [outcome(r) for r in gpu] != [outcome(r) for r in cpu]:
+        fail(f"elastic: ranks {bad} raised, or the card's run decided otherwise "
+             f"than the CPU's: {[outcome(r) for r in gpu]} vs {[outcome(r) for r in cpu]}")
+    if [r.rank for r in gpu if r.killed] != [1]:
+        fail(f"elastic: killed {[r.rank for r in gpu if r.killed]}, [1] expected")
+    survivors = [(a.value, b.value) for a, b in zip(gpu, cpu) if not a.killed]
+    err = max(float(np.max(np.abs(a.weights - b.weights) / np.abs(b.weights)))
+              for a, b in survivors)
+    if err > ELASTIC_RTOL or not all(a.final_loss < 5e-2 for a, _ in survivors):
+        fail(f"elastic: weights {err} apart (rtol {ELASTIC_RTOL}), final losses "
+             f"{[a.final_loss for a, _ in survivors]}")
+    emit({"phase": "elastic", "card": card, "ranks": 4, "steps": 25,
+          "events": [list(map(list, a.events)) for a, _ in survivors][0],
+          "steps_done": [a.steps_done for a, _ in survivors],
+          "final_world": survivors[0][0].world_sizes[-1],
+          "final_loss": [a.final_loss for a, _ in survivors],
+          "weights_max_rel_diff": err, "wall_s": walls["cuda"],
+          "cpu_wall_s": walls["cpu"], "kernels": 0})
 
 
 def train_kernels(torch, cfg, leaf_specs) -> dict:
@@ -1883,7 +2172,7 @@ def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
 
 
 def phase_train(torch, card: str, model) -> tuple:
-    """Full-width training on the card (module docstring 11e): the train
+    """Full-width training on the card (module docstring 11g): the train
     path's kernels at its shapes, then three runs of ``TRAIN_STEPS`` steps
     of ``ResilientExecutor`` over ``make_train_step``, each from a fresh
     copy of ``model``'s weights (the serving model is not changed) with zero
@@ -2920,7 +3209,7 @@ def main() -> None:
     # the run's time; two freed slots still refilled, and every later qwen3
     # phase serves at most these 10)
     serve_paths, serve_streams = phase_serve(torch, card, model, init_s, traced=True,
-                                             n=REFILL_REQUESTS)
+                                             n=REFILL_REQUESTS, sync_sites=True)
     engines = phase_engines(torch, card, model)
     for name, engine in (("lflr_stepwise", "stepwise"), ("lflr_blocking", "blocking")):
         phase_lflr_engine(torch, card, model, name, ENGINES[engine],
@@ -2940,6 +3229,8 @@ def main() -> None:
     spec_paths = phase_spec(torch, card, model, init_s, serve_streams)
     group_paths = phase_group(torch, card, model, serve_streams)
     fuzz_paths = phase_fuzz(torch, card, model)
+    multihost_paths = phase_multihost(torch, card, model.cfg, serve_streams)
+    phase_elastic(torch, card)
     kern_train, train_launches = phase_train(torch, card, model)
     del model                                     # free qwen3 before rg
     gc.collect()
@@ -2992,7 +3283,8 @@ def main() -> None:
     paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              **serve_paged, "engines_paged": engines_paged,
-             **spec_paths, **group_paths, **fuzz_paths, "train": train_launches,
+             **spec_paths, **group_paths, **fuzz_paths, **multihost_paths,
+             "train": train_launches,
              **serve_g3_paged,
              **serve_rg, "prefill_rg": prefill_rg,
              **serve_ssm, "prefill_ssm": prefill_ssm,

@@ -1,1 +1,2 @@
+from .buddy import BuddyStore  # noqa: F401
 from .checkpointer import Checkpointer  # noqa: F401

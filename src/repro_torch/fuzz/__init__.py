@@ -2,13 +2,13 @@
 """Coverage-guided fault-injection fuzzer for the port's serving stack.
 
 The port of ``repro.fuzz``: it drives the port's engines (stepwise,
-windowed, overlapped, paged and speculative replicas, and the ULFM
-ServeGroup) end to end with seeded, reproducible fault trajectories;
+windowed, overlapped, paged and speculative replicas, the ULFM
+ServeGroup, and the multi-host fleet of worker processes) end to end with seeded, reproducible fault trajectories;
 measures coverage over the derived (error code × recovery action × engine)
 matrix; judges every run against the stack's own contracts (bit-exactness,
 zero drops, ledger invariants, trace causality); and minimizes
 counterexamples into corpus entries of the JAX package's format. The
-``overlap_tp`` and ``multihost`` engines wait for ROADMAP items 11 and 12.
+``overlap_tp`` engine waits for ROADMAP item 11.
 """
 from .campaign import CampaignReport, FuzzCampaign, load_entry, minimize, write_entry
 from .coverage import Cell, CoverageDB, action_ladder, reachable_cells

@@ -15,9 +15,8 @@ variant, plus the engine-specific lanes the policy does not own (the paged
 uncovered cells and biases trajectory generation toward them — the
 "coverage-guided" half of the fuzzer.
 
-The port's universe is the JAX package's without the cells of the engines
-it does not run yet: ``overlap_tp`` (tensor parallel, ROADMAP item 11) and
-``multihost`` (its ``evict`` and ``resume`` lanes; item 12).
+The port's universe is the JAX package's without the cells of the engine
+it does not run yet: ``overlap_tp`` (tensor parallel, ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ from typing import Iterable, Optional
 from ..core.errors import ErrorCode, PropagatedError, RankError
 from ..core.faults import INJECTABLE_CODE_MASK
 from ..core.recovery import RecoveryPolicy
-from .trajectory import GROUP_ENGINE, PORT_ENGINES, SINGLE_ENGINES
+from .trajectory import GROUP_ENGINE, MULTIHOST_ENGINE, PORT_ENGINES, SINGLE_ENGINES
 
 #: (code_name, action, engine)
 Cell = tuple[str, str, str]
@@ -72,6 +71,12 @@ def reachable_cells() -> frozenset[Cell]:
     # ledger, and a dead/spare rank re-admitted via the non-blocking join
     cells.add((ErrorCode.RANK_FAILED.name, "replay", GROUP_ENGINE))
     cells.add((ErrorCode.RANK_FAILED.name, "rejoin", GROUP_ENGINE))
+    # multihost (real OS process) lanes: a SIGKILL'd worker detected by the
+    # heartbeat detector and evicted (RANK_FAILED latched on the survivors),
+    # and a SIGSTOP'd worker that resumes inside the timeout — suspicion
+    # cleared, never evicted (the false-positive guard as a coverage target)
+    cells.add((ErrorCode.RANK_FAILED.name, "evict", MULTIHOST_ENGINE))
+    cells.add((ErrorCode.STRAGGLER.name, "resume", MULTIHOST_ENGINE))
     return frozenset(cells)
 
 

@@ -29,8 +29,9 @@ JAX package's kits init their params with JAX, which the port cannot
 import); :func:`use_model` sets another, e.g. the JAX params carried over
 with :func:`repro_torch.weights.params_from_jax` on the CPU, or a
 full-width model on the card. Each group kit is built once per model and
-kept, as the reference keeps its compiled kits. The ``overlap_tp`` and
-``multihost`` engines raise ``NotImplementedError`` (ROADMAP items 11, 12).
+kept, as the reference keeps its compiled kits. The ``multihost`` engine
+runs the sim backend's worker processes, no model. The ``overlap_tp``
+engine raises ``NotImplementedError`` (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from ..obs import postmortem
 from ..obs.trace import Tracer, merge_trace_dicts, merge_traces
 from ..serve.config import EngineConfig
 from ..serve.group import ServeGroup
+from ..serve.multihost import MultiHostSupervisor
 from ..serve.queue import FAILED, OK, Request
 from ..serve.replica import Replica
 from .coverage import Cell
@@ -62,9 +64,17 @@ MODEL = "qwen3-1.7b"      # smoke config: tiny, full-attention → every engine
 MAX_CYCLES = 400          # drive-loop bound: far past any legal run length
 GROUP_RANKS = 3
 
+# multihost lane timing: a lease short enough that the SIGKILL → evict →
+# re-route round trip stays inside a fuzz run's seconds, and a stop pause at
+# half the lease so the resumed worker is *provably* inside the no-evict
+# guarantee (the false-positive guard is an oracle below, not just
+# coverage). The reference's lease is 0.6 s; the port's 1.5 s, because
+# worker processes starved on a loaded host miss 0.6 s leases
+MULTIHOST_SUSPECT_TIMEOUT = 1.5
+MULTIHOST_STOP_PAUSE = 0.5 * MULTIHOST_SUSPECT_TIMEOUT
+
 #: The engines the port does not run yet, with the ROADMAP item of each.
-UNPORTED = {"overlap_tp": "ROADMAP Queue 1, item 11 (tensor parallel)",
-            MULTIHOST_ENGINE: "ROADMAP Queue 1, item 12 (multi-host)"}
+UNPORTED = {"overlap_tp": "ROADMAP Queue 1, item 11 (tensor parallel)"}
 
 
 # --------------------------------------------------------------- engine kits
@@ -293,8 +303,7 @@ def reference_tokens(engine: str, n_requests: int, prompt_len: int,
     here is a harness bug, not a finding, and raises immediately."""
     traj = Trajectory(seed=0, engine=engine, n_requests=n_requests,
                       prompt_len=prompt_len, max_new=max_new)
-    runner = _run_group if engine == GROUP_ENGINE else _run_single
-    res = runner(traj, reference={}, check=False)
+    res = _runner(engine)(traj, reference={}, check=False)
     if set(res.responses) != set(range(n_requests)):
         raise RuntimeError(f"clean {engine} run dropped requests: "
                            f"{sorted(res.responses)}")
@@ -439,11 +448,70 @@ def _run_group(traj: Trajectory, *, reference: dict,
     return res
 
 
+def _run_multihost(traj: Trajectory, *, reference: dict,
+                   check: bool = True) -> RunResult:
+    """Drive the real-process fault domain: 3 sim-backend subprocess workers
+    under the heartbeat supervisor. ``host_kill`` ops SIGKILL a worker once
+    ``cycle`` responses retired fleet-wide; ``host_stop`` ops SIGSTOP one for
+    half the suspect timeout. Extra oracle beyond the shared ones: a stopped
+    worker that was never also killed must NOT be evicted (the detector's
+    slow-but-alive discrimination, asserted on every fuzzed trajectory)."""
+    res = RunResult(trajectory=traj)
+    specs = [FaultSpec(step=op.cycle, kind="host_kill",
+                       rank=op.slot % GROUP_RANKS)
+             for op in traj.ops_of("host_kill")]
+    specs += [FaultSpec(step=op.cycle, kind="host_stop",
+                        rank=op.slot % GROUP_RANKS,
+                        magnitude=MULTIHOST_STOP_PAUSE)
+              for op in traj.ops_of("host_stop")]
+    sup = MultiHostSupervisor(
+        GROUP_RANKS, backend="sim",
+        suspect_timeout=MULTIHOST_SUSPECT_TIMEOUT,
+        heartbeat_interval=0.05, trace=True, timeout=180.0,
+        sim_tokens_per_step=2, sim_step_delay_s=0.01)
+    try:
+        out = sup.serve(_requests(traj),
+                        faults=FaultSchedule(tuple(specs), seed=traj.seed))
+    except Exception as exc:                      # oracle 5: nothing escapes
+        res.violations.append(f"crash: {type(exc).__name__}: {exc}")
+        return res
+    res.responses = dict(out.responses)
+    killed_ranks = {s.rank for s in specs if s.kind == "host_kill"}
+    for rank in out.evicted:
+        if rank not in killed_ranks:
+            res.violations.append(
+                f"false positive: host {rank} evicted but never SIGKILLed "
+                f"(stopped={out.stopped}, detection={out.detection.get(rank)})")
+    if out.evicted:
+        res.cells.add((ErrorCode.RANK_FAILED.name, "evict", traj.engine))
+    if out.resumed:
+        res.cells.add((ErrorCode.STRAGGLER.name, "resume", traj.engine))
+    if specs and killed_ranks and not out.evicted:
+        # the kill fired after the drain (or never) — legal, but the
+        # mutator's timing search wants to know the op was dead code
+        res.summary["kill_noop"] = True
+    if any(s.kind == "host_stop" for s in specs) and not out.stopped:
+        res.summary["stop_noop"] = True
+    if check:
+        _check_outcomes(traj, res.responses, reference, res.violations)
+        res.violations.extend(
+            f"trace: {p}" for p in postmortem.validate(out.trace()))
+    res.summary.setdefault("statuses", {})
+    for r in res.responses.values():
+        res.summary["statuses"][r.status] = (
+            res.summary["statuses"].get(r.status, 0) + 1)
+    return res
+
+
+def _runner(engine: str):
+    return {GROUP_ENGINE: _run_group,
+            MULTIHOST_ENGINE: _run_multihost}.get(engine, _run_single)
+
+
 def run_trajectory(traj: Trajectory) -> RunResult:
     """Run one trajectory end to end and apply every oracle. Never raises on
     a stack failure — crashes become violations (counterexamples). Raises
     ``NotImplementedError`` for an engine the port does not run yet."""
     _check_ported(traj.engine)
     reference = reference_tokens(traj.engine, *traj.load_key)
-    runner = _run_group if traj.engine == GROUP_ENGINE else _run_single
-    return runner(traj, reference=reference)
+    return _runner(traj.engine)(traj, reference=reference)

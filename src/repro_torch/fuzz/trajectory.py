@@ -63,14 +63,13 @@ HOST_OPS = frozenset({"host_kill", "host_stop"})
 #: ULFM engine; ``multihost`` is the real-process fault domain (subprocess
 #: workers under the heartbeat supervisor); the rest are single-replica
 #: serving code paths. The port runs all but ``overlap_tp`` (ROADMAP item
-#: 11) and ``multihost`` (item 12): :data:`PORT_ENGINES`.
+#: 11): :data:`PORT_ENGINES`.
 SINGLE_ENGINES = ("stepwise", "window", "overlap", "overlap_tp",
                   "overlap_paged", "spec", "spec_paged")
 GROUP_ENGINE = "group"
 MULTIHOST_ENGINE = "multihost"
 ENGINES = SINGLE_ENGINES + (GROUP_ENGINE, MULTIHOST_ENGINE)
-PORT_ENGINES = tuple(e for e in ENGINES if e not in ("overlap_tp",
-                                                     MULTIHOST_ENGINE))
+PORT_ENGINES = tuple(e for e in ENGINES if e != "overlap_tp")
 
 #: Tensor-parallel engine variants: their ``word`` ops may carry a ``shard``
 #: target (the injection surface is per-shard — DESIGN §3.8).

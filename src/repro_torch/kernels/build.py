@@ -13,11 +13,17 @@ imported: the first kernel launch (or an explicit :func:`build`) does it.
 Several threads may launch at once (the rank threads of a serve group), so
 the first load is built once under a lock, and every wrapper counts its
 launches through :func:`count_launch`, which no thread can lose an
-increment of.
+increment of. Several processes may too (the worker processes of a
+multi-host fleet, each loading the library): :func:`build` compiles under
+an exclusive ``flock`` on a file in the build directory, checks for the
+library again once it holds it, and writes every object and the library
+under a process-unique name before it renames them into place, so a
+process never reads a file another is still writing.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -97,11 +103,22 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    objs = [BUILD_DIR / f"{s.stem}-{digest.hexdigest()[:16]}.o" for s in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)          # released when closed
+        if not so.exists():                       # another process built it
+            _compile(nvcc, srcs, digest.hexdigest()[:16], so)
+    return so
+
+
+def _compile(nvcc: str, srcs: list[Path], digest: str, so: Path) -> None:
+    """``nvcc -c`` every source at once, then link; each output is written
+    under a name of this process's and renamed into place."""
+    objs = [BUILD_DIR / f"{s.stem}-{digest}.o" for s in srcs]
+    tmps = [o.with_suffix(f".{os.getpid()}.o") for o in objs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(t)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
-             for s, o in zip(srcs, objs)]
+             for s, t in zip(srcs, tmps)]
     errors = []
     for s, o, p in zip(srcs, objs, procs):
         out, _ = p.communicate()
@@ -110,13 +127,14 @@ def build() -> Path:
             errors.append(f"{s.name}:\n{out}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    for t, o in zip(tmps, objs):
+        os.replace(t, o)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                            "-o", str(tmp)], capture_output=True, text=True)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, so)
-    return so
 
 
 def compile_log(so: Path, source: str) -> str:

@@ -36,8 +36,7 @@ request landed on after a ULFM shrink. This module adds that substrate:
   first exchange on the widened group, and ``autoscale`` instants for
   policy-driven grow/shrink decisions; the multihost supervisor adds
   ``epoch`` instants carrying the agreed member list), and ``host`` (the
-  process-level fault domain of the JAX package's ``serve/multihost.py``
-  (not ported yet: ROADMAP item 12): one
+  process-level fault domain of :mod:`repro_torch.serve.multihost`): one
   ``heartbeat`` span per worker summarising its beat stream on the
   supervisor lane — ``pid = SUPERVISOR_PID`` — plus ``host_kill`` /
   ``host_stop`` / ``host_resume`` instants for executed faults and

@@ -431,7 +431,7 @@ class Replica:
             self._release_pages(slot)
             self._check_pages()
             self.layout.reset_slot(self.caches, slot)
-            self._dev_pos[slot] = 0
+            self._dev_pos.narrow(0, slot, 1).fill_(0)     # queued, no sync
             self._host_pos[slot] = 0
         if not self.layout.has_paged_leaves:
             return
@@ -910,9 +910,12 @@ class Replica:
                 self._trace_recovery_end(slot, tr, t_commit, "recovered")
             if self.window:
                 s = self.sched.slots[slot]
-                self._dev_tokens[slot] = tok
-                self._dev_pos[slot] = self._host_pos[slot] = (
-                    s.seq_len - 1 if s.active else 0)
+                pos = s.seq_len - 1 if s.active else 0
+                # fills queued on the stream: indexing a device tensor with
+                # a host value would copy it through a synchronising H2D
+                self._dev_tokens.narrow(0, slot, 1).fill_(tok)
+                self._dev_pos.narrow(0, slot, 1).fill_(pos)
+                self._host_pos[slot] = pos
                 if self._pending is not None:
                     self._pending.valid[slot] = False
             return resp
@@ -1010,7 +1013,7 @@ class Replica:
                 # sync (paged: _paged_prepare did it, with the page
                 # free, re-acquire and scrub in place of the K/V reset)
                 reset_cache_slot(self.caches, slot)
-                self._dev_pos[slot] = 0
+                self._dev_pos.narrow(0, slot, 1).fill_(0)
                 self._host_pos[slot] = 0
             chunk.reshape(K * width, S)[:cp.rem, slot] = cp.tokens
             rem[slot] = cp.rem

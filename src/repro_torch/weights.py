@@ -136,6 +136,43 @@ def params_to_numpy(model: Model) -> dict:
             "final_norm": {"scale": _to_numpy(model.final_norm)}}
 
 
+def save_tree_npz(path: str, tree: dict) -> None:
+    """Write a numpy param tree (nested dicts and lists, e.g. the JAX
+    params through ``jax.device_get``) to one ``.npz``, a leaf per
+    ``/``-joined path. Leaves must have a numpy dtype of their own (a
+    ``bfloat16`` leaf is refused: ``np.load`` could not read it back)."""
+    from .tree import tree_items
+    flat = {}
+    for key, leaf in tree_items(tree):
+        arr = np.asarray(leaf)
+        if arr.dtype.name == "bfloat16":
+            raise ValueError(f"{key}: bfloat16 leaves cannot be saved to .npz")
+        flat[key] = arr
+    np.savez(path, **flat)
+
+
+def load_tree_npz(path: str) -> dict:
+    """The tree :func:`save_tree_npz` wrote: a level whose keys are all
+    indices comes back as a list."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
 def _stack(layers: list, cfg: ModelConfig, stack) -> dict:
     """Regroup per-layer trees into the JAX period-stacked layout."""
     periods: dict = {}

@@ -1133,3 +1133,98 @@ def test_probe_rows_makes_no_fill_launch(cuda):
         kernels = [e.key for e in prof.key_averages()
                    if e.self_device_time_total > 0 and "memset" not in e.key.lower()]
         assert len(kernels) == 1 and "probe_kernel" in kernels[0], kernels
+
+
+# ------------------------------------------------------------- multi-host
+def test_library_builds_once_across_processes_on_the_card(cuda, tmp_path):
+    """Two processes build the kernel library with ``nvcc`` into one empty
+    build directory at once, and both load it and launch from it."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    script = textwrap.dedent("""
+        import sys
+        from pathlib import Path
+        import torch
+        import repro_torch.kernels.build as b
+        b.BUILD_DIR = Path(sys.argv[1])
+        from repro_torch.kernels import launch_counts, probe_rows
+        lib = b.library()
+        x = torch.zeros((2, 64), device="cuda")
+        x[1, 3] = float("nan")
+        w = probe_rows(x, 1e4, nonfinite_code=1, overflow_code=16)
+        print(b.build(), w.tolist(), launch_counts()["probe_rows"])
+    """)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(sys.path)}
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(tmp_path / "build")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for _ in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    lines = [o.split() for o, _ in outs]
+    assert lines[0][0] == lines[1][0] and lines[0][0].endswith(".so")
+    assert all(line[1:] == ["[0,", "1]", "1"] for line in lines), lines
+
+
+def test_replica_worker_reports_its_launches_on_the_card(cuda):
+    """Two ``replica`` worker processes on the card (qwen3's smoke model,
+    fp32, from the seeded init): every answer is the in-process replica's,
+    and each worker's ``bye`` carries its flash launches (the fp32 route),
+    a multiple of the layers, and its probe launches."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serve import (EngineConfig, MultiHostSupervisor, Replica,
+                                   Request)
+
+    arch = "qwen3-1.7b"
+    cfg = smoke_config(arch)
+    conf = EngineConfig(num_slots=4, max_len=64, window=4)
+    reqs = lambda: [Request(id=i, prompt=tuple(3 + i + j for j in range(9)),  # noqa: E731
+                            max_new_tokens=12) for i in range(6)]
+    rep = Replica(cfg, Model(cfg, device=cuda, seed=0), config=conf)
+    for r in reqs():
+        assert rep.submit(r) is None
+    want = {r.id: r.tokens for r in rep.run()}
+    sup = MultiHostSupervisor(2, backend="replica", arch=arch, config=conf,
+                              device="cuda", suspect_timeout=2.0, timeout=300.0)
+    res = sup.serve(reqs())
+    assert {i: r.tokens for i, r in res.responses.items()} == want
+    assert res.evicted == () and res.words == {0: 0, 1: 0}
+    for rank in (0, 1):
+        n = res.launches[rank]
+        assert n["flash_f32"] > 0 and n["flash_f32"] % cfg.num_layers == 0
+        assert n["flash_attention"] == n["flash_f32"] and n["probe_rows"] > 0
+
+
+def test_fresh_lane_makes_no_sync_in_the_replica_on_the_card(cuda):
+    """Sync debug mode over a clean overlapped run whose lanes start fresh
+    (requests outnumber the slots) and a blocking-prefill run: no
+    synchronising operation lies in ``serve/replica.py``."""
+    import warnings
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serve import EngineConfig, Replica, Request
+
+    cfg = smoke_config("qwen3-1.7b")
+    model = Model(cfg, device=cuda, seed=0)
+    for conf in (EngineConfig(num_slots=2, max_len=64, window=4),
+                 EngineConfig(num_slots=2, max_len=64, window=4, overlap=False),
+                 EngineConfig(num_slots=2, max_len=64, window=4, paged=True)):
+        rep = Replica(cfg, model, config=conf)
+        rep.warmup()
+        for i in range(5):
+            assert rep.submit(Request(id=i, prompt=tuple(range(2, 9 + i)),
+                                      max_new_tokens=10)) is None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = rep.run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert len(out) == 5 and all(r.ok for r in out)
+        sites = {f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)}
+        assert sites and not [s for s in sites if "serve/replica.py" in s], sites

@@ -4,11 +4,12 @@ carried over by ``params_from_jax`` (``repro.fuzz.runner._env``):
 
 * trajectories round-trip to the reference's JSON byte for byte, and the
   reference's corpus entries load unchanged;
-* with the port's seven engines passed to both, ``FaultMutator(seed)``
+* with the port's eight engines passed to both, ``FaultMutator(seed)``
   proposes the reference's trajectories byte for byte (seeds 0–3, the
   first 16 indices, an empty coverage database);
-* ``reachable_cells()`` is the reference's without the ``overlap_tp`` and
-  ``multihost`` cells (ROADMAP items 11 and 12), whose runs raise;
+* ``reachable_cells()`` is the reference's without the ``overlap_tp``
+  cells (ROADMAP item 11), whose runs raise; a mutator-drawn ``multihost``
+  trajectory (sim-backend worker processes) runs with zero violations;
 * every single-engine entry of the reference's corpus replays on the port
   with zero violations (the group entries: ``test_torch_fuzz_group.py``),
   and one entry per engine is held to a live JAX ``run_trajectory`` of the
@@ -124,22 +125,29 @@ def test_mutator_proposes_the_reference_trajectories(seed):
     assert mine.universe == ref.universe
     for i in range(16):
         assert mine.propose(i).dumps() == ref.propose(i).dumps(), (seed, i)
-    # the port's default engines are its seven: no TP or multihost draws
+    # the port's default engines are its eight: no TP draws
     default = fuzz.FaultMutator(seed, fuzz.CoverageDB())
     assert default.engines == fuzz.PORT_ENGINES
     assert {default.propose(i).engine for i in range(16)} <= set(fuzz.PORT_ENGINES)
 
 
 def test_reachable_cells_are_the_reference_cells_the_port_runs():
-    want = {c for c in jax_fuzz.reachable_cells()
-            if c[2] not in ("overlap_tp", "multihost")}
+    want = {c for c in jax_fuzz.reachable_cells() if c[2] != "overlap_tp"}
     assert fuzz.reachable_cells() == want
     assert len(want) < len(jax_fuzz.reachable_cells())
     code = ErrorCode.OVERFLOW
     assert fuzz.action_ladder(code) == jax_fuzz.action_ladder(code)
-    for engine, item in (("overlap_tp", "item 11"), ("multihost", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            fuzz.run_trajectory(fuzz.Trajectory(seed=0, engine=engine))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        fuzz.run_trajectory(fuzz.Trajectory(seed=0, engine="overlap_tp"))
+    # the multihost engine runs: sim-backend worker processes, its oracles
+    # (the false-positive guard among them) and its cells
+    traj = fuzz.FaultMutator(0, fuzz.CoverageDB(),
+                             engines=(fuzz.MULTIHOST_ENGINE,)).propose(0)
+    assert traj.engine == fuzz.MULTIHOST_ENGINE and traj.ops
+    res = fuzz.run_trajectory(traj)
+    assert res.violations == []
+    assert res.cells and {c[2] for c in res.cells} == {fuzz.MULTIHOST_ENGINE}
+    assert res.cells <= want
 
 
 @pytest.mark.parametrize("path", SINGLE, ids=lambda p: p.stem)

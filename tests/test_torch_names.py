@@ -4,9 +4,9 @@ For each module below, every public name the reference module defines
 (top-level functions, classes and assignments; a package's re-exports), and
 every public attribute and dataclass field of each class both define, must
 exist in the port, except the names listed in ``ABSENT``: each waits for
-the ROADMAP item that ports its mode (11 tensor parallel, 12 multi-host,
-13b elastic training, 14 MoE and the other architectures, 15b the dry-run
-and roofline tools) or has no meaning without JAX (the reason is given).
+the ROADMAP item that ports its mode (11 tensor parallel, 14 MoE and the
+other architectures, 15b the dry-run and roofline tools) or has no meaning
+without JAX (the reason is given).
 Whole modules of the training path that wait are in ``WAITING``.
 
 The modules are the host-side ones, whose API the port keeps. The model,
@@ -32,19 +32,18 @@ MODULES = (
     "core/resilient.py", "core/transport.py", "core/future.py",
     "core/blackchannel.py", "core/ulfm.py", "core/comm.py",
     "core/instance.py", "launch/paging.py", "launch/train.py",
+    "launch/elastic.py", "checkpoint/buddy.py",
     "optim/__init__.py", "optim/adamw.py", "data/pipeline.py",
     "checkpoint/__init__.py", "checkpoint/checkpointer.py",
     "serve/__init__.py", "serve/config.py", "serve/queue.py",
     "serve/scheduler.py", "serve/replica.py", "serve/group.py",
-    "serve/ledger.py", "serve/metrics.py",
+    "serve/ledger.py", "serve/metrics.py", "serve/multihost.py",
     "obs/__init__.py", "obs/trace.py", "obs/postmortem.py",
     "fuzz/__init__.py", "fuzz/trajectory.py", "fuzz/coverage.py",
     "fuzz/mutator.py", "fuzz/runner.py", "fuzz/campaign.py",
 )
 
 _TP = "ROADMAP item 11 (tensor parallel)"
-_MULTIHOST = "ROADMAP item 12 (multi-host)"
-_ELASTIC = "ROADMAP item 13b (elastic training and the buddy store)"
 _MOE = "ROADMAP item 14 (MoE and the other architectures)"
 _DRYRUN = "ROADMAP item 15b (dry run and roofline)"
 _SERVE_ENUM = ("JAX-only: jitted factories; the port's replica runs "
@@ -72,11 +71,8 @@ ABSENT = {
                                    "probes are the kernel on the card")},
     "core/device_channel.py": {
         "make_enumerate_fn": _TP, "enumeration_shard_body": _TP},
-    "checkpoint/__init__.py": {"BuddyStore": _ELASTIC},
     "launch/paging.py": {"PagedLayout.tp_storage_specs": _TP},
-    "serve/__init__.py": {
-        "MultiHostResult": _MULTIHOST, "MultiHostSupervisor": _MULTIHOST,
-        "PhiAccrualDetector": _MULTIHOST, "sim_tokens": _MULTIHOST},
+    "launch/elastic.py": {"shrink_remesh": _TP + ": re-shards over sharding/"},
     "serve/config.py": {
         "EngineConfig.donate": ("JAX-only: buffer donation; the port's "
                                 "caches update in place")},
@@ -85,8 +81,6 @@ ABSENT = {
                          "core/detect.py, where its probes live"),
         "make_enum_fn": _SERVE_ENUM, "make_window_enum_fn": _SERVE_ENUM},
     "fuzz/runner.py": {
-        "MULTIHOST_SUSPECT_TIMEOUT": _MULTIHOST,
-        "MULTIHOST_STOP_PAUSE": _MULTIHOST,
         **dict.fromkeys(
             ("EngineKit.params", "EngineKit.decode_fn", "EngineKit.prefill_fn",
              "EngineKit.window_fn", "EngineKit.layout"),
@@ -98,9 +92,6 @@ ABSENT = {
 # reference modules of the training path with no counterpart yet, and what
 # waits in them with its item
 WAITING = {
-    "checkpoint/buddy.py": "ROADMAP item 13b (BuddyStore)",
-    "launch/elastic.py": ("ROADMAP item 13b (ElasticTrainer, elastic_train); "
-                          "item 11 (shrink_remesh, over sharding/)"),
     "optim/compress.py": "ROADMAP item 11 (compressed_psum, a collective)",
 }
 
