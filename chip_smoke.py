@@ -201,8 +201,8 @@ seconds since the script started, when the line was printed):
    full ``ssm`` state;
 18. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
    seeded random weights), the recurrentgemma model freed first, on the
-   first 8 of the 16 requests (one per slot: cut when the paged phases
-   came, to keep the run's time);
+   first 6 of the 16 requests (cut to 8 when the paged phases came and to
+   6 when the MoE phases came, to keep the run's time);
 19. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
    ``ssm`` state and the state probe must latch STATE_FAULT;
 20. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
@@ -225,11 +225,37 @@ seconds since the script started, when the line was printed):
    dense; the streams must equal phase 22's, and the NaN goes into K of
    layer 5, now a pool page;
 25. prefill_g3 — ``make_prefill_step`` at B 2, S 4096: flash forward once per
-   layer, one probe.
+   layer, one probe;
+26. kernels_moe — flash decode at qwen3-moe-30b-a3b's head layout (8 slots,
+   32/4 heads of 128: group 8, the full 1024-entry cache) against its plain
+   version, with its controls, time, bound and the library call's time;
+27. serve_moe, lflr_moe — phases 4 and 5 for full-width qwen3-moe-30b-a3b
+   (48 layers, each attention and a 128-expert top-8 MoE with capacity
+   buffers, untied unembedding; 61 GB of bf16 weights seeded on the card,
+   leaf by leaf), the gemma3 model freed first, on the first 6 requests
+   and one with an 8-token prompt (cut from 8 for the run's time, as the
+   group phases were): the NaN goes into one MoE layer's K cache, LFLR's
+   streams equal the clean run's bit for bit. The MoE forward drops tokens
+   past each expert's capacity and the decode (one token a row) never
+   does, so the short request's stream is compared with the forward below
+   a prefix whose forward drops nothing (found by bisection on the dropped
+   fraction, at least 8 served positions). The gate runs first, in fp32,
+   on the model cut to 4 layers at full width: the served tokens within
+   ``FORWARD_GAP_TOL`` of the forward's argmax and the same experts
+   chosen at every layer and position. At full depth in bf16 routing
+   near-ties part the two (reported: where they part, the router's gap
+   there, the logit gaps), and the decode loop's argmax must be the served
+   stream. The line adds the init's time and peak memory and each run's
+   peak;
+28. engines_moe — the stepwise and the blocking engine on the short
+   request's first 12 tokens: they equal the first 12 of serve_moe's stream
+   token for token, syncs and launches by each engine's rule, each run's
+   peak memory. The model is freed after.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
 """
+import contextlib
 import gc
 import json
 import math
@@ -257,6 +283,7 @@ NUM_REQUESTS, MAX_NEW = 16, 64
 # more than the slots, so that two freed slots are refilled
 REFILL_REQUESTS = NUM_SLOTS + 2
 LONG_PROMPT = 560                   # gemma3: past its 512-entry rings
+SHORT_PROMPT = 8                    # the MoE forward check's extra request
 # the engines phases: the three engines of the reference's serving
 # benchmark on one short traffic (6 requests, cut from 8 when the fuzz
 # phase came, for the run's time; serve_spec_deep's too)
@@ -299,6 +326,20 @@ MULTIHOST_RANKS, MULTIHOST_SUSPECT_TIMEOUT, MULTIHOST_TIMEOUT = 3, 1.0, 150.0
 MULTIHOST_KILLED, MULTIHOST_KILL_AT = 1, 1
 # the elastic phase: the card's fp32 gradients against the CPU's
 ELASTIC_RTOL = 1e-5
+# the MoE phases (qwen3-moe-30b-a3b at full width, last, alone on the card):
+# serve's first MOE_REQUESTS requests and one with a SHORT_PROMPT-token
+# prompt, all in the slots at once (cut from NUM_SLOTS, as the group phases
+# were: the first 6 drop the 225- and 254-token prompts, which set the
+# step count, 318 against 200, at ~120 ms a step on an H100, PERF.md §5;
+# mamba2's serve phases were cut the same way); the stepwise and blocking
+# engines on the short request's first ENGINE_NEW tokens (both prefill its
+# prompt token by token at the slots' batch); the served stream compared
+# with the forward on at least MOE_FORWARD_MIN positions of a prefix whose
+# forward drops no token
+MOE_ARCH, MOE_REQUESTS, MOE_FORWARD_MIN = "qwen3-moe-30b-a3b", 6, 8
+# the MoE forward check's gate runs in fp32, at full width cut to this depth
+# (12.5 GB of fp32 weights; the full depth would be 122 GB)
+MOE_FP32_LAYERS = 4
 SERVE_LINES: dict = {}              # a serve phase's ms per step and tokens/s
 FLASH_TOL = 1.6e-2                  # bf16 outputs: 2 ulp at |x| < 2
 # flash outputs average over hundreds to thousands of keys (|x| ~ 0.05), so
@@ -816,10 +857,12 @@ def phase_kernels(torch, card: str) -> dict:
     return out
 
 
-def make_requests(cfg, Request, long: int = 0, n: int = NUM_REQUESTS):
+def make_requests(cfg, Request, long: int = 0, n: int = NUM_REQUESTS,
+                  short: int = 0):
     """The serve phases' traffic, its first ``n`` requests; the first
-    ``long`` requests get prompts of ``LONG_PROMPT`` tokens instead (drawn
-    apart, so the others do not change)."""
+    ``long`` requests get prompts of ``LONG_PROMPT`` tokens instead, and
+    ``short`` requests with ``SHORT_PROMPT``-token prompts follow them, ids
+    ``n`` on (both drawn apart, so the others do not change)."""
     import numpy as np
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257)))
@@ -827,8 +870,11 @@ def make_requests(cfg, Request, long: int = 0, n: int = NUM_REQUESTS):
     rng_long = np.random.default_rng(SEED + 7)
     for i in range(long):
         prompts[i] = rng_long.integers(0, cfg.vocab_size, LONG_PROMPT)
+    rng_short = np.random.default_rng(SEED + 10)
+    prompts = prompts[:n] + [rng_short.integers(0, cfg.vocab_size, SHORT_PROMPT)
+                             for _ in range(short)]
     return [Request(id=i, prompt=tuple(int(t) for t in p), max_new_tokens=MAX_NEW)
-            for i, p in enumerate(prompts[:n])]
+            for i, p in enumerate(prompts)]
 
 
 def engine_requests(cfg, Request, n: int = ENGINE_REQUESTS):
@@ -902,7 +948,7 @@ def build_model(torch, cfg):
 def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                 long: int = 0, poison_layers=None, paged: bool = False,
                 want=None, n: int = NUM_REQUESTS, spec=None, traced: bool = False,
-                sync_sites: bool = False):
+                sync_sites: bool = False, line=None, short: int = 0):
     """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
     traffic clean, then again with an injected state fault (no second run
     where ``names[1]`` is None). ``long`` requests get
@@ -915,15 +961,19 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     the speculative windows: the streams must equal ``want`` (serve's), and
     the line adds the drafted,
     accepted and rejected tokens and serve's ms per step and tokens/s from
-    the same call. ``n`` cuts the traffic to its first requests. ``traced``
+    the same call. ``n`` cuts the traffic to its first requests, and
+    ``short`` adds short-prompt requests after them (``make_requests``;
+    the shortest prompt's answer is the one held against the forward).
+    ``traced``
     serves the faulted traffic a second time, through a fresh replica with
     a ``Tracer``, holds it to the untraced faulted run and its trace to
     :func:`check_lflr_trace`. ``sync_sites`` counts the clean run's host
     syncs by site with torch's sync debug mode (only its "synchronizing
     CUDA operation" warnings): every one must lie in ``readback``
-    (:func:`readback_sites`), and the line reports every site. Returns the kernel launches by path
-    (the clean run's under ``names[0]``, the traced run's under
-    ``names[1]``) and the clean streams."""
+    (:func:`readback_sites`), and the line reports every site. ``line``
+    adds its items to the clean run's line. Returns the kernel launches by
+    path (the clean run's under ``names[0]``, the faulted run's — traced,
+    where ``traced`` — under ``names[1]``) and the clean streams."""
     from repro_torch.core.device_channel import readback
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -949,7 +999,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
             torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
-            clean, _ = drive(rep, make_requests(cfg, Request, long, n))
+            clean, _ = drive(rep, make_requests(cfg, Request, long, n, short))
         finally:
             if sync_sites:
                 torch.cuda.set_sync_debug_mode("default")
@@ -966,7 +1016,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     peak = torch.cuda.max_memory_allocated() / 1e9   # before the checks' own
     m = rep.metrics
     bad = [r.id for r in clean.values() if not r.ok or len(r.tokens) != MAX_NEW]
-    if len(clean) != n or bad:
+    if len(clean) != n + short or bad:
         fail(f"{names[0]}: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
     recurrent = model.state_leaf is not None
@@ -996,8 +1046,14 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     pool = paged_report(torch, rep, names[0]) if paged else {}
     drafts = spec_report(m, spec, syncs) if spec else {}
     tokens = sum(len(r.tokens) for r in clean.values())
-    reqs = make_requests(cfg, Request, long, n)
-    forward = check_against_forward(torch, model, clean, reqs, longest=bool(long))
+    reqs = make_requests(cfg, Request, long, n, short)
+    if cfg.is_moe:
+        # reported, not gated: routing near-ties part the bf16 decode from
+        # the forward (check_moe_against_forward); phase_moe gates in fp32
+        forward = {"bf16": check_moe_against_forward(torch, model, clean, reqs,
+                                                     gate=False)}
+    else:
+        forward = check_against_forward(torch, model, clean, reqs, longest=bool(long))
     if "ssd" in cfg.block_pattern:
         # bf16 decode (one-step state update, the conv as one product) and
         # the chunked forward round differently and drift apart over depth,
@@ -1017,7 +1073,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
           "latency_p99_s": m.latency_percentiles()["p99"],
           "peak_mem_gb": peak, "forward_check": forward, **pool, **drafts,
           **({"torch_syncs": sum(sites.values()), "torch_sync_sites": dict(sites)}
-             if sync_sites else {})})
+             if sync_sites else {}), **(line or {})})
     SERVE_LINES[names[0]] = {"ms_per_step": wall / steps * 1e3,
                              "tokens_per_s": tokens / wall,
                              "accepted": m.accepted_draft_tokens,
@@ -1035,7 +1091,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
         reset_launch_counts()
         readback.count = 0
         t0 = time.perf_counter()
-        answers, injected = drive(rep, make_requests(cfg, Request, long, n), inject)
+        answers, injected = drive(rep, make_requests(cfg, Request, long, n, short),
+                                  inject)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return dict(answers=answers, injected=injected, state=state, wall=wall,
@@ -1065,7 +1122,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
         fail(f"{names[1]}: streams differ from the clean run for requests {diff}")
     if spec and any(f.code & int(ErrorCode.DRAFT_REJECT) for f in fm.faults):
         fail(f"{names[1]}: a fault record carries DRAFT_REJECT: {fm.faults}")
-    paths = {names[0]: launches}
+    paths = {names[0]: launches, names[1]: run["launches"]}
     trace_line = {}
     if traced:
         # the same faulted traffic again through a fresh replica with a
@@ -1429,10 +1486,10 @@ def phase_spec(torch, card: str, model, init_s: float, want: dict) -> dict:
         torch, card, model, init_s, ("serve_spec_paged", None), paged=True,
         spec=SPEC, n=NUM_SLOTS, want={i: want[i] for i in range(NUM_SLOTS)})[0])
     paths["serve_spec_deep"] = phase_spec_deep(torch, card, model)
-    if not any(SERVE_LINES[p]["accepted"] and SERVE_LINES[p]["rejected"]
-               for p in paths):
+    lines = {p: SERVE_LINES[p] for p in paths if p in SERVE_LINES}   # clean runs
+    if not any(line["accepted"] and line["rejected"] for line in lines.values()):
         fail(f"speculative phases: no phase both accepted and rejected a draft: "
-             f"{ {p: SERVE_LINES[p] for p in paths} }")
+             f"{lines}")
     return paths
 
 
@@ -2530,6 +2587,164 @@ def check_against_forward(torch, model, answers, reqs, longest: bool = False) ->
             "max_gap": worst, "tol": FORWARD_GAP_TOL}
 
 
+@contextlib.contextmanager
+def recorded_routing():
+    """Every MoE layer's expert choice while the block is open: a list that
+    gets, per ``apply_moe`` call, its experts (B, S, K) sorted within each
+    token and each token's gap between its K-th and (K+1)-th router
+    probability (B, S) (``models/moe.py::route`` wrapped for the block's
+    time)."""
+    import repro_torch.models.moe as moe
+    calls, route = [], moe.route
+
+    def recording(p, x, cfg):
+        gates, experts = route(p, x, cfg)
+        K = cfg.num_experts_per_tok
+        top = (x.float() @ p.router).softmax(dim=-1).topk(K + 1, dim=-1).values
+        calls.append((experts.sort(dim=-1).values, top[..., K - 1] - top[..., K]))
+        return gates, experts
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def check_moe_against_forward(torch, model, answers, reqs, gate: bool) -> dict:
+    """The shortest request's served stream against the MoE model's forward.
+
+    The forward drops tokens past each expert's capacity and the decode
+    (one token a row) never does, so the comparison runs below L*, a prefix
+    whose forward drops nothing (:func:`drop_free_prefix`; at least
+    ``MOE_FORWARD_MIN`` served positions). The prefix's tokens then run
+    through ``decode_step`` one by one at the slots' batch (every row the
+    sequence), with each MoE layer's experts recorded, as in the forward:
+    the decode's argmax must be the served token (the engine serves the
+    decode step's stream), and the line reports where the decode's and the
+    forward's expert choices part (``(position, layer)``, first in that
+    order, with the forward's gap between its K-th and (K+1)-th router
+    probability there). With ``gate`` the served tokens must also be within
+    ``FORWARD_GAP_TOL`` of the forward's argmax and the two must choose the
+    same experts everywhere below L*: in fp32, where rounding moves a
+    router probability by ~1e-8. In bf16 the two round the router's input
+    apart by an ulp, the 128-way softmax of the seeded router leaves the
+    K-th and (K+1)-th experts ~1e-4 apart, and a swapped expert moves the
+    residual by the gate's share of two experts' outputs: the comparison is
+    reported, not gated (PERF.md §6)."""
+    from repro_torch.launch.steps import make_prefill_step
+    req = min(reqs, key=lambda r: len(r.prompt))
+    served = list(answers[req.id].tokens)
+    toks, n = list(req.prompt) + served, len(req.prompt)
+    length, line = drop_free_prefix(torch, model, toks, n)
+    seq = toks[:length]
+    layers = model.cfg.num_layers
+    with recorded_routing() as calls:
+        logits, word = make_prefill_step(model)(torch.tensor([seq], device=model.device))
+        fwd = [(e[0], g[0]) for e, g in calls]          # per layer (L*, K), (L*,)
+        calls.clear()
+        cache = model.init_cache(NUM_SLOTS, MAX_LEN)
+        dec_argmax = []
+        with torch.no_grad():
+            for p in range(length):
+                tok = torch.full((NUM_SLOTS, 1), seq[p], dtype=torch.int32,
+                                 device=model.device)
+                dec_argmax.append(model.decode_step(tok, cache, p)[0, 0].argmax())
+        dec = [torch.stack([calls[p * layers + l][0][0, 0] for p in range(length)])
+               for l in range(layers)]
+    logits = logits[0]
+    if int(word) != 0 or not bool(torch.isfinite(logits).all()):
+        fail(f"MoE forward logits are not finite (word {int(word)})")
+    rows = logits[n - 1:length]
+    want = torch.tensor(served[:length - n + 1], device=model.device)
+    if not torch.equal(torch.stack(dec_argmax[n - 1:]), want):
+        fail(f"request {req.id}: the decode loop's argmax is not the served stream")
+    gap = rows.max(dim=-1).values - rows.gather(1, want[:, None])[:, 0]
+    parted = sorted((p, l) for l in range(layers)
+                    for p in (fwd[l][0] != dec[l]).any(dim=-1).nonzero().flatten().tolist())
+    gaps = torch.stack([g for _, g in fwd])             # (layers, L*)
+    first = {}
+    if parted:
+        p, l = parted[0]
+        first = {"position": p, "layer": l, "forward_router_gap": float(gaps[l, p])}
+    line = {"request": req.id, "prompt": n, "positions": len(want),
+            "argmax_agree": int((gap == 0).sum()), "max_gap": float(gap.max()),
+            "tol": FORWARD_GAP_TOL, "gated": gate,
+            "routing_parted": len(parted), "routing_decisions": layers * length,
+            "first_parted": first, "router_gap_median": float(gaps.median()),
+            **line}
+    if gate and (line["max_gap"] > FORWARD_GAP_TOL or parted):
+        fail(f"request {req.id}: the decode parts from the MoE forward below its "
+             f"drop-free prefix: {line}")
+    return line
+
+
+def drop_free_prefix(torch, model, toks: list, n: int) -> tuple:
+    """The length L* of a prefix of ``toks`` (prompt of ``n`` tokens, then
+    the served ones) whose MoE forward drops no token, found by bisection
+    between ``n`` and ``len(toks) - 1`` on the forward's dropped fraction:
+    its rows are the drop-free arithmetic the decode does (position s keeps
+    or drops by the positions up to s only, and attention is causal). The
+    capacity steps up with the length, so the fraction is not monotone
+    everywhere and L* is a drop-free prefix, not always the longest. Fails
+    if it leaves fewer than ``MOE_FORWARD_MIN`` served positions. Returns
+    ``(L*, the line's fields)``: L*, the fraction at the full length and
+    the lengths whose forward ran."""
+    calls = []
+
+    def dropped(length: int) -> float:
+        with torch.no_grad():
+            _, aux = model(torch.tensor([toks[:length]], device=model.device),
+                           with_aux=True)
+        calls.append(length)
+        return float(aux["dropped_fraction"])
+
+    full = len(toks) - 1
+    at_full = dropped(full)
+    lo = full
+    if at_full > 0:
+        if dropped(n) > 0:
+            fail(f"MoE forward check: the prompt alone ({n} tokens) drops tokens")
+        lo, hi = n, full                  # dropped(lo) == 0 < dropped(hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if dropped(mid) > 0:
+                hi = mid
+            else:
+                lo = mid
+    if lo - n + 1 < MOE_FORWARD_MIN:
+        fail(f"MoE forward check: the drop-free prefix of {lo} tokens holds "
+             f"{lo - n + 1} served positions, fewer than {MOE_FORWARD_MIN}")
+    return lo, {"drop_free_prefix": lo, "full_length": full,
+                "dropped_at_full": at_full, "forward_lengths": calls}
+
+
+def check_moe_fp32_stream(torch, cfg) -> dict:
+    """The MoE forward check's gate: ``cfg`` at full width, cut to
+    ``MOE_FP32_LAYERS`` layers, in fp32 and seeded on the card, serves the
+    short request through serve's engine, and :func:`check_moe_against_forward`
+    holds its stream to the fp32 forward (flash's fp32 route) within
+    ``FORWARD_GAP_TOL`` and the expert choices to the forward's, below the
+    drop-free prefix. Frees the model after."""
+    from repro_torch.models import Model
+    from repro_torch.serve import EngineConfig, Replica, Request
+
+    wide = Model(cfg.replace(dtype="float32", num_layers=MOE_FP32_LAYERS),
+                 device="cuda", seed=SEED)
+    reqs = make_requests(cfg, Request, n=0, short=1)
+    rep = Replica(wide.cfg, wide, config=EngineConfig(
+        window=WINDOW, overlap=True, num_slots=NUM_SLOTS, max_len=MAX_LEN))
+    answers, _ = drive(rep, reqs)
+    if not all(r.ok and len(r.tokens) == MAX_NEW for r in answers.values()):
+        fail("MoE fp32 check: the short request was not answered in full")
+    out = {"layers": MOE_FP32_LAYERS,
+           **check_moe_against_forward(torch, wide, answers, reqs, gate=True)}
+    del rep, wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_fp32_stream(torch, model, reqs) -> dict:
     """``model``'s weights widened to fp32 (exactly) serve the shortest
     request through the same engine, and that stream is held against the
@@ -2791,19 +3006,86 @@ def phase_kernels_rg(torch, card: str) -> dict:
     return out
 
 
+def flash_row(torch, randn, name, note, qs, kvs, off, kw, controls, kv_keys,
+              flop_keys, lib_kw, plain_launches=32) -> dict:
+    """One bf16 flash shape (q ``qs``, K and V ``kvs``, each ``(B, S, H,
+    D)``, drawn by ``randn``): the kernel against its plain version (and
+    each control, which must exceed the limit), its time, the plain
+    version's, the library call's and the bound. ``kv_keys``: the keys each
+    K/V element read once counts; ``flop_keys``: the keys attended over all
+    query rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import sdpa_ref
+
+    Hq, D, Hkv = qs[2], qs[3], kvs[2]
+    heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
+    q, k, v = randn(*qs), randn(*kvs), randn(*kvs)
+    got, route = flash_call(flash_attention, q, k, v, off, **kw)
+    want = sdpa_ref(q, k, v, q_offset=off, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    excess = flash_excess(got, want)
+    ctl = {label: flash_excess(fn(q, k, v), want) for label, fn in controls.items()}
+    if not excess <= 1 < min(ctl.values()):
+        fail(f"{name}: error {err}, {excess} x the limit; controls {ctl} "
+             "(each must exceed 1)")
+    del q, k, v, got, want
+    b_ms, b_by = bound(2 * math.prod(qs) * 2 + 2 * kv_keys * Hkv * D * 2 + 4 * qs[0],
+                       4 * Hq * D * flop_keys, PEAK_BF16_FLOPS)
+    qkv = copies(lambda: (randn(*qs), randn(*kvs), randn(*kvs)),
+                 (math.prod(qs) + 2 * math.prod(kvs)) * 2)
+    row = {
+        "shape": note, **route, "max_abs_err": err,
+        "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
+        "err_over_tol": excess, **{f"{c}_over_tol": x for c, x in ctl.items()},
+        "timing_copies": len(qkv),
+        "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(q, k, v, off, **kw), qkv),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(q, k, v, q_offset=off, **kw),
+                            qkv, launches=plain_launches),
+        "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, enable_gqa=True, **lib_kw), [heads_first(*t) for t in qkv]),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del qkv
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_decode_row(torch, randn, name, Hq, Hkv, D, cap, pos) -> dict:
+    """:func:`flash_row` for the decode: one query row for each of the
+    ``len(pos)`` slots at its position over a cache (or ring) of ``cap``
+    entries, which reads index < min(cap, pos + 1); controls: the last key
+    dropped, and the key after the first split boundary replaced by the
+    one before it (where the cache has more than one split)."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    dev = torch.device("cuda")
+    off = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kpos = torch.arange(cap, device=dev)
+    mask = (kpos[None, :] <= off[:, None])[:, None, None, :]
+    B, ctx = len(pos), sum(min(p + 1, cap) for p in pos)
+    kw = {"causal": True, "seq_kv": cap}
+    controls = {"one_key_dropped": lambda q, k, v: flash_attention(
+        q, k, v, off, causal=True, seq_kv=cap - 1)}
+    edge = plan(1, cap, Hkv, torch.bfloat16).keys_per_split
+    if edge < cap:
+        controls[f"key_{edge}_doubled"] = lambda q, k, v: flash_attention(
+            q, *key_doubled(k, v, edge), off, causal=True, seq_kv=cap)
+    return flash_row(torch, randn, name, f"q {B}x1x{Hq}x{D}, kv {B}x{cap}x{Hkv}x{D} "
+                     f"bf16, pos {pos}", (B, 1, Hq, D), (B, cap, Hkv, D), off, kw,
+                     controls, ctx, ctx, {"attn_mask": mask})
+
+
 def phase_kernels_g3(torch, card: str) -> dict:
     """flash and the probe against their plain versions at gemma3-1b's
     shapes (4/1 heads of 256): decode over the full cache and over the
     ring (wrapped), the sliding and the full forward at the prefill shape,
     the probe over the serve logits and over the prefill logits (2^31
     elements). Each flash row has controls that must exceed the limit."""
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import flash_attention, probe_rows
     from repro_torch.kernels.fault_probe import probe_rows_ref
-    from repro_torch.kernels.flash_attention import sdpa_ref
-    from repro_torch.kernels.flash_attention.ops import plan
 
     cfg = get_config("gemma3-1b")
     dev = torch.device("cuda")
@@ -2811,86 +3093,37 @@ def phase_kernels_g3(torch, card: str) -> dict:
     f32 = lambda *shape: torch.randn(  # noqa: E731
         shape, generator=gen, device=dev, dtype=torch.float32)
     randn = lambda *shape: f32(*shape).to(torch.bfloat16)  # noqa: E731
-    heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
     Hq, Hkv, D, win = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window
     out = {}
-
-    def flash_row(name, note, qs, kvs, off, kw, controls, kv_keys, flop_keys,
-                  lib_kw, plain_launches=32):
-        """One flash shape: the kernel against its plain version (and each
-        control, which must exceed the limit), its time, the plain
-        version's, the library call's and the bound. ``kv_keys``: the keys
-        each K/V element read once counts; ``flop_keys``: the keys attended
-        over all query rows."""
-        q, k, v = randn(*qs), randn(*kvs), randn(*kvs)
-        got, route = flash_call(flash_attention, q, k, v, off, **kw)
-        want = sdpa_ref(q, k, v, q_offset=off, **kw)
-        err = (got.float() - want.float()).abs().max().item()
-        excess = flash_excess(got, want)
-        ctl = {label: flash_excess(fn(q, k, v), want) for label, fn in controls.items()}
-        if not excess <= 1 < min(ctl.values()):
-            fail(f"{name}: error {err}, {excess} x the limit; controls {ctl} "
-                 "(each must exceed 1)")
-        del q, k, v, got, want
-        b_ms, b_by = bound(2 * math.prod(qs) * 2 + 2 * kv_keys * Hkv * D * 2 + 4 * qs[0],
-                           4 * Hq * D * flop_keys, PEAK_BF16_FLOPS)
-        qkv = copies(lambda: (randn(*qs), randn(*kvs), randn(*kvs)),
-                     (math.prod(qs) + 2 * math.prod(kvs)) * 2)
-        out[name] = {
-            "shape": note, **route, "max_abs_err": err,
-            "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
-            "err_over_tol": excess, **{f"{c}_over_tol": x for c, x in ctl.items()},
-            "timing_copies": len(qkv),
-            "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(q, k, v, off, **kw), qkv),
-            "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(q, k, v, q_offset=off, **kw),
-                                qkv, launches=plain_launches),
-            "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
-                *t, enable_gqa=True, **lib_kw), [heads_first(*t) for t in qkv]),
-            "bound_ms": b_ms, "bound_by": b_by}
-        del qkv
-        torch.cuda.empty_cache()
-
-    def decode_mask(pos, cap):
-        off = torch.tensor(pos, dtype=torch.int32, device=dev)
-        kpos = torch.arange(cap, device=dev)
-        return off, (kpos[None, :] <= off[:, None])[:, None, None, :]
 
     # -- decode over the full layers' cache (cap MAX_LEN) and the ring (cap
     #    = the window, wrapped past it): the read is index < min(cap, pos + 1)
     for name, cap, pos in (
             ("flash_g3_decode", MAX_LEN, [0, 1, 300, 511, 512, 1000, MAX_LEN - 1, 1500]),
             ("flash_g3_ring_decode", win, [0, 1, win - 1, win, 600, 1023, 1024, 2000])):
-        off, mask = decode_mask(pos, cap)
-        ctx = sum(min(p + 1, cap) for p in pos)
-        kw = {"causal": True, "seq_kv": cap}
-        controls = {"one_key_dropped": lambda q, k, v, cap=cap, off=off: flash_attention(
-            q, k, v, off, causal=True, seq_kv=cap - 1)}
-        edge = plan(1, cap, Hkv, torch.bfloat16).keys_per_split
-        if edge < cap:
-            controls[f"key_{edge}_doubled"] = lambda q, k, v, cap=cap, off=off, edge=edge: (
-                flash_attention(q, *key_doubled(k, v, edge), off, causal=True, seq_kv=cap))
-        flash_row(name, f"q {NUM_SLOTS}x1x{Hq}x{D}, kv {NUM_SLOTS}x{cap}x{Hkv}x{D} bf16, "
-                  f"pos {pos}", (NUM_SLOTS, 1, Hq, D), (NUM_SLOTS, cap, Hkv, D), off, kw,
-                  controls, ctx, ctx, {"attn_mask": mask})
+        out[name] = flash_decode_row(torch, randn, name, Hq, Hkv, D, cap, pos)
 
     # -- the forward at the prefill shape: sliding (window 512) and full
     Bp, Sp = PREFILL_B, PREFILL_S
     zero = torch.zeros(Bp, dtype=torch.int32, device=dev)
     qp = torch.arange(Sp, device=dev)
     mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - win)
-    flash_row("flash_g3_sliding_forward",
-              f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal, window {win}",
-              (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True, "window": win},
-              {"window_one_short": lambda q, k, v: flash_attention(
-                  q, k, v, zero, causal=True, window=win - 1)},
-              Bp * Sp, Bp * sum(min(s + 1, win) for s in range(Sp)), {"attn_mask": mask},
-              plain_launches=8)
+    out["flash_g3_sliding_forward"] = flash_row(
+        torch, randn, "flash_g3_sliding_forward",
+        f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal, window {win}",
+        (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True, "window": win},
+        {"window_one_short": lambda q, k, v: flash_attention(
+            q, k, v, zero, causal=True, window=win - 1)},
+        Bp * Sp, Bp * sum(min(s + 1, win) for s in range(Sp)), {"attn_mask": mask},
+        plain_launches=8)
     del mask
-    flash_row("flash_g3_forward", f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal",
-              (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True},
-              {"one_key_dropped": lambda q, k, v: flash_attention(
-                  q, k, v, zero, causal=True, seq_kv=Sp - 1)},
-              Bp * Sp, Bp * Sp * (Sp + 1) // 2, {"is_causal": True}, plain_launches=8)
+    out["flash_g3_forward"] = flash_row(
+        torch, randn, "flash_g3_forward",
+        f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal",
+        (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True},
+        {"one_key_dropped": lambda q, k, v: flash_attention(
+            q, k, v, zero, causal=True, seq_kv=Sp - 1)},
+        Bp * Sp, Bp * Sp * (Sp + 1) // 2, {"is_causal": True}, plain_launches=8)
 
     # -- the probe over the serve logits (slots, vocab 262144) fp32
     V = cfg.vocab_size
@@ -3145,6 +3378,86 @@ def phase_prefill(torch, card: str, model, name: str) -> dict:
     return launches
 
 
+def phase_kernels_moe(torch, card: str) -> dict:
+    """flash decode at qwen3-moe-30b-a3b's head layout (8 slots, 32/4 heads
+    of 128: group 8, which no other path launches; the full cache) against
+    its plain version, with its controls, time and bound."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    randn = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+    out = {"flash_moe_decode": flash_decode_row(
+        torch, randn, "flash_moe_decode", cfg.num_heads, cfg.num_kv_heads,
+        cfg.resolved_head_dim, MAX_LEN, [0, 1, 100, 511, 700, 1022, MAX_LEN - 1, 1500])}
+    emit({"phase": "kernels_moe", "card": card, **out})
+    return out
+
+
+def phase_moe(torch, card: str) -> dict:
+    """Full-width qwen3-moe-30b-a3b (48 layers of attention and a 128-expert
+    top-8 MoE, untied unembedding; 61 GB of bf16 weights seeded on the card,
+    leaf by leaf) alone on the card: ``serve_moe`` and ``lflr_moe`` through
+    :func:`phase_serve` on the first ``MOE_REQUESTS`` requests and one with
+    a ``SHORT_PROMPT``-token prompt (the KV fault in one MoE layer's attention
+    cache, LFLR streams bit-equal to the clean run's; the short request's
+    stream compared with the forward below its drop-free prefix: a
+    63-token prompt, the shortest of the 6, may itself drop, at a mean load
+    of 3.9 against a capacity of 8), gated first in fp32 at
+    ``MOE_FP32_LAYERS`` layers (:func:`check_moe_fp32_stream`, before the
+    full model is built), then ``engines_moe``: the stepwise and the
+    blocking engine serve the short request's first ``ENGINE_NEW`` tokens,
+    the first of ``serve_moe``'s stream token for token, with each engine's syncs and launches. The lines add
+    the init's and each run's peak memory. Returns the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request
+
+    fp32 = check_moe_fp32_stream(torch, get_config(MOE_ARCH))
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = build_model(torch, get_config(MOE_ARCH))
+    cfg = model.cfg
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    paths, clean = phase_serve(torch, card, model, init_s, ("serve_moe", "lflr_moe"),
+                               n=MOE_REQUESTS, short=1,
+                               line={"init_peak_mem_gb": init_peak,
+                                     "forward_check_fp32": fp32})
+    rows = {}
+    for name in ("stepwise", "blocking"):
+        torch.cuda.reset_peak_memory_stats()
+        reqs = [Request(id=r.id, prompt=r.prompt, max_new_tokens=ENGINE_NEW)
+                for r in make_requests(cfg, Request, n=MOE_REQUESTS, short=1)[-1:]]
+        run = serve_engine(torch, model, ENGINES[name], reqs)
+        out, m = run["answers"], run["metrics"]
+        if m.faults or streams(out) != {r.id: clean[r.id][:ENGINE_NEW] for r in reqs}:
+            fail(f"engines_moe/{name}: faults {m.faults}, or streams differ from "
+                 "serve_moe's")
+        prefilled = sum(len(r.prompt) for r in reqs) if not run["overlap"] else 0
+        if run["syncs"] > 2 * (m.windows or m.decode_steps) + 2 * m.prefills:
+            fail(f"engines_moe/{name}: {run['syncs']} host syncs for {m.windows} "
+                 f"windows, {m.decode_steps} steps and {m.prefills} prefills")
+        slot_steps = m.decode_steps + prefilled
+        expected = dict.fromkeys(run["launches"], 0)
+        expected.update({"flash_attention": len(model.attn_layers) * slot_steps,
+                         "flash_decode": len(model.attn_layers) * slot_steps,
+                         "probe_rows": slot_steps})
+        if run["launches"] != expected:
+            fail(f"engines_moe/{name}: kernel launches {run['launches']} != {expected}")
+        paths[f"engines_moe_{name}"] = run["launches"]
+        rows[name] = {"config": ENGINES[name], "wall_s": run["wall"],
+                      "steps": m.decode_steps, "prefills": m.prefills,
+                      "host_stall_s": m.host_stall_s, "syncs": run["syncs"],
+                      "launches": run["launches"],
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"phase": "engines_moe", "card": card, "model": cfg.name,
+          "request": MOE_REQUESTS, "new_tokens": ENGINE_NEW,
+          "streams_equal_serve_moe": True, **rows})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def activation_cost(torch, model):
     """The MLP activation at the prefill shape (B, S, d_ff) in the model
     dtype, spelled op for op as the JAX package rounds it (the model's), and
@@ -3251,10 +3564,11 @@ def main() -> None:
 
     kern_ssm = phase_kernels_ssm(torch, card)
     model, init_s = build_model(torch, get_config("mamba2-2.7b"))
-    # the first 8 requests only (one per slot): the mamba2 phases are the
-    # run's slowest, cut to leave time for the paged phases
+    # the first 6 requests only (cut from 8, one per slot, when the MoE
+    # phases came, for the run's time: the first 6 drop the 225- and
+    # 254-token prompts, 200 steps against 318)
     serve_ssm, _ = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"),
-                               n=NUM_SLOTS)
+                               n=MOE_REQUESTS)
     prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
     del model                                     # free mamba2 before gemma3
     gc.collect()
@@ -3279,7 +3593,12 @@ def main() -> None:
         poison_layers=[5], paged=True, n=NUM_SLOTS,
         want={i: g3_streams[i] for i in range(NUM_SLOTS)})
     prefill_g3 = phase_prefill(torch, card, model, "prefill_g3")
-    del model
+    del model                                     # free gemma3 before the MoE
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kern_moe = phase_kernels_moe(torch, card)
+    moe_paths = phase_moe(torch, card)
     paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              **serve_paged, "engines_paged": engines_paged,
@@ -3288,7 +3607,7 @@ def main() -> None:
              **serve_g3_paged,
              **serve_rg, "prefill_rg": prefill_rg,
              **serve_ssm, "prefill_ssm": prefill_ssm,
-             **serve_g3, "prefill_g3": prefill_g3}
+             **serve_g3, "prefill_g3": prefill_g3, **moe_paths}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
         kernel_entry(
@@ -3304,7 +3623,8 @@ def main() -> None:
              "flash_ring_decode": kern_rg["flash_ring_decode"],
              "flash_sliding_forward": kern_rg["flash_sliding_forward"],
              **{n: kern_g3[n] for n in ("flash_g3_decode", "flash_g3_ring_decode",
-                                        "flash_g3_sliding_forward", "flash_g3_forward")}},
+                                        "flash_g3_sliding_forward", "flash_g3_forward")},
+             "flash_moe_decode": kern_moe["flash_moe_decode"]},
             launches_by_kernel={k: by_path(k) for k in (
                 "flash_decode", "flash_verify", "flash_forward", "flash_f32")}),
         kernel_entry(

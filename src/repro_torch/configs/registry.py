@@ -8,9 +8,11 @@ from .base import ModelConfig
 from .gemma3_1b import CONFIG as gemma3_1b
 from .mamba2_2_7b import CONFIG as mamba2_2_7b
 from .qwen3_1_7b import CONFIG as qwen3_1_7b
+from .qwen3_moe_30b_a3b import CONFIG as qwen3_moe
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
 
 ARCHS: dict[str, ModelConfig] = {
+    "qwen3-moe-30b-a3b": qwen3_moe,
     "qwen3-1.7b": qwen3_1_7b,
     "gemma3-1b": gemma3_1b,
     "recurrentgemma-2b": recurrentgemma_2b,
@@ -26,9 +28,9 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config: small widths, tiny vocab — the same
-    overrides as the JAX package's ``smoke_config``, so both packages build
-    the same smoke model."""
+    """Reduced same-family config: small widths, few experts, tiny vocab —
+    the same overrides as the JAX package's ``smoke_config``, so both
+    packages build the same smoke model."""
     cfg = get_config(name)
     common = dict(
         d_model=64,
@@ -45,6 +47,8 @@ def smoke_config(name: str) -> ModelConfig:
     rem = len(cfg.remainder_layers)
     layers = 2 * cfg.period + rem
     overrides = dict(num_layers=layers, **common)
+    if cfg.is_moe:
+        overrides.update(num_experts=8, num_experts_per_tok=2)
     if cfg.family == "ssm":
         overrides.update(ssm_state_dim=16, ssm_head_dim=16, ssm_expand=2,
                          ssm_chunk=8)   # d_inner=128, 8 heads

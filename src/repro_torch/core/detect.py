@@ -35,6 +35,7 @@ from .errors import ErrorCode
 class ProbeConfig:
     overflow_threshold: float = 1e4      # pre-NaN early warning on grads
     loss_divergence_threshold: float = 1e3
+    router_drop_threshold: float = 0.5   # MoE: fraction of dropped tokens
     probe_params: bool = False           # post-update param check (2x memory traffic)
 
 
@@ -68,6 +69,15 @@ def param_probe(params, cfg: ProbeConfig = ProbeConfig()) -> torch.Tensor:
                       overflow_code=int(ErrorCode.OVERFLOW))
 
 
+def router_probe(dropped_fraction: torch.Tensor,
+                 cfg: ProbeConfig = ProbeConfig()) -> torch.Tensor:
+    """MoE local misbehaviour: ROUTER_OVERFLOW when more than
+    ``router_drop_threshold`` of the routed tokens were dropped (capacity
+    overflow)."""
+    return _flag(dropped_fraction > cfg.router_drop_threshold,
+                 ErrorCode.ROUTER_OVERFLOW)
+
+
 def data_probe(tokens: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Corrupt-batch check: token ids outside [0, vocab)."""
     return _flag(((tokens < 0) | (tokens >= vocab_size)).any(),
@@ -97,10 +107,15 @@ def state_probe(state: torch.Tensor) -> torch.Tensor:
 
 def step_probe(loss: torch.Tensor, grads, *, tokens: Optional[torch.Tensor] = None,
                vocab_size: Optional[int] = None,
+               router_dropped: Optional[torch.Tensor] = None,
                cfg: ProbeConfig = ProbeConfig()) -> torch.Tensor:
     """Combined per-step error word: the standard probe set for a train step
-    (the JAX package's, less the MoE router probe: ROADMAP item 14)."""
+    (the JAX package's, less its ``states`` argument, which its train step
+    never passes). ``router_dropped``, an MoE model's dropped fraction, adds
+    the router probe."""
     words = [loss_probe(loss, cfg), grad_probe(grads, cfg)]
     if tokens is not None and vocab_size is not None:
         words.append(data_probe(tokens, vocab_size))
+    if router_dropped is not None:
+        words.append(router_probe(router_dropped, cfg))
     return combine_words(*words)

@@ -41,11 +41,13 @@ from .paging import PagedLayout
 
 
 def make_loss_and_grads(cfg):
-    """``(params, batch) → (loss, grads)``: the training loss of ``batch``
-    under a train state's ``params`` and its gradient, a dict in ``params``'
-    order. The model is a skeleton on the ``meta`` device (no weights of its
-    own): :meth:`Model.loss` runs on the given tensors, each taken as a
-    fresh autograd leaf, so the params themselves never require a gradient.
+    """``(params, batch) → (loss, grads, aux)``: the training loss of
+    ``batch`` under a train state's ``params``, its gradient, a dict in
+    ``params``' order, and ``{"dropped_fraction"}`` (the MoE layers' mean,
+    :meth:`Model.forward`; 0 without MoE). The model is a skeleton on the
+    ``meta`` device (no weights of its own): :meth:`Model.loss` runs on the
+    given tensors, each taken as a fresh autograd leaf, so the params
+    themselves never require a gradient.
     Attention stacks only: the RG-LRU and SSD kernels have no backward yet,
     and their wrappers refuse a tensor that needs one."""
     kinds = set(cfg.pattern_layers) - set(ATTN_KINDS)
@@ -58,9 +60,10 @@ def make_loss_and_grads(cfg):
     def loss_and_grads(params: dict, batch: dict):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
-            loss = skeleton.loss(leaves, batch)
+            loss, aux = skeleton.loss(leaves, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        return (loss.detach(), dict(zip(leaves, grads)),
+                {k: v.detach() for k, v in aux.items()})
 
     return loss_and_grads
 
@@ -77,10 +80,11 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
     word is the in-band device channel: the loss, the whole gradient stream
     (one ``probe_tree`` launch over every leaf) and the input tokens,
     OR-combined into one int32 that the host's DeviceFuture turns into the paper's
-    exceptions. The injections, the probes, the AdamW update and the
-    metrics (``loss``, ``grad_norm``, ``lr``) all stay on the device: no
-    host sync. ``state`` is left as it was, so the executor may discard the
-    step. The JAX package's ``microbatch`` and ``ce_chunk`` levers wait for
+    exceptions; for an MoE config also the router probe over the dropped
+    fraction (ROUTER_OVERFLOW). The injections, the probes, the AdamW update
+    and the metrics (``loss``, ``grad_norm``, ``lr``, ``dropped_fraction``)
+    all stay on the device: no host sync. ``state`` is left as it was, so
+    the executor may discard the step. The JAX package's ``microbatch`` and ``ce_chunk`` levers wait for
     ROADMAP Queue 1, item 15b.
     """
     if microbatch > 1 or ce_chunk:
@@ -95,10 +99,13 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
             inject = torch.full((), int(inject), dtype=torch.int32,
                                 device=state["step"].device)
         tokens = inject_batch(batch["tokens"], inject)
-        loss, grads = loss_and_grads(state["params"], {**batch, "tokens": tokens})
+        loss, grads, aux = loss_and_grads(state["params"],
+                                          {**batch, "tokens": tokens})
         loss = inject_loss(loss, inject)
         grads = inject_grads(grads, inject)
+        dropped = aux["dropped_fraction"]
         word = step_probe(loss, grads, tokens=tokens, vocab_size=cfg.vocab_size,
+                          router_dropped=dropped if cfg.is_moe else None,
                           cfg=probe_cfg)
         with torch.no_grad():
             params, opt, stats = adamw_update(
@@ -107,7 +114,7 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1,
                      "lr_scale": state["lr_scale"]}
         metrics = {"loss": loss, "grad_norm": stats["grad_norm"],
-                   "lr": stats["lr"]}
+                   "lr": stats["lr"], "dropped_fraction": dropped}
         return new_state, metrics, word
 
     return train_step

@@ -1,8 +1,8 @@
 """Common layers: rms norm, rotary embeddings, gated and plain MLPs, the
-causal depthwise convolution, embeddings.
+causal depthwise convolution, embeddings and the unembedding.
 
-The port of ``repro/models/layers.py`` for the qwen3, recurrentgemma and
-mamba2 paths. Each function keeps the JAX package's arithmetic and dtype casts
+The port of ``repro/models/layers.py`` for the qwen3, qwen3-moe, gemma3,
+recurrentgemma and mamba2 paths. Each function keeps the JAX package's arithmetic and dtype casts
 (norm and rope in fp32, cast back to the activation dtype; logits in fp32),
 so the two packages agree to float tolerance on the same weights.
 """
@@ -187,12 +187,13 @@ def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor,
     return EmbedLookup.apply(embedding, tokens).to(dtype)
 
 
-def unembed(x: torch.Tensor, embed_f32: torch.Tensor, *,
+def unembed(x: torch.Tensor, w_f32: torch.Tensor, *,
             softcap: float = 0.0) -> torch.Tensor:
-    """fp32 logits against the tied embedding. ``embed_f32`` is the fp32
-    copy the model keeps (made once, instead of a full-vocab cast every
+    """fp32 logits ``x @ w_f32``: ``w_f32`` (d, V) is the tied embedding's
+    transpose or the untied ``unembed`` kernel, in fp32. Serving passes the
+    fp32 copy the model keeps (made once, instead of a full-vocab cast every
     step: the same arithmetic as the JAX package's per-call cast)."""
-    logits = x.float() @ embed_f32.t()
+    logits = x.float() @ w_f32
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

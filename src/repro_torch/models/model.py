@@ -1,7 +1,8 @@
 """Top-level model: seeded init, full forward, slot decode, caches.
 
 The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``,
-``rglru`` and ``ssd`` blocks (qwen3, gemma3, recurrentgemma, mamba2).
+``rglru`` and ``ssd`` blocks with MLPs or MoE FFNs, tied or untied
+unembeddings (qwen3, qwen3-moe, gemma3, recurrentgemma, mamba2).
 Parameters live in an ``nn.Module`` on an explicit device. The decode cache
 is a dict of tensors updated in place by :meth:`Model.decode_step`, one
 pair of leaves per attention kind, so a stack may hold both:
@@ -129,10 +130,6 @@ class Model(nn.Module):
             raise NotImplementedError(
                 "two recurrent block kinds in one stack (two conv widths) "
                 "is not ported: ROADMAP Queue 1, item 14")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(
-                "untied unembedding is not ported yet: ROADMAP Queue 1, item "
-                "14 (remaining architectures)")
         pin_matmul_precision()
         self.cfg = cfg
         # the recurrent layers' state leaf, "h" (rglru), "ssm" (ssd) or None:
@@ -166,19 +163,36 @@ class Model(nn.Module):
         self.final_norm = nn.Parameter(
             torch.ones(cfg.d_model, device=self.device, dtype=torch.float32),
             requires_grad=False)
+        # the untied unembedding kernel (d, V), drawn last so the tied
+        # models' draws stay as they were
+        self.unembed = None
+        if not cfg.tie_embeddings:
+            shape = (cfg.d_model, cfg.vocab_size)
+            un = (torch.empty(shape, device=self.device, dtype=self.dtype)
+                  if gen is None else
+                  dense_init(shape, generator=gen, device=self.device,
+                             dtype=self.dtype))
+            self.unembed = nn.Parameter(un, requires_grad=False)
         self.tie_unembed()
 
+    def unembed_weight(self) -> torch.Tensor:
+        """The live unembedding matrix (d, V) in the model dtype: the tied
+        embedding's transpose or the untied kernel."""
+        return self.embed.t() if self.unembed is None else self.unembed
+
     def tie_unembed(self) -> None:
-        """(Re)make the fp32 copy of the tied embedding the unembedding reads.
-        In bf16 it costs ``vocab * d_model * 4`` bytes once (1.24 GB at full
-        qwen3 width) instead of that cast on every step; in fp32 it is the
-        embedding itself."""
-        self.embed_f32 = (self.embed.detach() if self.dtype == torch.float32
-                          else self.embed.detach().float())
+        """(Re)make ``unembed_f32``, the fp32 copy (d, V) of the unembedding
+        matrix that serving reads: the tied embedding's transpose or the
+        untied kernel. In bf16 it costs ``vocab * d_model * 4`` bytes once
+        (1.24 GB at full qwen3 width) instead of that cast on every step; in
+        fp32 it is the weight itself."""
+        w = self.unembed_weight().detach()
+        self.unembed_f32 = w if self.dtype == torch.float32 else w.float()
 
     # ------------------------------------------------------------------ forward
     def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                loss_mask: Optional[torch.Tensor] = None, *,
+                with_aux: bool = False):
         """Full-sequence causal forward: tokens (B, S) → fp32 logits (B, S, V).
 
         With ``labels`` (B, S), the training forward instead: the mean
@@ -186,9 +200,15 @@ class Model(nn.Module):
         a differentiable function of the parameters. It reads the embedding
         through :class:`~repro_torch.models.layers.EmbedLookup` (an invalid
         id gives a NaN row, as the JAX package's ``jnp.take``) and unembeds
-        from the live ``embed`` cast to fp32 — not from ``embed_f32``, the
-        serving copy made once and detached — so the tied embedding gets
-        both gradients. :meth:`loss` calls it on a train state's params."""
+        from the live weight cast to fp32 — not from ``unembed_f32``, the
+        serving copy made once and detached — so the unembedding (and a
+        tied embedding through both uses) gets its gradient. :meth:`loss`
+        calls it on a train state's params.
+
+        ``with_aux=True`` returns ``(logits or loss, {"dropped_fraction"})``:
+        the MoE layers' dropped fractions summed and divided by the layers
+        with an FFN (every layer but ``ssd``), as the JAX package's
+        backbone gives it; a 0-d fp32 tensor, 0 for a model without MoE."""
         cfg = self.cfg
         train = labels is not None
         x = self._embed(tokens, train=train)
@@ -196,25 +216,38 @@ class Model(nn.Module):
         positions = torch.arange(S, device=x.device,
                                  dtype=torch.int32).expand(B, S)
         rope = self._rope(positions)
+        drops = []
         for blk in self.blocks:
-            x = apply_block_train(blk, x, rope, cfg)
+            x, drop = apply_block_train(blk, x, rope, cfg)
+            if drop is not None:
+                drops.append(drop)
         x = apply_norm(self.final_norm, x, cfg.norm)
         if not train:
-            return unembed(x, self.embed_f32, softcap=cfg.logit_softcap)
-        logits = unembed(x, self.embed.float(), softcap=cfg.logit_softcap)
-        return softmax_cross_entropy(logits, labels, loss_mask)
+            out = unembed(x, self.unembed_f32, softcap=cfg.logit_softcap)
+        else:
+            logits = unembed(x, self.unembed_weight().float(),
+                             softcap=cfg.logit_softcap)
+            out = softmax_cross_entropy(logits, labels, loss_mask)
+        if not with_aux:
+            return out
+        n_ffn = max(sum(b != "ssd" for b in cfg.pattern_layers), 1)
+        total = (torch.stack(drops).sum() if drops else
+                 torch.zeros((), device=x.device, dtype=torch.float32))
+        return out, {"dropped_fraction": total / n_ffn}
 
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        """The training loss of ``batch`` (``tokens``, ``labels``, optional
-        ``loss_mask``) under ``params``, a dict of every parameter by its
-        ``named_parameters`` name (a train state's ``"params"``): the
-        forward runs on those tensors through ``torch.func.functional_call``,
-        so gradients reach them and this model's own weights are neither
-        read nor touched (its parameters never require a gradient, and may
-        lie on the ``meta`` device)."""
+    def loss(self, params: dict, batch: dict):
+        """``(loss, aux)``: the training loss of ``batch`` (``tokens``,
+        ``labels``, optional ``loss_mask``) under ``params``, a dict of every
+        parameter by its ``named_parameters`` name (a train state's
+        ``"params"``), and :meth:`forward`'s aux, as the JAX package's
+        ``loss`` returns them. The forward runs on those tensors through
+        ``torch.func.functional_call``, so gradients reach them and this
+        model's own weights are neither read nor touched (its parameters
+        never require a gradient, and may lie on the ``meta`` device)."""
         return torch.func.functional_call(
             self, params, (batch["tokens"],),
-            {"labels": batch["labels"], "loss_mask": batch.get("loss_mask")},
+            {"labels": batch["labels"], "loss_mask": batch.get("loss_mask"),
+             "with_aux": True},
             strict=True)
 
     # ------------------------------------------------------------------- decode
@@ -353,7 +386,7 @@ class Model(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """The final norm and the unembedding: fp32 logits."""
         x = apply_norm(self.final_norm, x, self.cfg.norm)
-        return unembed(x, self.embed_f32, softcap=self.cfg.logit_softcap)
+        return unembed(x, self.unembed_f32, softcap=self.cfg.logit_softcap)
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg

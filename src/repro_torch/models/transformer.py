@@ -1,5 +1,6 @@
 """Block assembly: pre-norm ``attn``, ``sliding`` and ``rglru`` blocks, each
-with its MLP, and ``ssd`` blocks, whose Mamba-2 mixer is the whole block.
+with its MLP or, for an MoE config, its Mixture-of-Experts FFN, and ``ssd``
+blocks, whose Mamba-2 mixer is the whole block.
 
 The port of ``repro/models/transformer.py``. The JAX package scans over
 pattern periods with period-stacked parameters and applies the remainder
@@ -15,6 +16,7 @@ import torch.nn as nn
 from .attention import (Attention, attention_decode, attention_train,
                         attention_verify)
 from .layers import apply_mlp, apply_norm, dense_init
+from .moe import MoE, apply_moe
 from .rglru import RGLRU, rglru_decode, rglru_mixer
 from .ssm import Mamba2, mamba2_decode, mamba2_mixer
 
@@ -22,7 +24,7 @@ ATTN_KINDS = ("attn", "sliding")
 # recurrent block kinds, each with the name of its state leaf in the cache
 RECURRENT_STATE = {"rglru": "h", "ssd": "ssm"}
 BLOCK_KINDS = ATTN_KINDS + tuple(RECURRENT_STATE)
-MLP_BLOCKS = ATTN_KINDS + ("rglru",)    # blocks with norm2 and an MLP
+MLP_BLOCKS = ATTN_KINDS + ("rglru",)    # blocks with norm2 and an MLP or MoE
 
 NOT_PORTED = {
     "cross": "ROADMAP Queue 1, item 14 (remaining architectures: "
@@ -56,17 +58,18 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """One block: norms in fp32, weights in the model dtype; the mixer is
-    ``attn`` (attention kinds), ``rglru`` or ``ssd``. An ``ssd`` block has
-    no ``norm2`` and no MLP (both None), as in the JAX package."""
+    ``attn`` (attention kinds), ``rglru`` or ``ssd``, the FFN ``mlp`` or,
+    for an MoE config, ``moe`` (the other None). An ``ssd`` block has no
+    ``norm2`` and no FFN (all None), as in the JAX package."""
 
     def __init__(self, cfg, btype: str, *, device, dtype, generator=None):
         super().__init__()
         check_block_kind(btype)
         has_mlp = btype in MLP_BLOCKS
-        if has_mlp and (cfg.is_moe or not cfg.d_ff):
+        if has_mlp and not (cfg.is_moe or cfg.d_ff):
             raise NotImplementedError(
-                f"{btype!r} blocks with MoE or without an MLP are not ported "
-                "yet: ROADMAP Queue 1, item 14 (remaining architectures)")
+                f"{btype!r} blocks without an MLP are not ported yet: "
+                "ROADMAP Queue 1, item 14 (remaining architectures)")
         self.btype = btype
         ones = lambda: nn.Parameter(  # noqa: E731
             torch.ones(cfg.d_model, device=device, dtype=torch.float32),
@@ -80,22 +83,36 @@ class Block(nn.Module):
         else:
             self.attn = Attention(cfg, **kw)
         self.norm2 = ones() if has_mlp else None
-        self.mlp = (MLP(cfg, device=device, dtype=dtype, generator=generator)
-                    if has_mlp else None)
+        self.mlp = MLP(cfg, **kw) if has_mlp and not cfg.is_moe else None
+        self.moe = MoE(cfg, **kw) if has_mlp and cfg.is_moe else None
 
 
 def _window(p: Block, cfg) -> int:
     return cfg.sliding_window if p.btype == "sliding" else 0
 
 
-def _mlp(p: Block, x: torch.Tensor, cfg) -> torch.Tensor:
-    if p.mlp is None:
-        return x
-    h = apply_norm(p.norm2, x, cfg.norm)
-    return x + apply_mlp(p.mlp, h, cfg.mlp_kind)
+def _ffn(p: Block, h: torch.Tensor, cfg, with_aux: bool):
+    """The MLP or MoE sub-block: ``(out, dropped_fraction)``, the fraction a
+    0-d fp32 tensor for MoE with ``with_aux``, else None (the MLP drops
+    nothing)."""
+    if p.moe is not None:
+        out, aux = apply_moe(p.moe, h, cfg, with_aux=with_aux)
+        return out, (aux["dropped_fraction"] if with_aux else None)
+    return apply_mlp(p.mlp, h, cfg.mlp_kind), None
 
 
-def apply_block_train(p: Block, x: torch.Tensor, rope, cfg) -> torch.Tensor:
+def _mlp(p: Block, x: torch.Tensor, cfg, with_aux: bool = False):
+    """The residual FFN half of a block: ``(x, dropped_fraction)`` (see
+    :func:`_ffn`; None for a block without an FFN)."""
+    if p.norm2 is None:
+        return x, None
+    out, drop = _ffn(p, apply_norm(p.norm2, x, cfg.norm), cfg, with_aux)
+    return x + out, drop
+
+
+def apply_block_train(p: Block, x: torch.Tensor, rope, cfg):
+    """The full-sequence block: ``(x, dropped_fraction)``, the fraction None
+    but for an MoE block."""
     h = apply_norm(p.norm1, x, cfg.norm)
     if p.btype == "rglru":
         x = x + rglru_mixer(p.rglru, h)
@@ -103,7 +120,7 @@ def apply_block_train(p: Block, x: torch.Tensor, rope, cfg) -> torch.Tensor:
         x = x + mamba2_mixer(p.ssd, h, cfg)
     else:
         x = x + attention_train(p.attn, h, rope, cfg, window=_window(p, cfg))
-    return _mlp(p, x, cfg)
+    return _mlp(p, x, cfg, with_aux=True)
 
 
 def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
@@ -111,7 +128,9 @@ def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
     """One token per batch row. ``state`` is the layer's cache, updated IN
     PLACE: ``(k_cache, v_cache, write_idx)`` for an attention block,
     ``(state, conv)`` views of the slot-major recurrent caches (``h`` for
-    ``rglru``, ``ssm`` for ``ssd``)."""
+    ``rglru``, ``ssm`` for ``ssd``). An MoE block's dropped fraction is
+    ignored, as the JAX package's decode ignores it: at one token a row, K
+    distinct experts of capacity 8 never drop."""
     h = apply_norm(p.norm1, x, cfg.norm)
     if p.btype in RECURRENT_STATE:
         rec_state, conv_state = state
@@ -128,7 +147,7 @@ def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
         k_cache, v_cache, write_idx = state
         x = x + attention_decode(p.attn, h, k_cache, v_cache, pos, rope,
                                  write_idx, cfg)
-    return _mlp(p, x, cfg)
+    return _mlp(p, x, cfg)[0]
 
 
 def apply_block_verify(p: Block, xs: list, state: tuple, pos: torch.Tensor,
@@ -146,4 +165,4 @@ def apply_block_verify(p: Block, xs: list, state: tuple, pos: torch.Tensor,
     k_cache, v_cache = state
     hs = [apply_norm(p.norm1, x, cfg.norm) for x in xs]
     attn = attention_verify(p.attn, hs, k_cache, v_cache, pos, ropes, cfg)
-    return [_mlp(p, x + a, cfg) for x, a in zip(xs, attn)]
+    return [_mlp(p, x + a, cfg)[0] for x, a in zip(xs, attn)]

@@ -41,6 +41,14 @@ def _mlp_names(cfg: ModelConfig) -> tuple:
     return ("wi", "wg", "wo") if cfg.mlp_kind in ("swiglu", "geglu") else ("wi", "wo")
 
 
+def _ffn(cfg: ModelConfig) -> tuple[str, tuple]:
+    """The FFN's key in both trees and its leaves: ``mlp``, or ``moe`` with
+    its router."""
+    if cfg.is_moe:
+        return "moe", ("router",) + _mlp_names(cfg)
+    return "mlp", _mlp_names(cfg)
+
+
 def _mixer(cfg: ModelConfig, btype: str) -> tuple[str, tuple]:
     """The block's mixer key in both trees and its leaves."""
     if btype == "rglru":
@@ -107,12 +115,15 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
             for name in names:
                 _fill(getattr(getattr(blk, key), name), lp[key][name],
                       f"layer {l} {key}.{name}")
-            if blk.mlp is None:
+            if blk.norm2 is None:
                 continue
             _fill(blk.norm2, lp["norm2"]["scale"], f"layer {l} norm2")
-            for name in _mlp_names(cfg):
-                _fill(getattr(blk.mlp, name), lp["mlp"][name],
-                      f"layer {l} mlp.{name}")
+            key, names = _ffn(cfg)
+            for name in names:
+                _fill(getattr(getattr(blk, key), name), lp[key][name],
+                      f"layer {l} {key}.{name}")
+        if model.unembed is not None:
+            _fill(model.unembed, tree["unembed"]["kernel"], "unembed")
     model.tie_unembed()
     return model
 
@@ -126,14 +137,18 @@ def params_to_numpy(model: Model) -> dict:
         mixer = getattr(blk, key)
         layer = {"norm1": {"scale": _to_numpy(blk.norm1)},
                  key: {n: _to_numpy(getattr(mixer, n)) for n in names}}
-        if blk.mlp is not None:
+        if blk.norm2 is not None:
+            key, names = _ffn(cfg)
             layer["norm2"] = {"scale": _to_numpy(blk.norm2)}
-            layer["mlp"] = {n: _to_numpy(getattr(blk.mlp, n))
-                            for n in _mlp_names(cfg)}
+            layer[key] = {n: _to_numpy(getattr(getattr(blk, key), n))
+                          for n in names}
         layers.append(layer)
-    return {"embed": {"embedding": _to_numpy(model.embed)},
+    tree = {"embed": {"embedding": _to_numpy(model.embed)},
             "stack": _stack(layers, cfg, lambda xs: np.stack(xs)),
             "final_norm": {"scale": _to_numpy(model.final_norm)}}
+    if model.unembed is not None:
+        tree["unembed"] = {"kernel": _to_numpy(model.unembed)}
+    return tree
 
 
 def save_tree_npz(path: str, tree: dict) -> None:
@@ -199,8 +214,9 @@ def _layer_leaves(cfg: ModelConfig, btype: str) -> list[tuple]:
     leaves = [(("norm1", "scale"), "norm1")]
     leaves += [((key, n), f"{key}.{n}") for n in names]
     if btype != "ssd":
+        ffn, ffn_names = _ffn(cfg)
         leaves += [(("norm2", "scale"), "norm2")]
-        leaves += [(("mlp", n), f"mlp.{n}") for n in _mlp_names(cfg)]
+        leaves += [((ffn, n), f"{ffn}.{n}") for n in ffn_names]
     return sorted(leaves)
 
 
@@ -224,6 +240,8 @@ def param_order(cfg: ModelConfig) -> list[tuple]:
     for i, l in enumerate(range(n_scan, cfg.num_layers)):
         for sub, suffix in _layer_leaves(cfg, cfg.pattern_layers[l]):
             order.append((f"blocks.{l}.{suffix}", ("stack", "rest", i, *sub), None))
+    if not cfg.tie_embeddings:          # "unembed" sorts after "stack"
+        order.append(("unembed", ("unembed", "kernel"), None))
     return order
 
 
@@ -242,8 +260,9 @@ def train_params(model: Model) -> dict:
 def load_train_params(model: Model, params: dict) -> Model:
     """Copy a train state's ``params`` into ``model``'s weights (in place)
     and remake its fp32 unembedding copy (:meth:`Model.tie_unembed`): the
-    serving forward reads that copy, not the embedding, so a model loaded
-    from a trained state without it would unembed with the old weights."""
+    serving forward reads that copy, not the embedding or the ``unembed``
+    kernel, so a model loaded from a trained state without it would unembed
+    with the old weights."""
     named = dict(model.named_parameters())
     if sorted(params) != sorted(named):
         raise ValueError(f"params {sorted(params)} != the model's {sorted(named)}")

@@ -420,7 +420,7 @@ def test_probe_kernel_over_one_slots_ssm_state(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b", "qwen3-moe-30b-a3b"])
 def test_engines_bit_equal_on_the_card(cuda, arch):
     """The smoke model in bf16 on the card, seeded: the stepwise engine, the
     blocking window engine and the overlapped one serve the same streams,
@@ -447,6 +447,39 @@ def test_engines_bit_equal_on_the_card(cuda, arch):
         assert all(r.status == OK for r in out)
         streams.append({r.id: r.tokens for r in out})
     assert streams[0] == streams[1] == streams[2]
+
+
+def test_moe_decode_row_ignores_the_other_slots(cuda):
+    """The qwen3-moe smoke model in bf16 on the card, seeded, 8 slots: slot
+    3's decode logits and cache rows over 12 steps are bit-equal whether
+    the other 7 slots hold slot 3's tokens or others (routed to other
+    experts). The capacity buffers and the expert products have the same
+    shapes whatever the routing, and the combine adds each token's K
+    outputs in a fixed order, so a slot's bits do not depend on its
+    neighbours: what LFLR's re-prefill of one slot rests on."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import slot_layer_view
+
+    cfg = smoke_config("qwen3-moe-30b-a3b").replace(dtype="bfloat16")
+    model = Model(cfg, device=cuda, seed=0)
+    slots, slot, steps = 8, 3, 12
+    rng = np.random.default_rng(7)
+    seq = rng.integers(0, cfg.vocab_size, steps)
+    runs = []
+    for toks in (np.tile(seq, (slots, 1)),
+                 rng.integers(0, cfg.vocab_size, (slots, steps))):
+        toks[slot] = seq
+        toks = torch.from_numpy(toks).to(device=cuda, dtype=torch.int32)
+        cache = model.init_cache(slots, 64)
+        logits = torch.stack([model.decode_step(toks[:, p:p + 1], cache, p)[slot]
+                              for p in range(steps)])
+        runs.append((logits, {k: slot_layer_view(cache, k)[slot] for k in cache}))
+    (same, same_cache), (mixed, mixed_cache) = runs
+    assert torch.isfinite(same).all()
+    assert torch.equal(same, mixed)
+    for name in same_cache:
+        assert torch.equal(same_cache[name], mixed_cache[name]), name
 
 
 def test_cache_prefill_row_ignores_the_other_rows(cuda):

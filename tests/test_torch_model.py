@@ -4,7 +4,8 @@ layers — five sliding, one full, twice, then two sliding — window 16;
 recurrentgemma-2b: 8 layers — RG-LRU, RG-LRU, sliding — d_model 64,
 lru_width 64, window 16;
 mamba2-2.7b: 2 SSD layers, d_model 64, 8 heads of 16, state 16, chunk 8;
-all float32), with the JAX weights carried over by the bridge: full-forward
+qwen3-moe-30b-a3b: 2 layers, 8 experts top-2, untied unembedding; all
+float32), with the JAX weights carried over by the bridge: full-forward
 logits (against the JAX forward with its reference paths and with its Pallas
 kernels in interpret mode), decode steps (logits and caches; for
 recurrentgemma across the ring's wrap), the slot-batched decode step at
@@ -33,7 +34,8 @@ from repro_torch.weights import cache_from_jax, cache_to_numpy, params_from_jax
 torch.set_num_threads(2)
 
 TOL = 1e-4
-ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b"]
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b",
+         "qwen3-moe-30b-a3b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -132,6 +134,8 @@ def _slot_inputs(cfg, jcfg, cap, positions, seed=2):
 POISON_SITES = {
     "qwen3-1.7b": (("periods", "b0", "v"), (1, 0, 0, 2, 1, 3),
                    int(ErrorCode.NONFINITE_LOSS)),
+    "qwen3-moe-30b-a3b": (("periods", "b0", "v"), (1, 1, 0, 2, 0, 3),
+                          int(ErrorCode.NONFINITE_LOSS)),
     "gemma3-1b": (("periods", "b5", "v"), (1, 0, 0, 2, 0, 3),
                   int(ErrorCode.NONFINITE_LOSS)),
     "recurrentgemma-2b": (("periods", "b1", "h"), (1, 0, 0, 7),

@@ -65,7 +65,6 @@ ABSENT = {
         "cell_skip_reason": _DRYRUN},
     "core/__init__.py": {"make_enumerate_fn": _TP},
     "core/detect.py": {
-        "router_probe": _MOE, "ProbeConfig.router_drop_threshold": _MOE,
         "ProbeConfig.use_kernel": ("JAX-only: the reference's serve probes "
                                    "skip its Pallas kernel; the port's "
                                    "probes are the kernel on the card")},

@@ -332,7 +332,7 @@ def test_loss_and_gradients_match_jax(jax_env, env):
     jl, jg = jax.value_and_grad(lambda p: jmodel.loss(p, batch)[0])(jstate["params"])
     state = _port_state(jstate, cfg)
     tb = pipeline.make_batch(pcfg, 0, "cpu")
-    loss, grads = make_loss_and_grads(cfg)(state["params"], tb)
+    loss, grads, _ = make_loss_and_grads(cfg)(state["params"], tb)
     np.testing.assert_allclose(loss.item(), float(jl), rtol=LOSS_RTOL)
     want = _flat_from_jax(jax.device_get(jg), cfg, CPU)
     assert list(grads) == list(state["params"])
@@ -408,7 +408,7 @@ def test_training_leaves_the_model_as_it_was():
     assert all(torch.equal(v, weights[k]) for k, v in model.state_dict().items())
     assert not any(p.requires_grad for p in model.parameters())
     trained = load_train_params(Model(cfg, device="cpu", seed=None), state["params"])
-    assert torch.equal(trained.embed_f32, state["params"]["embed"])
+    assert torch.equal(trained.unembed_f32.t(), state["params"]["embed"])
     tokens = next(pipe)["tokens"]
     assert torch.equal(trained(tokens), load_train_params(
         model, train_params(trained))(tokens))

@@ -1,9 +1,11 @@
 """The weight and cache bridge round-trips exactly: JAX params → port model
 → JAX layout, and JAX caches (decode and slot-stacked serve layouts) → port
 cache → JAX layout, leaf for leaf, bit for bit — for qwen3 (full-attention
-K/V), gemma3 (full K/V and sliding rings in one stack), recurrentgemma (RG-LRU leaves, ring K/V, ``h``/``conv`` state,
-remainder layers) and mamba2 (SSD leaves, blocks without norm2 or MLP,
-``ssm``/``conv`` state)."""
+K/V), qwen3-moe (the MoE leaves ``moe.{router,wi,wg,wo}`` and the untied
+``unembed.kernel``, also through the train-state bridge), gemma3 (full K/V
+and sliding rings in one stack), recurrentgemma (RG-LRU leaves, ring K/V,
+``h``/``conv`` state, remainder layers) and mamba2 (SSD leaves, blocks
+without norm2 or MLP, ``ssm``/``conv`` state)."""
 import dataclasses
 
 import jax
@@ -18,18 +20,25 @@ from repro_torch.models import Model
 from repro_torch.weights import (
     cache_from_jax,
     cache_to_numpy,
+    load_train_params,
+    param_order,
     params_from_jax,
     params_to_numpy,
+    train_params,
+    train_state_from_jax,
+    train_state_to_numpy,
 )
 
 ARCH = "qwen3-1.7b"
-ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b"]
+MOE = "qwen3-moe-30b-a3b"
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b", MOE]
 # (arch, layers): a depth without and with remainder layers (recurrentgemma:
 # 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest;
 # gemma3: 6 = one period, 14 = the smoke depth, two periods + 2 rest)
 DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("gemma3-1b", 6),
           ("gemma3-1b", 14), ("recurrentgemma-2b", 5),
-          ("recurrentgemma-2b", 8), ("mamba2-2.7b", 2), ("mamba2-2.7b", 3)]
+          ("recurrentgemma-2b", 8), ("mamba2-2.7b", 2), ("mamba2-2.7b", 3),
+          (MOE, 2), (MOE, 3)]
 
 
 def _leaves_equal(a, b):
@@ -49,14 +58,20 @@ def test_params_round_trip(dtype, arch, layers):
     cfg = smoke_config(arch).replace(dtype=dtype, num_layers=layers)
     params = jax.device_get(build_model(jcfg).init(jax.random.PRNGKey(1)))
     model = params_from_jax(params, cfg, device="cpu")
-    # every weight matrix in the model dtype (norms, gates' fp32 vectors aside)
+    # every weight matrix in the model dtype (norms, gates' fp32 vectors and
+    # the MoE router, fp32 in the JAX package too, aside)
     want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    assert {p.dtype for p in model.parameters() if p.dim() >= 2} == {want}
+    assert {p.dtype for n, p in model.named_parameters()
+            if p.dim() >= 2 and not n.endswith("moe.router")} == {want}
     assert len(model.blocks) == layers
     _leaves_equal(params, params_to_numpy(model))
-    # the fp32 unembedding copy is the embedding itself, exactly
-    np.testing.assert_array_equal(model.embed_f32.numpy(),
-                                  np.asarray(params["embed"]["embedding"], np.float32))
+    # the fp32 unembedding copy is the tied embedding's transpose or the
+    # untied kernel, exactly
+    un = (params["embed"]["embedding"].T if cfg.tie_embeddings
+          else params["unembed"]["kernel"])
+    assert model.unembed_f32.dtype == torch.float32
+    np.testing.assert_array_equal(model.unembed_f32.numpy(),
+                                  np.asarray(un, np.float32))
 
 
 @pytest.mark.parametrize("slots", [False, True])
@@ -93,3 +108,36 @@ def test_bridge_rejects_mismatched_params():
     with pytest.raises(ValueError, match="mlp"):
         params_from_jax(params, cfg, device="cpu")
     assert dataclasses.replace(cfg, d_ff=64).d_ff == 64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_train_state_round_trip(dtype):
+    """qwen3-moe's train state through the bridge: the params tree, with its
+    ``moe`` leaves and the untied ``unembed.kernel``, in the JAX flatten
+    order (``unembed`` last, after ``stack``), leaf for leaf both ways; the
+    params into a serving model and back, its fp32 unembedding copy remade
+    from the loaded kernel."""
+    jcfg = jax_smoke_config(MOE).replace(dtype=dtype)
+    cfg = smoke_config(MOE).replace(dtype=dtype)
+    params = jax.device_get(build_model(jcfg).init(jax.random.PRNGKey(2)))
+    zeros = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), params)
+    state = {"params": params, "opt": {"m": params, "v": zeros},
+             "step": np.int32(7), "lr_scale": np.float32(0.5)}
+    flat, _ = jax.tree_util.tree_flatten_with_path(params)
+    names = [name for name, _, _ in param_order(cfg)]
+    assert names[-1] == "unembed" and sum(
+        n.endswith(("moe.router", "moe.wi", "moe.wg", "moe.wo")) for n in names) == 8
+    assert len(names) == sum(
+        a.shape[0] if "periods" in jax.tree_util.keystr(k) else 1 for k, a in flat)
+    tstate = train_state_from_jax(state, cfg, device="cpu")
+    assert list(tstate["params"]) == names
+    back = train_state_to_numpy(tstate, cfg)
+    _leaves_equal(state["params"], back["params"])
+    _leaves_equal(state["opt"], back["opt"])
+    assert int(back["step"]) == 7 and float(back["lr_scale"]) == 0.5
+    model = load_train_params(Model(cfg, device="cpu", seed=3), tstate["params"])
+    _leaves_equal(params, params_to_numpy(model))
+    np.testing.assert_array_equal(model.unembed_f32.numpy(), np.asarray(
+        params["unembed"]["kernel"], np.float32))
+    assert all(torch.equal(a, b) for a, b in zip(
+        train_params(model).values(), tstate["params"].values()))
