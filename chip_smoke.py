@@ -61,11 +61,12 @@ seconds since the script started, when the line was printed):
    consistent. The line adds the pool's size and the device time of one
    whole-tree gather + scatter beside its bytes bound. The NaN goes into
    the lane's first pool page, and the streams must be bit-equal. Both run
-   the first 10 requests (cut from 16 when the traced and fuzz phases came,
-   for the run's time; two freed slots are still refilled);
+   the first 6 requests (cut from 16 to 10 when the traced and fuzz phases
+   came, and to 6 when the LayerNorm architectures' phases came, for the
+   run's time);
 9. page_fault — the same run, on the first 8 requests, with one decoding
    lane's page-table row unmapped mid-run: PAGE_FAULT raised at the wait on
-   that slot, one ``page_reclaim`` record, every stream equal to phase 8's;
+   that slot, one ``page_reclaim`` record, every stream equal to phase 4's;
 10. paged_pressure — the first 8 requests through a pool of 64 pages:
    lanes are preempted back into the queue (evictions > 0), the pool's
    peak stays within it, and the streams equal phase 4's;
@@ -78,10 +79,11 @@ seconds since the script started, when the line was printed):
    host syncs a window; a step launches the decode kernel 3 times (the
    draft), the verify route once per layer and the probe once. Each line
    adds the drafts accepted and rejected and serve's ms per step beside
-   its own; no fault record carries DRAFT_REJECT; serve_spec_paged runs the
-   first 8 requests (cut when the group phases came), serve_spec and
-   lflr_spec the first 10 (cut from 16 when the traced and fuzz phases came,
-   for the run's time; two freed slots are still refilled);
+   its own; no fault record carries DRAFT_REJECT; all three run the first
+   6 requests (serve_spec_paged cut to 8 when the group phases came,
+   serve_spec and lflr_spec to 10 when the traced and fuzz phases came,
+   all to 6 when the LayerNorm architectures' phases came, for the run's
+   time);
 11b. serve_spec_deep — the seeded init makes qwen3 repeat its input token
    at every exit depth, so the drafts above all match: with the embedding
    drawn at a tenth of its scale, the engines traffic through the overlap
@@ -181,10 +183,10 @@ seconds since the script started, when the line was printed):
    the probe over the recurrent state and over the prefill logits;
 13. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
    RG-LRU, 8 sliding-window attention; bf16, seeded random weights), the
-   qwen3 model freed first, on the first 10 requests (cut from 16 when the
-   traced and fuzz phases came, for the run's time; two freed recurrent
-   slots are still refilled);
-14. lflr_rg   — phase 5 for recurrentgemma-2b, on the same 10 requests: the
+   qwen3 model freed first, on the first 6 requests (cut from 16 to 10 when
+   the traced and fuzz phases came, and to 6 when the LayerNorm
+   architectures' phases came, for the run's time);
+14. lflr_rg   — phase 5 for recurrentgemma-2b, on the same 6 requests: the
    NaN goes into the slots' recurrent state and the state probe must latch
    STATE_FAULT;
 15. lflr_stepwise_rg — recurrentgemma's stepwise engine, 4 requests, clean
@@ -251,6 +253,28 @@ seconds since the script started, when the line was printed):
    request's first 12 tokens: they equal the first 12 of serve_moe's stream
    token for token, syncs and launches by each engine's rule, each run's
    peak memory. The model is freed after.
+29. kernels_arch — flash and the probe at the head layouts and vocabularies
+   of the LayerNorm and partial-rotary architectures, no model on the
+   card: decode over starcoder2-3b's 4096-entry ring (24/2 heads of 128,
+   group 12), wrapped past 4096, over chatglm3-6b's cache (32/2, group 16,
+   the most a decode block holds) and phi3.5-moe's (32/8); the verify at
+   32/2, 8 slots x 4 rows, bit for bit against 4 decode launches; the
+   forward at 24/2 with the 4096 window over 2 x 8192 and at 32/2 causal
+   over 2 x 4096; the probe over each model's 8 serve logit rows. Each
+   flash row has controls that must exceed the limit;
+30. serve_sc2, lflr_sc2, serve_glm, lflr_glm, serve_phi, lflr_phi —
+   phases 4 and 5 for full-width starcoder2-3b (30 sliding layers with
+   4096-entry windows, LayerNorm, plain-GeLU MLP), chatglm3-6b (28 layers,
+   the interleaved-pair rotary over 64 of 128 head dims, untied) and
+   phi3.5-moe-42b-a6.6b (LayerNorm, 16 experts top-2, cut to 24 of its 32
+   layers at its published width: 62.9 GB of bf16 weights, where 32 would
+   not fit the card), each seeded alone on the card after the one before
+   is freed, on the first 6 requests (chatglm3 and phi3.5-moe with one
+   8-token prompt more); the NaN goes into K of layer 0 (for starcoder2 a
+   sliding layer's ring: at ``max_len`` 1024 it holds the whole row), and
+   LFLR's streams equal the clean run's bit for bit. starcoder2's and
+   chatglm3's shortest request is held to the forward; phi3.5-moe's as
+   qwen3-moe's, gated in fp32 at 4 layers, reported in bf16.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
@@ -279,8 +303,8 @@ MAX_COPIES = 48                     # keeps a plain run's launches under the
 SPIN_CYCLES = 5 * 10 ** 7           # ~25 ms at 1.98 GHz: the host's head start
 NUM_SLOTS, MAX_LEN, WINDOW = 8, 1024, 8
 NUM_REQUESTS, MAX_NEW = 16, 64
-# the cut serve phases (paged, speculative, recurrentgemma): two requests
-# more than the slots, so that two freed slots are refilled
+# serve, serve_g3 and the multihost phases: two requests more than the
+# slots, so that two freed slots are refilled
 REFILL_REQUESTS = NUM_SLOTS + 2
 LONG_PROMPT = 560                   # gemma3: past its 512-entry rings
 SHORT_PROMPT = 8                    # the MoE forward check's extra request
@@ -337,6 +361,13 @@ ELASTIC_RTOL = 1e-5
 # with the forward on at least MOE_FORWARD_MIN positions of a prefix whose
 # forward drops no token
 MOE_ARCH, MOE_REQUESTS, MOE_FORWARD_MIN = "qwen3-moe-30b-a3b", 6, 8
+# the LayerNorm and partial-rotary architectures, last, each alone on the
+# card, on MOE_REQUESTS requests (chatglm3 and phi3.5-moe with one short
+# request more: its stream held to the forward); phi3.5-moe at its
+# published width cut to PHI_LAYERS of 32 layers (all 32: 83.7 GB of bf16
+# weights, more than the card; 24: 62.9 GB, about qwen3-moe's footprint)
+ARCH_SERVE = ("starcoder2-3b", "chatglm3-6b", "phi3.5-moe-42b-a6.6b")
+PHI_LAYERS = 24
 # the MoE forward check's gate runs in fp32, at full width cut to this depth
 # (12.5 GB of fp32 weights; the full depth would be 122 GB)
 MOE_FP32_LAYERS = 4
@@ -949,7 +980,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
                 long: int = 0, poison_layers=None, paged: bool = False,
                 want=None, n: int = NUM_REQUESTS, spec=None, traced: bool = False,
                 sync_sites: bool = False, line=None, short: int = 0):
-    """The serve phases (qwen3, recurrentgemma, mamba2, gemma3): serve the
+    """The serve phases (every architecture's): serve the
     traffic clean, then again with an injected state fault (no second run
     where ``names[1]`` is None). ``long`` requests get
     ``LONG_PROMPT``-token prompts, and the longest answer is then the one
@@ -1088,6 +1119,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
 
     def lflr_run(rep):
         inject, state = injector(horizon, 6, MAX_NEW)
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         readback.count = 0
         t0 = time.perf_counter()
@@ -1097,7 +1129,8 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
         wall = time.perf_counter() - t0
         return dict(answers=answers, injected=injected, state=state, wall=wall,
                     syncs=readback.count, launches=launch_counts(), m=rep.metrics,
-                    ms_per_step=wall / (WINDOW * rep.metrics.windows) * 1e3)
+                    ms_per_step=wall / (WINDOW * rep.metrics.windows) * 1e3,
+                    peak=torch.cuda.max_memory_allocated() / 1e9)
 
     rep.metrics = ServeMetrics()
     run = lflr_run(rep)
@@ -1173,7 +1206,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
               "tokens_per_s": sum(len(r.tokens) for r in faulted.values()) / lflr_wall,
               **spec_report(fm, spec, lflr_syncs)} if spec else {}),
           "syncs": lflr_syncs, "windows": fm.windows, **trace_line,
-          "streams_bit_equal": True, "wall_s": lflr_wall})
+          "streams_bit_equal": True, "wall_s": lflr_wall, "peak_mem_gb": run["peak"]})
     return paths, streams(clean)
 
 
@@ -1291,7 +1324,7 @@ def phase_page_fault(torch, card: str, model, want: dict,
     page-table row unmapped behind the allocator's back, mid-run: the page
     probe latches PAGE_FAULT at the wait, attributed to that slot, one
     ``page_reclaim`` record follows, the LFLR re-queue rebuilds the mapping,
-    and every stream equals serve_paged's (``want``)."""
+    and every stream equals serve's (``want``; paged ≡ contiguous)."""
     from repro_torch.core.errors import ErrorCode
     from repro_torch.serve import EngineConfig, Replica, Request
 
@@ -1475,16 +1508,18 @@ def phase_spec(torch, card: str, model, init_s: float, want: dict) -> dict:
     the default page pool (every page back at drain), then
     :func:`phase_spec_deep`. One phase at least must show drafts both
     accepted and rejected. Returns each clean run's launches by path."""
-    # the first 10 requests only (cut from 16 when the traced and fuzz phases
-    # came, for the run's time: two freed slots still refilled)
+    # the first 6 requests only (cut from 16 to 10 when the traced and fuzz
+    # phases came, and to 6 when the LayerNorm architectures' phases came,
+    # for the run's time: the first 6 drop the 225- and 254-token prompts,
+    # 208 steps against 318; serve keeps the refilled slots)
     paths, _ = phase_serve(
         torch, card, model, init_s, ("serve_spec", "lflr_spec"), spec=SPEC,
-        n=REFILL_REQUESTS, want={i: want[i] for i in range(REFILL_REQUESTS)})
-    # the first 8 requests only (cut when the group phases came, to keep the
-    # run's time)
+        n=MOE_REQUESTS, want={i: want[i] for i in range(MOE_REQUESTS)})
+    # the first 6 requests only (cut to 8 when the group phases came and to
+    # 6 with the LayerNorm architectures' phases, to keep the run's time)
     paths.update(phase_serve(
         torch, card, model, init_s, ("serve_spec_paged", None), paged=True,
-        spec=SPEC, n=NUM_SLOTS, want={i: want[i] for i in range(NUM_SLOTS)})[0])
+        spec=SPEC, n=MOE_REQUESTS, want={i: want[i] for i in range(MOE_REQUESTS)})[0])
     paths["serve_spec_deep"] = phase_spec_deep(torch, card, model)
     lines = {p: SERVE_LINES[p] for p in paths if p in SERVE_LINES}   # clean runs
     if not any(line["accepted"] and line["rejected"] for line in lines.values()):
@@ -3007,22 +3042,25 @@ def phase_kernels_rg(torch, card: str) -> dict:
 
 
 def flash_row(torch, randn, name, note, qs, kvs, off, kw, controls, kv_keys,
-              flop_keys, lib_kw, plain_launches=32) -> dict:
+              flop_keys, lib_kw, plain_launches=32, check=None) -> dict:
     """One bf16 flash shape (q ``qs``, K and V ``kvs``, each ``(B, S, H,
     D)``, drawn by ``randn``): the kernel against its plain version (and
     each control, which must exceed the limit), its time, the plain
     version's, the library call's and the bound. ``kv_keys``: the keys each
     K/V element read once counts; ``flop_keys``: the keys attended over all
-    query rows."""
+    query rows. ``check(q, k, v, out)``, where given, runs a further gate
+    on the kernel's output and returns fields for the row."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import sdpa_ref
 
     Hq, D, Hkv = qs[2], qs[3], kvs[2]
     heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
+    ref_kw = {n: x for n, x in kw.items() if n != "verify"}
     q, k, v = randn(*qs), randn(*kvs), randn(*kvs)
     got, route = flash_call(flash_attention, q, k, v, off, **kw)
-    want = sdpa_ref(q, k, v, q_offset=off, **kw)
+    want = sdpa_ref(q, k, v, q_offset=off, **ref_kw)
+    extra = check(q, k, v, got) if check else {}
     err = (got.float() - want.float()).abs().max().item()
     excess = flash_excess(got, want)
     ctl = {label: flash_excess(fn(q, k, v), want) for label, fn in controls.items()}
@@ -3038,9 +3076,9 @@ def flash_row(torch, randn, name, note, qs, kvs, off, kw, controls, kv_keys,
         "shape": note, **route, "max_abs_err": err,
         "tol": f"{FLASH_RG_TOL[0]} abs + {FLASH_RG_TOL[1]} rel",
         "err_over_tol": excess, **{f"{c}_over_tol": x for c, x in ctl.items()},
-        "timing_copies": len(qkv),
+        **extra, "timing_copies": len(qkv),
         "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(q, k, v, off, **kw), qkv),
-        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(q, k, v, q_offset=off, **kw),
+        "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(q, k, v, q_offset=off, **ref_kw),
                             qkv, launches=plain_launches),
         "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
             *t, enable_gqa=True, **lib_kw), [heads_first(*t) for t in qkv]),
@@ -3127,29 +3165,12 @@ def phase_kernels_g3(torch, card: str) -> dict:
 
     # -- the probe over the serve logits (slots, vocab 262144) fp32
     V = cfg.vocab_size
-    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
-    x = f32(NUM_SLOTS, V)
-    x[3, V - 1] = float("nan")
-    x[6, 0] = float("inf")
-    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
-    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
-    if not torch.equal(got, want) or got.tolist() != [0, 0, 0, nf, 0, 0, nf, 0]:
-        fail(f"probe_rows over gemma3's logits wrong: {got.tolist()} vs {want.tolist()}")
-    xs = copies(lambda: (f32(NUM_SLOTS, V),), NUM_SLOTS * V * 4)
-    b_ms, b_by = bound(NUM_SLOTS * V * 4 + NUM_SLOTS * 4, 3 * NUM_SLOTS * V, PEAK_FP32_FLOPS)
-    out["probe_g3_logits"] = {
-        "shape": f"logits {NUM_SLOTS}x{V} fp32, threshold inf", "words": got.tolist(),
-        "max_abs_err": (got - want).abs().max().item(), "timing_copies": len(xs),
-        "kernel_ms": time_ms(torch, lambda x: probe_rows(
-            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
-        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
-            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    del x, xs
+    out["probe_g3_logits"] = probe_logits_row(torch, gen, V)
     torch.cuda.empty_cache()
 
     # -- the probe over the prefill logits (B * S, vocab) fp32: 2^31
     #    elements, 8 GiB; a NaN at the last one and an inf past row 4096
+    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
     rows = PREFILL_B * PREFILL_S
     x = f32(rows, V)
     x[rows - 1, V - 1] = float("nan")
@@ -3458,6 +3479,170 @@ def phase_moe(torch, card: str) -> dict:
     return paths
 
 
+def probe_logits_row(torch, gen, V: int) -> dict:
+    """The probe over serve's logits (slots, V) fp32 against its plain
+    version (a NaN and an inf planted in two rows), its time and bound."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import probe_rows
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+
+    f32 = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda", dtype=torch.float32)
+    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
+    x = f32(NUM_SLOTS, V)
+    x[2, V - 1] = float("nan")
+    x[5, 0] = float("-inf")
+    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    if not torch.equal(got, want) or got.tolist() != [0, 0, nf, 0, 0, nf, 0, 0]:
+        fail(f"probe_rows over {NUM_SLOTS}x{V} logits wrong: {got.tolist()} vs "
+             f"{want.tolist()}")
+    xs = copies(lambda: (f32(NUM_SLOTS, V),), NUM_SLOTS * V * 4)
+    b_ms, b_by = bound(NUM_SLOTS * V * 4 + NUM_SLOTS * 4, 3 * NUM_SLOTS * V, PEAK_FP32_FLOPS)
+    row = {"shape": f"logits {NUM_SLOTS}x{V} fp32, threshold inf", "words": got.tolist(),
+           "max_abs_err": (got - want).abs().max().item(), "timing_copies": len(xs),
+           "kernel_ms": time_ms(torch, lambda x: probe_rows(
+               x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+           "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+               x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del x, xs
+    return row
+
+
+def phase_kernels_arch(torch, card: str) -> dict:
+    """flash and the probe at the head layouts and vocabularies of
+    starcoder2-3b, chatglm3-6b and phi3.5-moe-42b-a6.6b, which no earlier
+    path launches: decode over starcoder2's 4096-entry ring (24/2 heads of
+    128, group 12: the decode block's m16 tile three quarters full), wrapped
+    past 4096; over chatglm3's full cache (32/2, group 16 = MAX_GROUP: the
+    tile full) and phi3.5-moe's (32/8); the verify at 32/2, 8 slots x 4
+    rows, also bit for bit against 4 decode launches at pos + t; the
+    forward at 24/2 with the 4096 window binding over 2 x 8192 (rows packed
+    s * 12 + head) and at 32/2 causal over 2 x 4096 (s * 16 + head); the
+    probe over each model's serve logits. Each flash row with its controls,
+    which must exceed the limit, and its times; the line adds the peak
+    memory (the plain forward at 24 heads x 8192^2 fp32 scores is the
+    largest: the phase runs with no model on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    sc2, glm, phi = (get_config(a) for a in ARCH_SERVE)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    randn = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    D, out = 128, {}
+    ring = sc2.sliding_window
+    for name, cfg, cap, pos in (
+            ("flash_sc2_ring_decode", sc2, ring,
+             [0, 1, ring // 2 - 1, ring - 1, ring, ring + 904, 2 * ring - 1, 2 * ring + 808]),
+            ("flash_glm_decode", glm, MAX_LEN, [0, 1, 100, 511, 700, 1022, MAX_LEN - 1, 1500]),
+            ("flash_phi_decode", phi, MAX_LEN, [0, 5, 64, 300, 777, 1022, MAX_LEN - 1, 2000])):
+        out[name] = flash_decode_row(torch, randn, name, cfg.num_heads, cfg.num_kv_heads,
+                                     D, cap, pos)
+
+    # -- the verify at chatglm3's 32/2: T rows per slot in one launch, rows
+    #    at split and tile edges and past the capacity
+    Hq, Hkv, B, T = glm.num_heads, glm.num_kv_heads, NUM_SLOTS, SPEC["draft_len"] + 1
+    vpos = [0, 1, 61, 509, 700, MAX_LEN - T, MAX_LEN - 2, 1500]
+    voff = torch.tensor(vpos, dtype=torch.int32, device=dev)
+    kpos = torch.arange(MAX_LEN, device=dev)
+    qp = voff[:, None] + torch.arange(T, device=dev)
+    vmask = (kpos[None, None, :] <= qp[:, :, None])[:, None]
+    edge = plan(1, MAX_LEN, Hkv, torch.bfloat16).keys_per_split
+    vkw = {"causal": True, "seq_kv": MAX_LEN, "verify": True}
+
+    def rows_bit_equal(q, k, v, got):
+        rows = torch.cat([flash_attention(q[:, t:t + 1].contiguous(), k, v, voff + t,
+                                          causal=True, seq_kv=MAX_LEN) for t in range(T)],
+                         dim=1)
+        if not torch.equal(got, rows):
+            fail("flash_glm_verify: rows not bit-equal to decode launches at pos + t")
+        return {"rows_bit_equal_decode": True}
+
+    vctx = [min(p + T, MAX_LEN) for p in vpos]
+    out["flash_glm_verify"] = flash_row(
+        torch, randn, "flash_glm_verify",
+        f"q {B}x{T}x{Hq}x{D}, kv {B}x{MAX_LEN}x{Hkv}x{D} bf16, pos {vpos}",
+        (B, T, Hq, D), (B, MAX_LEN, Hkv, D), voff, vkw,
+        {"one_key_dropped": lambda q, k, v: flash_attention(
+            q, k, v, voff, causal=True, seq_kv=MAX_LEN - 1, verify=True),
+         f"key_{edge}_doubled": lambda q, k, v: flash_attention(
+            q, *key_doubled(k, v, edge), voff, causal=True, seq_kv=MAX_LEN, verify=True)},
+        sum(vctx), sum(min(p + t + 1, MAX_LEN) for p in vpos for t in range(T)),
+        {"attn_mask": vmask}, check=rows_bit_equal)
+    if out["flash_glm_verify"]["kernel"] != "flash_verify":
+        fail(f"flash_glm_verify took {out['flash_glm_verify']['kernel']}")
+
+    # -- the forward: starcoder2's window binding over 2 x 8192 (24/2), and
+    #    chatglm3's causal 2 x 4096 (32/2)
+    for name, cfg, (Bp, Sp), win in (
+            ("flash_sc2_sliding_forward", sc2, (PREFILL_B, 2 * ring), ring),
+            ("flash_glm_forward", glm, (PREFILL_B, PREFILL_S), 0)):
+        Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+        zero = torch.zeros(Bp, dtype=torch.int32, device=dev)
+        qpos = torch.arange(Sp, device=dev)
+        mask = qpos[None, :] <= qpos[:, None]
+        if win:
+            mask &= qpos[None, :] > qpos[:, None] - win
+            control = {"window_one_short": lambda q, k, v, z=zero, w=win: flash_attention(
+                q, k, v, z, causal=True, window=w - 1)}
+        else:
+            control = {"one_key_dropped": lambda q, k, v, z=zero, n=Sp: flash_attention(
+                q, k, v, z, causal=True, seq_kv=n - 1)}
+        out[name] = flash_row(
+            torch, randn, name,
+            f"q {Bp}x{Sp}x{Hq}x{D}, kv {Bp}x{Sp}x{Hkv}x{D} bf16, causal"
+            + (f", window {win}" if win else ""),
+            (Bp, Sp, Hq, D), (Bp, Sp, Hkv, D), zero, {"causal": True, "window": win},
+            control, Bp * Sp, Bp * sum(min(s + 1, win or Sp) for s in range(Sp)),
+            {"attn_mask": mask}, plain_launches=8)
+        del mask
+        torch.cuda.empty_cache()
+
+    for name, cfg in (("probe_sc2_logits", sc2), ("probe_glm_logits", glm),
+                      ("probe_phi_logits", phi)):
+        out[name] = probe_logits_row(torch, gen, cfg.vocab_size)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_arch", "card": card, **out,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return out
+
+
+def phase_arch(torch, card: str, arch: str, tag: str, *, layers=None,
+               short: int = 0) -> dict:
+    """``serve_<tag>`` and ``lflr_<tag>`` (:func:`phase_serve`) for ``arch``
+    at full width, seeded on the card alone (the model before it freed),
+    on serve's first ``MOE_REQUESTS`` requests and ``short`` short-prompt
+    ones, the fault in layer 0's K (a sliding layer's ring for starcoder2:
+    its 1024 entries hold the whole row at ``MAX_LEN``). ``layers`` cuts the
+    depth (never the width), and the lines say so. An MoE model's forward
+    check is gated first in fp32 at ``MOE_FP32_LAYERS`` layers
+    (:func:`check_moe_fp32_stream`), before the model is built. The lines
+    add the init's peak memory. Frees the model; returns the launches by
+    path."""
+    from repro_torch.configs import get_config
+
+    cfg, line = get_config(arch), {}
+    if layers is not None:
+        line["layers"] = f"{layers} of {cfg.num_layers}"
+        cfg = cfg.replace(num_layers=layers)
+    if cfg.is_moe:
+        line["forward_check_fp32"] = check_moe_fp32_stream(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = build_model(torch, cfg)
+    line["init_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    paths, _ = phase_serve(torch, card, model, init_s, (f"serve_{tag}", f"lflr_{tag}"),
+                           poison_layers=[0], n=MOE_REQUESTS, short=short, line=line)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def activation_cost(torch, model):
     """The MLP activation at the prefill shape (B, S, d_ff) in the model
     dtype, spelled op for op as the JAX package rounds it (the model's), and
@@ -3527,15 +3712,18 @@ def main() -> None:
     for name, engine in (("lflr_stepwise", "stepwise"), ("lflr_blocking", "blocking")):
         phase_lflr_engine(torch, card, model, name, ENGINES[engine],
                           engines["streams"][engine])
-    # the first 10 requests only (cut from 16 when the traced and fuzz
-    # phases came, for the run's time; two freed slots still refilled)
-    serve_paged, paged_streams = phase_serve(
+    # the first 6 requests only (cut from 16 to 10 when the traced and fuzz
+    # phases came, and to 6 when the LayerNorm architectures' phases came,
+    # for the run's time: the first 6 drop the 225- and 254-token prompts;
+    # serve keeps the refilled slots)
+    serve_paged, _ = phase_serve(
         torch, card, model, init_s, ("serve_paged", "lflr_paged"), paged=True,
-        n=REFILL_REQUESTS, want={i: serve_streams[i] for i in range(REFILL_REQUESTS)})
+        n=MOE_REQUESTS, want={i: serve_streams[i] for i in range(MOE_REQUESTS)})
     # the first 8 requests only (cut when the speculative phases came, to
     # keep the run's time): page_fault still corrupts a decoding lane, and
-    # 8 lanes still outgrow the 64-page pool
-    phase_page_fault(torch, card, model, paged_streams)
+    # 8 lanes still outgrow the 64-page pool; held to serve's streams
+    # (serve_paged holds paged to contiguous on its 6)
+    phase_page_fault(torch, card, model, serve_streams)
     phase_paged_pressure(torch, card, model, serve_streams)
     engines_paged = phase_engines_paged(torch, card, model,
                                         engines["streams"]["blocking"])
@@ -3551,11 +3739,13 @@ def main() -> None:
 
     kern_rg = phase_kernels_rg(torch, card)
     model, init_s = build_model(torch, get_config("recurrentgemma-2b"))
-    # the first 10 requests only (cut from 16 when the traced and fuzz
-    # phases came, for the run's time; two freed recurrent slots still
-    # refilled)
+    # the first 6 requests only (cut from 16 to 10 when the traced and fuzz
+    # phases came, and to 6 when the LayerNorm architectures' phases came,
+    # for the run's time: the first 6 drop the 225- and 254-token prompts,
+    # 208 steps against 318; a freed recurrent slot's reset is held by the
+    # CPU tests' reused-slot case)
     serve_rg, _ = phase_serve(torch, card, model, init_s, ("serve_rg", "lflr_rg"),
-                              n=REFILL_REQUESTS)
+                              n=MOE_REQUESTS)
     phase_lflr_stepwise_rg(torch, card, model)
     prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
     del model                                     # free rg before mamba2
@@ -3599,6 +3789,10 @@ def main() -> None:
 
     kern_moe = phase_kernels_moe(torch, card)
     moe_paths = phase_moe(torch, card)
+    kern_arch = phase_kernels_arch(torch, card)
+    for arch, tag, kw in zip(ARCH_SERVE, ("sc2", "glm", "phi"),
+                             ({}, {"short": 1}, {"short": 1, "layers": PHI_LAYERS})):
+        moe_paths.update(phase_arch(torch, card, arch, tag, **kw))
     paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              **serve_paged, "engines_paged": engines_paged,
@@ -3624,7 +3818,8 @@ def main() -> None:
              "flash_sliding_forward": kern_rg["flash_sliding_forward"],
              **{n: kern_g3[n] for n in ("flash_g3_decode", "flash_g3_ring_decode",
                                         "flash_g3_sliding_forward", "flash_g3_forward")},
-             "flash_moe_decode": kern_moe["flash_moe_decode"]},
+             "flash_moe_decode": kern_moe["flash_moe_decode"],
+             **{n: r for n, r in kern_arch.items() if n.startswith("flash_")}},
             launches_by_kernel={k: by_path(k) for k in (
                 "flash_decode", "flash_verify", "flash_forward", "flash_f32")}),
         kernel_entry(
@@ -3639,7 +3834,8 @@ def main() -> None:
              "probe_g3_logits": kern_g3["probe_g3_logits"],
              "probe_g3_prefill": kern_g3["probe_g3_prefill"],
              "probe_grad_embed": kern_train["probe_grad_embed"],
-             "probe_grad_tree": kern_train["probe_grad_tree"]},
+             "probe_grad_tree": kern_train["probe_grad_tree"],
+             **{n: r for n, r in kern_arch.items() if n.startswith("probe_")}},
             launches_by_kernel={k: by_path(k) for k in ("probe_rows", "probe_tree")}),
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",

@@ -5,15 +5,21 @@ from __future__ import annotations
 import math
 
 from .base import ModelConfig
+from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma3_1b import CONFIG as gemma3_1b
 from .mamba2_2_7b import CONFIG as mamba2_2_7b
+from .phi35_moe_42b_a6_6b import CONFIG as phi35_moe
 from .qwen3_1_7b import CONFIG as qwen3_1_7b
 from .qwen3_moe_30b_a3b import CONFIG as qwen3_moe
 from .recurrentgemma_2b import CONFIG as recurrentgemma_2b
+from .starcoder2_3b import CONFIG as starcoder2_3b
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen3-moe-30b-a3b": qwen3_moe,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "starcoder2-3b": starcoder2_3b,
     "qwen3-1.7b": qwen3_1_7b,
+    "chatglm3-6b": chatglm3_6b,
     "gemma3-1b": gemma3_1b,
     "recurrentgemma-2b": recurrentgemma_2b,
     "mamba2-2.7b": mamba2_2_7b,

@@ -1,15 +1,18 @@
-"""Common layers: rms norm, rotary embeddings, gated and plain MLPs, the
-causal depthwise convolution, embeddings and the unembedding.
+"""Common layers: rms and layer norms, rotary embeddings (half-split and
+partial interleaved-pair), gated and plain MLPs, the causal depthwise
+convolution, embeddings and the unembedding.
 
 The port of ``repro/models/layers.py`` for the qwen3, qwen3-moe, gemma3,
-recurrentgemma and mamba2 paths. Each function keeps the JAX package's arithmetic and dtype casts
-(norm and rope in fp32, cast back to the activation dtype; logits in fp32),
-so the two packages agree to float tolerance on the same weights.
+recurrentgemma, mamba2, starcoder2, chatglm3 and phi3.5-moe paths. Each
+function keeps the JAX package's arithmetic and dtype casts (norm and rope
+in fp32, cast back to the activation dtype; logits in fp32), so the two
+packages agree to float tolerance on the same weights.
 """
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,13 +31,21 @@ def dense_init(shape, *, generator: torch.Generator, device, dtype,
 
 
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, kind: str = "rmsnorm",
-               eps: float = 1e-6) -> torch.Tensor:
-    """Pre-norm of the residual stream (rmsnorm only in this slice)."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r}: the port has rmsnorm only (ROADMAP Queue 1, "
-            "item 14: remaining architectures)")
-    return rms_norm_vec(x, scale, eps)
+               eps: float = 1e-6, *, bias: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """Pre-norm of the residual stream: ``rmsnorm``, or ``layernorm`` with
+    its ``bias`` — in fp32, ``(x - mean) * rsqrt(var + eps) * scale + bias``
+    with ``var`` the mean of the squared centred values (``jnp.var``'s
+    route), cast back to x's dtype."""
+    if kind == "rmsnorm":
+        return rms_norm_vec(x, scale, eps)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r} (rmsnorm or layernorm)")
+    xf = x.float()
+    centred = xf - xf.mean(dim=-1, keepdim=True)
+    var = centred.square().mean(dim=-1, keepdim=True)
+    out = centred * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor,
@@ -45,33 +56,53 @@ def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+class Rope(NamedTuple):
+    """Rotary tables at a step's positions: fp32 ``cos``/``sin`` ``(B, S, 1,
+    rot_dim/2)``, and how they rotate — ``standard`` (half-split over the
+    whole head) or ``partial2d`` (interleaved pairs over the first
+    ``rot_dim`` dims, the rest passed through)."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    style: str
+    rot_dim: int
+
+
 def rope_tables(positions: torch.Tensor, *, head_dim: int, theta: float,
-                style: str = "standard"):
-    """``(cos, sin)``, each fp32 ``(B, S, 1, head_dim/2)``, for positions
-    (B, S) — or None for ``style="none"``. Every layer rotates at the same
-    positions, so a step computes the tables once for all layers."""
+                style: str = "standard", fraction: float = 1.0):
+    """The :class:`Rope` for positions (B, S) — or None for
+    ``style="none"``. ``partial2d`` rotates ``int(head_dim * fraction) // 2
+    * 2`` dims (chatglm: half the head), ``standard`` the whole head, each
+    with ``inv = 1 / theta ** (arange(0, rot, 2) / rot)``. Every layer
+    rotates at the same positions, so a step computes the tables once for
+    all layers."""
     if style == "none":
         return None
-    if style != "standard":
-        raise NotImplementedError(
-            f"rope style {style!r}: the port has 'standard' only (ROADMAP "
-            "Queue 1, item 14: remaining architectures)")
-    rot = head_dim // 2 * 2
+    if style not in ("standard", "partial2d"):
+        raise ValueError(f"unknown rope style {style!r}")
+    rot = int(head_dim * (fraction if style == "partial2d" else 1.0)) // 2 * 2
     exps = torch.arange(0, rot, 2, dtype=torch.float32,
                         device=positions.device) / rot
     ang = positions.float()[..., None] * (1.0 / (theta ** exps))
-    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return Rope(torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :],
+                style, rot)
 
 
 def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
-    """x (B, S, H, D) rotated by ``rope = rope_tables(...)`` (half-split
-    rotation in fp32, the JAX package's ``standard`` style)."""
+    """x (B, S, H, D) rotated by ``rope = rope_tables(...)`` in fp32 and
+    cast back, as the JAX package's ``apply_rope``: ``standard`` rotates the
+    halves ``(x1, x2)``; ``partial2d`` the pairs ``(0, 1), (2, 3), ...`` of
+    the first ``rot_dim`` dims, leaving the others' bits untouched."""
     if rope is None:
         return x
-    cos, sin = rope
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    cos, sin = rope.cos, rope.sin
+    if rope.style == "standard":
+        x1, x2 = x.float().chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return out.to(x.dtype)
+    xr = x[..., :rope.rot_dim].float().unflatten(-1, (-1, 2))
+    r1, r2 = xr[..., 0], xr[..., 1]
+    rot = torch.stack([r1 * cos - r2 * sin, r2 * cos + r1 * sin], dim=-1)
+    return torch.cat([rot.flatten(-2).to(x.dtype), x[..., rope.rot_dim:]], dim=-1)
 
 
 MLP_KINDS = ("swiglu", "geglu", "gelu")

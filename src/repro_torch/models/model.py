@@ -1,8 +1,9 @@
 """Top-level model: seeded init, full forward, slot decode, caches.
 
 The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``,
-``rglru`` and ``ssd`` blocks with MLPs or MoE FFNs, tied or untied
-unembeddings (qwen3, qwen3-moe, gemma3, recurrentgemma, mamba2).
+``rglru`` and ``ssd`` blocks with MLPs or MoE FFNs, rms or layer norms,
+tied or untied unembeddings (qwen3, qwen3-moe, gemma3, recurrentgemma,
+mamba2, starcoder2, chatglm3, phi3.5-moe).
 Parameters live in an ``nn.Module`` on an explicit device. The decode cache
 is a dict of tensors updated in place by :meth:`Model.decode_step`, one
 pair of leaves per attention kind, so a stack may hold both:
@@ -37,7 +38,7 @@ from .rglru import CONV_WIDTH
 from .ssm import conv_dim
 from .transformer import (ATTN_KINDS, RECURRENT_STATE, Block,
                           apply_block_decode, apply_block_train,
-                          apply_block_verify, check_block_kind)
+                          apply_block_verify, check_block_kind, norm_params)
 
 
 class CacheLeaf(NamedTuple):
@@ -160,9 +161,7 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, b, device=self.device, dtype=self.dtype, generator=gen)
             for b in cfg.pattern_layers)
-        self.final_norm = nn.Parameter(
-            torch.ones(cfg.d_model, device=self.device, dtype=torch.float32),
-            requires_grad=False)
+        self.final_norm, self.final_norm_bias = norm_params(cfg, self.device)
         # the untied unembedding kernel (d, V), drawn last so the tied
         # models' draws stay as they were
         self.unembed = None
@@ -221,7 +220,8 @@ class Model(nn.Module):
             x, drop = apply_block_train(blk, x, rope, cfg)
             if drop is not None:
                 drops.append(drop)
-        x = apply_norm(self.final_norm, x, cfg.norm)
+        x = apply_norm(self.final_norm, x, cfg.norm,
+                       bias=self.final_norm_bias)
         if not train:
             out = unembed(x, self.unembed_f32, softcap=cfg.logit_softcap)
         else:
@@ -385,13 +385,15 @@ class Model(nn.Module):
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """The final norm and the unembedding: fp32 logits."""
-        x = apply_norm(self.final_norm, x, self.cfg.norm)
+        x = apply_norm(self.final_norm, x, self.cfg.norm,
+                       bias=self.final_norm_bias)
         return unembed(x, self.unembed_f32, softcap=self.cfg.logit_softcap)
 
     def _rope(self, positions: torch.Tensor):
         cfg = self.cfg
         return rope_tables(positions, head_dim=cfg.resolved_head_dim,
-                           theta=cfg.rope_theta, style=cfg.rope_style)
+                           theta=cfg.rope_theta, style=cfg.rope_style,
+                           fraction=cfg.rope_fraction)
 
     def _embed(self, tokens: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         # the scale rounded to the model dtype as a Python number: the same

@@ -1,6 +1,7 @@
-"""Block assembly: pre-norm ``attn``, ``sliding`` and ``rglru`` blocks, each
-with its MLP or, for an MoE config, its Mixture-of-Experts FFN, and ``ssd``
-blocks, whose Mamba-2 mixer is the whole block.
+"""Block assembly: pre-norm (rms or layer norm) ``attn``, ``sliding`` and
+``rglru`` blocks, each with its MLP or, for an MoE config, its
+Mixture-of-Experts FFN, and ``ssd`` blocks, whose Mamba-2 mixer is the
+whole block.
 
 The port of ``repro/models/transformer.py``. The JAX package scans over
 pattern periods with period-stacked parameters and applies the remainder
@@ -56,11 +57,23 @@ class MLP(nn.Module):
             setattr(self, name, nn.Parameter(w, requires_grad=False))
 
 
+def norm_params(cfg, device) -> tuple:
+    """A pre-norm's fp32 ``(scale, bias)`` parameters: ones, and for a
+    ``layernorm`` config zeros (None otherwise). Neither draws from the
+    generator, as in the JAX package's ``init_norm``."""
+    param = lambda fill: nn.Parameter(  # noqa: E731
+        torch.full((cfg.d_model,), fill, device=device, dtype=torch.float32),
+        requires_grad=False)
+    return param(1.0), (param(0.0) if cfg.norm == "layernorm" else None)
+
+
 class Block(nn.Module):
     """One block: norms in fp32, weights in the model dtype; the mixer is
     ``attn`` (attention kinds), ``rglru`` or ``ssd``, the FFN ``mlp`` or,
-    for an MoE config, ``moe`` (the other None). An ``ssd`` block has no
-    ``norm2`` and no FFN (all None), as in the JAX package."""
+    for an MoE config, ``moe`` (the other None). A ``layernorm`` config's
+    norms carry ``norm1_bias``/``norm2_bias`` (None for ``rmsnorm``). An
+    ``ssd`` block has no ``norm2`` and no FFN (all None), as in the JAX
+    package."""
 
     def __init__(self, cfg, btype: str, *, device, dtype, generator=None):
         super().__init__()
@@ -71,10 +84,7 @@ class Block(nn.Module):
                 f"{btype!r} blocks without an MLP are not ported yet: "
                 "ROADMAP Queue 1, item 14 (remaining architectures)")
         self.btype = btype
-        ones = lambda: nn.Parameter(  # noqa: E731
-            torch.ones(cfg.d_model, device=device, dtype=torch.float32),
-            requires_grad=False)
-        self.norm1 = ones()
+        self.norm1, self.norm1_bias = norm_params(cfg, device)
         kw = dict(device=device, dtype=dtype, generator=generator)
         if btype == "rglru":
             self.rglru = RGLRU(cfg, **kw)
@@ -82,7 +92,8 @@ class Block(nn.Module):
             self.ssd = Mamba2(cfg, **kw)
         else:
             self.attn = Attention(cfg, **kw)
-        self.norm2 = ones() if has_mlp else None
+        self.norm2, self.norm2_bias = (norm_params(cfg, device) if has_mlp
+                                       else (None, None))
         self.mlp = MLP(cfg, **kw) if has_mlp and not cfg.is_moe else None
         self.moe = MoE(cfg, **kw) if has_mlp and cfg.is_moe else None
 
@@ -106,14 +117,15 @@ def _mlp(p: Block, x: torch.Tensor, cfg, with_aux: bool = False):
     :func:`_ffn`; None for a block without an FFN)."""
     if p.norm2 is None:
         return x, None
-    out, drop = _ffn(p, apply_norm(p.norm2, x, cfg.norm), cfg, with_aux)
+    h = apply_norm(p.norm2, x, cfg.norm, bias=p.norm2_bias)
+    out, drop = _ffn(p, h, cfg, with_aux)
     return x + out, drop
 
 
 def apply_block_train(p: Block, x: torch.Tensor, rope, cfg):
     """The full-sequence block: ``(x, dropped_fraction)``, the fraction None
     but for an MoE block."""
-    h = apply_norm(p.norm1, x, cfg.norm)
+    h = apply_norm(p.norm1, x, cfg.norm, bias=p.norm1_bias)
     if p.btype == "rglru":
         x = x + rglru_mixer(p.rglru, h)
     elif p.btype == "ssd":
@@ -131,7 +143,7 @@ def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
     ``rglru``, ``ssm`` for ``ssd``). An MoE block's dropped fraction is
     ignored, as the JAX package's decode ignores it: at one token a row, K
     distinct experts of capacity 8 never drop."""
-    h = apply_norm(p.norm1, x, cfg.norm)
+    h = apply_norm(p.norm1, x, cfg.norm, bias=p.norm1_bias)
     if p.btype in RECURRENT_STATE:
         rec_state, conv_state = state
         if p.btype == "rglru":
@@ -163,6 +175,6 @@ def apply_block_verify(p: Block, xs: list, state: tuple, pos: torch.Tensor,
         raise ValueError("speculative verify supports full-attention blocks "
                          f"only, got {p.btype!r}")
     k_cache, v_cache = state
-    hs = [apply_norm(p.norm1, x, cfg.norm) for x in xs]
+    hs = [apply_norm(p.norm1, x, cfg.norm, bias=p.norm1_bias) for x in xs]
     attn = attention_verify(p.attn, hs, k_cache, v_cache, pos, ropes, cfg)
     return [_mlp(p, x + a, cfg)[0] for x, a in zip(xs, attn)]

@@ -101,23 +101,38 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _norm_leaves(owner, cfg: ModelConfig, name: str) -> dict:
+    """A norm's parameters on ``owner`` (a block or the model) by JAX leaf
+    name: ``scale`` and, for a layer norm, ``bias`` (:func:`_norm_order`)."""
+    return {path[-1]: getattr(owner, port) for path, port in _norm_order(cfg, name)}
+
+
+def _fill_norm(owner, cfg: ModelConfig, name: str, leaves: dict, where: str) -> None:
+    params = _norm_leaves(owner, cfg, name)
+    if set(leaves) != set(params):
+        raise ValueError(f"{where} {name}: leaves {sorted(leaves)}, the model "
+                         f"holds {sorted(params)}")
+    for leaf, param in params.items():
+        _fill(param, leaves[leaf], f"{where} {name}.{leaf}")
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
     """A port model on ``device`` holding the JAX params ``tree`` (numpy)."""
     model = Model(cfg, device=device, seed=None)
     with torch.no_grad():
         _fill(model.embed, tree["embed"]["embedding"], "embed")
-        _fill(model.final_norm, tree["final_norm"]["scale"], "final_norm")
+        _fill_norm(model, cfg, "final_norm", tree["final_norm"], "model")
         for l, path in enumerate(_layer_paths(cfg)):
             lp = _layer(tree["stack"], path, lambda leaf, c: np.asarray(leaf)[c])
             blk = model.blocks[l]
-            _fill(blk.norm1, lp["norm1"]["scale"], f"layer {l} norm1")
+            _fill_norm(blk, cfg, "norm1", lp["norm1"], f"layer {l}")
             key, names = _mixer(cfg, blk.btype)
             for name in names:
                 _fill(getattr(getattr(blk, key), name), lp[key][name],
                       f"layer {l} {key}.{name}")
             if blk.norm2 is None:
                 continue
-            _fill(blk.norm2, lp["norm2"]["scale"], f"layer {l} norm2")
+            _fill_norm(blk, cfg, "norm2", lp["norm2"], f"layer {l}")
             key, names = _ffn(cfg)
             for name in names:
                 _fill(getattr(getattr(blk, key), name), lp[key][name],
@@ -135,20 +150,24 @@ def params_to_numpy(model: Model) -> dict:
     for blk in model.blocks:
         key, names = _mixer(cfg, blk.btype)
         mixer = getattr(blk, key)
-        layer = {"norm1": {"scale": _to_numpy(blk.norm1)},
+        layer = {"norm1": _norm_numpy(blk, cfg, "norm1"),
                  key: {n: _to_numpy(getattr(mixer, n)) for n in names}}
         if blk.norm2 is not None:
             key, names = _ffn(cfg)
-            layer["norm2"] = {"scale": _to_numpy(blk.norm2)}
+            layer["norm2"] = _norm_numpy(blk, cfg, "norm2")
             layer[key] = {n: _to_numpy(getattr(getattr(blk, key), n))
                           for n in names}
         layers.append(layer)
     tree = {"embed": {"embedding": _to_numpy(model.embed)},
             "stack": _stack(layers, cfg, lambda xs: np.stack(xs)),
-            "final_norm": {"scale": _to_numpy(model.final_norm)}}
+            "final_norm": _norm_numpy(model, cfg, "final_norm")}
     if model.unembed is not None:
         tree["unembed"] = {"kernel": _to_numpy(model.unembed)}
     return tree
+
+
+def _norm_numpy(owner, cfg: ModelConfig, name: str) -> dict:
+    return {leaf: _to_numpy(t) for leaf, t in _norm_leaves(owner, cfg, name).items()}
 
 
 def save_tree_npz(path: str, tree: dict) -> None:
@@ -211,13 +230,22 @@ def _layer_leaves(cfg: ModelConfig, btype: str) -> list[tuple]:
     """``(JAX path within a layer, port name suffix)`` of a layer's
     parameters, in the JAX tree's flatten order (dict keys sorted)."""
     key, names = _mixer(cfg, btype)
-    leaves = [(("norm1", "scale"), "norm1")]
+    leaves = _norm_order(cfg, "norm1")
     leaves += [((key, n), f"{key}.{n}") for n in names]
     if btype != "ssd":
         ffn, ffn_names = _ffn(cfg)
-        leaves += [(("norm2", "scale"), "norm2")]
+        leaves += _norm_order(cfg, "norm2")
         leaves += [((ffn, n), f"{ffn}.{n}") for n in ffn_names]
     return sorted(leaves)
+
+
+def _norm_order(cfg: ModelConfig, name: str) -> list[tuple]:
+    """``(JAX path, port name)`` of a norm's leaves: ``scale``, and a layer
+    norm's ``bias`` (which sorts before it)."""
+    out = [((name, "scale"), name)]
+    if cfg.norm == "layernorm":
+        out.insert(0, ((name, "bias"), f"{name}_bias"))
+    return out
 
 
 def param_order(cfg: ModelConfig) -> list[tuple]:
@@ -227,8 +255,8 @@ def param_order(cfg: ModelConfig) -> list[tuple]:
     ``named_parameters`` name; the JAX leaf is ``tree[path]`` (its row
     ``index`` when stacked). A train state's dicts are built in this order,
     so the optimizer's sums over the leaves run in it."""
-    order = [("embed", ("embed", "embedding"), None),
-             ("final_norm", ("final_norm", "scale"), None)]
+    order = [("embed", ("embed", "embedding"), None)]
+    order += [(name, path, None) for path, name in _norm_order(cfg, "final_norm")]
     n_scan = cfg.num_periods * cfg.period
     for pos in sorted(range(cfg.period), key=lambda p: f"b{p}"):
         if pos >= n_scan:

@@ -64,6 +64,14 @@ FLASH_CASES = [
      (0, 1, 511, 512, 600, 1023, 1024, 2000)),          # wrapped
     (2, 1024, 1024, 4, 1, 256, True, 512, (0, 0)),      # gemma3 forward:
     (1, 600, 600, 4, 1, 256, True, 0, (0,)),            # sliding and full
+    (8, 1, 4096, 24, 2, 128, True, 0,                   # starcoder2 ring
+     (0, 1, 2047, 4095, 4096, 5000, 8191, 9000)),       # decode, group 12
+    (8, 1, 1024, 32, 2, 128, True, 0,                   # chatglm3 decode,
+     (0, 1, 100, 511, 700, 1022, 1023, 1500)),          # group 16
+    (8, 1, 1024, 32, 8, 128, True, 0,                   # phi3.5-moe decode
+     (0, 5, 64, 300, 777, 1023, 1024, 2000)),
+    (2, 1100, 1100, 24, 2, 128, True, 512, (0, 0)),     # forward, rows
+    (1, 700, 700, 32, 2, 128, True, 0, (0,)),           # s * 12 + h, s * 16 + h
 ]
 
 
@@ -92,9 +100,11 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
 
 
 # decode shapes (T, Hq, Hkv, D): qwen3's serve cache, recurrentgemma's ring,
-# gemma3's full cache and ring
+# gemma3's full cache and ring, starcoder2's ring (group 12: the m16 tile
+# three quarters full), chatglm3's cache (group 16 = MAX_GROUP: the tile
+# full)
 DECODE_SHAPES = [(1024, 16, 8, 128), (2048, 10, 1, 256), (1024, 4, 1, 256),
-                 (512, 4, 1, 256)]
+                 (512, 4, 1, 256), (4096, 24, 2, 128), (1024, 32, 2, 128)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES)
@@ -482,6 +492,46 @@ def test_moe_decode_row_ignores_the_other_slots(cuda):
         assert torch.equal(same_cache[name], mixed_cache[name]), name
 
 
+@pytest.mark.parametrize("arch,heads", [("starcoder2-3b", (24, 2)),
+                                        ("chatglm3-6b", (32, 2))],
+                         ids=["group12", "group16"])
+def test_wide_group_decode_row_ignores_the_other_slots(cuda, arch, heads):
+    """The starcoder2 and chatglm3 smoke models in bf16 on the card, widened
+    to the full configs' head layouts (24/2 heads: group 12, the decode's
+    m16 tile three quarters full; 32/2: group 16, the tile full), seeded,
+    8 slots: slot 3's decode logits and cache rows over 20 steps (past
+    starcoder2's 16-entry rings) are bit-equal whether the other slots hold
+    slot 3's tokens or others. LFLR's bit-equal replays rest on it."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import slot_layer_view
+
+    Hq, Hkv = heads
+    cfg = smoke_config(arch).replace(dtype="bfloat16", num_heads=Hq,
+                                     num_kv_heads=Hkv, head_dim=16)
+    model = Model(cfg, device=cuda, seed=0)
+    slots, slot, steps = 8, 3, 20
+    rng = np.random.default_rng(9)
+    seq = rng.integers(0, cfg.vocab_size, steps)
+    runs = []
+    for toks in (np.tile(seq, (slots, 1)),
+                 rng.integers(0, cfg.vocab_size, (slots, steps))):
+        toks[slot] = seq
+        toks = torch.from_numpy(toks).to(device=cuda, dtype=torch.int32)
+        cache = model.init_cache(slots, 64)
+        before = flash_attention.kernel_launches["flash_decode"]
+        logits = torch.stack([model.decode_step(toks[:, p:p + 1], cache, p)[slot]
+                              for p in range(steps)])
+        assert (flash_attention.kernel_launches["flash_decode"]
+                == before + steps * cfg.num_layers)
+        runs.append((logits, {k: slot_layer_view(cache, k)[slot] for k in cache}))
+    (same, same_cache), (mixed, mixed_cache) = runs
+    assert torch.isfinite(same).all()
+    assert torch.equal(same, mixed)
+    for name in same_cache:
+        assert torch.equal(same_cache[name], mixed_cache[name]), name
+
+
 def test_cache_prefill_row_ignores_the_other_rows(cuda):
     """qwen3-1.7b at full width, seeded, 8 slots: row 3 of a blocking
     prefill at the slots' batch size (what the replica keeps) has the same
@@ -629,7 +679,8 @@ VERIFY_SHAPES = [(8, 4, 1024, 16, 8, 128), (8, 1, 1024, 16, 8, 128),
                  (8, 2, 64, 16, 8, 128), (8, 3, 2048, 16, 8, 128),
                  (8, 5, 1024, 16, 8, 128), (8, 8, 1024, 16, 8, 128),
                  (4, 9, 2048, 16, 8, 128), (8, 4, 1024, 4, 1, 256),
-                 (8, 3, 2048, 10, 1, 256), (3, 6, 100, 4, 2, 16)]
+                 (8, 3, 2048, 10, 1, 256), (3, 6, 100, 4, 2, 16),
+                 (8, 4, 1024, 32, 2, 128)]
 
 
 def _verify_positions(B, T, cap, Hkv):

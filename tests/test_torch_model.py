@@ -4,12 +4,17 @@ layers — five sliding, one full, twice, then two sliding — window 16;
 recurrentgemma-2b: 8 layers — RG-LRU, RG-LRU, sliding — d_model 64,
 lru_width 64, window 16;
 mamba2-2.7b: 2 SSD layers, d_model 64, 8 heads of 16, state 16, chunk 8;
-qwen3-moe-30b-a3b: 2 layers, 8 experts top-2, untied unembedding; all
-float32), with the JAX weights carried over by the bridge: full-forward
+qwen3-moe-30b-a3b: 2 layers, 8 experts top-2, untied unembedding;
+starcoder2-3b: 2 sliding layers, window 16, LayerNorm, plain-GeLU MLP;
+chatglm3-6b: 2 layers, the partial 2-D rotary over 8 of 16 head dims;
+phi3.5-moe-42b-a6.6b: 2 layers, LayerNorm, 8 experts top-2; all float32),
+with the JAX weights carried over by the bridge — the layer norms' biases
+drawn non-zero, so that they act (the init's are zeros): full-forward
 logits (against the JAX forward with its reference paths and with its Pallas
 kernels in interpret mode), decode steps (logits and caches; for
 recurrentgemma across the ring's wrap), the slot-batched decode step at
-mixed positions, and the error words.
+mixed positions, and the error words; and, inside the port, the decode
+steps against its own forward (starcoder2 across its ring's wrap).
 
 Tolerance 1e-4 (absolute, on logits of magnitude ~50-80 and caches of ~1):
 both sides compute in float32 and differ only in reduction order.
@@ -35,7 +40,8 @@ torch.set_num_threads(2)
 
 TOL = 1e-4
 ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b",
-         "qwen3-moe-30b-a3b"]
+         "qwen3-moe-30b-a3b", "starcoder2-3b", "chatglm3-6b",
+         "phi3.5-moe-42b-a6.6b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -43,9 +49,23 @@ def env(request):
     jcfg = jax_smoke_config(request.param)
     cfg = smoke_config(request.param)
     jmodel = build_model(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0))
+    params = with_biases(jmodel.init(jax.random.PRNGKey(0)))
     model = params_from_jax(jax.device_get(params), cfg, device="cpu")
     return jcfg, cfg, jmodel, params, model
+
+
+def with_biases(params, seed=5):
+    """``params`` with every layer norm's ``bias`` leaf drawn from a normal
+    of scale 0.5 (the init's are zeros, under which a dropped bias would
+    pass unseen); no other leaf changes."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        if getattr(path[-1], "key", None) != "bias":
+            return leaf
+        return jnp.asarray(0.5 * rng.standard_normal(leaf.shape), leaf.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, params)
 
 
 def _close(a, b):
@@ -142,6 +162,12 @@ POISON_SITES = {
                           int(ErrorCode.NONFINITE_LOSS | ErrorCode.STATE_FAULT)),
     "mamba2-2.7b": (("periods", "b0", "ssm"), (1, 1, 0, 6, 3, 5),
                     int(ErrorCode.NONFINITE_LOSS | ErrorCode.STATE_FAULT)),
+    "starcoder2-3b": (("periods", "b0", "v"), (1, 1, 0, 2, 0, 3),
+                      int(ErrorCode.NONFINITE_LOSS)),
+    "chatglm3-6b": (("periods", "b0", "v"), (1, 0, 0, 2, 0, 3),
+                    int(ErrorCode.NONFINITE_LOSS)),
+    "phi3.5-moe-42b-a6.6b": (("periods", "b0", "v"), (1, 1, 0, 2, 0, 3),
+                             int(ErrorCode.NONFINITE_LOSS)),
 }
 
 
@@ -229,3 +255,29 @@ def test_serving_embedding_scale_is_the_tensor_product(dtype, scale):
         cfg.embed_scale, dtype=model.dtype)
     got = model._embed(tokens)
     assert got.dtype == model.dtype and torch.equal(got, old)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "chatglm3-6b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_decode_steps_equal_the_forward(arch):
+    """Inside the port: 40 decode steps from an empty cache give the
+    forward's logits at every position, within TOL (the same fp32 sums in
+    another order) — starcoder2's rings (capacity 16, max_len 48) wrap
+    twice, chatglm3's partial rotary runs at both, phi3.5-moe's experts
+    (ample capacity: a 40-token forward drops nothing) take the same
+    tokens."""
+    cfg = smoke_config(arch)
+    if cfg.is_moe:
+        cfg = cfg.replace(expert_capacity_factor=8.0)
+    jmodel = build_model(jax_smoke_config(arch))
+    params = with_biases(jmodel.init(jax.random.PRNGKey(6)))
+    model = params_from_jax(jax.device_get(params), cfg, device="cpu")
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    with torch.no_grad():
+        want = model(torch.from_numpy(toks))
+        cache = model.init_cache(2, 48)
+        got = torch.cat([model.decode_step(torch.from_numpy(toks[:, p:p + 1]),
+                                           cache, p) for p in range(40)], dim=1)
+    if cfg.sliding_window and "sliding" in cfg.block_pattern:
+        assert cache["k_ring"].shape[2] == cfg.sliding_window == 16
+    _close(got.numpy(), want.numpy())

@@ -4,8 +4,11 @@ cache → JAX layout, leaf for leaf, bit for bit — for qwen3 (full-attention
 K/V), qwen3-moe (the MoE leaves ``moe.{router,wi,wg,wo}`` and the untied
 ``unembed.kernel``, also through the train-state bridge), gemma3 (full K/V
 and sliding rings in one stack), recurrentgemma (RG-LRU leaves, ring K/V,
-``h``/``conv`` state, remainder layers) and mamba2 (SSD leaves, blocks
-without norm2 or MLP, ``ssm``/``conv`` state)."""
+``h``/``conv`` state, remainder layers), mamba2 (SSD leaves, blocks
+without norm2 or MLP, ``ssm``/``conv`` state), starcoder2 (rings only, the
+plain-GeLU MLP's ``wi``/``wo``) and phi3.5-moe (MoE leaves), both with the
+layer norms' ``bias`` leaves — also through the train-state bridge, in the
+JAX flatten order (``bias`` before ``scale``) — and chatglm3."""
 import dataclasses
 
 import jax
@@ -31,14 +34,17 @@ from repro_torch.weights import (
 
 ARCH = "qwen3-1.7b"
 MOE = "qwen3-moe-30b-a3b"
-ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b", MOE]
+SC2, GLM, PHI = "starcoder2-3b", "chatglm3-6b", "phi3.5-moe-42b-a6.6b"
+ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b", MOE,
+         SC2, GLM, PHI]
 # (arch, layers): a depth without and with remainder layers (recurrentgemma:
 # 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest;
 # gemma3: 6 = one period, 14 = the smoke depth, two periods + 2 rest)
 DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("gemma3-1b", 6),
           ("gemma3-1b", 14), ("recurrentgemma-2b", 5),
           ("recurrentgemma-2b", 8), ("mamba2-2.7b", 2), ("mamba2-2.7b", 3),
-          (MOE, 2), (MOE, 3)]
+          (MOE, 2), (MOE, 3), (SC2, 2), (SC2, 3), (GLM, 2), (GLM, 3),
+          (PHI, 2), (PHI, 3)]
 
 
 def _leaves_equal(a, b):
@@ -141,3 +147,45 @@ def test_moe_train_state_round_trip(dtype):
         params["unembed"]["kernel"], np.float32))
     assert all(torch.equal(a, b) for a, b in zip(
         train_params(model).values(), tstate["params"].values()))
+
+
+@pytest.mark.parametrize("arch", [SC2, GLM, PHI])
+def test_param_order_and_train_state_with_norm_biases(arch):
+    """``param_order`` is the JAX params tree's flatten order — a layer
+    norm's ``bias`` leaf before its ``scale`` (``final_norm_bias`` second,
+    after ``embed``) — and names every parameter of the model; the train
+    state crosses the bridge both ways leaf for leaf, with non-zero
+    biases."""
+    jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
+    params = jax.device_get(build_model(jcfg).init(jax.random.PRNGKey(4)))
+    rng = np.random.default_rng(4)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: (rng.standard_normal(a.shape).astype(np.float32)
+                         if getattr(path[-1], "key", None) == "bias" else a),
+        params)
+    want = []
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        keys = tuple(getattr(p, "key", getattr(p, "idx", None)) for p in path)
+        n = leaf.shape[0] if keys[1:2] == ("periods",) else None
+        want += [(keys, c) for c in range(n)] if n else [(keys, None)]
+    order = param_order(cfg)
+    assert [(path, c) for _, path, c in order] == want
+    names = [name for name, _, _ in order]
+    assert sorted(names) == sorted(n for n, _ in Model(
+        cfg, device="meta", seed=None).named_parameters())
+    biases = [n for n in names if n.endswith("_bias")]
+    if cfg.norm == "layernorm":
+        assert names[1:3] == ["final_norm_bias", "final_norm"]
+        assert len(biases) == 1 + 2 * cfg.num_layers
+    else:
+        assert biases == []
+    zeros = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), params)
+    state = {"params": params, "opt": {"m": params, "v": zeros},
+             "step": np.int32(3), "lr_scale": np.float32(1.0)}
+    tstate = train_state_from_jax(state, cfg, device="cpu")
+    assert list(tstate["params"]) == names
+    back = train_state_to_numpy(tstate, cfg)
+    _leaves_equal(state["params"], back["params"])
+    _leaves_equal(state["opt"], back["opt"])
+    model = load_train_params(Model(cfg, device="cpu", seed=1), tstate["params"])
+    _leaves_equal(params, params_to_numpy(model))
