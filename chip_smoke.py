@@ -131,9 +131,12 @@ seconds since the script started, when the line was printed):
    multiple of 28) and ``probe_rows``, the merged trace's ``validate()``
    empty; the line reports wall, fleet tokens/s beside ``group``'s, each
    worker's seconds from spawn to ``hello``, suspicions and the card's
-   peak memory by ``nvidia-smi``. Kill: worker 1 SIGKILL'd at the first
-   retirement fleet-wide (``MULTIHOST_KILL_AT``): evicted within 2 s of the kill, its
-   requests re-routed, epoch >= 1, every stream phase 4's; what the
+   peak memory by ``nvidia-smi``. Kill: the same requests with staggered
+   budgets, 8 + 6 i new tokens for id i (``MULTIHOST_KILL_NEW``, as the
+   reference's multi-host test staggers them); worker 1 SIGKILL'd at the
+   first retirement fleet-wide (``MULTIHOST_KILL_AT``): evicted within 2 s of
+   the kill, its requests re-routed, epoch >= 1, every stream phase 4's cut
+   to its budget; what the
    survivors computed after the kill (their workers' trace): each runs a
    decode window that starts after the kill and ends before the eviction,
    and one retires, before the eviction, a request whose last committing
@@ -275,6 +278,34 @@ seconds since the script started, when the line was printed):
    LFLR's streams equal the clean run's bit for bit. starcoder2's and
    chatglm3's shortest request is held to the forward; phi3.5-moe's as
    qwen3-moe's, gated in fp32 at 4 layers, reported in bf16.
+31. kernels_vlm — flash and the probe at the cross-attention and encoder
+   shapes, no model on the card: the cross decode (8 slots, 32/8 heads of
+   128, one row over llama-3.2-vision-11b's 1601 image keys, no mask, the
+   last tile ragged), the cross forward (2 x 4096 rows over 1601 keys),
+   hubert-xlarge's bidirectional forward (2 x 4096, 16/16 heads of 80), the
+   self-attention forward (2 x 4096, causal) and decode at 32/8, the probe
+   over 8 x 128256 serve logits
+   and 8192 x 504 prefill logits. Each flash row has controls that must
+   exceed the limit;
+32. serve_vlm, lflr_vlm — phases 4 and 5 for full-width
+   llama-3.2-vision-11b (40 layers: 32 self-attention and 8 gated cross
+   layers, untied; 19.55 GB of bf16 weights), alone on the card, on the
+   first 6 requests, no image input (as the JAX replica: each cross layer
+   reads the zeros of a fresh cache, gated by tanh(0)): flash decode 40 a
+   step, 8 of them over the 1601 image keys; the NaN goes into K of layer
+   0, LFLR's streams equal the clean run's bit for bit;
+33. forward_check_vlm, prefill_vlm — the cross gates drawn non-zero, two
+   rows of seeded image embeddings projected into the cross caches
+   (``precompute_cross_kv``), 16 prompt tokens and two decode windows held
+   to ``forward(tokens, img_embeds=...)`` within ``FORWARD_GAP_TOL``; then
+   ``make_prefill_step`` at B 2, S 4096 with 1601 image embeddings per row:
+   flash forward once per layer, one probe; a NaN in row 0's image sets the
+   word and leaves row 1's logits finite. The model is freed after;
+34. prefill_hubert — full-width hubert-xlarge (48 layers, 1.89 GB) alone
+   on the card through ``make_prefill_step`` from 2 x 4096 frame
+   embeddings: flash forward once per layer, non-causal at head_dim 80; a
+   NaN in one frame of row 0 makes every logit row of that row non-finite
+   and leaves row 1's finite. An encoder has no decode: no serve phase.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
@@ -335,19 +366,21 @@ GROUP_RANKS, GROUP_REQUESTS, GROUP_FAULT_ROUND, GROUP_CRASH_AT = 3, 6, 2, 18
 # width with serve's engine and seed, on serve's first REFILL_REQUESTS
 # requests; a 1 s lease (eviction 1.8 s after the last beat); a serve
 # timeout that fails a fleet whose worker died at start-up within minutes.
-# Worker 1 is SIGKILL'd at the first retirement fleet-wide, when worker 2's
-# two 63-token prompts (ids 2 and 5, retired in one window) come in, so
-# worker 1 still holds all 3 of its requests. Id 5's retirement reaches the
-# supervisor just after the kill but was computed before it, so the gate
-# counts only what the survivors computed after the kill: every survivor
-# runs a decode window that starts after the kill and ends before the
-# eviction, and a survivor retires a request, before the eviction, whose
-# last committing window started after the kill (id 8, worker 2's 95-token
-# prompt: its retirement came 1.27-1.46 s into the 1.79 s window on an H100
-# host at 30-31 ms serve steps, its last window dispatched about 0.25 s
-# before)
+# The kill run staggers the generation budgets, as the reference's own
+# multi-host test does (tests/test_serve_multihost.py::mk_staggered):
+# request i asks for MULTIHOST_KILL_NEW[0] + MULTIHOST_KILL_NEW[1] * i new
+# tokens (8 to 62), and its stream is serve's cut to that budget. Worker 1
+# is SIGKILL'd at the first retirement fleet-wide, while all of its own
+# requests are still out, and the survivors then retire one request every
+# window or so. The gate counts only what the survivors computed after the
+# kill: every survivor runs a decode window that starts after the kill and
+# ends before the eviction, and a survivor retires a request, before the
+# eviction, whose last committing window started after the kill. With
+# serve's uniform 64-token budgets that retirement was worker 2's id 8
+# alone, 1.11-1.54 s into the 1.8 s window at 38-41 ms serve steps and 22
+# ms past the eviction on a slower host: the gate followed the host's speed.
 MULTIHOST_RANKS, MULTIHOST_SUSPECT_TIMEOUT, MULTIHOST_TIMEOUT = 3, 1.0, 150.0
-MULTIHOST_KILLED, MULTIHOST_KILL_AT = 1, 1
+MULTIHOST_KILLED, MULTIHOST_KILL_AT, MULTIHOST_KILL_NEW = 1, 1, (8, 6)
 # the elastic phase: the card's fp32 gradients against the CPU's
 ELASTIC_RTOL = 1e-5
 # the MoE phases (qwen3-moe-30b-a3b at full width, last, alone on the card):
@@ -368,6 +401,14 @@ MOE_ARCH, MOE_REQUESTS, MOE_FORWARD_MIN = "qwen3-moe-30b-a3b", 6, 8
 # weights, more than the card; 24: 62.9 GB, about qwen3-moe's footprint)
 ARCH_SERVE = ("starcoder2-3b", "chatglm3-6b", "phi3.5-moe-42b-a6.6b")
 PHI_LAYERS = 24
+# the cross-attention and encoder architectures, last, each alone on the
+# card: llama-3.2-vision at full depth (19.55 GB of bf16 weights) served on
+# MOE_REQUESTS requests, its decode over filled image K/V held to the
+# forward on VLM_PROMPT-token prompts and VLM_WINDOWS decode windows in
+# VLM_ROWS rows; hubert-xlarge's prefill from frame embeddings
+VLM_ARCH, HUBERT_ARCH = "llama-3.2-vision-11b", "hubert-xlarge"
+VLM_ROWS, VLM_PROMPT, VLM_WINDOWS = 2, 16, 2
+POISON_AT = (100, 5)                # the prefill NaN gates' (position, channel)
 # the MoE forward check's gate runs in fp32, at full width cut to this depth
 # (12.5 GB of fp32 weights; the full depth would be 122 GB)
 MOE_FP32_LAYERS = 4
@@ -1831,19 +1872,20 @@ class SmiPeak:
         self._thread.join(timeout=35)
 
 
-def multihost_run(torch, card: str, cfg, name: str, want: dict, faults=None) -> tuple:
+def multihost_run(torch, card: str, cfg, name: str, reqs, want: dict,
+                  faults=None) -> tuple:
     """One multi-host phase: ``MULTIHOST_RANKS`` worker processes, each
     serving full-width qwen3 on the card with serve's engine and serve's
-    seed, under the heartbeat supervisor, on the first ``REFILL_REQUESTS``
-    requests of serve's traffic. The gates every such phase shares: every
-    request answered OK with serve's stream (``want``), ``validate()``
+    seed, under the heartbeat supervisor, on ``reqs``. The gates every such
+    phase shares: every request answered OK with its stream (``want``),
+    ``validate()``
     empty over the merged trace, and every worker that said ``bye`` went
     through the kernels: ``flash_decode`` a positive multiple of the layers
     and ``probe_rows`` > 0. Returns the result, the launches summed over
     the workers that sent a ``bye`` (a killed worker's are lost with it),
     and the line's common fields."""
     from repro_torch.obs import validate
-    from repro_torch.serve import EngineConfig, MultiHostSupervisor, Request
+    from repro_torch.serve import EngineConfig, MultiHostSupervisor
 
     sup = MultiHostSupervisor(
         MULTIHOST_RANKS, backend="replica", arch=cfg.name, width="full",
@@ -1851,7 +1893,6 @@ def multihost_run(torch, card: str, cfg, name: str, want: dict, faults=None) -> 
         trace=True, timeout=MULTIHOST_TIMEOUT,
         config=EngineConfig(window=WINDOW, overlap=True, num_slots=NUM_SLOTS,
                             max_len=MAX_LEN))
-    reqs = make_requests(cfg, Request, n=REFILL_REQUESTS)
     with SmiPeak() as smi:
         t0 = time.perf_counter()
         res = sup.serve(reqs, faults=faults)
@@ -1922,17 +1963,21 @@ def phase_multihost(torch, card: str, cfg, want: dict) -> dict:
     ``want`` is serve's streams. ``multihost`` clean: nothing suspected out
     of the lease, nothing evicted or re-routed, every ``bye`` word 0, every
     worker through the kernels; fleet tokens/s beside ``group``'s.
-    ``multihost_kill``: worker 1 SIGKILL'd after ``MULTIHOST_KILL_AT``
-    retirements fleet-wide, evicted within 2 x the suspect timeout, its
+    ``multihost_kill``, on the same requests with the staggered budgets
+    of ``MULTIHOST_KILL_NEW`` and serve's streams cut to them: worker 1
+    SIGKILL'd after ``MULTIHOST_KILL_AT`` retirements fleet-wide, evicted within 2 x the suspect timeout, its
     requests re-routed, the survivors' work after the kill (``after_kill``),
     their words carrying RANK_FAILED, and the trace's chain. Returns each
     phase's launches by path."""
     from repro_torch.core.errors import ErrorCode
     from repro_torch.core.faults import FaultSchedule, FaultSpec
+    from repro_torch.serve import Request
 
+    reqs = make_requests(cfg, Request, n=REFILL_REQUESTS)
     want = {i: want[i] for i in range(REFILL_REQUESTS)}
     paths = {}
-    res, paths["multihost"], line = multihost_run(torch, card, cfg, "multihost", want)
+    res, paths["multihost"], line = multihost_run(torch, card, cfg, "multihost",
+                                                  reqs, want)
     if res.evicted or res.rerouted or res.epoch:
         fail(f"multihost: evicted {res.evicted}, re-routed {res.rerouted}, "
              f"epoch {res.epoch} in a clean run")
@@ -1944,8 +1989,12 @@ def phase_multihost(torch, card: str, cfg, want: dict) -> dict:
 
     kill = FaultSchedule([FaultSpec(step=MULTIHOST_KILL_AT, kind="host_kill",
                                     rank=MULTIHOST_KILLED)])
+    first, step = MULTIHOST_KILL_NEW
+    for r in reqs:
+        r.max_new_tokens = first + step * r.id
+    want = {r.id: want[r.id][:r.max_new_tokens] for r in reqs}
     res, paths["multihost_kill"], line = multihost_run(
-        torch, card, cfg, "multihost_kill", want, faults=kill)
+        torch, card, cfg, "multihost_kill", reqs, want, faults=kill)
     dead, bound = MULTIHOST_KILLED, 2 * MULTIHOST_SUSPECT_TIMEOUT
     det = res.detection.get(dead, {})
     if res.evicted != (dead,) or not res.rerouted or res.epoch < 1:
@@ -3015,28 +3064,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
     del h, hs
 
     # -- the probe over the prefill logits (B * S, vocab) fp32
-    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
-    rows, V = PREFILL_B * PREFILL_S, cfg.vocab_size
-    x = f32(rows, V)
-    x[rows - 1, V - 1] = float("nan")
-    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
-    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
-    err = (got - want).abs().max().item()
-    if not torch.equal(got, want) or int(got.amax()) != nf or int(got[:-1].amax()) != 0:
-        fail("probe_rows over the prefill logits disagrees with its plain version")
-    del x, got, want
-    xs = copies(lambda: (f32(rows, V),), rows * V * 4)
-    b_ms, b_by = bound(rows * V * 4 + rows * 4, 3 * rows * V, PEAK_FP32_FLOPS)
-    out["probe_prefill"] = {
-        "shape": f"logits {rows}x{V} fp32, threshold inf", "max_abs_err": err,
-        "timing_copies": len(xs),
-        "kernel_ms": time_ms(torch, lambda x: probe_rows(
-            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
-        "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
-            x, math.inf, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    del xs
-    torch.cuda.empty_cache()
+    out["probe_prefill"] = probe_prefill_row(torch, gen, cfg.vocab_size)
     emit({"phase": "kernels_rg", "card": card, **out})
     return out
 
@@ -3339,11 +3367,19 @@ def phase_kernels_ssm(torch, card: str) -> dict:
     return out
 
 
-def phase_prefill(torch, card: str, model, name: str) -> dict:
+def phase_prefill(torch, card: str, model, name: str, embeds=None,
+                  poison=None) -> dict:
     """The prefill phases: the prefill step at (PREFILL_B, PREFILL_S), counts
-    from 0."""
+    from 0. ``embeds`` passes the step its embeddings (``inputs_embeds``
+    in place of the tokens, or ``img_embeds`` beside them, bf16 on the
+    card); ``poison`` then names one of them: after the timed calls a NaN
+    goes into batch row 0's element ``(0, POISON_AT...)`` of it, and the
+    step's word must latch NONFINITE_LOSS while batch row 1's logits stay
+    finite (an encoder's every row of batch 0 must go non-finite: its
+    attention is bidirectional)."""
     import numpy as np
     from repro_torch.core.device_channel import readback
+    from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import make_prefill_step
 
@@ -3352,14 +3388,18 @@ def phase_prefill(torch, card: str, model, name: str) -> dict:
     rng = np.random.default_rng(SEED + 2)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int64)).to(model.device)
-    logits, word = step(tokens)                      # warm-up (cuBLAS plans)
+    embeds = dict(embeds or {})
+    if "inputs_embeds" in embeds:
+        tokens = None
+    run = lambda: step(tokens, **embeds)  # noqa: E731
+    logits, word = run()                             # warm-up (cuBLAS plans)
     del logits, word
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    logits, word = step(tokens)
+    logits, word = run()
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
@@ -3386,16 +3426,35 @@ def phase_prefill(torch, card: str, model, name: str) -> dict:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, word = step(tokens)
+        logits, word = run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         del logits, word
+    line = {}
+    if poison is not None:
+        x = embeds[poison] = embeds[poison].clone()
+        x[(0,) + POISON_AT] = float("nan")
+        logits, word = run()
+        w_nan = int(readback(word))
+        finite = torch.isfinite(logits).all(dim=-1)          # (B, S)
+        rows0 = int((~finite[0]).sum())
+        if (w_nan != int(ErrorCode.NONFINITE_LOSS) or not bool(finite[1].all())
+                or rows0 == 0 or (cfg.is_encoder and rows0 != PREFILL_S)):
+            fail(f"{name}: a NaN in {poison} row 0 gave word {w_nan:#x}, "
+                 f"{rows0} of {PREFILL_S} non-finite rows in batch 0, batch 1 "
+                 f"finite {bool(finite[1].all())}")
+        line = {"nan_gate": {"poisoned": f"{poison}[0, {', '.join(map(str, POISON_AT))}]",
+                             "word": w_nan, "batch0_nonfinite_rows": rows0,
+                             "batch1_finite": True}}
+        del logits, word
     emit({"phase": name, "card": card, "model": cfg.name,
           "batch": PREFILL_B, "seq": PREFILL_S, "launches": launches,
+          **{f"{k}_shape": list(v.shape) for k, v in embeds.items()},
           "mlp_activation": activation_cost(torch, model),
           "word": w, "first_ms": first_ms, "ms_per_call": sum(times) / len(times),
           "ms_calls": times, "tokens_per_s": PREFILL_B * PREFILL_S / (min(times) / 1e3),
-          "peak_mem_gb": peak, "logits_gb": PREFILL_B * PREFILL_S * cfg.vocab_size * 4 / 1e9})
+          "peak_mem_gb": peak, "logits_gb": PREFILL_B * PREFILL_S * cfg.vocab_size * 4 / 1e9,
+          **line})
     return launches
 
 
@@ -3507,6 +3566,40 @@ def probe_logits_row(torch, gen, V: int) -> dict:
                x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     del x, xs
+    return row
+
+
+def probe_prefill_row(torch, gen, V: int) -> dict:
+    """The probe over the prefill logits (PREFILL_B * PREFILL_S, V) fp32
+    against its plain version (a NaN planted in the last row), its time and
+    bound."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import probe_rows
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+
+    f32 = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda", dtype=torch.float32)
+    nf, ov = int(ErrorCode.NONFINITE_LOSS), int(ErrorCode.DIVERGENCE)
+    rows = PREFILL_B * PREFILL_S
+    x = f32(rows, V)
+    x[rows - 1, V - 1] = float("nan")
+    got = probe_rows(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    want = probe_rows_ref(x, math.inf, nonfinite_code=nf, overflow_code=ov)
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want) or int(got.amax()) != nf or int(got[:-1].amax()) != 0:
+        fail(f"probe_rows over {rows}x{V} prefill logits disagrees with its plain version")
+    del x, got, want
+    xs = copies(lambda: (f32(rows, V),), rows * V * 4)
+    b_ms, b_by = bound(rows * V * 4 + rows * 4, 3 * rows * V, PEAK_FP32_FLOPS)
+    row = {"shape": f"logits {rows}x{V} fp32, threshold inf", "max_abs_err": err,
+           "timing_copies": len(xs),
+           "kernel_ms": time_ms(torch, lambda x: probe_rows(
+               x, math.inf, nonfinite_code=nf, overflow_code=ov), xs),
+           "plain_ms": time_ms(torch, lambda x: probe_rows_ref(
+               x, math.inf, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del xs
+    torch.cuda.empty_cache()
     return row
 
 
@@ -3638,6 +3731,234 @@ def phase_arch(torch, card: str, arch: str, tag: str, *, layers=None,
     paths, _ = phase_serve(torch, card, model, init_s, (f"serve_{tag}", f"lflr_{tag}"),
                            poison_layers=[0], n=MOE_REQUESTS, short=short, line=line)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_kernels_vlm(torch, card: str) -> dict:
+    """flash and the probe at llama-3.2-vision-11b's and hubert-xlarge's
+    shapes, which no earlier path launches, no model on the card: the cross
+    decode (8 slots, 32/8 heads of 128, one query row over all 1601 image
+    keys, no mask: four splits of 448 keys, the last tile ragged), the cross
+    forward (2 x 4096 rows over 1601 keys, non-causal, T != S), hubert's
+    bidirectional forward (2 x 4096, 16/16 heads of 80: MHA at head_dim 80),
+    llama-vision's self-attention forward (2 x 4096, 32/8, causal: the
+    prefill's) and decode (32/8, the 1024-entry cache), the
+    probe over its 8 serve logit rows (vocab 128256) and over hubert's
+    prefill logits (8192 x 504). Each flash row has controls that must
+    exceed the limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    vlm, hub = get_config(VLM_ARCH), get_config(HUBERT_ARCH)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    randn = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    T, Hq, Hkv, D = vlm.img_tokens, vlm.num_heads, vlm.num_kv_heads, vlm.resolved_head_dim
+    B = NUM_SLOTS
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    edge = plan(1, T, Hkv, torch.bfloat16).keys_per_split
+    out["flash_vlm_cross_decode"] = flash_row(
+        torch, randn, "flash_vlm_cross_decode",
+        f"q {B}x1x{Hq}x{D}, kv {B}x{T}x{Hkv}x{D} bf16, non-causal (cross)",
+        (B, 1, Hq, D), (B, T, Hkv, D), zeros, {"causal": False},
+        {"one_key_dropped": lambda q, k, v: flash_attention(
+            q, k, v, zeros, causal=False, seq_kv=T - 1),
+         f"key_{edge}_doubled": lambda q, k, v: flash_attention(
+            q, *key_doubled(k, v, edge), zeros, causal=False)},
+        B * T, B * T, {})
+    if out["flash_vlm_cross_decode"]["kernel"] != "flash_decode":
+        fail(f"flash_vlm_cross_decode took {out['flash_vlm_cross_decode']['kernel']}")
+    out["flash_vlm_cross_decode"]["splits"] = plan(1, T, Hkv, torch.bfloat16).splits
+
+    z2 = torch.zeros(PREFILL_B, dtype=torch.int32, device=dev)
+    for name, cfg, kv_len in (("flash_vlm_cross_forward", vlm, T),
+                              ("flash_hubert_forward", hub, PREFILL_S)):
+        Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        out[name] = flash_row(
+            torch, randn, name,
+            f"q {PREFILL_B}x{PREFILL_S}x{Hq}x{D}, kv {PREFILL_B}x{kv_len}x{Hkv}x{D} bf16, "
+            "non-causal",
+            (PREFILL_B, PREFILL_S, Hq, D), (PREFILL_B, kv_len, Hkv, D), z2,
+            {"causal": False},
+            {"one_key_dropped": lambda q, k, v, n=kv_len: flash_attention(
+                q, k, v, z2, causal=False, seq_kv=n - 1)},
+            PREFILL_B * kv_len, PREFILL_B * PREFILL_S * kv_len, {}, plain_launches=8)
+        if out[name]["kernel"] != "flash_forward":
+            fail(f"{name} took {out[name]['kernel']}")
+        torch.cuda.empty_cache()
+
+    Hq, Hkv, D, S = vlm.num_heads, vlm.num_kv_heads, vlm.resolved_head_dim, PREFILL_S
+    out["flash_vlm_forward"] = flash_row(
+        torch, randn, "flash_vlm_forward",
+        f"q {PREFILL_B}x{S}x{Hq}x{D}, kv {PREFILL_B}x{S}x{Hkv}x{D} bf16, causal",
+        (PREFILL_B, S, Hq, D), (PREFILL_B, S, Hkv, D), z2, {"causal": True},
+        {"one_key_dropped": lambda q, k, v: flash_attention(
+            q, k, v, z2, causal=True, seq_kv=S - 1)},
+        PREFILL_B * S, PREFILL_B * S * (S + 1) // 2, {"is_causal": True}, plain_launches=8)
+    torch.cuda.empty_cache()
+    out["flash_vlm_decode"] = flash_decode_row(
+        torch, randn, "flash_vlm_decode", Hq, Hkv, D, MAX_LEN,
+        [0, 3, 64, 447, 448, 1022, MAX_LEN - 1, 1800])
+    out["probe_vlm_logits"] = probe_logits_row(torch, gen, vlm.vocab_size)
+    out["probe_hubert_prefill"] = probe_prefill_row(torch, gen, hub.vocab_size)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_vlm", "card": card, **out,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return out
+
+
+def check_vlm_against_forward(torch, model) -> dict:
+    """The cross layers over filled image K/V, which serving never gives
+    them: every cross gate drawn non-zero from a seeded generator (the
+    seeded model's are 0), ``VLM_ROWS`` rows of seeded image embeddings
+    projected into each cross layer's cache through ``precompute_cross_kv``,
+    ``VLM_PROMPT`` seeded prompt tokens fed a decode step at a time, then
+    ``VLM_WINDOWS`` decode windows of ``WINDOW`` greedy steps; each row's
+    stream is held against ``forward(tokens, img_embeds=...)``: every
+    decoded token the forward's argmax or within ``FORWARD_GAP_TOL`` of it
+    (bf16 decode and forward round differently over 40 layers), as the
+    other forward checks. The forward without the images must give other
+    logits (the images act). The gates stay drawn for the prefill phase;
+    counts from 0 (the path's launches: flash decode at every layer, the
+    self-attention and the cross layers alike, the probe at every window
+    step, and the two forwards' flash launches and probes)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_decode_window, make_prefill_step
+    from repro_torch.models.attention import precompute_cross_kv
+
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cross = [blk for blk in model.blocks if blk.btype == "cross"]
+    with torch.no_grad():
+        for blk in cross:
+            blk.gate_attn.normal_(generator=gen)
+            blk.gate_mlp.normal_(generator=gen)
+    gates = [round(float(torch.tanh(b.gate_attn)), 4) for b in cross]
+    B, P = VLM_ROWS, VLM_PROMPT
+    img = torch.randn((B, cfg.img_tokens, cfg.d_model), generator=gen, device=dev,
+                      dtype=torch.float32).to(model.dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev,
+                           dtype=torch.int32)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cache = model.init_cache(B, MAX_LEN)
+    for j, blk in enumerate(cross):
+        cache["k_cross"][j], cache["v_cross"][j] = precompute_cross_kv(blk.attn, img, cfg)
+    for p in range(P):
+        logits = model.decode_step(prompt[:, p:p + 1], cache, p)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+    window = make_decode_window(model, window=WINDOW)
+    served = [tok]
+    for _ in range(VLM_WINDOWS):
+        toks, _, tok, pos = window(cache, tok, pos)
+        served += list(toks)
+    served = torch.stack(served, dim=1)                       # (B, N)
+    seq = torch.cat([prompt, served[:, :-1]], dim=1).long()
+    step = make_prefill_step(model)
+    logits, word = step(seq, img_embeds=img)
+    rows = logits[:, P - 1:]                                   # (B, N, V)
+    no_img, _ = step(seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if int(word) != 0 or not bool(torch.isfinite(rows).all()):
+        fail(f"forward_check_vlm: the forward's logits are not finite (word {int(word)})")
+    gap = rows.max(dim=-1).values - rows.gather(2, served.long()[..., None])[..., 0]
+    worst = float(gap.max())
+    if worst > FORWARD_GAP_TOL:
+        fail(f"forward_check_vlm: decode over the image K/V disagrees with the "
+             f"forward (largest logit gap {worst})")
+    moved = float((no_img[:, P - 1:] - rows).abs().max())
+    if not moved > 0:
+        fail("forward_check_vlm: the forward without the images gives the same logits")
+    expected = dict.fromkeys(launches, 0)
+    steps = P + VLM_WINDOWS * WINDOW
+    layers, n_cross = len(model.attn_layers), len(cross)
+    expected.update({"flash_attention": layers * steps + 2 * layers,
+                     "flash_decode": layers * steps, "flash_forward": 2 * layers,
+                     "probe_rows": VLM_WINDOWS * WINDOW + 2})
+    if launches != expected:
+        fail(f"forward_check_vlm: kernel launches {launches} != {expected}")
+    del cache, logits, no_img, rows
+    torch.cuda.empty_cache()
+    return {"rows": B, "prompt": P, "decoded": int(served.shape[1]),
+            "argmax_agree": int((gap == 0).sum()), "positions": int(gap.numel()),
+            "max_gap": worst, "tol": FORWARD_GAP_TOL, "tanh_gate_attn": gates,
+            "cross_decode_launches": n_cross * steps,
+            "no_img_max_logit_diff": moved, "wall_s": wall, "launches": launches}
+
+
+def phase_vlm(torch, card: str) -> dict:
+    """Full-width llama-3.2-vision-11b (40 layers: 32 self-attention, 8
+    cross; 19.55 GB of bf16 weights seeded on the card, alone on it, the
+    model before it freed): ``serve_vlm`` and ``lflr_vlm`` through
+    :func:`phase_serve` on serve's first ``MOE_REQUESTS`` requests, no image
+    input (the JAX replica has none: every cross layer reads the zeros of a
+    fresh cache and adds ``0 * tanh(0)``), the fault in layer 0's K, LFLR's
+    streams bit-equal to the clean run's, flash decode 40 a step (8 over the
+    image keys); ``forward_check_vlm`` (:func:`check_vlm_against_forward`);
+    ``prefill_vlm``: the prefill step with 2 x 1601 image embeddings beside
+    its 2 x 4096 tokens, and its NaN gate in batch row 0's image. Frees the
+    model; returns the launches by path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = build_model(torch, cfg)
+    n_cross = cfg.pattern_layers.count("cross")
+    line = {"init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cross_layers": n_cross, "img_tokens": cfg.img_tokens,
+            "cross_decode_per_step": n_cross,
+            "cross_kv_gb": 2 * n_cross * NUM_SLOTS * cfg.img_tokens * cfg.num_kv_heads
+            * cfg.resolved_head_dim * 2 / 1e9}
+    paths, _ = phase_serve(torch, card, model, init_s, ("serve_vlm", "lflr_vlm"),
+                           poison_layers=[0], n=MOE_REQUESTS, line=line)
+    fwd = check_vlm_against_forward(torch, model)
+    paths["forward_check_vlm"] = fwd.pop("launches")
+    emit({"phase": "forward_check_vlm", "card": card, "model": cfg.name,
+          "launches": paths["forward_check_vlm"], **fwd})
+    rng = np.random.default_rng(SEED + 15)
+    img = torch.from_numpy(rng.standard_normal(
+        (PREFILL_B, cfg.img_tokens, cfg.d_model), dtype=np.float32)).to(
+            device=model.device, dtype=model.dtype)
+    paths["prefill_vlm"] = phase_prefill(torch, card, model, "prefill_vlm",
+                                         {"img_embeds": img}, poison="img_embeds")
+    del model, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_hubert(torch, card: str) -> dict:
+    """``prefill_hubert``: full-width hubert-xlarge (48 layers, d_model 1280,
+    16/16 heads of 80, LayerNorm, plain GeLU, no rotary; 1.89 GB of bf16
+    weights, alone on the card) through the prefill step from 2 x 4096
+    seeded frame embeddings (its audio frontend is a stub, as in the JAX
+    package): flash forward 48 times, non-causal at head_dim 80, one probe;
+    a NaN in one frame of batch row 0 must make every logit row of that
+    batch row non-finite (the attention is bidirectional) and leave batch
+    row 1's finite. An encoder has no decode: no serve phase. Frees the
+    model; returns the launches by path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    model, _ = build_model(torch, get_config(HUBERT_ARCH))
+    rng = np.random.default_rng(SEED + 16)
+    frames = torch.from_numpy(rng.standard_normal(
+        (PREFILL_B, PREFILL_S, model.cfg.d_model), dtype=np.float32)).to(
+            device=model.device, dtype=model.dtype)
+    paths = {"prefill_hubert": phase_prefill(
+        torch, card, model, "prefill_hubert", {"inputs_embeds": frames},
+        poison="inputs_embeds")}
+    del model, frames
     gc.collect()
     torch.cuda.empty_cache()
     return paths
@@ -3793,6 +4114,9 @@ def main() -> None:
     for arch, tag, kw in zip(ARCH_SERVE, ("sc2", "glm", "phi"),
                              ({}, {"short": 1}, {"short": 1, "layers": PHI_LAYERS})):
         moe_paths.update(phase_arch(torch, card, arch, tag, **kw))
+    kern_vlm = phase_kernels_vlm(torch, card)
+    moe_paths.update(phase_vlm(torch, card))
+    moe_paths.update(phase_hubert(torch, card))
     paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              **serve_paged, "engines_paged": engines_paged,
@@ -3819,7 +4143,8 @@ def main() -> None:
              **{n: kern_g3[n] for n in ("flash_g3_decode", "flash_g3_ring_decode",
                                         "flash_g3_sliding_forward", "flash_g3_forward")},
              "flash_moe_decode": kern_moe["flash_moe_decode"],
-             **{n: r for n, r in kern_arch.items() if n.startswith("flash_")}},
+             **{n: r for n, r in kern_arch.items() if n.startswith("flash_")},
+             **{n: r for n, r in kern_vlm.items() if n.startswith("flash_")}},
             launches_by_kernel={k: by_path(k) for k in (
                 "flash_decode", "flash_verify", "flash_forward", "flash_f32")}),
         kernel_entry(
@@ -3835,7 +4160,8 @@ def main() -> None:
              "probe_g3_prefill": kern_g3["probe_g3_prefill"],
              "probe_grad_embed": kern_train["probe_grad_embed"],
              "probe_grad_tree": kern_train["probe_grad_tree"],
-             **{n: r for n, r in kern_arch.items() if n.startswith("probe_")}},
+             **{n: r for n, r in kern_arch.items() if n.startswith("probe_")},
+             **{n: r for n, r in kern_vlm.items() if n.startswith("probe_")}},
             launches_by_kernel={k: by_path(k) for k in ("probe_rows", "probe_tree")}),
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",

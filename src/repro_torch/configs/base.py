@@ -83,6 +83,10 @@ class ModelConfig:
         return self.lru_width or self.d_model
 
     @property
+    def is_encoder(self) -> bool:
+        return not self.causal
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/configs/registry.py: the architectures the port serves.
+# Trimmed copy of repro/configs/registry.py: every architecture, no cell table.
 """Architecture registry: full configs and reduced smoke configs."""
 from __future__ import annotations
 
@@ -7,6 +7,8 @@ import math
 from .base import ModelConfig
 from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma3_1b import CONFIG as gemma3_1b
+from .hubert_xlarge import CONFIG as hubert_xlarge
+from .llama32_vision_11b import CONFIG as llama32_vision_11b
 from .mamba2_2_7b import CONFIG as mamba2_2_7b
 from .phi35_moe_42b_a6_6b import CONFIG as phi35_moe
 from .qwen3_1_7b import CONFIG as qwen3_1_7b
@@ -17,19 +19,20 @@ from .starcoder2_3b import CONFIG as starcoder2_3b
 ARCHS: dict[str, ModelConfig] = {
     "qwen3-moe-30b-a3b": qwen3_moe,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "llama-3.2-vision-11b": llama32_vision_11b,
     "starcoder2-3b": starcoder2_3b,
     "qwen3-1.7b": qwen3_1_7b,
     "chatglm3-6b": chatglm3_6b,
     "gemma3-1b": gemma3_1b,
     "recurrentgemma-2b": recurrentgemma_2b,
     "mamba2-2.7b": mamba2_2_7b,
+    "hubert-xlarge": hubert_xlarge,
 }
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; the port knows {sorted(ARCHS)} "
-                       "(other architectures: ROADMAP Queue 1, item 14)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
 
 
@@ -60,4 +63,6 @@ def smoke_config(name: str) -> ModelConfig:
                          ssm_chunk=8)   # d_inner=128, 8 heads
     if cfg.family == "hybrid":
         overrides.update(lru_width=64, lru_heads=4)
+    if cfg.family == "vlm":
+        overrides.update(img_tokens=8)
     return cfg.replace(**overrides)

@@ -52,7 +52,8 @@ def make_batch(cfg: PipelineConfig, step: int, device=None) -> dict:
     if cfg.family != "lm":
         raise NotImplementedError(
             f"{cfg.family!r} batches (frame / patch embeddings) are not "
-            "ported: ROADMAP Queue 1, item 14")
+            "ported: ROADMAP Queue 1, item 14c (training the VLM and the "
+            "encoder)")
     device = resolve_device(device)
     rng = _batch_rng(cfg, step)
     B, S, V = cfg.batch_size, cfg.seq_len, cfg.vocab_size

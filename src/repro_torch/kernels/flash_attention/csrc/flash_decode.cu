@@ -38,7 +38,8 @@
 //   alone would not (MQA: 8 slots, one KV head).
 // - K/V tiles of 64 keys are double-buffered in dynamic shared memory by
 //   cp.async (16 bytes a lane, coalesced), rows padded by 16 bytes so ldmatrix
-//   hits 8 bank groups. Each of the 4 warps takes 16 keys of a tile: S = Q K^T
+//   hits 8 bank groups (a padded row is an odd number of 16-byte groups at
+//   every D: 176 B, 11 groups, at hubert's D 80). Each of the 4 warps takes 16 keys of a tile: S = Q K^T
 //   and O += P V on mma.sync.m16n8k16 (bf16 in, fp32 accumulation), its own
 //   online softmax in fp32 registers, P split into bf16 high and low parts
 //   (as in flash_forward.cu, for the same tolerance).
@@ -401,7 +402,7 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset, voi
 
 // bf16 only. The Python wrapper has checked shapes (nq query rows per slot:
 // 1 for decode, the verify's rows otherwise), types, devices, contiguity
-// and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in {16, 32, 64, 128,
+// and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in {16, 32, 64, 80, 128,
 // 256}; `splits` and `keys_per_split` come from ops.py::plan (a multiple of
 // the 64-key tile, covering seq_kv), the same for every nq.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
@@ -416,6 +417,7 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
     case 16: return launch<16>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
     case 32: return launch<32>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
     case 64: return launch<64>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
+    case 80: return launch<80>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
     case 128: return launch<128>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
     case 256: return launch<256>(q, k, v, qo, out, B, T, Hq, Hkv, causal, window, seq_kv, splits, keys_per_split, nq, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -24,9 +24,9 @@
 // of its partition (tile t belongs to partition (t - first tile) % parts)
 // with a private online softmax: lane j scores key j of the tile (its K row
 // read as 16-byte vectors), the warp reduces max and sum with butterfly
-// shuffles, and each lane accumulates D / 32 output features from V rows
-// read coalesced. At the end the partitions of a row merge through shared
-// memory in partition order. The KV range ends at the last tile a causal row
+// shuffles, and each lane accumulates D / 32 output features (at D 80 four,
+// on 20 lanes) from V rows read coalesced. At the end the partitions of a
+// row merge through shared memory in partition order. The KV range ends at the last tile a causal row
 // of the block can reach (and starts at the first a sliding window can
 // reach): the TPU kernel's fully-masked-block skip.
 //
@@ -85,6 +85,15 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ src, float (&dst)
   }
 }
 
+// the fewest output features a lane holds such that they divide D and D /
+// n lanes (at most 32) hold them all: D / 32 for a multiple of 32, 4 (20
+// lanes) at D 80
+__host__ __device__ constexpr int features_per_lane(int D) {
+  int n = 1;
+  while (D % n || D / n > 32) ++n;
+  return n;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
@@ -102,7 +111,7 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  float* __restrict__ lse, int S, int T_,
                  int Hq, int Hkv, int group, int bq, int parts, int causal, int window,
                  int seq_kv, float scale) {
-  constexpr int kDPL = D >= 32 ? D / 32 : 1;  // output features per lane
+  constexpr int kDPL = features_per_lane(D); // output features per lane
   constexpr int kLanesD = D / kDPL;           // lanes that hold features
   constexpr int kChunk = 16 / sizeof(T);      // K elements per 16-byte load
   static_assert(D % kChunk == 0, "head_dim must fill 16-byte loads");
@@ -247,6 +256,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_offset, v
     case 16: return launch_lse<16>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     case 32: return launch_lse<32>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     case 64: return launch_lse<64>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
+    case 80: return launch_lse<80>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     case 128: return launch_lse<128>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     case 256: return launch_lse<256>(q, k, v, q_offset, out, lse, B, S, T_, Hq, Hkv, causal, window, seq_kv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -257,7 +267,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* q_offset, v
 
 // fp32 only. The Python wrapper has checked shapes, types, devices,
 // contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in
-// {16, 32, 64, 128, 256}. lse is null, or (B, S, Hq) fp32 for the training
+// {16, 32, 64, 80, 128, 256}. lse is null, or (B, S, Hq) fp32 for the training
 // forward.
 extern "C" int repro_flash_f32(const void* q, const void* k, const void* v,
                                const void* q_offset, void* out, void* lse, long long B,

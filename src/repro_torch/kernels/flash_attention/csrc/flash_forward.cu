@@ -29,7 +29,8 @@
 //   D 256) are double-buffered in dynamic shared memory through cp.async
 //   (16 bytes a lane, coalesced), the next tile in flight while this one is
 //   computed. Rows are padded by 16 bytes so ldmatrix hits 8 different bank
-//   groups.
+//   groups (a padded row is an odd number of 16-byte groups at every D: 176
+//   B, 11 groups, at hubert's D 80).
 // - S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in, fp32
 //   accumulation), operands from ldmatrix (V through .trans). The online
 //   softmax stays in fp32 registers (exp2 with log2(e) folded into the
@@ -305,7 +306,7 @@ int launch_lse(const void* q, const void* k, const void* v, const int* q_offset,
 
 // bf16 only. The Python wrapper has checked shapes, types, devices,
 // contiguity and 16-byte alignment, 1 <= Hq / Hkv <= 16 and D in
-// {16, 32, 64, 128, 256}. lse is null, or (B, S, Hq) fp32 for the training
+// {16, 32, 64, 80, 128, 256}. lse is null, or (B, S, Hq) fp32 for the training
 // forward.
 extern "C" int repro_flash_forward(const void* q, const void* k, const void* v,
                                    const void* q_offset, void* out, void* lse, long long B,
@@ -319,6 +320,7 @@ extern "C" int repro_flash_forward(const void* q, const void* k, const void* v,
     case 16: return launch_lse<16>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
     case 32: return launch_lse<32>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
     case 64: return launch_lse<64>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
+    case 80: return launch_lse<80>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
     case 128: return launch_lse<128>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
     case 256: return launch_lse<256>(q, k, v, qo, out, ls, B, S, T, Hq, Hkv, causal, window, seq_kv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -37,7 +37,7 @@ from ..build import (DTYPE_CODES, check_device, check_launch, check_no_grad,
                      count_launch, library, stream_of)
 from .ref import flash_backward, sdpa_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels are instantiated for these
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernels are instantiated for these
 MAX_GROUP = 16                  # a block holds the group's query rows
 KERNELS = ("flash_decode", "flash_verify", "flash_forward", "flash_f32")
 DECODE_TILE = 64                # keys per tile of flash_decode

@@ -211,7 +211,12 @@ def _paged_slot_step(slot_step, paged: PagedLayout):
 def make_prefill_step(model: Model):
     """Full-sequence prefill::
 
-      prefill_step(tokens (B, S) int) → (logits (B, S, V) fp32, word)
+      prefill_step(tokens (B, S) int, *, inputs_embeds=None, img_embeds=None)
+        → (logits (B, S, V) fp32, word)
+
+    ``inputs_embeds (B, S, d)`` stand for the tokens (the audio frontend's
+    frames: pass ``tokens=None``), ``img_embeds (B, T, d)`` feed the cross
+    layers, as the JAX step's batch dict carries them (:meth:`Model.forward`).
 
     ``word`` is the JAX step's one word for the batch,
     ``loss_probe(max|logits|)`` at threshold ``inf``: NONFINITE_LOSS iff
@@ -221,8 +226,9 @@ def make_prefill_step(model: Model):
     int32 0-d tensor on the model's device (nothing is read back).
     """
 
-    def prefill_step(tokens):
-        logits = model(tokens)
+    def prefill_step(tokens=None, *, inputs_embeds=None, img_embeds=None):
+        logits = model(tokens, inputs_embeds=inputs_embeds,
+                       img_embeds=img_embeds)
         rows = logits.view(-1, logits.shape[-1])
         return logits, logits_probe(rows).amax()
 

@@ -1,13 +1,15 @@
-"""Self-attention: GQA with optional qk-norm, full (``attn``) and sliding
-(``sliding``) layers.
+"""Attention: GQA with optional qk-norm, full (``attn``), sliding
+(``sliding``) and cross (``cross``) layers.
 
-The port of ``repro/models/attention.py``. Both paths run through the flash
+The port of ``repro/models/attention.py``. Every path runs through the flash
 kernel (``repro_torch.kernels.flash_attention``): the full-sequence forward
-with ``q_offset = 0`` (and the sliding window, for ``sliding`` layers), and
-slot decode with one query row per slot at that slot's runtime position over
-the whole cache capacity. Plain ``torch.matmul`` carries the projections, as
-the JAX package leaves them to XLA; the attention itself is never a library
-call on the card.
+with ``q_offset = 0`` (and the sliding window, for ``sliding`` layers;
+non-causal for an encoder, ``cfg.causal`` False, and for cross-attention
+over the image tokens), slot decode with one query row per slot at that
+slot's runtime position over the whole cache capacity, and cross decode
+with one query row per slot over all the image keys, unmasked. Plain
+``torch.matmul`` carries the projections, as the JAX package leaves them to
+XLA; the attention itself is never a library call on the card.
 
 Decode caches: a full layer writes at ``min(pos, cap - 1)`` (the JAX
 package's capacity clamp, :func:`cache_write_index`); a sliding layer keeps a
@@ -18,6 +20,8 @@ writes T entries of a full layer at once and drops those at or past ``cap``
 (:func:`verify_write`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -55,16 +59,25 @@ class Attention(nn.Module):
                                        requires_grad=False)
 
 
-def _project_qkv(p: Attention, x: torch.Tensor, cfg):
+def _project_q(p: Attention, x: torch.Tensor, cfg) -> torch.Tensor:
     B, S, d = x.shape
+    q = (x @ p.wq.reshape(d, -1)).view(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return rms_norm_vec(q, p.q_norm) if cfg.qk_norm else q
+
+
+def _project_kv(p: Attention, x: torch.Tensor, cfg):
+    B, T, d = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq.reshape(d, -1)).view(B, S, cfg.num_heads, hd)
-    k = (x @ p.wk.reshape(d, -1)).view(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p.wv.reshape(d, -1)).view(B, S, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm_vec(q, p.q_norm)
-        k = rms_norm_vec(k, p.k_norm)
-    return q, k, v
+    k = (x @ p.wk.reshape(d, -1)).view(B, T, cfg.num_kv_heads, hd)
+    v = (x @ p.wv.reshape(d, -1)).view(B, T, cfg.num_kv_heads, hd)
+    return (rms_norm_vec(k, p.k_norm) if cfg.qk_norm else k), v
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, cfg, xkv=None):
+    """q from ``x``, K and V from ``xkv`` (default ``x``), each normed when
+    ``cfg.qk_norm``."""
+    return (_project_q(p, x, cfg),
+            *_project_kv(p, x if xkv is None else xkv, cfg))
 
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
@@ -73,24 +86,55 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 
 def attention_train(p: Attention, x: torch.Tensor, rope, cfg, *,
-                    window: int = 0) -> torch.Tensor:
-    """Causal self-attention over a full sequence (x (B, S, d)); ``rope``
-    from :func:`~repro_torch.models.layers.rope_tables` at positions 0..S-1;
+                    window: int = 0,
+                    kv_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self- or cross-attention over a full sequence (x (B, S, d)).
+
+    Self-attention (``kv_src`` None): ``rope`` from
+    :func:`~repro_torch.models.layers.rope_tables` at positions 0..S-1,
+    causal unless the config is an encoder's (``cfg.causal`` False);
     ``window > 0`` masks keys ``window`` or more positions back (the kernel
-    also skips their tiles).
+    also skips their tiles). Cross-attention (``kv_src (B, T, d)``, the
+    image embeddings): K and V from ``kv_src``, no rotary, no mask, no
+    window — every row reads all T keys.
 
     Where autograd needs the gradient (the train step), the attention goes
     through :class:`FlashAttention` — the same kernel launch, with a
     recompute backward; the plain wrapper would refuse such inputs, never
     detach its output."""
-    q, k, v = _project_qkv(p, x, cfg)
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
+    cross = kv_src is not None
+    q, k, v = _project_qkv(p, x, cfg, kv_src)
+    if not cross:
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
+    causal = cfg.causal and not cross
+    window = 0 if cross else window
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out = FlashAttention.apply(q, k, v, cfg.causal, window, TRAIN_CHUNK,
+        out = FlashAttention.apply(q, k, v, causal, window, TRAIN_CHUNK,
                                    TRAIN_CHUNK)
     else:
         zeros = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-        out = flash_attention(q, k, v, zeros, causal=cfg.causal, window=window)
+        out = flash_attention(q, k, v, zeros, causal=causal, window=window)
+    return _out_proj(p, out)
+
+
+def precompute_cross_kv(p: Attention, img_embeds: torch.Tensor, cfg):
+    """``(k, v)`` of the image embeddings ``(B, T, d)`` for a cross layer's
+    decode cache, each ``(B, T, Hkv, hd)``: the K and V projections, K
+    normed when ``cfg.qk_norm``, no rotary. The serving engines never call
+    it, as the JAX package's do not: a served cross layer reads the zeros
+    of a fresh cache."""
+    return _project_kv(p, img_embeds, cfg)
+
+
+def cross_attention_decode(p: Attention, x: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, zeros: torch.Tensor,
+                           cfg) -> torch.Tensor:
+    """One query row per slot (x (B, 1, d)) against the slot's static image
+    K/V ``(B, T, Hkv, hd)``, read and never written: q (normed when
+    ``cfg.qk_norm``, no rotary), one flash launch over all T keys with no
+    mask (non-causal, ``q_offset`` ``zeros`` (B,) int32, ``seq_kv`` T)."""
+    q = _project_q(p, x, cfg)
+    out = flash_attention(q, k, v, zeros, causal=False, seq_kv=k.shape[1])
     return _out_proj(p, out)
 
 

@@ -1,17 +1,24 @@
 """Top-level model: seeded init, full forward, slot decode, caches.
 
 The port of ``repro/models/model.py`` for stacks of ``attn``, ``sliding``,
-``rglru`` and ``ssd`` blocks with MLPs or MoE FFNs, rms or layer norms,
-tied or untied unembeddings (qwen3, qwen3-moe, gemma3, recurrentgemma,
-mamba2, starcoder2, chatglm3, phi3.5-moe).
+``cross``, ``rglru`` and ``ssd`` blocks with MLPs or MoE FFNs, rms or layer
+norms, tied or untied unembeddings (qwen3, qwen3-moe, gemma3,
+recurrentgemma, mamba2, starcoder2, chatglm3, phi3.5-moe, llama-3.2-vision,
+whose every fifth layer cross-attends image tokens, and hubert-xlarge, a
+bidirectional encoder). The modality frontends are stubs, as in the JAX
+package: :meth:`Model.forward` takes precomputed frame embeddings
+(``inputs_embeds``) or image embeddings (``img_embeds``).
 Parameters live in an ``nn.Module`` on an explicit device. The decode cache
 is a dict of tensors updated in place by :meth:`Model.decode_step`, one
-pair of leaves per attention kind, so a stack may hold both:
+pair of leaves per attention kind, so a stack may hold several:
 
 - ``k``/``v`` ``(full layers, batch, max_len, kv_heads, head_dim)`` for the
-  ``attn`` layers, and ``k_ring``/``v_ring`` ``(sliding layers, batch,
+  ``attn`` layers, ``k_ring``/``v_ring`` ``(sliding layers, batch,
   min(window, max_len), kv_heads, head_dim)`` for the ``sliding`` layers'
-  rings, in the model dtype;
+  rings, and ``k_cross``/``v_cross`` ``(cross layers, batch, img_tokens,
+  kv_heads, head_dim)`` for the ``cross`` layers' image K/V, which decode
+  reads and never writes (zeros in a fresh cache, as the JAX package's:
+  its serving never fills them), all in the model dtype;
 - the recurrent layers' state in fp32, ``h`` ``(batch, rglru layers,
   lru_width)`` or ``ssm`` ``(batch, ssd layers, heads, head_dim,
   state_dim)``, and their last ``width - 1`` convolution inputs ``conv``
@@ -50,11 +57,13 @@ class CacheLeaf(NamedTuple):
 # insert, the weight bridge and the serve engine's fault injection
 CACHE_LAYOUT = {"k": CacheLeaf(1, 0), "v": CacheLeaf(1, 0),
                 "k_ring": CacheLeaf(1, 0), "v_ring": CacheLeaf(1, 0),
+                "k_cross": CacheLeaf(1, 0), "v_cross": CacheLeaf(1, 0),
                 "h": CacheLeaf(0, 1), "ssm": CacheLeaf(0, 1),
                 "conv": CacheLeaf(0, 1)}
 
 # each attention kind's K and V leaves
-KV_LEAVES = {"attn": ("k", "v"), "sliding": ("k_ring", "v_ring")}
+KV_LEAVES = {"attn": ("k", "v"), "sliding": ("k_ring", "v_ring"),
+             "cross": ("k_cross", "v_cross")}
 # each block kind's cache leaves, port name -> the JAX layer cache's name
 BLOCK_LEAVES = {**{b: {k: "k", v: "v"} for b, (k, v) in KV_LEAVES.items()},
                 "rglru": {"h": "h", "conv": "conv"},
@@ -189,10 +198,21 @@ class Model(nn.Module):
         self.unembed_f32 = w if self.dtype == torch.float32 else w.float()
 
     # ------------------------------------------------------------------ forward
-    def forward(self, tokens: torch.Tensor, labels: Optional[torch.Tensor] = None,
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
                 loss_mask: Optional[torch.Tensor] = None, *,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                img_embeds: Optional[torch.Tensor] = None,
                 with_aux: bool = False):
-        """Full-sequence causal forward: tokens (B, S) → fp32 logits (B, S, V).
+        """Full-sequence forward: tokens (B, S) → fp32 logits (B, S, V);
+        causal, or bidirectional for an encoder (``cfg.causal`` False).
+
+        ``inputs_embeds (B, S, d)`` replaces the token embedding (the audio
+        frontend's frame embeddings, cast to the model dtype, then scaled by
+        ``embed_scale`` as a token embedding would be); ``img_embeds (B, T,
+        d)``, cast to the model dtype, are what every ``cross`` layer
+        attends. Without them a ``cross`` layer runs as causal
+        self-attention with the rotary, gated, as the JAX package's does.
 
         With ``labels`` (B, S), the training forward instead: the mean
         next-token cross-entropy (over ``loss_mask``'s tokens, if given),
@@ -210,14 +230,16 @@ class Model(nn.Module):
         backbone gives it; a 0-d fp32 tensor, 0 for a model without MoE."""
         cfg = self.cfg
         train = labels is not None
-        x = self._embed(tokens, train=train)
+        x = self._embed(tokens, train=train, inputs_embeds=inputs_embeds)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device,
                                  dtype=torch.int32).expand(B, S)
         rope = self._rope(positions)
+        if img_embeds is not None:
+            img_embeds = img_embeds.to(self.dtype)
         drops = []
         for blk in self.blocks:
-            x, drop = apply_block_train(blk, x, rope, cfg)
+            x, drop = apply_block_train(blk, x, rope, cfg, img_embeds)
             if drop is not None:
                 drops.append(drop)
         x = apply_norm(self.final_norm, x, cfg.norm,
@@ -277,7 +299,10 @@ class Model(nn.Module):
 
     def kv_capacity(self, kind: str, max_len: int) -> int:
         """Entries of a layer's K/V cache: ``max_len`` for a full layer,
-        ``min(window, max_len)`` for a sliding layer's ring."""
+        ``min(window, max_len)`` for a sliding layer's ring, ``img_tokens``
+        for a cross layer."""
+        if kind == "cross":
+            return self.cfg.img_tokens
         return (min(self.cfg.sliding_window, max_len) if kind == "sliding"
                 else max_len)
 
@@ -290,7 +315,10 @@ class Model(nn.Module):
         package's scalar ``pos``) or an int32 (B,) tensor on the model's
         device (per-slot positions). Returns fp32 logits (B, 1, V).
         ``layers`` runs the first that many layers only, then the final norm
-        and the unembedding (the speculative draft's shallow exit).
+        and the unembedding (the speculative draft's shallow exit). A
+        ``cross`` layer reads its image K/V (``k_cross``/``v_cross``) and
+        writes nothing. Every self-attention layer decodes causally, an
+        encoder's too, as the JAX package's decode does.
         """
         cfg = self.cfg
         pos = self._positions(pos, token.shape[0])
@@ -303,9 +331,13 @@ class Model(nn.Module):
             write_idx["attn"] = cache_write_index(pos, cache["k"].shape[2])
         if "k_ring" in cache:
             write_idx["sliding"] = ring_write_index(pos, cache["k_ring"].shape[2])
+        if "k_cross" in cache:          # the cross launches' q_offset
+            zeros = torch.zeros_like(pos)
         for blk, j in zip(self.blocks[:layers], self.cache_index[:layers]):
             if blk.btype in RECURRENT_STATE:
                 state = (cache[self.state_leaf][:, j], cache["conv"][:, j])
+            elif blk.btype == "cross":
+                state = (cache["k_cross"][j], cache["v_cross"][j], zeros)
             else:
                 k, v = KV_LEAVES[blk.btype]
                 state = (cache[k][j], cache[v][j], write_idx[blk.btype])
@@ -395,10 +427,15 @@ class Model(nn.Module):
                            theta=cfg.rope_theta, style=cfg.rope_style,
                            fraction=cfg.rope_fraction)
 
-    def _embed(self, tokens: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def _embed(self, tokens: Optional[torch.Tensor], *, train: bool = False,
+               inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         # the scale rounded to the model dtype as a Python number: the same
         # product as a 0-d tensor of the model dtype, with no host-to-device
         # copy (a host sync) inside a train or decode step
-        x = (embed_lookup if train else embed_tokens)(self.embed, tokens, self.dtype)
+        if inputs_embeds is not None:
+            x = inputs_embeds.to(self.dtype)
+        else:
+            x = (embed_lookup if train else embed_tokens)(self.embed, tokens,
+                                                          self.dtype)
         scale = self.cfg.embed_scale
         return x * _rounded(scale, self.dtype) if scale != 1.0 else x

@@ -1,7 +1,9 @@
-"""Block assembly: pre-norm (rms or layer norm) ``attn``, ``sliding`` and
-``rglru`` blocks, each with its MLP or, for an MoE config, its
-Mixture-of-Experts FFN, and ``ssd`` blocks, whose Mamba-2 mixer is the
-whole block.
+"""Block assembly: pre-norm (rms or layer norm) ``attn``, ``sliding``,
+``cross`` and ``rglru`` blocks, each with its MLP or, for an MoE config,
+its Mixture-of-Experts FFN, and ``ssd`` blocks, whose Mamba-2 mixer is the
+whole block. A ``cross`` block (the VLM's image layers) attends the image
+embeddings and scales its attention and its MLP output each by the tanh of
+a 0-d fp32 gate (seeded 0, as the JAX package's), cast to the model dtype.
 
 The port of ``repro/models/transformer.py``. The JAX package scans over
 pattern periods with period-stacked parameters and applies the remainder
@@ -11,33 +13,29 @@ leaves), which covers the remainder layers as any other.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
 from .attention import (Attention, attention_decode, attention_train,
-                        attention_verify)
+                        attention_verify, cross_attention_decode)
 from .layers import apply_mlp, apply_norm, dense_init
 from .moe import MoE, apply_moe
 from .rglru import RGLRU, rglru_decode, rglru_mixer
 from .ssm import Mamba2, mamba2_decode, mamba2_mixer
 
-ATTN_KINDS = ("attn", "sliding")
+ATTN_KINDS = ("attn", "sliding", "cross")
 # recurrent block kinds, each with the name of its state leaf in the cache
 RECURRENT_STATE = {"rglru": "h", "ssd": "ssm"}
 BLOCK_KINDS = ATTN_KINDS + tuple(RECURRENT_STATE)
 MLP_BLOCKS = ATTN_KINDS + ("rglru",)    # blocks with norm2 and an MLP or MoE
-
-NOT_PORTED = {
-    "cross": "ROADMAP Queue 1, item 14 (remaining architectures: "
-             "cross-attention)",
-}
+GATES = ("gate_attn", "gate_mlp")       # a cross block's 0-d fp32 gates
 
 
 def check_block_kind(btype: str) -> None:
     if btype not in BLOCK_KINDS:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported yet: "
-            f"{NOT_PORTED.get(btype, 'ROADMAP Queue 1')}")
+        raise ValueError(f"unknown block type {btype!r}")
 
 
 class MLP(nn.Module):
@@ -73,7 +71,8 @@ class Block(nn.Module):
     for an MoE config, ``moe`` (the other None). A ``layernorm`` config's
     norms carry ``norm1_bias``/``norm2_bias`` (None for ``rmsnorm``). An
     ``ssd`` block has no ``norm2`` and no FFN (all None), as in the JAX
-    package."""
+    package. A ``cross`` block adds ``gate_attn`` and ``gate_mlp``, 0-d
+    fp32 zeros (None elsewhere)."""
 
     def __init__(self, cfg, btype: str, *, device, dtype, generator=None):
         super().__init__()
@@ -96,6 +95,10 @@ class Block(nn.Module):
                                        else (None, None))
         self.mlp = MLP(cfg, **kw) if has_mlp and not cfg.is_moe else None
         self.moe = MoE(cfg, **kw) if has_mlp and cfg.is_moe else None
+        for name in GATES:
+            setattr(self, name, nn.Parameter(
+                torch.zeros((), device=device, dtype=torch.float32),
+                requires_grad=False) if btype == "cross" else None)
 
 
 def _window(p: Block, cfg) -> int:
@@ -112,6 +115,13 @@ def _ffn(p: Block, h: torch.Tensor, cfg, with_aux: bool):
     return apply_mlp(p.mlp, h, cfg.mlp_kind), None
 
 
+def _gated(out: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """A cross block's ``out * tanh(gate)``, the tanh in fp32 cast to
+    ``out``'s dtype first, as the JAX package rounds it; ``out`` itself
+    elsewhere (``gate`` None)."""
+    return out if gate is None else out * torch.tanh(gate).to(out.dtype)
+
+
 def _mlp(p: Block, x: torch.Tensor, cfg, with_aux: bool = False):
     """The residual FFN half of a block: ``(x, dropped_fraction)`` (see
     :func:`_ffn`; None for a block without an FFN)."""
@@ -119,28 +129,36 @@ def _mlp(p: Block, x: torch.Tensor, cfg, with_aux: bool = False):
         return x, None
     h = apply_norm(p.norm2, x, cfg.norm, bias=p.norm2_bias)
     out, drop = _ffn(p, h, cfg, with_aux)
-    return x + out, drop
+    return x + _gated(out, p.gate_mlp), drop
 
 
-def apply_block_train(p: Block, x: torch.Tensor, rope, cfg):
+def apply_block_train(p: Block, x: torch.Tensor, rope, cfg,
+                      img_embeds: Optional[torch.Tensor] = None):
     """The full-sequence block: ``(x, dropped_fraction)``, the fraction None
-    but for an MoE block."""
+    but for an MoE block. A ``cross`` block attends ``img_embeds``; without
+    them it runs as causal self-attention with the rotary, gated, as the
+    JAX package's does."""
     h = apply_norm(p.norm1, x, cfg.norm, bias=p.norm1_bias)
     if p.btype == "rglru":
         x = x + rglru_mixer(p.rglru, h)
     elif p.btype == "ssd":
         x = x + mamba2_mixer(p.ssd, h, cfg)
     else:
-        x = x + attention_train(p.attn, h, rope, cfg, window=_window(p, cfg))
+        kv_src = img_embeds if p.btype == "cross" else None
+        a = attention_train(p.attn, h, rope, cfg, window=_window(p, cfg),
+                            kv_src=kv_src)
+        x = x + _gated(a, p.gate_attn)
     return _mlp(p, x, cfg, with_aux=True)
 
 
 def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
                        pos: torch.Tensor, rope, cfg) -> torch.Tensor:
     """One token per batch row. ``state`` is the layer's cache, updated IN
-    PLACE: ``(k_cache, v_cache, write_idx)`` for an attention block,
-    ``(state, conv)`` views of the slot-major recurrent caches (``h`` for
-    ``rglru``, ``ssm`` for ``ssd``). An MoE block's dropped fraction is
+    PLACE: ``(k_cache, v_cache, write_idx)`` for a self-attention block,
+    ``(k, v, zeros)`` for a ``cross`` block (its image K/V, read only, and
+    the (B,) int32 zeros of its ``q_offset``), ``(state, conv)`` views of
+    the slot-major recurrent caches (``h`` for ``rglru``, ``ssm`` for
+    ``ssd``). An MoE block's dropped fraction is
     ignored, as the JAX package's decode ignores it: at one token a row, K
     distinct experts of capacity 8 never drop."""
     h = apply_norm(p.norm1, x, cfg.norm, bias=p.norm1_bias)
@@ -155,6 +173,9 @@ def apply_block_decode(p: Block, x: torch.Tensor, state: tuple,
         rec_state.copy_(rec_new)
         conv_state.copy_(conv_new)
         x = x + y
+    elif p.btype == "cross":
+        x = x + _gated(cross_attention_decode(p.attn, h, *state, cfg),
+                       p.gate_attn)
     else:
         k_cache, v_cache, write_idx = state
         x = x + attention_decode(p.attn, h, k_cache, v_cache, pos, rope,

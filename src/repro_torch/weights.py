@@ -12,7 +12,8 @@ cache (period leaves ``(n_per, B, ...)``, remainder leaves ``(B, ...)``) or
 the slot-stacked serve cache (``(S, n_per, 1, ...)`` and ``(S, 1, ...)``,
 ``slots=True``), against the port's cache: ``k``/``v`` ``(full layers, B,
 max_len, Hkv, D)``, ``k_ring``/``v_ring`` ``(sliding layers, B, ring, Hkv,
-D)``, the recurrent state ``h`` ``(B, rglru layers, w)`` or ``ssm`` ``(B, ssd
+D)``, ``k_cross``/``v_cross`` ``(cross layers, B, img_tokens, Hkv, D)``, the
+recurrent state ``h`` ``(B, rglru layers, w)`` or ``ssm`` ``(B, ssd
 layers, H, P, N)``, and ``conv`` ``(B, recurrent layers, 3, channels)``. A
 JAX layer cache names its K/V ``k``/``v`` whatever the layer's kind; the
 port's leaf for each is :data:`~repro_torch.models.model.BLOCK_LEAVES`'s.
@@ -29,6 +30,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .models.model import BLOCK_LEAVES, CACHE_LAYOUT, Model, resolve_device
+from .models.transformer import GATES
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _QK_NORM = ("q_norm", "k_norm")
@@ -130,6 +132,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
             for name in names:
                 _fill(getattr(getattr(blk, key), name), lp[key][name],
                       f"layer {l} {key}.{name}")
+            for name in _gates(blk.btype):
+                _fill(getattr(blk, name), lp[name], f"layer {l} {name}")
             if blk.norm2 is None:
                 continue
             _fill_norm(blk, cfg, "norm2", lp["norm2"], f"layer {l}")
@@ -151,7 +155,8 @@ def params_to_numpy(model: Model) -> dict:
         key, names = _mixer(cfg, blk.btype)
         mixer = getattr(blk, key)
         layer = {"norm1": _norm_numpy(blk, cfg, "norm1"),
-                 key: {n: _to_numpy(getattr(mixer, n)) for n in names}}
+                 key: {n: _to_numpy(getattr(mixer, n)) for n in names},
+                 **{n: _to_numpy(getattr(blk, n)) for n in _gates(blk.btype)}}
         if blk.norm2 is not None:
             key, names = _ffn(cfg)
             layer["norm2"] = _norm_numpy(blk, cfg, "norm2")
@@ -226,12 +231,20 @@ def _zip(trees: list, stack):
     return stack(trees)
 
 
+def _gates(btype: str) -> tuple:
+    """A block's 0-d gate leaves, the same name in both trees: a ``cross``
+    block's ``gate_attn`` and ``gate_mlp``, none elsewhere."""
+    return GATES if btype == "cross" else ()
+
+
 def _layer_leaves(cfg: ModelConfig, btype: str) -> list[tuple]:
     """``(JAX path within a layer, port name suffix)`` of a layer's
-    parameters, in the JAX tree's flatten order (dict keys sorted)."""
+    parameters, in the JAX tree's flatten order (dict keys sorted: a cross
+    block's ``attn, gate_attn, gate_mlp, mlp, norm1, norm2``)."""
     key, names = _mixer(cfg, btype)
     leaves = _norm_order(cfg, "norm1")
     leaves += [((key, n), f"{key}.{n}") for n in names]
+    leaves += [((n,), n) for n in _gates(btype)]
     if btype != "ssd":
         ffn, ffn_names = _ffn(cfg)
         leaves += _norm_order(cfg, "norm2")

@@ -72,6 +72,13 @@ FLASH_CASES = [
      (0, 5, 64, 300, 777, 1023, 1024, 2000)),
     (2, 1100, 1100, 24, 2, 128, True, 512, (0, 0)),     # forward, rows
     (1, 700, 700, 32, 2, 128, True, 0, (0,)),           # s * 12 + h, s * 16 + h
+    (8, 1, 1601, 32, 8, 128, False, 0, (0,) * 8),       # llama-vision cross
+    (2, 300, 1601, 32, 8, 128, False, 0, (0, 0)),       # decode and forward:
+    (2, 70, 9, 32, 8, 128, False, 0, (0, 0)),           # no mask, T != S, a
+    (4, 1, 100, 8, 8, 80, False, 0, (0,) * 4),          # ragged last tile
+    (2, 257, 257, 16, 16, 80, False, 0, (0, 0)),        # hubert: D 80, MHA,
+    (3, 1, 300, 16, 16, 80, True, 0, (0, 150, 299)),    # bidirectional; D 80
+    (2, 90, 120, 4, 2, 80, True, 16, (0, 30)),          # causal and sliding
 ]
 
 
@@ -530,6 +537,73 @@ def test_wide_group_decode_row_ignores_the_other_slots(cuda, arch, heads):
     assert torch.equal(same, mixed)
     for name in same_cache:
         assert torch.equal(same_cache[name], mixed_cache[name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_decode_row_ignores_the_other_slots(cuda, dtype):
+    """The non-causal decode over llama-vision's 1601 image keys (32/8
+    heads; four splits of 448 keys, the last ragged): a slot's output does
+    not depend on the other slots' K/V, bit for bit."""
+    rng = np.random.default_rng(11)
+    T, Hq, Hkv, D = 1601, 32, 8, 128
+    q = _randn(rng, (4, 1, Hq, D), dtype, cuda)
+    k = _randn(rng, (4, T, Hkv, D), dtype, cuda)
+    v = _randn(rng, (4, T, Hkv, D), dtype, cuda)
+    zeros = torch.zeros(4, dtype=torch.int32, device=cuda)
+    a = flash_attention(q, k, v, zeros, causal=False)
+    k[1:], v[1:] = _randn(rng, (3, T, Hkv, D), dtype, cuda), _randn(rng, (3, T, Hkv, D),
+                                                                    dtype, cuda)
+    b = flash_attention(q, k, v, zeros, causal=False)
+    assert torch.equal(a[0], b[0])
+
+
+def test_vlm_decode_row_ignores_the_other_slots(cuda):
+    """The llama-vision smoke model in bf16 on the card, widened to the
+    full config's 32/8 heads, seeded, its cross leaves filled from seeded
+    image embeddings through ``precompute_cross_kv`` and its gates drawn
+    non-zero, 8 slots: slot 3's decode logits over 12 steps are bit-equal
+    whether the other slots hold slot 3's tokens and image or others; each
+    step launches flash_decode once per layer, the cross layers' over the
+    image keys."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.attention import precompute_cross_kv
+
+    cfg = smoke_config("llama-3.2-vision-11b").replace(
+        dtype="bfloat16", num_heads=32, num_kv_heads=8, head_dim=16, img_tokens=40)
+    model = Model(cfg, device=cuda, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for blk in model.blocks:
+            if blk.btype == "cross":
+                blk.gate_attn.normal_(generator=gen)
+                blk.gate_mlp.normal_(generator=gen)
+    slots, slot, steps = 8, 3, 12
+    rng = np.random.default_rng(12)
+    seq = rng.integers(0, cfg.vocab_size, steps)
+    img = _randn(rng, (1, cfg.img_tokens, cfg.d_model), torch.bfloat16, cuda)
+    runs = []
+    for same in (True, False):
+        toks = (np.tile(seq, (slots, 1)) if same
+                else rng.integers(0, cfg.vocab_size, (slots, steps)))
+        toks[slot] = seq
+        toks = torch.from_numpy(toks).to(device=cuda, dtype=torch.int32)
+        imgs = (img.expand(slots, -1, -1).contiguous() if same else
+                _randn(rng, (slots, cfg.img_tokens, cfg.d_model), torch.bfloat16, cuda))
+        imgs[slot] = img[0]
+        cache = model.init_cache(slots, 32)
+        cross = [b for b in model.blocks if b.btype == "cross"]
+        for j, blk in enumerate(cross):
+            cache["k_cross"][j], cache["v_cross"][j] = precompute_cross_kv(
+                blk.attn, imgs, cfg)
+        before = flash_attention.kernel_launches["flash_decode"]
+        logits = torch.stack([model.decode_step(toks[:, p:p + 1], cache, p)[slot]
+                              for p in range(steps)])
+        assert (flash_attention.kernel_launches["flash_decode"]
+                == before + steps * cfg.num_layers)
+        runs.append(logits)
+    assert torch.isfinite(runs[0]).all()
+    assert torch.equal(runs[0], runs[1])
 
 
 def test_cache_prefill_row_ignores_the_other_rows(cuda):

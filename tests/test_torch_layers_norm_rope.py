@@ -159,8 +159,23 @@ def test_new_architectures_build(arch):
 
 
 def test_cross_attention_still_raises():
-    from repro_torch.models.transformer import check_block_kind
-    with pytest.raises(NotImplementedError, match="item 14"):
-        check_block_kind("cross")
-    with pytest.raises(KeyError, match="item 14"):
-        get_config("llama-3.2-vision-11b")
+    """The two architectures of the cross block and the encoder resolve and
+    build (on the meta device), ``cross`` is a block kind with its gates;
+    an unknown block kind or architecture still raises."""
+    from repro_torch.models.transformer import BLOCK_KINDS, check_block_kind
+    check_block_kind("cross")
+    assert "cross" in BLOCK_KINDS
+    vlm, hub = get_config("llama-3.2-vision-11b"), get_config("hubert-xlarge")
+    assert vlm.pattern_layers.count("cross") == 8 and vlm.img_tokens == 1601
+    assert hub.is_encoder and hub.resolved_head_dim == 80
+    model = Model(vlm, device="meta", seed=None)
+    names = {n for n, _ in model.named_parameters()}
+    assert {"blocks.4.gate_attn", "blocks.4.gate_mlp"} <= names
+    assert "blocks.0.gate_attn" not in names
+    cache = model.init_cache(2, 16)
+    assert cache["k_cross"].shape == (8, 2, 1601, 8, 128) and cache["k"].shape[0] == 32
+    assert Model(hub, device="meta", seed=None).blocks[0].norm1_bias is not None
+    with pytest.raises(ValueError, match="unknown block type"):
+        check_block_kind("conv")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-3.2-vision-90b")

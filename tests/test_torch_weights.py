@@ -8,7 +8,11 @@ and sliding rings in one stack), recurrentgemma (RG-LRU leaves, ring K/V,
 without norm2 or MLP, ``ssm``/``conv`` state), starcoder2 (rings only, the
 plain-GeLU MLP's ``wi``/``wo``) and phi3.5-moe (MoE leaves), both with the
 layer norms' ``bias`` leaves — also through the train-state bridge, in the
-JAX flatten order (``bias`` before ``scale``) — and chatglm3."""
+JAX flatten order (``bias`` before ``scale``) —, chatglm3,
+llama-3.2-vision (the cross blocks' 0-d ``gate_attn``/``gate_mlp`` leaves,
+which sort between ``attn`` and ``mlp``, and their ``k_cross``/``v_cross``
+image K/V of ``img_tokens`` entries; remainder layers at depth 7) and
+hubert-xlarge (the encoder: LayerNorm, no rotary)."""
 import dataclasses
 
 import jax
@@ -35,8 +39,9 @@ from repro_torch.weights import (
 ARCH = "qwen3-1.7b"
 MOE = "qwen3-moe-30b-a3b"
 SC2, GLM, PHI = "starcoder2-3b", "chatglm3-6b", "phi3.5-moe-42b-a6.6b"
+VLM, HUB = "llama-3.2-vision-11b", "hubert-xlarge"
 ARCHS = ["qwen3-1.7b", "gemma3-1b", "recurrentgemma-2b", "mamba2-2.7b", MOE,
-         SC2, GLM, PHI]
+         SC2, GLM, PHI, VLM, HUB]
 # (arch, layers): a depth without and with remainder layers (recurrentgemma:
 # 5 = one period + 2 rest, 8 = the smoke depth, two periods + 2 rest;
 # gemma3: 6 = one period, 14 = the smoke depth, two periods + 2 rest)
@@ -44,7 +49,8 @@ DEPTHS = [("qwen3-1.7b", 2), ("qwen3-1.7b", 3), ("gemma3-1b", 6),
           ("gemma3-1b", 14), ("recurrentgemma-2b", 5),
           ("recurrentgemma-2b", 8), ("mamba2-2.7b", 2), ("mamba2-2.7b", 3),
           (MOE, 2), (MOE, 3), (SC2, 2), (SC2, 3), (GLM, 2), (GLM, 3),
-          (PHI, 2), (PHI, 3)]
+          (PHI, 2), (PHI, 3), (VLM, 5), (VLM, 7), (VLM, 10), (HUB, 2),
+          (HUB, 3)]
 
 
 def _leaves_equal(a, b):
@@ -97,7 +103,8 @@ def test_cache_round_trip(slots, arch):
     want = model.init_cache(3, 20)
     assert {k: v.shape for k, v in cache.items()} == {k: v.shape for k, v in want.items()}
     for kind, (k, _), cap in (("attn", ("k", "v"), 20),
-                              ("sliding", ("k_ring", "v_ring"), 16)):
+                              ("sliding", ("k_ring", "v_ring"), 16),
+                              ("cross", ("k_cross", "v_cross"), cfg.img_tokens)):
         n = cfg.pattern_layers.count(kind)
         assert (k in cache) == bool(n)
         if n:
@@ -149,19 +156,21 @@ def test_moe_train_state_round_trip(dtype):
         train_params(model).values(), tstate["params"].values()))
 
 
-@pytest.mark.parametrize("arch", [SC2, GLM, PHI])
+@pytest.mark.parametrize("arch", [SC2, GLM, PHI, VLM, HUB])
 def test_param_order_and_train_state_with_norm_biases(arch):
     """``param_order`` is the JAX params tree's flatten order — a layer
     norm's ``bias`` leaf before its ``scale`` (``final_norm_bias`` second,
-    after ``embed``) — and names every parameter of the model; the train
-    state crosses the bridge both ways leaf for leaf, with non-zero
-    biases."""
+    after ``embed``), a cross block's ``attn.*, gate_attn, gate_mlp, mlp.*,
+    norm1, norm2`` — and names every parameter of the model; the train
+    state crosses the bridge both ways leaf for leaf, with non-zero biases
+    and gates."""
     jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
     params = jax.device_get(build_model(jcfg).init(jax.random.PRNGKey(4)))
     rng = np.random.default_rng(4)
+    drawn = ("bias", "gate_attn", "gate_mlp")
     params = jax.tree_util.tree_map_with_path(
         lambda path, a: (rng.standard_normal(a.shape).astype(np.float32)
-                         if getattr(path[-1], "key", None) == "bias" else a),
+                         if getattr(path[-1], "key", None) in drawn else a),
         params)
     want = []
     for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
@@ -173,6 +182,11 @@ def test_param_order_and_train_state_with_norm_biases(arch):
     names = [name for name, _, _ in order]
     assert sorted(names) == sorted(n for n, _ in Model(
         cfg, device="meta", seed=None).named_parameters())
+    if "cross" in cfg.block_pattern:
+        layer4 = [n.split(".", 2)[2] for n in names if n.startswith("blocks.4.")]
+        assert [n.split(".")[0] for n in layer4] == (
+            ["attn"] * 4 + ["gate_attn", "gate_mlp"] + ["mlp"] * 3 + ["norm1", "norm2"])
+        assert sum(n.endswith(".gate_attn") for n in names) == 2
     biases = [n for n in names if n.endswith("_bias")]
     if cfg.norm == "layernorm":
         assert names[1:3] == ["final_norm_bias", "final_norm"]
