@@ -12,7 +12,8 @@ seconds since the script started, when the line was printed):
    ``nvidia-smi`` name and power limit (also printed raw on a line of its own);
 2. build      — builds every kernel of the port from the checkout's sources,
    then a ``ptxas`` line: registers, static shared memory and spills of each
-   kernel of the tensor-core, scan and probe sources (``PTXAS_SOURCES``);
+   kernel of the tensor-core, scan, scan-backward and probe sources
+   (``PTXAS_SOURCES``);
 3. kernels    — holds each kernel against its plain PyTorch version on the
    card at the qwen3 serve path's shapes, with the stated tolerances, and
    times the kernel, the plain version and (where one exists) one PyTorch
@@ -181,7 +182,13 @@ seconds since the script started, when the line was printed):
 12. kernels_rg — the same checks and timings at recurrentgemma-2b's shapes:
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
-   where a control in chunk 0 must exceed it after chunk 1; flash decode
+   where a control in chunk 0 must exceed it after chunk 1; the scan's
+   backward (``rglru_scan_bwd``) at that shape and at the train shape (4 x
+   256 x 2560) against its plain reverse loop, a control (one step's log_a
+   halved) outside the limit, two launches bit-equal, the forward's states
+   it reads held to the plain scan at both shapes, and on long-memory
+   log_a with a control in the last chunk that must exceed the limit over
+   the chunks before the last two; flash decode
    over ring caches that wrap, the sliding-window flash forward at S 4096,
    the probe over the recurrent state and over the prefill logits;
 13. serve_rg   — phase 4 for full-width recurrentgemma-2b (26 layers: 18
@@ -198,11 +205,28 @@ seconds since the script started, when the line was printed):
 16. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
    window): the scan kernel once per RG-LRU layer, flash once per sliding
    layer, one probe, a clean word, its time and peak memory;
+16a. train_rg — phase 11g's kernel checks, clean and LFLR runs for
+   recurrentgemma-2b at its published width cut to ``TRAIN_RG_LAYERS`` (15
+   of 26: five periods of RG-LRU, RG-LRU, sliding; 1.82 G parameters), a
+   fresh seeded model alone on the card: the flash forward with lse and
+   FlashAttention's gradients at 10/1 heads of D 256, window 2048, the
+   probe over the 256000 x 2560 embedding gradient and ``probe_tree`` over
+   the model's 167 gradient leaves (the fp32 ``lam`` among them); then one
+   host sync a step, per step the scan and its
+   backward 10 times each, the flash forward 5 times and one
+   ``probe_tree``; finite losses; the LFLR run bit-equal to a clean run
+   over the kept batches; the peak under ``TRAIN_PEAK_GB``. The faulted
+   run and the profile are qwen3's alone (the decisions do not depend on
+   the architecture; the CPU tests hold every stack's to the reference);
 17. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
    mamba2-2.7b's prefill shape and at a shape with groups over heads and
    fewer steps than the chunk (bf16: the tensor-core route), and at the
-   prefill shape in fp32 (the ``ssd_f32`` route), each with a control that
-   must exceed the limit (one step's dt changed), and the probe over the
+   prefill shape in fp32 (the ``ssd_f32`` route), and at the train shape
+   (4 x 256, nc 2), each with a control that must exceed the limit (one
+   step's dt changed); the SSD backward
+   (``ssd_chunk_bwd``, bf16 inputs) at the prefill and the train shapes
+   against autograd through the plain intra-chunk function, with its
+   control and two launches bit-equal; and the probe over the
    full ``ssm`` state;
 18. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
    seeded random weights), the recurrentgemma model freed first, on the
@@ -212,6 +236,11 @@ seconds since the script started, when the line was printed):
    ``ssm`` state and the state probe must latch STATE_FAULT;
 20. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
    kernel once per layer, one probe, a clean word, its time and peak memory;
+20a. train_ssm — phase 16a for mamba2-2.7b cut to ``TRAIN_SSM_LAYERS`` (40
+   of 64 layers, 1.73 G parameters; no attention, so the probes' checks
+   alone, ``probe_tree`` over its 482 leaves): per step the SSD
+   tensor-core kernel and its backward 40 times each and one
+   ``probe_tree``;
 21. kernels_g3 — flash and the probe at gemma3-1b's shapes (4/1 heads of
    256): decode over the full cache and over the 512-entry ring, wrapped,
    the sliding (window 512) and the full forward at 2 × 4096, the probe
@@ -424,6 +453,12 @@ FLASH_RG_TOL = (1e-4, 2.0 ** -6)    # abs, rel
 # fp32 scan: exp/sqrt ulps and FMA contraction differ from the plain
 # version's and compound through the recurrence over ~1/(1-a) steps
 SCAN_TOL = 1e-4
+# the scan's backward against its plain reverse loop: the same rounding
+# compounded over the reverse recurrence, the carries folded in another
+# order, and dlog_a's two terms of similar size subtracted: 1e-4 of the
+# largest |want| plus 1e-4 of each. A control with one step's log_a halved
+# must exceed it
+SCAN_BWD_TOL = (1e-4, 1e-4)
 # the SSD kernel and its plain version both work in fp32 and differ in
 # summation order (sums of <= 128 terms): 1e-4 of each element plus 1e-4 of
 # the largest. The scan's bf16 output rounds those fp32 results, about 1 ulp
@@ -469,6 +504,14 @@ TRAIN_LFLR_KEPT = (0, 1, 2, 4, 5, 9, 10, 11)
 # that order: 1e5 stays above every clean step and far below a spiked one
 # (spike_loss multiplies the loss by 1e6)
 TRAIN_DIVERGENCE = 1e5
+# the recurrent stacks' train phases: each at its published width, cut to
+# the depth whose reckoned peak (10 B a parameter for the params and the
+# two fp32 moments, three such states live at once, plus the model and the
+# gradients) stays under about 70 GB: recurrentgemma-2b to 5 whole periods
+# of (RG-LRU, RG-LRU, sliding), 1.82 G parameters; mamba2-2.7b to 40 of its
+# 64 layers, 1.73 G. Every train phase's peak must stay under
+# TRAIN_PEAK_GB (the card holds 80 GB)
+TRAIN_RG_LAYERS, TRAIN_SSM_LAYERS, TRAIN_PEAK_GB = 15, 40, 80.0
 # the training forward's row lse against the plain one: fp32 sums in another
 # order, exp2 in place of exp (abs, rel); a control with one key dropped
 # moves the last row's lse by ~0.04 and must exceed it
@@ -612,13 +655,15 @@ def phase_device(torch) -> str:
 
 
 PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu", "ssd_chunk_tc.cu",
-                 "rglru_scan.cu", "fault_probe.cu")      # reported by ptxas
+                 "ssd_chunk_bwd.cu", "rglru_scan.cu", "rglru_scan_bwd.cu",
+                 "fault_probe.cu")      # reported by ptxas
 
 
 def ptxas_report(log: str) -> list:
     """Each kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
     head_dim (flash's template argument; for flash_decode also whether it is
-    the verify's instantiation; the probe's table type), registers, static
+    the verify's instantiation; the probe's table type; the SSD backward's
+    element type), registers, static
     shared memory,
     stack and spills (the flash and SSD kernels' shared memory is dynamic:
     see their sources)."""
@@ -638,6 +683,9 @@ def ptxas_report(log: str) -> list:
             hd = re.match(r"ILi(\d+)E(?:Lb([01])E)?", mangled[i:])
             cur = {"kernel": names[-1] if names else mangled,
                    "head_dim": int(hd.group(1)) if hd else None}
+            elem = re.match(r"I(f|13__nv_bfloat16)E", mangled[i:])  # ssd_bwd_*<T>
+            if elem:
+                cur["dtype"] = "fp32" if elem.group(1) == "f" else "bf16"
             table = re.match(r"IN?S_(\d+)", mangled[i:])  # probe_kernel<RowTable>
             if table:
                 cur["template"] = mangled[i + table.end():
@@ -2084,39 +2132,58 @@ def phase_elastic(torch, card: str) -> None:
 
 def train_kernels(torch, cfg, leaf_specs) -> dict:
     """The train path's kernels at its shapes (``cfg``'s heads, B x S =
-    ``TRAIN_B x TRAIN_S``): the flash forward with its row lse
-    (``flash_forward``) against the plain lse and its own output without
-    lse, FlashAttention's gradients against autograd through the plain
-    version, the probe over the largest gradient leaf (the vocab x d_model
-    embedding, 151936 x 2048 in bf16 for qwen3), and the tree probe over
-    a gradient tree of ``leaf_specs`` (each leaf's shape and dtype); each
-    timed beside its bound, its plain version and the library call."""
+    ``TRAIN_B x TRAIN_S``): where ``cfg`` has attention layers, the flash
+    forward with its row lse (``flash_forward``, at the sliding layers'
+    window where it has them) against the plain lse and its own output
+    without lse, and FlashAttention's gradients against autograd through
+    the plain version; the probe over the largest gradient leaf (the vocab
+    x d_model embedding, 151936 x 2048 in bf16 for qwen3), and the tree
+    probe over a gradient tree of ``leaf_specs`` (each leaf's shape and
+    dtype); each timed beside its bound, its plain version and the library
+    call."""
+    out = {}
+    kinds = set(cfg.pattern_layers)
+    if kinds & {"attn", "sliding"}:
+        out["flash_train_forward"] = flash_train_row(
+            torch, cfg, cfg.sliding_window if "sliding" in kinds else 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    out["probe_grad_embed"] = probe_grad_embed(torch, cfg, gen)
+    out["probe_grad_tree"] = probe_grad_tree(torch, leaf_specs, gen)
+    return out
+
+
+def flash_train_row(torch, cfg, window: int) -> dict:
+    """:func:`train_kernels`' flash row: the forward with lse and
+    FlashAttention's gradients at ``cfg``'s heads, causal, at ``window``
+    (0: none; the library call is causal alone, the same mask while
+    ``TRAIN_S`` is at most the window)."""
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.core.errors import ErrorCode
-    from repro_torch.kernels import flash_attention, probe_rows
-    from repro_torch.kernels.fault_probe import probe_rows_ref
+    from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import FlashAttention, sdpa_ref
 
+    if window and window < TRAIN_S:
+        fail(f"flash train row: window {window} under TRAIN_S {TRAIN_S}")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 7)
     randn = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-    out = {}
     B, S = TRAIN_B, TRAIN_S
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
     before = dict(flash_attention.kernel_launches)
-    got, lse = flash_attention(q, k, v, zero, causal=True, lse=True)
+    got, lse = flash_attention(q, k, v, zero, causal=True, window=window, lse=True)
     moved = [n for n, c in flash_attention.kernel_launches.items() if c != before[n]]
-    want, want_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, return_lse=True)
+    want, want_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, window=window,
+                              return_lse=True)
     a, r = LSE_TOL
     lse_excess = ((lse - want_lse).abs() / (a + r * want_lse.abs())).max().item()
-    _, short_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, seq_kv=S - 1,
-                            return_lse=True)
+    _, short_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, window=window,
+                            seq_kv=S - 1, return_lse=True)
     lse_control = ((lse - short_lse).abs() / (a + r * short_lse.abs())).max().item()
-    same_out = torch.equal(got, flash_attention(q, k, v, zero, causal=True))
+    same_out = torch.equal(got, flash_attention(q, k, v, zero, causal=True,
+                                                window=window))
     err = (got.float() - want.float()).abs().max().item()
     excess = flash_excess(got, want)
     if not (moved == ["flash_forward"] and same_out and lse_excess <= 1 < lse_control
@@ -2128,14 +2195,14 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
     # backward) against autograd through the plain version in fp32
     do = randn(B, S, Hq, D)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    grads = torch.autograd.grad(FlashAttention.apply(*leaves, True, 0, 2048, 2048),
-                                leaves, do)
+    grads = torch.autograd.grad(FlashAttention.apply(*leaves, True, window, 2048,
+                                                     2048), leaves, do)
     ga, gr = TRAIN_GRAD_TOL
 
     def grad_excess(offset):
         f = [t.float().requires_grad_() for t in (q, k, v)]
-        ref = torch.autograd.grad(sdpa_ref(*f, q_offset=offset, causal=True), f,
-                                  do.float())
+        ref = torch.autograd.grad(sdpa_ref(*f, q_offset=offset, causal=True,
+                                           window=window), f, do.float())
         return [((g.float() - w).abs() / (ga * w.abs().max() + gr * w.abs())).max().item()
                 for g, w in zip(grads, ref)]
 
@@ -2149,8 +2216,9 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
     qkv = copies(lambda: (randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)),
                  B * S * (Hq + 2 * Hkv) * D * 2)
     heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
-    out["flash_train_forward"] = {
-        "shape": f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16, causal, with lse",
+    row = {
+        "shape": f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16, causal, "
+                 f"window {window}, with lse",
         "kernel": "flash_forward", "source": f"{FLASH_CSRC}/flash_forward.cu",
         "max_abs_err": err, "tol": FLASH_TOL, "err_over_tol": excess,
         "lse_max_abs_err": (lse - want_lse).abs().max().item(),
@@ -2160,22 +2228,31 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
         "grad_tol": f"{ga} x max + {gr} rel", "grad_over_tol": g_excess,
         "grad_shifted_mask_over_tol": g_control, "timing_copies": len(qkv),
         "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
-            q, k, v, zero, causal=True, lse=True), qkv),
+            q, k, v, zero, causal=True, window=window, lse=True), qkv),
         # one call per copy: ~40 launches a call, and the device queues
         # about 1000
         "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
-            q, k, v, q_offset=zero, causal=True, return_lse=True), qkv,
-            launches=len(qkv)),
+            q, k, v, q_offset=zero, causal=True, window=window, return_lse=True),
+            qkv, launches=len(qkv)),
         "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
             *t, is_causal=True, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
     del q, k, v, do, leaves, grads, qkv
+    return row
 
-    # the probe over the largest gradient leaf, the tied embedding's (drawn
-    # on the card: 311 M numbers from numpy would take seconds)
+
+def probe_grad_embed(torch, cfg, gen) -> dict:
+    """:func:`train_kernels`' probe over the largest gradient leaf, the
+    vocab x d_model embedding's (drawn on the card from ``gen``: 311 M
+    numbers for qwen3, too many to draw in numpy), clean, with a NaN and
+    with an overflow, held bit-equal to the plain version and timed."""
+    from repro_torch.core.errors import ErrorCode
+    from repro_torch.kernels import probe_rows
+    from repro_torch.kernels.fault_probe import probe_rows_ref
+
+    dev = torch.device("cuda")
     rows, cols = cfg.vocab_size, cfg.d_model
     nf, ov = int(ErrorCode.NONFINITE_GRAD), int(ErrorCode.OVERFLOW)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     big = lambda: torch.randn((1, rows * cols), generator=gen, device=dev,  # noqa: E731
                               dtype=torch.bfloat16)
     x = big()
@@ -2197,7 +2274,7 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
         fail(f"probe over the embedding's gradient: words {words}")
     b_ms, b_by = bound(rows * cols * 2 + 4, 3 * rows * cols, PEAK_FP32_FLOPS)
     xs = [(x,), (big(),)]                                   # 1.2 GB: past the L2
-    out["probe_grad_embed"] = {
+    row = {
         "shape": f"1 x {rows * cols} bf16 (the {rows}x{cols} embedding's gradient), "
                  "threshold 1e4", "words": words, "max_abs_err": 0,
         "timing_copies": len(xs),
@@ -2207,8 +2284,7 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
             x, 1e4, nonfinite_code=nf, overflow_code=ov), xs, launches=8),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     del x, xs
-    out["probe_grad_tree"] = probe_grad_tree(torch, leaf_specs, gen)
-    return out
+    return row
 
 
 def probe_grad_tree(torch, leaf_specs, gen) -> dict:
@@ -2312,13 +2388,24 @@ def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
                             for name, ms, n in top]}
 
 
-def phase_train(torch, card: str, model) -> tuple:
-    """Full-width training on the card (module docstring 11g): the train
-    path's kernels at its shapes, then three runs of ``TRAIN_STEPS`` steps
-    of ``ResilientExecutor`` over ``make_train_step``, each from a fresh
-    copy of ``model``'s weights (the serving model is not changed) with zero
-    moments: clean, faulted, LFLR. Returns ``(kernel rows, the clean run's
-    launches)``."""
+def phase_train(torch, card: str, model, name: str = "train", *,
+                full: bool = True, line=None) -> tuple:
+    """Full-width training on the card (module docstring 11g, 16a, 20a):
+    runs of ``TRAIN_STEPS`` steps of ``ResilientExecutor`` over
+    ``make_train_step``, each from a fresh copy of ``model``'s weights (the
+    serving model is not changed) with zero moments: clean (one sync a
+    step, each kernel's launches a step by the layers' kinds, finite
+    losses) and LFLR (bit-equal to a clean run over the kept batches),
+    after the train path's attention and probe kernels at its shapes
+    (:func:`train_kernels`). ``full`` (qwen3's phase) adds a profiled step
+    and the faulted run; the recurrent stacks' phases leave those to
+    qwen3's (the fault decisions do not depend on the architecture: the
+    CPU tests hold them to the reference for every stack). The train
+    setup has the allocator grow its segments in place
+    (``launch.train.grow_segments``); the phase sets it back to fixed
+    segments when it ends, so the serving phases allocate as they did
+    before. ``line`` adds keys to the phase's line. Returns ``(kernel
+    rows, the clean run's launches)``."""
     from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
                                   ResilientExecutor)
     from repro_torch.core.detect import ProbeConfig
@@ -2329,10 +2416,12 @@ def phase_train(torch, card: str, model) -> tuple:
     from repro_torch.kernels import launch_counts, probe_tree, reset_launch_counts
     from repro_torch.kernels.fault_probe.ops import MAX_LEAVES
     from repro_torch.launch.steps import make_reset_opt_fn
-    from repro_torch.launch.train import build_train_setup
+    from repro_torch.launch.train import build_train_setup, grow_segments
     from repro_torch.optim import init_opt_state
     from repro_torch.tree import tree_leaves
     from repro_torch.weights import train_params
+
+    from repro_torch.kernels.ssd_scan.ops import plan as ssd_plan
 
     t_parts = {"start": time.perf_counter()}
     cfg = model.cfg
@@ -2398,18 +2487,25 @@ def phase_train(torch, card: str, model) -> tuple:
     clean_losses = readback(torch.stack(losses)).tolist()
     step_ms = sorted(e.duration_s * 1e3 for e in log.events if e.kind == "ok" and e.step)
     ms_step = step_ms[len(step_ms) // 2]
-    # one probe_tree launch a step over every gradient leaf (310 fit one
+    # a step: the flash forward per attention layer, the RG-LRU scan and
+    # its backward per RG-LRU layer, the SSD kernel and its backward per SSD
+    # layer, one probe_tree launch over every gradient leaf (all fit one
     # table of MAX_LEAVES), no probe_rows
     expected = dict.fromkeys(launches, 0)
+    n_rg, n_ssd = cfg.pattern_layers.count("rglru"), cfg.pattern_layers.count("ssd")
     expected.update(flash_attention=TRAIN_STEPS * len(model.attn_layers),
                     flash_forward=TRAIN_STEPS * len(model.attn_layers),
+                    rglru_scan=TRAIN_STEPS * n_rg, rglru_scan_bwd=TRAIN_STEPS * n_rg,
+                    ssd_scan=TRAIN_STEPS * n_ssd, ssd_chunk_bwd=TRAIN_STEPS * n_ssd,
                     probe_tree=TRAIN_STEPS * math.ceil(n_leaves / MAX_LEAVES))
+    if n_ssd:
+        expected[ssd_plan(model.dtype)] = TRAIN_STEPS * n_ssd
     ok = [e.step for e in log.events if e.kind == "ok"]
     if (ok != list(range(TRAIN_STEPS)) or int(readback(state["step"])) != TRAIN_STEPS
             or syncs != TRAIN_STEPS or torch_syncs != TRAIN_STEPS
             or launches != expected or copies
             or not all(map(math.isfinite, clean_losses))):
-        fail(f"train (clean): ok steps {ok}, step {int(readback(state['step']))}, "
+        fail(f"{name} (clean): ok steps {ok}, step {int(readback(state['step']))}, "
              f"syncs {syncs} (torch's sync debug mode: {torch_syncs} at "
              f"{dict(sync_sites)}; want {TRAIN_STEPS}), launches {launches} != {expected}, "
              f"non-contiguous leaves copied {copies}, losses {clean_losses}")
@@ -2420,22 +2516,24 @@ def phase_train(torch, card: str, model) -> tuple:
     snapshot_ms = (time.perf_counter() - t0) * 1e3
     del snap, state, log
     t_parts["clean"] = time.perf_counter()
-    profile = train_profile(torch, step_fn, fresh(), make_batch(pipe.cfg, 0, model.device),
-                            ms_step)
-    t_parts["profile"] = time.perf_counter()
-    stragglers = 0
+    stragglers, extra = 0, dict(line or {})
+    if full:
+        extra["profile"] = train_profile(torch, step_fn, fresh(),
+                                         make_batch(pipe.cfg, 0, model.device), ms_step)
+        t_parts["profile"] = time.perf_counter()
 
-    # 2. faulted: the reference policy's decisions, the constant the CPU
-    #    test ties to the JAX executor
-    state, log = run(TRAIN_FAULTS)
-    events = tuple((e.step, e.kind, e.code, e.action) for e in log.events
-                   if e.kind != "straggler")
-    stragglers += sum(e.kind == "straggler" for e in log.events)
-    if events != TRAIN_FAULT_EVENTS:
-        fail(f"train (faulted): events {events} != {TRAIN_FAULT_EVENTS}")
-    fault_losses = readback(torch.stack(losses)).tolist()
-    del state, log
-    t_parts["faulted"] = time.perf_counter()
+        # 2. faulted: the reference policy's decisions, the constant the CPU
+        #    test ties to the JAX executor
+        state, log = run(TRAIN_FAULTS)
+        events = tuple((e.step, e.kind, e.code, e.action) for e in log.events
+                       if e.kind != "straggler")
+        stragglers += sum(e.kind == "straggler" for e in log.events)
+        if events != TRAIN_FAULT_EVENTS:
+            fail(f"{name} (faulted): events {events} != {TRAIN_FAULT_EVENTS}")
+        extra.update(faulted_losses=readback(torch.stack(losses)).tolist(),
+                     fault_events=[list(e) for e in events if e[1] == "fault"])
+        del state, log
+        t_parts["faulted"] = time.perf_counter()
 
     # 3. LFLR: skip, then restore to the snapshot after step 5; bit-equal to
     #    a clean run over the kept batches (the step is deterministic)
@@ -2449,19 +2547,23 @@ def phase_train(torch, card: str, model) -> tuple:
     equal = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
     unequal = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
     if acts != [(3, "skip_batch"), (8, "restore_good")] or not equal:
-        fail(f"train (LFLR): actions {acts}, leaves unequal to the clean run "
+        fail(f"{name} (LFLR): actions {acts}, leaves unequal to the clean run "
              f"over {TRAIN_LFLR_KEPT}: {len(unequal)} of {len(b)} (first {unequal[:5]})")
     del state, clean, a, b, log
     t_parts["lflr"] = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved = torch.cuda.max_memory_reserved() / 1e9
     untouched = (all(torch.equal(p, weights[n]) for n, p in model.named_parameters()
                      if n in weights)
                  and not any(p.requires_grad for p in model.parameters()))
     if not untouched:
-        fail("train: the serving model's weights changed or require a gradient")
+        fail(f"{name}: the serving model's weights changed or require a gradient")
+    if peak >= TRAIN_PEAK_GB:
+        fail(f"{name}: peak {peak} GB, not under {TRAIN_PEAK_GB}")
     gc.collect()
     torch.cuda.empty_cache()
-    emit({"phase": "train", "card": card, "model": cfg.name, "batch": TRAIN_B,
+    grow_segments(False)
+    emit({"phase": name, "card": card, "model": cfg.name, "batch": TRAIN_B,
           "seq": TRAIN_S, "steps": TRAIN_STEPS, "leaves": n_leaves,
           "ms_per_step_median": ms_step, "ms_per_step": step_ms,
           "tokens_per_s": TRAIN_B * TRAIN_S / (ms_step / 1e3),
@@ -2470,14 +2572,39 @@ def phase_train(torch, card: str, model) -> tuple:
           "torch_syncs": torch_syncs, "torch_sync_sites": dict(sync_sites),
           "snapshot_ms": snapshot_ms,
           "state_gb": state_gb, "mem_before_gb": mem_before, "peak_mem_gb": peak,
-          "losses": clean_losses, "faulted_losses": fault_losses,
-          "fault_events": [list(e) for e in events if e[1] == "fault"],
+          "peak_reserved_gb": peak_reserved,
+          "allocator": "expandable segments (launch.train.grow_segments)",
+          "losses": clean_losses, **extra,
           "lflr_bit_equal": equal, "stragglers_flagged": stragglers,
           "divergence_threshold": TRAIN_DIVERGENCE, "lr_warmup": opt_cfg.warmup_steps,
-          "launches": launches, "profile": profile, "kernels": kern,
+          "launches": launches, "kernels": kern,
           "seconds": time.perf_counter() - t_parts["start"],
           "seconds_by_part": {k: t_parts[k] - t_parts[j] for j, k in zip(
               list(t_parts)[:-1], list(t_parts)[1:])}})
+    return kern, launches
+
+
+def phase_train_cut(torch, card: str, arch: str, name: str, layers: int) -> dict:
+    """:func:`phase_train`'s clean and LFLR runs for ``arch`` at its
+    published width cut to ``layers`` layers, a fresh model seeded alone on
+    the card (the serving model freed first), freed after; its line says
+    the cut and the init's peak. Returns ``(kernel rows, the clean run's
+    launches)``."""
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    line = {"layers": f"{layers} of {cfg.num_layers}"}
+    cfg = cfg.replace(num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    model, line["init_s"] = build_model(torch, cfg)
+    line["params_g"] = sum(p.numel() for p in model.parameters()) / 1e9
+    line["init_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    kern, launches = phase_train(torch, card, model, name, full=False, line=line)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return kern, launches
 
 
@@ -2865,14 +2992,16 @@ def check_fp32_stream(torch, model, reqs) -> dict:
 
 
 def phase_kernels_rg(torch, card: str) -> dict:
-    """Each kernel against its plain version at recurrentgemma-2b's shapes."""
+    """Each kernel against its plain version at recurrentgemma-2b's shapes,
+    the scan's backward at the prefill and the train shapes."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import flash_attention, probe_rows, rglru_scan
     from repro_torch.kernels.fault_probe import probe_rows_ref
     from repro_torch.kernels.flash_attention import sdpa_ref
-    from repro_torch.kernels.rglru_scan import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import (rglru_scan_backward_ref, rglru_scan_bwd,
+                                                rglru_scan_ref)
     from repro_torch.kernels.rglru_scan.ops import CHUNK
 
     cfg = get_config("recurrentgemma-2b")
@@ -2958,6 +3087,94 @@ def phase_kernels_rg(torch, card: str) -> dict:
         "bound_ms": bound(3 * PREFILL_32K * W * 4, 10 * PREFILL_32K * W,
                           PEAK_FP32_FLOPS)[0]}
     del ins
+
+    # -- the scan's backward (training) at the prefill shape and the train
+    #    shape: the states from the forward kernel, dh normal
+    def make_bwd_for(lo, hi, b, s):
+        make = make_for(lo, hi, b, s)
+
+        def one():
+            x_in, log_a = make()
+            return x_in, log_a, rglru_scan(x_in, log_a), f32(b, s, W)
+        return one
+
+    def bwd_excess(got, want, over=slice(None)):
+        return max(scaled_excess(g[:, over], w[:, over], SCAN_BWD_TOL)
+                   for g, w in zip(got, want))
+
+    for name, b, s in (("rglru_scan_bwd", B, S), ("rglru_scan_bwd_train", TRAIN_B, TRAIN_S)):
+        ins = make_bwd_for(0.9, 4.0, b, s)()
+        # the forward kernel's states (ins[2]) against the plain scan, with
+        # the same control as the backward's
+        want_h = rglru_scan_ref(*ins[:2])
+        limit = SCAN_TOL + SCAN_TOL * want_h.abs()
+        fwd_err = (ins[2] - want_h).abs().max().item()
+        fwd_excess = ((ins[2] - want_h).abs() / limit).max().item()
+        got = rglru_scan_bwd(*ins)
+        want = rglru_scan_backward_ref(*ins)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        excess = bwd_excess(got, want)
+        repeat = all(torch.equal(g, a) for g, a in zip(got, rglru_scan_bwd(*ins)))
+        # control: one step's log_a halved (batch 0, mid-sequence, channel 0)
+        bad = ins[1].clone()
+        bad[0, s // 2 + 5, 0] *= 0.5
+        control = bwd_excess(rglru_scan_bwd(ins[0], bad, *ins[2:]), want)
+        fwd_control = ((rglru_scan(ins[0], bad) - want_h).abs() / limit).max().item()
+        if not (excess <= 1 < control and repeat and fwd_excess <= 1 < fwd_control):
+            fail(f"{name}: max error {err}, {excess} x the limit; one log_a "
+                 f"halved reads {control} x (must exceed 1); repeats bit for "
+                 f"bit: {repeat}; its forward {fwd_excess} x the limit, control "
+                 f"{fwd_control} x (must exceed 1)")
+        if s == TRAIN_S:
+            out["rglru_scan_train"] = {
+                "kernel": "rglru_scan", "shape": f"x_in, log_a {b}x{s}x{W} fp32",
+                "max_abs_err": fwd_err, "tol": f"{SCAN_TOL} abs + {SCAN_TOL} rel",
+                "err_over_tol": fwd_excess, "one_log_a_halved_over_tol": fwd_control}
+        del ins, got, want, bad, want_h, limit
+        # reads x_in, log_a, h, dh; writes dx_in, dlog_a; ~20 operations
+        b_ms, b_by = bound(24 * b * s * W, 20 * b * s * W, PEAK_FP32_FLOPS)
+        ins = copies(make_bwd_for(0.9, 4.0, b, s), 16 * b * s * W)
+        out[name] = {
+            "kernel": "rglru_scan_bwd",
+            "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+            "shape": f"x_in, log_a, h, dh {b}x{s}x{W} fp32", "max_abs_err": err,
+            "tol": "{} of the largest |want| + {} rel".format(*SCAN_BWD_TOL),
+            "err_over_tol": excess, "one_log_a_halved_over_tol": control,
+            "repeats_bit_for_bit": repeat, "chunk": T, "chunks": -(-s // T),
+            # three launches: chunk aggregates, carries, re-scan; log_a and
+            # dh read twice: 32 bytes per element against the bound's 24
+            "design_bytes_ms": 32 * b * s * W / PEAK_BYTES_PER_S * 1e3,
+            "timing_copies": len(ins),
+            "kernel_ms": time_ms(torch, rglru_scan_bwd, ins),
+            "plain_ms": time_ms(torch, rglru_scan_backward_ref, ins, launches=4,
+                                queued=False),
+            "plain_timing": "unqueued: one launch per time step, more than the "
+                            "device queues; includes the host's launch gaps",
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        del ins
+    # long memory: chunks 0 .. nc - 3 see the last chunk only through chunk
+    # nc - 2's decay product, so the carry decides them. Control, over those
+    # chunks: one log_a of the last chunk set to -1
+    ins = make_bwd_for(-math.log(0.999) / 8, -math.log(0.9) / 8, B, S)()
+    got = rglru_scan_bwd(*ins)
+    want = rglru_scan_backward_ref(*ins)
+    long_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    long_excess = bwd_excess(got, want)
+    bad = ins[1].clone()
+    bad[0, S - T + 8, 0] = -1.0
+    earlier = slice(0, S - 2 * T)
+    long_control = bwd_excess(rglru_scan_bwd(ins[0], bad, *ins[2:]), want, earlier)
+    if not long_excess <= 1 < long_control:
+        fail(f"rglru_scan_bwd, long memory: max error {long_err}, {long_excess} "
+             f"x the limit; one log_a of the last chunk set to -1 reads "
+             f"{long_control} x over the chunks before the last two (must exceed 1)")
+    out["rglru_scan_bwd_long_memory"] = {
+        "kernel": "rglru_scan_bwd",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+        "shape": f"x_in, log_a, h, dh {B}x{S}x{W} fp32, a^8 in [0.9, 0.999]",
+        "max_abs_err": long_err, "err_over_tol": long_excess,
+        "last_chunk_log_a_changed_over_tol_before_the_last_two": long_control}
+    del ins, got, want, bad
 
     # -- flash decode over ring caches: one query row per slot, positions
     #    past the ring's capacity (it has wrapped; the read is index < min(cap, pos+1))
@@ -3234,13 +3451,15 @@ SSD_CSRC = "src/repro_torch/kernels/ssd_scan/csrc"
 
 def phase_kernels_ssm(torch, card: str) -> dict:
     """The SSD kernels and the probe against their plain versions at
-    mamba2-2.7b's shapes."""
+    mamba2-2.7b's shapes, the SSD backward at the prefill and the train
+    shapes."""
     from repro_torch.configs import get_config
     from repro_torch.core.errors import ErrorCode
     from repro_torch.kernels import probe_rows, ssd_scan
     from repro_torch.kernels.fault_probe import probe_rows_ref
-    from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
-                                              ssd_scan_ref)
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd, ssd_intra_chunk,
+                                              ssd_intra_chunk_backward_ref,
+                                              ssd_intra_chunk_ref, ssd_scan_ref)
     from repro_torch.kernels.ssd_scan.ops import plan
 
     cfg = get_config("mamba2-2.7b")
@@ -3332,6 +3551,72 @@ def phase_kernels_ssm(torch, card: str) -> dict:
             out[name]["fp32_core_bound_ms"] = flops / PEAK_FP32_FLOPS * 1e3
         del ins
         torch.cuda.empty_cache()
+    # -- the backward (training) at the prefill shape and the train shape,
+    #    x, B, C in bf16 as the model's; normal gradients of y_diag and the
+    #    chunk states
+    def bwd_inputs(shape):
+        b_, s_, h_, p_, g_, n_ = shape
+        L_ = min(L, s_)
+        return (*inputs(*shape), L_, f32(b_, s_, h_, p_), f32(b_, s_ // L_, h_, p_, n_))
+
+    def bwd_excess(got, want):
+        return max(scaled_excess(g_, w_, SSD_TOL) for g_, w_ in zip(got, want))
+
+    for name, shape in (("ssd_chunk_bwd", (b, s, h, p, g, n)),
+                        ("ssd_chunk_bwd_train", (TRAIN_B, TRAIN_S, h, p, g, n))):
+        b_, s_ = shape[:2]
+        nc_ = s_ // min(L, s_)
+        ins = bwd_inputs(shape)
+        got = ssd_chunk_bwd(*ins)
+        want = ssd_intra_chunk_backward_ref(*ins)
+        err = max((g_ - w_).abs().max().item() for g_, w_ in zip(got, want))
+        excess = bwd_excess(got, want)
+        repeat = all(torch.equal(g_, a_) for g_, a_ in zip(got, ssd_chunk_bwd(*ins)))
+        # control: one step's dt doubled (batch 0, mid-sequence, a head mid-way)
+        bad = ins[1].clone()
+        bad[0, s_ // 2 + 5, h // 2] *= 2
+        control = bwd_excess(ssd_chunk_bwd(ins[0], bad, *ins[2:]), want)
+        if not (excess <= 1 < control and repeat):
+            fail(f"{name}: {excess} x the limit, max error {err}; one dt doubled "
+                 f"reads {control} x (must exceed 1); repeats bit for bit: {repeat}")
+        del ins, got, want, bad
+        # the least work: C B^T once per group and the causal half of each
+        # L x L product, and the two L x P x N products of the state's
+        # gradient; bytes: x, B, C bf16, dt, A, dy_diag, dstates read, the
+        # five gradients (dB, dC per group) written in fp32
+        bflops = b_ * nc_ * (g * n * L * (L + 1) + h * (2 * p * L * (L + 1)
+                                                      + 2 * n * L * (L + 1) + 4 * L * p * n))
+        nbytes = (b_ * s_ * h * p * (2 + 4 + 4) + b_ * s_ * h * 8 + 2 * h * 4
+                  + b_ * s_ * g * n * (2 + 2 + 4 + 4) + b_ * nc_ * h * p * n * 4)
+        b_ms, b_by = bound(nbytes, bflops, PEAK_FP32_FLOPS)
+        ins = copies(lambda: bwd_inputs(shape),
+                     b_ * s_ * h * p * 6 + b_ * nc_ * h * p * n * 4)
+        out[name] = {
+            "kernel": "ssd_chunk_bwd", "source": f"{SSD_CSRC}/ssd_chunk_bwd.cu",
+            "shape": f"x {b_}x{s_}x{h}x{p} bf16, dt {b_}x{s_}x{h} fp32, B, C "
+                     f"{b_}x{s_}x{g}x{n} bf16, chunk {L}; dy_diag fp32, dstates "
+                     f"{b_}x{nc_}x{h}x{p}x{n} fp32",
+            "tol": "{} of the largest |want| + {} rel, each gradient".format(*SSD_TOL),
+            "max_abs_err": err, "err_over_tol": excess,
+            "one_dt_doubled_over_tol": control, "repeats_bit_for_bit": repeat,
+            "timing_copies": len(ins),
+            "kernel_ms": time_ms(torch, ssd_chunk_bwd, ins),
+            "plain_ms": time_ms(torch, ssd_intra_chunk_backward_ref, ins, launches=8),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_counts": "operations: C B^T once per group, the causal half of "
+                            "each L x L product, the state gradient's two L x P x N "
+                            "products, at the fp32 CUDA-core peak; bytes: x, B, C "
+                            "bf16, dt, A, dy_diag, dstates read, the gradients "
+                            "(dB, dC per group) written in fp32"}
+        del ins
+        torch.cuda.empty_cache()
+
+    # -- at the train shape (nc 2), as the train step launches it
+    out["ssd_scan_train"] = {
+        "shape": f"x {TRAIN_B}x{TRAIN_S}x{h}x{p} bf16, B, C {TRAIN_B}x{TRAIN_S}x{g}x{n} "
+                 f"bf16, chunk {L}",
+        **check("the train shape", (TRAIN_B, TRAIN_S, h, p, g, n), L)}
+
     # -- groups over heads, fewer steps than the chunk
     shape = (3, 96, 16, p, 4, n)
     out["ssd_scan_groups"] = {
@@ -4069,9 +4354,9 @@ def main() -> None:
                               n=MOE_REQUESTS)
     phase_lflr_stepwise_rg(torch, card, model)
     prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
-    del model                                     # free rg before mamba2
-    gc.collect()
-    torch.cuda.empty_cache()
+    del model                                     # free rg before its training
+    kern_train_rg, train_rg = phase_train_cut(torch, card, "recurrentgemma-2b",
+                                              "train_rg", TRAIN_RG_LAYERS)
 
     kern_ssm = phase_kernels_ssm(torch, card)
     model, init_s = build_model(torch, get_config("mamba2-2.7b"))
@@ -4081,9 +4366,9 @@ def main() -> None:
     serve_ssm, _ = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"),
                                n=MOE_REQUESTS)
     prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
-    del model                                     # free mamba2 before gemma3
-    gc.collect()
-    torch.cuda.empty_cache()
+    del model                                     # free mamba2 before its training
+    kern_train_ssm, train_ssm = phase_train_cut(torch, card, "mamba2-2.7b",
+                                                "train_ssm", TRAIN_SSM_LAYERS)
 
     kern_g3 = phase_kernels_g3(torch, card)
     model, init_s = build_model(torch, get_config("gemma3-1b"))
@@ -4123,8 +4408,8 @@ def main() -> None:
              **spec_paths, **group_paths, **fuzz_paths, **multihost_paths,
              "train": train_launches,
              **serve_g3_paged,
-             **serve_rg, "prefill_rg": prefill_rg,
-             **serve_ssm, "prefill_ssm": prefill_ssm,
+             **serve_rg, "prefill_rg": prefill_rg, "train_rg": train_rg,
+             **serve_ssm, "prefill_ssm": prefill_ssm, "train_ssm": train_ssm,
              **serve_g3, "prefill_g3": prefill_g3, **moe_paths}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
@@ -4136,6 +4421,7 @@ def main() -> None:
              "flash_verify": kern["flash_verify"],
              "flash_forward": kern["flash_forward"],
              "flash_train_forward": kern_train["flash_train_forward"],
+             "flash_train_forward_rg": kern_train_rg["flash_train_forward"],
              "flash_f32_decode": kern["flash_f32_decode"],
              "flash_f32_forward": kern["flash_f32_forward"],
              "flash_ring_decode": kern_rg["flash_ring_decode"],
@@ -4160,22 +4446,37 @@ def main() -> None:
              "probe_g3_prefill": kern_g3["probe_g3_prefill"],
              "probe_grad_embed": kern_train["probe_grad_embed"],
              "probe_grad_tree": kern_train["probe_grad_tree"],
+             **{f"{n}_{tag}": k[n] for tag, k in (("rg", kern_train_rg),
+                                                  ("ssm", kern_train_ssm))
+                for n in ("probe_grad_embed", "probe_grad_tree")},
              **{n: r for n, r in kern_arch.items() if n.startswith("probe_")},
              **{n: r for n, r in kern_vlm.items() if n.startswith("probe_")}},
             launches_by_kernel={k: by_path(k) for k in ("probe_rows", "probe_tree")}),
+        # the scans' rows also hold their backward kernels (the gradient
+        # through the TPU kernel, which has no backward of its own)
         kernel_entry(
             "rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:36",
-            by_path("rglru_scan"), kern_rg["rglru_scan"],
-            {n: kern_rg[n] for n in ("rglru_scan", "rglru_scan_long_memory")}),
+            {p: c["rglru_scan"] + c["rglru_scan_bwd"] for p, c in paths.items()},
+            kern_rg["rglru_scan"],
+            {n: kern_rg[n] for n in ("rglru_scan", "rglru_scan_long_memory",
+                                     "rglru_scan_train",
+                                     "rglru_scan_bwd", "rglru_scan_bwd_train",
+                                     "rglru_scan_bwd_long_memory")},
+            launches_by_kernel={k: by_path(k) for k in ("rglru_scan", "rglru_scan_bwd")}),
         kernel_entry(
             "ssd_scan", kern_ssm["ssd_scan"]["source"],
             "src/repro/kernels/ssd_scan/kernel.py:47",
-            by_path("ssd_scan"), kern_ssm["ssd_scan"],
+            {p: c["ssd_scan"] + c["ssd_chunk_bwd"] for p, c in paths.items()},
+            kern_ssm["ssd_scan"],
             {"ssd_scan": kern_ssm["ssd_scan"],
              "ssd_scan_groups": kern_ssm["ssd_scan_groups"],
-             "ssd_f32": kern_ssm["ssd_f32"]},
-            launches_by_kernel={k: by_path(k) for k in ("ssd_chunk_tc", "ssd_f32")}),
+             "ssd_scan_train": kern_ssm["ssd_scan_train"],
+             "ssd_f32": kern_ssm["ssd_f32"],
+             "ssd_chunk_bwd": kern_ssm["ssd_chunk_bwd"],
+             "ssd_chunk_bwd_train": kern_ssm["ssd_chunk_bwd_train"]},
+            launches_by_kernel={k: by_path(k) for k in ("ssd_chunk_tc", "ssd_f32",
+                                                        "ssd_chunk_bwd")}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

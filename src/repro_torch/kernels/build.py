@@ -60,11 +60,17 @@ SIGNATURES = {
     "repro_probe_tree": (_P, _P, _P, _P, _I, _F, _I, _I, _P, _I, _P),
     # x_in, log_a, h_out, agg (scratch), B, S, W, T (chunk), stream
     "repro_rglru_scan": (_P, _P, _P, _P, _L, _L, _L, _L, _P),
+    # x_in, log_a, h, dh, dx_in, dlog_a, agg (scratch), B, S, W, T, stream
+    "repro_rglru_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P),
     # x, dt, A, B, C, y, states, b, S, H, P, G, N, L, stream
     "repro_ssd_chunk_tc": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                            _I, _P),
     "repro_ssd_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
                       _P),
+    # x, dt, A, B, C, dy_diag, dstates, dx, ddt, dA (per batch, chunk and
+    # head), dB, dC (per head), dtype, b, S, H, P, G, N, L, stream
+    "repro_ssd_chunk_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _L, _L, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -189,13 +195,14 @@ def stream_of(t: torch.Tensor) -> int:
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would need a gradient through ``tensors``: a kernel
     writes its output through a raw pointer, so the output would come back
-    silently detached. The attention gradient goes through
-    ``flash_attention.FlashAttention``; the scans have none yet."""
+    silently detached. A gradient goes through the autograd Function
+    beside the wrapper, whose backward is a kernel too."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: its inputs need a gradient and the kernel has no "
-            "backward (attention: use FlashAttention; the RG-LRU and SSD "
-            "scans: ROADMAP Queue 1, item 13, their training paths)")
+            f"{name}: its inputs need a gradient and the raw wrapper has no "
+            "backward: use flash_attention.FlashAttention, "
+            "rglru_scan.RGLRUScan or ssd_scan.SSDIntraChunk (which ssd_scan "
+            "calls)")
 
 
 def check_device(name: str, *tensors: torch.Tensor) -> str:

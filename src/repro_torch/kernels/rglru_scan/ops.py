@@ -1,5 +1,7 @@
-"""Wrapper of the RG-LRU scan kernel (``csrc/rglru_scan.cu``), chunked over
-time in chunks of ``CHUNK`` steps.
+"""Wrappers of the RG-LRU scan kernels, chunked over time in chunks of
+``CHUNK`` steps: the forward (``csrc/rglru_scan.cu``), its backward
+(``csrc/rglru_scan_bwd.cu``) and :class:`RGLRUScan`, the two as one
+autograd Function.
 
 A tensor on the CPU goes to the plain version (``ref.py``); a CUDA tensor
 goes to the kernel or raises — there is no fallback.
@@ -10,41 +12,92 @@ import torch
 
 from ..build import (check_device, check_launch, check_no_grad, count_launch,
                      library, stream_of)
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_backward_ref, rglru_scan_ref
 
 CHUNK = 128                     # steps per chunk, whatever the length
+
+
+def _check(name: str, *tensors: torch.Tensor) -> str:
+    """Shared checks: one device, one non-empty (B, S, W) fp32 shape,
+    contiguous; returns the device's type."""
+    kind = check_device(name, *tensors)
+    shape = tensors[0].shape
+    if (tensors[0].dim() != 3 or 0 in shape
+            or any(t.shape != shape for t in tensors)):
+        raise ValueError(f"{name}: the inputs must share one non-empty "
+                         f"(B, S, W) shape, got {[tuple(t.shape) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: float32 inputs expected, got "
+                        f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if kind == "cuda" and shape[0] > 65535:
+        raise ValueError(f"{name}: batch {shape[0]} exceeds the grid's 65535")
+    return kind
+
+
+def _scratch(x: torch.Tensor) -> torch.Tensor:
+    """Two values (decay product, end state or adjoint) per (batch, chunk
+    but one, channel)."""
+    B, S, W = x.shape
+    nc = -(-S // CHUNK)
+    return torch.empty(2 * B * (nc - 1) * W, dtype=torch.float32, device=x.device)
 
 
 def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     """x_in (pre-gate input ``i ⊙ x``), log_a (≤ 0): fp32 (B, S, W) → the
     RG-LRU states h (B, S, W) fp32 — what the JAX package's ``ops.py
-    rglru_scan`` and its Pallas kernel compute together."""
-    kind = check_device("rglru_scan", x_in, log_a)
+    rglru_scan`` and its Pallas kernel compute together. Refuses inputs
+    that need a gradient: :class:`RGLRUScan` carries one."""
+    kind = _check("rglru_scan", x_in, log_a)
     check_no_grad("rglru_scan", x_in, log_a)
-    if x_in.dim() != 3 or log_a.shape != x_in.shape or 0 in x_in.shape:
-        raise ValueError("rglru_scan: x_in and log_a must share one non-empty "
-                         f"(B, S, W) shape, got {tuple(x_in.shape)} and "
-                         f"{tuple(log_a.shape)}")
-    if x_in.dtype != torch.float32 or log_a.dtype != torch.float32:
-        raise TypeError(f"rglru_scan: float32 inputs expected, got {x_in.dtype} "
-                        f"and {log_a.dtype}")
-    if not (x_in.is_contiguous() and log_a.is_contiguous()):
-        raise ValueError("rglru_scan: inputs must be contiguous")
     if kind == "cpu":
         return rglru_scan_ref(x_in, log_a)
     B, S, W = x_in.shape
-    if B > 65535:
-        raise ValueError(f"rglru_scan: batch {B} exceeds the grid's 65535")
     out = torch.empty_like(x_in)
-    nc = -(-S // CHUNK)
-    # each earlier chunk's decay product and end state
-    agg = torch.empty(2 * B * (nc - 1) * W, dtype=torch.float32, device=x_in.device)
     rc = library().repro_rglru_scan(x_in.data_ptr(), log_a.data_ptr(),
-                                    out.data_ptr(), agg.data_ptr(), B, S, W, CHUNK,
-                                    stream_of(x_in))
+                                    out.data_ptr(), _scratch(x_in).data_ptr(),
+                                    B, S, W, CHUNK, stream_of(x_in))
     check_launch("rglru_scan", rc)
     count_launch(rglru_scan)
     return out
 
 
+def rglru_scan_bwd(x_in: torch.Tensor, log_a: torch.Tensor, h: torch.Tensor,
+                   dh: torch.Tensor):
+    """The scan's vector-Jacobian product: the inputs, the states ``h`` the
+    forward returned and their gradient ``dh``, all fp32 (B, S, W) →
+    ``(dx_in, dlog_a)`` fp32 (B, S, W)."""
+    if _check("rglru_scan_bwd", x_in, log_a, h, dh) == "cpu":
+        return rglru_scan_backward_ref(x_in, log_a, h, dh)
+    B, S, W = x_in.shape
+    dx_in, dlog_a = torch.empty_like(x_in), torch.empty_like(x_in)
+    rc = library().repro_rglru_scan_bwd(
+        x_in.data_ptr(), log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+        dx_in.data_ptr(), dlog_a.data_ptr(), _scratch(x_in).data_ptr(),
+        B, S, W, CHUNK, stream_of(x_in))
+    check_launch("rglru_scan_bwd", rc)
+    count_launch(rglru_scan_bwd)
+    return dx_in, dlog_a
+
+
 rglru_scan.launches = 0
+rglru_scan_bwd.launches = 0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with a gradient: ``RGLRUScan.apply(x_in, log_a)`` → h, as
+    :func:`rglru_scan`. The forward is one :func:`rglru_scan` call and saves
+    ``(x_in, log_a, h)``; the backward one :func:`rglru_scan_bwd` call (the
+    kernel on a CUDA tensor, the plain version on the CPU) — what
+    ``jax.grad`` of the JAX package's ``rglru_scan_assoc`` computes."""
+
+    @staticmethod
+    def forward(ctx, x_in, log_a):
+        h = rglru_scan(x_in, log_a)
+        ctx.save_for_backward(x_in, log_a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        return rglru_scan_bwd(*ctx.saved_tensors, dh.contiguous())

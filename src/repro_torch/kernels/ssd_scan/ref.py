@@ -7,6 +7,7 @@ Recurrence per head: ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t``,
 ``y_t = C_t · h_t``.
 
 * :func:`ssd_intra_chunk_ref` — what the kernel computes, in einsums;
+* :func:`ssd_intra_chunk_backward_ref` — its gradient, by autograd;
 * :func:`ssd_inter_chunk` — the recurrence over chunk states and the
   off-diagonal term, which stay in torch beside the kernel;
 * :func:`ssd_scan_ref` — the two together, the whole chunked scan;
@@ -54,6 +55,19 @@ def ssd_intra_chunk_ref(x, dt, A, B, C, L: int):
     weights = torch.exp(cum[:, :, -1:] - cum)                 # (b,c,L,h)
     states = torch.einsum("bclhn,bclhp->bchpn", Bc, xd * weights[..., None])
     return y_diag.reshape(b, s, h, p), states
+
+
+def ssd_intra_chunk_backward_ref(x, dt, A, B, C, L: int, dy_diag, dstates):
+    """The vector-Jacobian product of :func:`ssd_intra_chunk_ref` (the CPU
+    path and the oracle the backward kernel is held against): the gradients
+    ``dy_diag`` (b, s, h, p) and ``dstates`` (b, s/L, h, p, n) of its two
+    outputs → ``(dx, ddt, dA, dB, dC)`` fp32 in the inputs' shapes, by
+    autograd through a recompute in fp32 (x, B, C widened first, as the
+    forward widens them)."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True) for t in (x, dt, A, B, C)]
+        outs = ssd_intra_chunk_ref(*leaves, L)
+        return torch.autograd.grad(outs, leaves, (dy_diag.float(), dstates.float()))
 
 
 def ssd_inter_chunk(y_diag, states, dt, A, C, L: int) -> torch.Tensor:

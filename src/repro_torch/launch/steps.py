@@ -35,7 +35,6 @@ from ..core.detect import ProbeConfig, logits_probe, state_probe, step_probe
 from ..core.errors import ErrorCode
 from ..core.faults import inject_batch, inject_grads, inject_loss
 from ..models.model import CACHE_LAYOUT, Model
-from ..models.transformer import ATTN_KINDS
 from ..optim import AdamWConfig, adamw_update, reset_moments
 from .paging import PagedLayout
 
@@ -47,14 +46,10 @@ def make_loss_and_grads(cfg):
     :meth:`Model.forward`; 0 without MoE). The model is a skeleton on the
     ``meta`` device (no weights of its own): :meth:`Model.loss` runs on the
     given tensors, each taken as a fresh autograd leaf, so the params
-    themselves never require a gradient.
-    Attention stacks only: the RG-LRU and SSD kernels have no backward yet,
-    and their wrappers refuse a tensor that needs one."""
-    kinds = set(cfg.pattern_layers) - set(ATTN_KINDS)
-    if kinds:
-        raise NotImplementedError(
-            f"training {sorted(kinds)} blocks is not ported (their scans "
-            "have no backward): ROADMAP Queue 1, item 13")
+    themselves never require a gradient. Every block kind trains: the
+    attention gradient goes through ``FlashAttention``, the RG-LRU's through
+    ``RGLRUScan`` and the SSD's through ``SSDIntraChunk``, each a kernel
+    forward with a kernel (or, for attention, plain recompute) backward."""
     skeleton = Model(cfg, device="meta", seed=None)
 
     def loss_and_grads(params: dict, batch: dict):

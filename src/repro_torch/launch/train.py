@@ -2,12 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --steps 50 --smoke --inject "12:nan_grad,25:spike_loss"
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --device cpu --steps 12 --batch 2 --seq 16 --inject 3:nan_grad
 
 The port of ``repro/launch/train.py``. Wires together: model + optimizer +
 deterministic pipeline + the paper's technique (in-band error channel →
 DeviceFuture → RecoveryPolicy) + async checkpointing. ``--smoke`` (the
 default) uses the reduced config, ``--full`` the published one; the run is
-on the card unless ``--device cpu``.
+on the card unless ``--device cpu``. Every stack trains: attention, the
+RG-LRU (recurrentgemma-2b) and the SSD (mamba2-2.7b). ``--divergence``
+sets the loss above which a step reads DIVERGENCE (the reference's 50 by
+default; recurrentgemma-2b's smoke loss starts near 62, its seeded
+full-width one near 2550).
 """
 from __future__ import annotations
 
@@ -38,6 +44,18 @@ def parse_inject(spec: str) -> FaultSchedule:
     return FaultSchedule(specs)
 
 
+def grow_segments(on: bool = True) -> None:
+    """Sets the card's caching allocator to grow its segments in place
+    (``expandable_segments``, as ``PYTORCH_CUDA_ALLOC_CONF`` sets it at
+    start) for the allocations that follow, or back to fixed segments.
+    Training holds the state about three times over (the update's new
+    params and moments beside the old, the executor's snapshot) in tensors
+    of many sizes, and fixed segments strand memory between them: 13.6 GB
+    of an H100's 80 GB for recurrentgemma-2b at 15 layers, which then ran
+    out of memory."""
+    torch._C._accelerator_setAllocatorSettings(f"expandable_segments:{on}")
+
+
 def build_train_setup(cfg, *, batch_size: int, seq_len: int, seed: int = 0,
                       lr: float = 3e-4, total_steps: int = 1000, device=None,
                       model: Optional[Model] = None,
@@ -47,10 +65,14 @@ def build_train_setup(cfg, *, batch_size: int, seq_len: int, seed: int = 0,
     The state's params are a copy of ``model``'s weights (default: a fresh
     model drawn from ``seed`` on ``device``, ``cuda`` unless the caller
     passes another); the model itself is left as it was. ``probe_cfg``
-    defaults to the JAX package's (divergence above a loss of 50)."""
+    defaults to the JAX package's (divergence above a loss of 50). On the
+    card, the allocator grows its segments from here on
+    (:func:`grow_segments`)."""
     if model is None:
         model = Model(cfg, device=resolve_device(device), seed=seed)
     dev = model.device
+    if dev.type == "cuda":
+        grow_segments()
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(total_steps // 20, 5),
                           total_steps=total_steps)
     probe_cfg = probe_cfg or ProbeConfig(loss_divergence_threshold=50.0)
@@ -78,12 +100,15 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--divergence", type=float, default=50.0,
+                    help="loss above which a step reads DIVERGENCE")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model, step_fn, state, pipe, opt_cfg = build_train_setup(
         cfg, batch_size=args.batch, seq_len=args.seq, total_steps=args.steps,
-        device=args.device)
+        device=args.device,
+        probe_cfg=ProbeConfig(loss_divergence_threshold=args.divergence))
 
     ckpt = Checkpointer(args.ckpt_dir)
     executor = ResilientExecutor(

@@ -5,7 +5,8 @@ The port of ``repro/models/rglru.py``. Recurrence per channel:
 ``a_t = exp(−c·softplus(Λ)·r_t)``, ``r_t = σ(W_a x_t)``, ``i_t = σ(W_x x_t)``;
 the gate projections are block-diagonal over ``lru_heads`` blocks. The
 full-sequence path (:func:`rglru_mixer`) runs the recurrence through the
-scan kernel (``repro_torch.kernels.rglru_scan``); decode
+scan kernel (``repro_torch.kernels.rglru_scan``), and its gradient through
+the scan's backward kernel (``RGLRUScan``); decode
 (:func:`rglru_decode`) is the O(1) one-step update in plain torch, as the
 JAX package's is jnp outside any kernel. Casts sit where the JAX package
 puts them: projections and the convolution in the model dtype, gates and
@@ -17,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.rglru_scan import rglru_scan
+from ..kernels.rglru_scan import RGLRUScan
 from .layers import causal_conv, dense_init, gelu_tanh
 
 C_SCALE = 8.0
@@ -67,14 +68,15 @@ def _gates(p: RGLRU, xr: torch.Tensor):
 
 
 def rglru_mixer(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence path (forward and prefill): x (B, S, d) → (B, S, d),
-    the recurrence through the scan kernel."""
+    """Full-sequence path (forward, prefill and training): x (B, S, d) →
+    (B, S, d), the recurrence through the scan kernel (with its backward
+    kernel where autograd needs the gradient)."""
     xr = x @ p.wx
     gate = gelu_tanh((x @ p.wy).float())
     xr = causal_conv(xr, p.conv_w.to(x.dtype))
     log_a, i = _gates(p, xr)
     x_in = i * xr.float()
-    h = rglru_scan(x_in, log_a)
+    h = RGLRUScan.apply(x_in, log_a)
     y = (h * gate).to(x.dtype)
     return y @ p.out
 

@@ -4,7 +4,9 @@ The port of ``repro/models/ssm.py``. Layout: x (B, S, H, P) heads, B/C
 (B, S, G, N) groups (G | H), dt (B, S, H), A (H,). Recurrence per head:
 ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t ⊗ x_t``, ``y_t = C_t · h_t + D x_t``.
 The full-sequence path (:func:`mamba2_mixer`) runs the scan through the SSD
-kernel (``repro_torch.kernels.ssd_scan``); decode (:func:`mamba2_decode`) is
+kernel (``repro_torch.kernels.ssd_scan``), and its gradient through the
+SSD backward kernel (``SSDIntraChunk``, which ``ssd_scan`` takes under
+autograd); decode (:func:`mamba2_decode`) is
 the O(1) one-step state update in plain torch, as the JAX package's is jnp
 outside any kernel. Casts sit where the JAX package puts them: projections
 and the convolution in the model dtype; dt, A, the scan and the state in
@@ -76,8 +78,9 @@ def _out(p: Mamba2, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def mamba2_mixer(p: Mamba2, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence path (forward and prefill): x (B, S, d) → (B, S, d),
-    the scan through the SSD kernel. S must be below the chunk or a multiple
+    """Full-sequence path (forward, prefill and training): x (B, S, d) →
+    (B, S, d), the scan through the SSD kernel (and its backward kernel
+    where autograd needs the gradient). S must be below the chunk or a multiple
     of it, as in the JAX package."""
     B_, S, _ = x.shape
     conv_in, z, dt = _project(p, x)

@@ -1386,3 +1386,234 @@ def test_fresh_lane_makes_no_sync_in_the_replica_on_the_card(cuda):
         sites = {f"{w.filename}:{w.lineno}" for w in caught
                  if "called a synchronizing CUDA operation" in str(w.message)}
         assert sites and not [s for s in sites if "serve/replica.py" in s], sites
+
+
+# -------------------------------------------------- the scans' backward kernels
+# (B, S, W): one chunk (S <= 128, and exactly 128), across a chunk boundary
+# (S 300: three chunks, the last ragged), a ragged width, many chunks, the
+# training shape and recurrentgemma-2b's prefill shape
+SCAN_BWD_CASES = [(1, 16, 64), (2, 100, 64), (1, 128, 200), (2, 300, 256),
+                  (3, 9, 1), (2, 1000, 640), (4, 256, 2560), (2, 4096, 2560)]
+
+
+def _scan_bwd_inputs(rng, shape, memory, device):
+    """x_in, log_a (as the forward's tests draw them), the states h the
+    forward gives and a normal dh."""
+    x_in = _randn(rng, shape, torch.float32, device)
+    log_a = _scan_log_a(rng, shape, memory, device)
+    return x_in, log_a, rglru_scan(x_in, log_a), _randn(rng, shape, torch.float32, device)
+
+
+def _within(got, want, a=1e-4, r=1e-4):
+    """Every element within ``a`` of the largest |want| plus ``r`` of its
+    own |want|."""
+    want = want.float()
+    return bool(((got.float() - want).abs()
+                 <= a * want.abs().max() + r * want.abs()).all())
+
+
+@pytest.mark.parametrize("memory", ["short", "long"])
+@pytest.mark.parametrize("shape", SCAN_BWD_CASES)
+def test_rglru_scan_bwd_kernel_matches_plain(cuda, shape, memory):
+    """dx_in and dlog_a against the plain reverse loop on the same inputs.
+    fp32 both sides; exp/sqrt ulps, FMA contraction and the chunk carries
+    (folded in another order than the loop's) compound through the reverse
+    recurrence over ~1/(1-a) steps, and dlog_a subtracts two terms of
+    similar size: 1e-4 of the largest |want| plus 1e-4 of each."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_backward_ref, rglru_scan_bwd
+    rng = np.random.default_rng(12)
+    ins = _scan_bwd_inputs(rng, shape, memory, cuda)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_scan_backward_ref(*ins)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert _within(g, w)
+
+
+def test_rglru_scan_bwd_at_the_clamp(cuda):
+    """a = 1 exactly (log_a 0) and a within 1e-12 of 1: the clamp holds and
+    the x_in a / s term is 0, on the card as in the plain version (1 - a²
+    formed from a rounded square on both)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_backward_ref, rglru_scan_bwd
+    rng = np.random.default_rng(13)
+    shape = (2, 300, 256)
+    x_in = _randn(rng, shape, torch.float32, cuda)
+    log_a = -torch.nn.functional.softplus(_randn(rng, shape, torch.float32, cuda))
+    log_a[:, ::7] = 0.0
+    log_a[:, 3::7] = -1e-9
+    log_a[:, 5::7] = -1e-7
+    ins = (x_in, log_a, rglru_scan(x_in, log_a), _randn(rng, shape, torch.float32, cuda))
+    for g, w in zip(rglru_scan_bwd(*ins), rglru_scan_backward_ref(*ins)):
+        assert torch.isfinite(g).all() and _within(g, w)
+
+
+@pytest.mark.parametrize("memory", ["short", "long"])
+def test_rglru_scan_bwd_repeats_bit_for_bit(cuda, memory):
+    """Two launches give the same bits, and a batch row's gradient does not
+    depend on the other rows' data (the carries fold in a fixed order, no
+    atomics): what an LFLR replay of a training step rests on."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    rng = np.random.default_rng(14)
+    shape = (3, 4100, 640)
+    ins = _scan_bwd_inputs(rng, shape, memory, cuda)
+    a, b = rglru_scan_bwd(*ins), rglru_scan_bwd(*ins)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    other = [t.clone() for t in ins]
+    for t, new in zip(other, _scan_bwd_inputs(rng, (2, *shape[1:]), memory, cuda)):
+        t[1:] = new
+    c = rglru_scan_bwd(*other)
+    assert all(torch.equal(x[0], y[0]) for x, y in zip(a, c))
+    assert not torch.equal(a[0][1], c[0][1])
+
+
+def _ssd_bwd_inputs(rng, case, dtype, device):
+    """The forward's inputs (``_ssd_inputs``) and normal gradients of its two
+    outputs."""
+    b, s, h, p, g, n, chunk = case
+    L = min(chunk, s)
+    x, dt, A, B, C = _ssd_inputs(rng, case, dtype, device)
+    dy = _randn(rng, (b, s, h, p), torch.float32, device)
+    ds = _randn(rng, (b, s // L, h, p, n), torch.float32, device)
+    return (x, dt, A, B, C, L, dy, ds)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_kernel_matches_plain(cuda, case, dtype):
+    """dx, ddt, dA, dB, dC against autograd through the plain intra-chunk
+    function (x, B, C widened to fp32 on both sides). fp32 sums of <= 128
+    terms (dA and the group sums: of the heads and chunks) in another
+    order: 1e-4 of the largest |want| plus 1e-4 of each."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_intra_chunk_backward_ref
+    rng = np.random.default_rng(15)
+    ins = _ssd_bwd_inputs(rng, case, dtype, cuda)
+    before = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(*ins)
+    torch.cuda.synchronize()
+    assert ssd_chunk_bwd.launches == before + 1
+    want = ssd_intra_chunk_backward_ref(*ins)
+    for name, g, w, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want, ins):
+        assert g.shape == t.shape and g.dtype == torch.float32, name
+        assert _within(g, w), name
+
+
+def test_ssd_chunk_bwd_repeats_bit_for_bit(cuda):
+    """Two launches give the same bits; a batch row's dx, ddt, dB and dC do
+    not depend on the other rows' data (dA sums over them, in a fixed
+    order)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+    rng = np.random.default_rng(16)
+    case = (3, 512, 8, 64, 2, 128, 128)
+    ins = _ssd_bwd_inputs(rng, case, torch.bfloat16, cuda)
+    a, b = ssd_chunk_bwd(*ins), ssd_chunk_bwd(*ins)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    other = list(ins)
+    new = _ssd_bwd_inputs(rng, case, torch.bfloat16, cuda)
+    for i in (0, 1, 3, 4, 6, 7):                   # x, dt, B, C, dy, dstates
+        other[i] = ins[i].clone()
+        other[i][1:] = new[i][1:]
+    c = ssd_chunk_bwd(*other)
+    for i in (0, 1, 3, 4):
+        assert torch.equal(a[i][0], c[i][0])
+        assert not torch.equal(a[i][1], c[i][1])
+
+
+def test_scan_functions_take_only_the_kernels_on_the_card(cuda, monkeypatch):
+    """RGLRUScan and ssd_scan (through SSDIntraChunk) under autograd on CUDA
+    tensors reach the backward kernels, with the plain backward versions
+    made to raise: no fallback. The raw forward wrappers still refuse a
+    tensor that needs a gradient."""
+    from repro_torch.kernels.rglru_scan import RGLRUScan, rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(rops, "rglru_scan_backward_ref", refuse)
+    monkeypatch.setattr(sops, "ssd_intra_chunk_backward_ref", refuse)
+    rng = np.random.default_rng(17)
+    x_in, log_a, _, dh = _scan_bwd_inputs(rng, (2, 300, 64), "long", cuda)
+    x_in.requires_grad_()
+    log_a.requires_grad_()
+    before = rglru_scan_bwd.launches
+    grads = torch.autograd.grad(RGLRUScan.apply(x_in, log_a), (x_in, log_a), dh)
+    assert rglru_scan_bwd.launches == before + 1
+    assert all(torch.isfinite(g).all() for g in grads)
+    with pytest.raises(RuntimeError, match="RGLRUScan"):
+        rglru_scan(x_in, log_a)
+    x, dt, A, B, C, L, dy, _ = _ssd_bwd_inputs(
+        rng, (2, 256, 8, 64, 2, 128, 128), torch.bfloat16, cuda)
+    leaves = [t.requires_grad_() for t in (x, dt, A, B, C)]
+    before = ssd_chunk_bwd.launches, ssd_scan.launches
+    grads = torch.autograd.grad(ssd_scan(*leaves, chunk=128), leaves, dy.bfloat16())
+    assert ssd_chunk_bwd.launches == before[0] + 1
+    assert ssd_scan.launches == before[1] + 1
+    assert [g.dtype for g in grads] == [t.dtype for t in leaves]
+    assert all(torch.isfinite(g).all() for g in grads)
+    with pytest.raises(RuntimeError, match="SSDIntraChunk"):
+        ssd_intra_chunk(*leaves, 128)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-2.7b"])
+def test_recurrent_train_lflr_equals_clean_on_the_card(cuda, arch):
+    """The smoke recurrent stacks trained on the card: the scans' backward
+    kernels launched once per recurrent layer a step; nan_grad at 3 (skip)
+    and 8 (restore), bit-equal on every leaf to a clean run over the kept
+    batches; one host sync a step."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
+                                  ResilientExecutor)
+    from repro_torch.core.detect import ProbeConfig
+    from repro_torch.core.device_channel import readback
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_reset_opt_fn
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.tree import tree_leaves
+
+    cfg = smoke_config(arch)
+    _, step_fn, state0, pipe, _ = build_train_setup(
+        cfg, batch_size=2, seq_len=16, device=cuda,
+        probe_cfg=ProbeConfig(loss_divergence_threshold=1e3))
+    ex = ResilientExecutor(step_fn, config=ExecutorConfig(good_state_interval=5),
+                           reset_opt_fn=make_reset_opt_fn(cfg))
+    before = readback.count
+    reset_launch_counts()
+    state, log = ex.run(state0, pipe, 12, faults=FaultSchedule(
+        [FaultSpec(step=3, kind="nan_grad"), FaultSpec(step=8, kind="nan_grad")]))
+    counts = launch_counts()
+    assert readback.count == before + 12
+    assert [(e.step, e.action) for e in log.faults()] == [(3, "skip_batch"),
+                                                           (8, "restore_good")]
+    kind, bwd = ("rglru", "rglru_scan_bwd") if arch.startswith("recurrent") else (
+        "ssd", "ssd_chunk_bwd")
+    assert counts[bwd] == 12 * cfg.pattern_layers.count(kind)
+    clean = state0
+    for i in (0, 1, 2, 4, 5, 9, 10, 11):
+        clean, _, word = step_fn(clean, make_batch(pipe.cfg, i, cuda), 0)
+        assert int(word) == 0
+    assert all(a.device.type == "cuda" and torch.equal(a, b)
+               for a, b in zip(tree_leaves(state), tree_leaves(clean)))
+
+
+def test_train_setup_grows_segments_on_the_card(cuda):
+    """On the card, ``build_train_setup`` has the caching allocator grow its
+    segments in place (``grow_segments``), as ``expandable_segments`` does:
+    a tensor allocated after it lies in an expandable segment."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import build_train_setup, grow_segments
+
+    try:
+        build_train_setup(smoke_config("qwen3-1.7b"), batch_size=2, seq_len=16,
+                          device=cuda)
+        x = torch.empty((64 << 20,), dtype=torch.uint8, device=cuda)
+        seg = [s for s in torch.cuda.memory_snapshot()
+               if s["address"] <= x.data_ptr() < s["address"] + s["total_size"]]
+        assert len(seg) == 1 and seg[0]["is_expandable"]
+    finally:
+        grow_segments(False)

@@ -12,7 +12,8 @@ from repro.kernels.fault_probe.kernel import probe_rows as jax_probe_rows
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import sdpa_ref as jax_sdpa_ref
 from repro_torch.kernels import (build, flash_attention, launch_counts,
-                                 probe_rows, rglru_scan, ssd_scan)
+                                 probe_rows, rglru_scan, rglru_scan_bwd,
+                                 ssd_chunk_bwd, ssd_scan)
 from repro_torch.kernels.flash_attention import sdpa_ref
 from repro_torch.kernels.flash_attention.ops import (DECODE_TILE, MAX_SPLITS,
                                                      SPLIT_TARGET, plan)
@@ -219,14 +220,16 @@ def test_kernel_sources_cover_both_kernels():
     library's name."""
     names = sorted(p.name for p in build.sources())
     assert names == ["fault_probe.cu", "flash_decode.cu", "flash_f32.cu",
-                     "flash_forward.cu", "rglru_scan.cu", "ssd_chunk_tc.cu",
-                     "ssd_f32.cu"]
-    for fn in (flash_attention, probe_rows, rglru_scan, ssd_scan):
+                     "flash_forward.cu", "rglru_scan.cu", "rglru_scan_bwd.cu",
+                     "ssd_chunk_bwd.cu", "ssd_chunk_tc.cu", "ssd_f32.cu"]
+    for fn in (flash_attention, probe_rows, rglru_scan, rglru_scan_bwd, ssd_scan,
+               ssd_chunk_bwd):
         assert isinstance(fn.launches, int)
     assert set(launch_counts()) == {"flash_attention", "flash_decode",
                                     "flash_verify", "flash_forward", "flash_f32",
-                                    "probe_rows", "probe_tree", "rglru_scan", "ssd_scan",
-                                    "ssd_chunk_tc", "ssd_f32"}
+                                    "probe_rows", "probe_tree", "rglru_scan",
+                                    "rglru_scan_bwd", "ssd_scan", "ssd_chunk_tc",
+                                    "ssd_f32", "ssd_chunk_bwd"}
     exported = set()
     for src in build.sources():
         exported |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
@@ -248,8 +251,10 @@ def test_launch_signatures_are_64_bit_where_they_index():
     L = ctypes.c_longlong
     assert build.SIGNATURES["repro_probe_rows"][2] is L
     assert build.SIGNATURES["repro_rglru_scan"][4:8] == (L,) * 4  # B, S, W, T
+    assert build.SIGNATURES["repro_rglru_scan_bwd"][7:11] == (L,) * 4
     for name in ("repro_ssd_chunk_tc", "repro_ssd_f32"):
         assert build.SIGNATURES[name][7:9] == (L, L)                  # b, S
+    assert build.SIGNATURES["repro_ssd_chunk_bwd"][13:15] == (L, L)
     # decode: B, T, ..., seq_kv, splits, keys_per_split
     dec = build.SIGNATURES["repro_flash_decode"]
     assert dec[5:7] == (L, L) and dec[12] is L and dec[14] is L

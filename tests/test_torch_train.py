@@ -2,12 +2,18 @@
 config (2 layers, d_model 64, fp32; the reference's own fixture: B 2, S 16):
 batches, fault injections, probe words, the attention gradient, the train
 step, the executor's recovery decisions, LFLR replays and the command line.
+The gradients, the train step's injections, the executor's decisions and
+the LFLR replay also run on the recurrent smoke stacks (``TRAIN_ARCHS``:
+recurrentgemma-2b's RG-LRU and sliding layers, mamba2-2.7b's SSD layers),
+whose gradients go through the scans' backward (``RGLRUScan``,
+``SSDIntraChunk``; their plain versions here).
 
 The JAX side is built once per module (its jitted step compiles once). Words,
 batches, actions and event lists must be equal; numbers are held to
 tolerances stated where they are used: both sides compute in fp32 and
 differ in summation order only.
 """
+import functools
 import importlib.util
 import pathlib
 
@@ -27,7 +33,9 @@ from repro.core import detect as jdetect
 from repro.core import faults as jfaults
 from repro.core.recovery import RecoveryPolicy as JaxPolicy
 from repro.data import pipeline as jpipe
+from repro.core.detect import ProbeConfig as JaxProbeConfig
 from repro.launch.steps import make_reset_opt_fn as jax_reset_fn
+from repro.launch.steps import make_train_step as jax_make_train_step
 from repro.launch.train import build_train_setup as jax_build
 from repro.models.attention import sdpa_chunked
 from repro_torch.checkpoint import Checkpointer
@@ -35,6 +43,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
                               ResilientExecutor)
 from repro_torch.core import detect, faults
+from repro_torch.core.detect import ProbeConfig
 from repro_torch.core.device_channel import readback
 from repro_torch.core.errors import ErrorCode
 from repro_torch.core.recovery import RecoveryPolicy
@@ -62,20 +71,47 @@ LOSS_RTOL = 1e-6
 CPU = torch.device("cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_env():
-    cfg = jax_smoke_config(ARCH)
+# the stacks the gradient, injection, executor and LFLR tests run on: every
+# block kind (attention, RG-LRU with sliding attention, SSD)
+TRAIN_ARCHS = [ARCH, "recurrentgemma-2b", "mamba2-2.7b"]
+# the divergence threshold of both sides' probes: the reference's 50, but
+# for recurrentgemma, whose smoke loss starts above it (~62: the tied
+# embedding scaled by sqrt(d_model)), so that every clean step would read
+# DIVERGENCE; 1e3 stays far below a spiked loss (x 1e6)
+DIVERGENCE = {"recurrentgemma-2b": 1e3}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_env(arch):
+    cfg = jax_smoke_config(arch)
     model, step_fn, state, pipe, opt_cfg = jax_build(
         cfg, batch_size=B, seq_len=S, total_steps=TOTAL)
+    if arch in DIVERGENCE:
+        step_fn = jax.jit(jax_make_train_step(cfg, opt_cfg, JaxProbeConfig(
+            loss_divergence_threshold=DIVERGENCE[arch])))
     return cfg, model, step_fn, state, pipe.cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _env(arch):
+    cfg = smoke_config(arch)
+    _, step_fn, _, pipe, opt_cfg = train_cli.build_train_setup(
+        cfg, batch_size=B, seq_len=S, total_steps=TOTAL, device="cpu",
+        probe_cfg=ProbeConfig(loss_divergence_threshold=DIVERGENCE.get(arch, 50.0)))
+    return cfg, step_fn, pipe.cfg
+
+
+@pytest.fixture(scope="module")
+def jax_env():
+    return _jax_env(ARCH)
 
 
 @pytest.fixture(scope="module")
 def env(jax_env):
-    cfg = smoke_config(ARCH)
-    _, step_fn, _, pipe, opt_cfg = train_cli.build_train_setup(
-        cfg, batch_size=B, seq_len=S, total_steps=TOTAL, device="cpu")
-    return cfg, step_fn, pipe.cfg
+    return _env(ARCH)
+
+
+over_archs = pytest.mark.parametrize("arch", TRAIN_ARCHS)
 
 
 def _port_state(jstate, cfg):
@@ -325,9 +361,10 @@ def test_train_state_bridge_round_trip(jax_env):
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
-def test_loss_and_gradients_match_jax(jax_env, env):
-    jcfg, jmodel, _, jstate, pcfg = jax_env
-    cfg = smoke_config(ARCH)
+@over_archs
+def test_loss_and_gradients_match_jax(arch):
+    jcfg, jmodel, _, jstate, pcfg = _jax_env(arch)
+    cfg = _env(arch)[0]
     batch = _jbatch(pcfg, 0)
     jl, jg = jax.value_and_grad(lambda p: jmodel.loss(p, batch)[0])(jstate["params"])
     state = _port_state(jstate, cfg)
@@ -355,8 +392,10 @@ def _carried(jax_env, n: int):
     return jstate
 
 
+@over_archs
 @pytest.mark.parametrize("inject", INJECTS)
-def test_train_step_matches_jax(jax_env, env, inject):
+def test_train_step_matches_jax(arch, inject):
+    jax_env, env = _jax_env(arch), _env(arch)
     _, _, jstep, _, pcfg = jax_env
     cfg, step_fn, _ = env
     jstate = _carried(jax_env, 6)
@@ -415,10 +454,25 @@ def test_training_leaves_the_model_as_it_was():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step(smoke_config("recurrentgemma-2b"))
+    """microbatch and ce_chunk wait for item 15b; every block kind trains:
+    the recurrent stacks take a clean step whose gradient reaches every
+    leaf, their recurrences' parameters included."""
     with pytest.raises(NotImplementedError, match="15b"):
         make_train_step(smoke_config(ARCH), microbatch=2)
+    with pytest.raises(NotImplementedError, match="15b"):
+        make_train_step(smoke_config(ARCH), ce_chunk=8)
+    for arch, leaf in (("recurrentgemma-2b", "blocks.0.rglru.lam"),
+                       ("mamba2-2.7b", "blocks.0.ssd.A_log")):
+        cfg = smoke_config(arch)
+        _, step_fn, state, pipe, _ = train_cli.build_train_setup(
+            cfg, batch_size=B, seq_len=S, device="cpu",
+            probe_cfg=ProbeConfig(loss_divergence_threshold=1e3))
+        batch = next(pipe)
+        _, metrics, word = step_fn(state, batch, 0)
+        assert int(word) == 0 and np.isfinite(metrics["loss"].item())
+        _, grads, _ = make_loss_and_grads(cfg)(state["params"], batch)
+        assert all(torch.isfinite(g).all() for g in grads.values())
+        assert grads[leaf].abs().max() > 0
 
 
 # ----------------------------------------------------------------- executor
@@ -458,8 +512,10 @@ def _run_both(jax_env, env, steps, plan, tmp_path=None, config=None):
     return (jfinal, jlog), (final, log)
 
 
+@over_archs
 @pytest.mark.parametrize("name", list(SCENARIOS))
-def test_executor_decides_as_jax(jax_env, env, tmp_path, name):
+def test_executor_decides_as_jax(arch, tmp_path, name):
+    jax_env, env = _jax_env(arch), _env(arch)
     steps, plan, ckpt = SCENARIOS[name]
     (jfinal, jlog), (final, log) = _run_both(jax_env, env, steps, plan,
                                              tmp_path if ckpt else None)
@@ -503,13 +559,14 @@ def test_faulted_run_events_are_the_chip_constant(jax_env, env):
     assert _events(log) == want
 
 
-def test_lflr_replay_equals_clean_run_bit_for_bit(jax_env, env):
+@over_archs
+def test_lflr_replay_equals_clean_run_bit_for_bit(arch):
     """nan_grad at 3 (skip) and 8 (restore to the snapshot after step 5):
     the run ends bit-equal, on every leaf, to a clean run over the batches
     its log kept — the chip's run 3, on the CPU."""
     chip = _chip_smoke()
-    _, _, _, jstate, pcfg = jax_env
-    cfg, step_fn, _ = env
+    _, _, _, jstate, pcfg = _jax_env(arch)
+    cfg, step_fn, _ = _env(arch)
     ex = ResilientExecutor(step_fn, policy=RecoveryPolicy(can_shrink=False),
                            config=ExecutorConfig(good_state_interval=chip.TRAIN_GOOD_INTERVAL),
                            reset_opt_fn=make_reset_opt_fn(cfg))
@@ -524,6 +581,20 @@ def test_lflr_replay_equals_clean_run_bit_for_bit(jax_env, env):
         assert int(word) == 0
     assert len(tree_leaves(state)) == len(tree_leaves(clean))
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(state), tree_leaves(clean)))
+
+
+@pytest.mark.parametrize("arch,divergence", [("recurrentgemma-2b", "1000"),
+                                               ("mamba2-2.7b", "50")])
+def test_train_cli_trains_the_recurrent_stacks(tmp_path, capsys, arch, divergence):
+    """The command line trains the RG-LRU and SSD stacks on the CPU: the
+    one injected fault skipped, every other step ok (recurrentgemma's smoke
+    loss, ~62, needs a divergence threshold above the reference's 50)."""
+    rc = train_cli.main(["--device", "cpu", "--arch", arch, "--steps", "8",
+                         "--batch", "2", "--seq", "16", "--inject", "3:nan_grad",
+                         "--divergence", divergence, "--ckpt-dir", str(tmp_path),
+                         "--ckpt-every", "5"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "ok=7 faults=1" in out and "step 3: code=0x2" in out
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
