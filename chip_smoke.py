@@ -184,8 +184,9 @@ seconds since the script started, when the line was printed):
    halved) that must exceed the limit, and again on long-memory log_a,
    where a control in chunk 0 must exceed it after chunk 1; the scan's
    backward (``rglru_scan_bwd``) at that shape and at the train shape (4 x
-   256 x 2560) against its plain reverse loop, a control (one step's log_a
-   halved) outside the limit, two launches bit-equal, the forward's states
+   256 x 2560; one pass, chunks handed on by ticket) against its plain
+   reverse loop, a control (one step's log_a halved) outside the limit, two
+   launches bit-equal, the forward's states
    it reads held to the plain scan at both shapes, and on long-memory
    log_a with a control in the last chunk that must exceed the limit over
    the chunks before the last two; flash decode
@@ -223,11 +224,12 @@ seconds since the script started, when the line was printed):
    fewer steps than the chunk (bf16: the tensor-core route), and at the
    prefill shape in fp32 (the ``ssd_f32`` route), and at the train shape
    (4 x 256, nc 2), each with a control that must exceed the limit (one
-   step's dt changed); the SSD backward
-   (``ssd_chunk_bwd``, bf16 inputs) at the prefill and the train shapes
-   against autograd through the plain intra-chunk function, with its
-   control and two launches bit-equal; and the probe over the
-   full ``ssm`` state;
+   step's dt changed); the SSD backward (``ssd_chunk_bwd``) at the
+   prefill and the train shapes in bf16 (``ssd_chunk_bwd_tc``, the tensor
+   cores) and at the train shape in fp32 (``ssd_chunk_bwd_f32``), each row
+   naming the route ``plan_bwd`` picked, against autograd through the plain
+   intra-chunk function, with its control and two launches bit-equal; and
+   the probe over the full ``ssm`` state;
 18. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
    seeded random weights), the recurrentgemma model freed first, on the
    first 6 of the 16 requests (cut to 8 when the paged phases came and to
@@ -239,7 +241,7 @@ seconds since the script started, when the line was printed):
 20a. train_ssm — phase 16a for mamba2-2.7b cut to ``TRAIN_SSM_LAYERS`` (40
    of 64 layers, 1.73 G parameters; no attention, so the probes' checks
    alone, ``probe_tree`` over its 482 leaves): per step the SSD
-   tensor-core kernel and its backward 40 times each and one
+   tensor-core kernel and its tensor-core backward 40 times each and one
    ``probe_tree``;
 21. kernels_g3 — flash and the probe at gemma3-1b's shapes (4/1 heads of
    256): decode over the full cache and over the 512-entry ring, wrapped,
@@ -655,15 +657,14 @@ def phase_device(torch) -> str:
 
 
 PTXAS_SOURCES = ("flash_decode.cu", "flash_forward.cu", "ssd_chunk_tc.cu",
-                 "ssd_chunk_bwd.cu", "rglru_scan.cu", "rglru_scan_bwd.cu",
-                 "fault_probe.cu")      # reported by ptxas
+                 "ssd_chunk_bwd_tc.cu", "ssd_chunk_bwd.cu", "rglru_scan.cu",
+                 "rglru_scan_bwd.cu", "fault_probe.cu")      # reported by ptxas
 
 
 def ptxas_report(log: str) -> list:
     """Each kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
     head_dim (flash's template argument; for flash_decode also whether it is
-    the verify's instantiation; the probe's table type; the SSD backward's
-    element type), registers, static
+    the verify's instantiation; the probe's table type), registers, static
     shared memory,
     stack and spills (the flash and SSD kernels' shared memory is dynamic:
     see their sources)."""
@@ -683,9 +684,6 @@ def ptxas_report(log: str) -> list:
             hd = re.match(r"ILi(\d+)E(?:Lb([01])E)?", mangled[i:])
             cur = {"kernel": names[-1] if names else mangled,
                    "head_dim": int(hd.group(1)) if hd else None}
-            elem = re.match(r"I(f|13__nv_bfloat16)E", mangled[i:])  # ssd_bwd_*<T>
-            if elem:
-                cur["dtype"] = "fp32" if elem.group(1) == "f" else "bf16"
             table = re.match(r"IN?S_(\d+)", mangled[i:])  # probe_kernel<RowTable>
             if table:
                 cur["template"] = mangled[i + table.end():
@@ -2422,6 +2420,7 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     from repro_torch.weights import train_params
 
     from repro_torch.kernels.ssd_scan.ops import plan as ssd_plan
+    from repro_torch.kernels.ssd_scan.ops import plan_bwd as ssd_plan_bwd
 
     t_parts = {"start": time.perf_counter()}
     cfg = model.cfg
@@ -2500,6 +2499,7 @@ def phase_train(torch, card: str, model, name: str = "train", *,
                     probe_tree=TRAIN_STEPS * math.ceil(n_leaves / MAX_LEAVES))
     if n_ssd:
         expected[ssd_plan(model.dtype)] = TRAIN_STEPS * n_ssd
+        expected[ssd_plan_bwd(model.dtype)] = TRAIN_STEPS * n_ssd
     ok = [e.step for e in log.events if e.kind == "ok"]
     if (ok != list(range(TRAIN_STEPS)) or int(readback(state["step"])) != TRAIN_STEPS
             or syncs != TRAIN_STEPS or torch_syncs != TRAIN_STEPS
@@ -3141,9 +3141,10 @@ def phase_kernels_rg(torch, card: str) -> dict:
             "tol": "{} of the largest |want| + {} rel".format(*SCAN_BWD_TOL),
             "err_over_tol": excess, "one_log_a_halved_over_tol": control,
             "repeats_bit_for_bit": repeat, "chunk": T, "chunks": -(-s // T),
-            # three launches: chunk aggregates, carries, re-scan; log_a and
-            # dh read twice: 32 bytes per element against the bound's 24
-            "design_bytes_ms": 32 * b * s * W / PEAK_BYTES_PER_S * 1e3,
+            # one launch: each input read once and each output written
+            # once, the bound's 24 bytes an element (plus one h row a
+            # chunk and the carries' 8 bytes a chunk and channel)
+            "design_bytes_ms": 24 * b * s * W / PEAK_BYTES_PER_S * 1e3,
             "timing_copies": len(ins),
             "kernel_ms": time_ms(torch, rglru_scan_bwd, ins),
             "plain_ms": time_ms(torch, rglru_scan_backward_ref, ins, launches=4,
@@ -3172,6 +3173,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
         "kernel": "rglru_scan_bwd",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
         "shape": f"x_in, log_a, h, dh {B}x{S}x{W} fp32, a^8 in [0.9, 0.999]",
+        "design_bytes_ms": 24 * B * S * W / PEAK_BYTES_PER_S * 1e3,
         "max_abs_err": long_err, "err_over_tol": long_excess,
         "last_chunk_log_a_changed_over_tol_before_the_last_two": long_control}
     del ins, got, want, bad
@@ -3460,7 +3462,7 @@ def phase_kernels_ssm(torch, card: str) -> dict:
     from repro_torch.kernels.ssd_scan import (ssd_chunk_bwd, ssd_intra_chunk,
                                               ssd_intra_chunk_backward_ref,
                                               ssd_intra_chunk_ref, ssd_scan_ref)
-    from repro_torch.kernels.ssd_scan.ops import plan
+    from repro_torch.kernels.ssd_scan.ops import plan, plan_bwd
 
     cfg = get_config("mamba2-2.7b")
     dev = torch.device("cuda")
@@ -3551,23 +3553,31 @@ def phase_kernels_ssm(torch, card: str) -> dict:
             out[name]["fp32_core_bound_ms"] = flops / PEAK_FP32_FLOPS * 1e3
         del ins
         torch.cuda.empty_cache()
-    # -- the backward (training) at the prefill shape and the train shape,
-    #    x, B, C in bf16 as the model's; normal gradients of y_diag and the
-    #    chunk states
-    def bwd_inputs(shape):
+    # -- the backward (training): x, B, C in bf16 as the model's (the
+    #    tensor-core route) at the prefill and the train shapes, and in fp32
+    #    (the CUDA-core route) at the train shape; normal gradients of
+    #    y_diag and the chunk states
+    def bwd_inputs(shape, dtype):
         b_, s_, h_, p_, g_, n_ = shape
         L_ = min(L, s_)
-        return (*inputs(*shape), L_, f32(b_, s_, h_, p_), f32(b_, s_ // L_, h_, p_, n_))
+        return (*inputs(*shape, dtype), L_, f32(b_, s_, h_, p_), f32(b_, s_ // L_, h_, p_, n_))
 
     def bwd_excess(got, want):
         return max(scaled_excess(g_, w_, SSD_TOL) for g_, w_ in zip(got, want))
 
-    for name, shape in (("ssd_chunk_bwd", (b, s, h, p, g, n)),
-                        ("ssd_chunk_bwd_train", (TRAIN_B, TRAIN_S, h, p, g, n))):
+    train_shape = (TRAIN_B, TRAIN_S, h, p, g, n)
+    for name, shape, dtype in (("ssd_chunk_bwd", shape, torch.bfloat16),
+                               ("ssd_chunk_bwd_train", train_shape, torch.bfloat16),
+                               ("ssd_chunk_bwd_f32", train_shape, torch.float32)):
         b_, s_ = shape[:2]
         nc_ = s_ // min(L, s_)
-        ins = bwd_inputs(shape)
+        bf16 = dtype == torch.bfloat16
+        ins = bwd_inputs(shape, dtype)
+        before = dict(ssd_chunk_bwd.kernel_launches)
         got = ssd_chunk_bwd(*ins)
+        moved = [k for k, v in ssd_chunk_bwd.kernel_launches.items() if v != before[k]]
+        if moved != [plan_bwd(dtype)]:
+            fail(f"{name}: ssd_chunk_bwd launched {moved}, not {plan_bwd(dtype)}")
         want = ssd_intra_chunk_backward_ref(*ins)
         err = max((g_ - w_).abs().max().item() for g_, w_ in zip(got, want))
         excess = bwd_excess(got, want)
@@ -3582,19 +3592,22 @@ def phase_kernels_ssm(torch, card: str) -> dict:
         del ins, got, want, bad
         # the least work: C B^T once per group and the causal half of each
         # L x L product, and the two L x P x N products of the state's
-        # gradient; bytes: x, B, C bf16, dt, A, dy_diag, dstates read, the
-        # five gradients (dB, dC per group) written in fp32
+        # gradient; bytes: x, B, C, dt, A, dy_diag, dstates read, the five
+        # gradients (dB, dC per group) written in fp32
+        e = 2 if bf16 else 4                   # x, B, C element
         bflops = b_ * nc_ * (g * n * L * (L + 1) + h * (2 * p * L * (L + 1)
                                                       + 2 * n * L * (L + 1) + 4 * L * p * n))
-        nbytes = (b_ * s_ * h * p * (2 + 4 + 4) + b_ * s_ * h * 8 + 2 * h * 4
-                  + b_ * s_ * g * n * (2 + 2 + 4 + 4) + b_ * nc_ * h * p * n * 4)
-        b_ms, b_by = bound(nbytes, bflops, PEAK_FP32_FLOPS)
-        ins = copies(lambda: bwd_inputs(shape),
-                     b_ * s_ * h * p * 6 + b_ * nc_ * h * p * n * 4)
+        nbytes = (b_ * s_ * h * p * (e + 4 + 4) + b_ * s_ * h * 8 + 2 * h * 4
+                  + b_ * s_ * g * n * (e + e + 4 + 4) + b_ * nc_ * h * p * n * 4)
+        b_ms, b_by = bound(nbytes, bflops, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+        ins = copies(lambda: bwd_inputs(shape, dtype),
+                     b_ * s_ * h * p * (e + 4) + b_ * nc_ * h * p * n * 4)
+        tname = "bf16" if bf16 else "fp32"
         out[name] = {
-            "kernel": "ssd_chunk_bwd", "source": f"{SSD_CSRC}/ssd_chunk_bwd.cu",
-            "shape": f"x {b_}x{s_}x{h}x{p} bf16, dt {b_}x{s_}x{h} fp32, B, C "
-                     f"{b_}x{s_}x{g}x{n} bf16, chunk {L}; dy_diag fp32, dstates "
+            "kernel": moved[0],
+            "source": f"{SSD_CSRC}/{'ssd_chunk_bwd_tc' if bf16 else 'ssd_chunk_bwd'}.cu",
+            "shape": f"x {b_}x{s_}x{h}x{p} {tname}, dt {b_}x{s_}x{h} fp32, B, C "
+                     f"{b_}x{s_}x{g}x{n} {tname}, chunk {L}; dy_diag fp32, dstates "
                      f"{b_}x{nc_}x{h}x{p}x{n} fp32",
             "tol": "{} of the largest |want| + {} rel, each gradient".format(*SSD_TOL),
             "max_abs_err": err, "err_over_tol": excess,
@@ -3605,9 +3618,13 @@ def phase_kernels_ssm(torch, card: str) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bound_counts": "operations: C B^T once per group, the causal half of "
                             "each L x L product, the state gradient's two L x P x N "
-                            "products, at the fp32 CUDA-core peak; bytes: x, B, C "
-                            "bf16, dt, A, dy_diag, dstates read, the gradients "
-                            "(dB, dC per group) written in fp32"}
+                            "products, at the "
+                            + ("bf16 tensor-core" if bf16 else "fp32 CUDA-core")
+                            + f" peak; bytes: x, B, C {tname}, dt, A, dy_diag, dstates "
+                            "read, the gradients (dB, dC per group) written in fp32"}
+        if bf16:
+            # the same least work on the CUDA cores, as the fp32 route bounds it
+            out[name]["fp32_core_bound_ms"] = bflops / PEAK_FP32_FLOPS * 1e3
         del ins
         torch.cuda.empty_cache()
 
@@ -4474,9 +4491,11 @@ def main() -> None:
              "ssd_scan_train": kern_ssm["ssd_scan_train"],
              "ssd_f32": kern_ssm["ssd_f32"],
              "ssd_chunk_bwd": kern_ssm["ssd_chunk_bwd"],
-             "ssd_chunk_bwd_train": kern_ssm["ssd_chunk_bwd_train"]},
-            launches_by_kernel={k: by_path(k) for k in ("ssd_chunk_tc", "ssd_f32",
-                                                        "ssd_chunk_bwd")}),
+             "ssd_chunk_bwd_train": kern_ssm["ssd_chunk_bwd_train"],
+             "ssd_chunk_bwd_f32": kern_ssm["ssd_chunk_bwd_f32"]},
+            launches_by_kernel={k: by_path(k) for k in (
+                "ssd_chunk_tc", "ssd_f32", "ssd_chunk_bwd", "ssd_chunk_bwd_tc",
+                "ssd_chunk_bwd_f32")}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_UL, _U = ctypes.c_ulonglong, ctypes.c_uint
 # C signature of each exported launcher; every one returns cudaGetLastError()
 SIGNATURES = {
     # q, k, v, q_offset, out, B, T, Hq, Hkv, D, causal, window, seq_kv,
@@ -60,17 +61,21 @@ SIGNATURES = {
     "repro_probe_tree": (_P, _P, _P, _P, _I, _F, _I, _I, _P, _I, _P),
     # x_in, log_a, h_out, agg (scratch), B, S, W, T (chunk), stream
     "repro_rglru_scan": (_P, _P, _P, _P, _L, _L, _L, _L, _P),
-    # x_in, log_a, h, dh, dx_in, dlog_a, agg (scratch), B, S, W, T, stream
-    "repro_rglru_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P),
+    # x_in, log_a, h, dh, dx_in, dlog_a, the hand-off scratch, B, S, W, T,
+    # the ticket base, the epoch, stream
+    "repro_rglru_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _UL,
+                             _U, _P),
     # x, dt, A, B, C, y, states, b, S, H, P, G, N, L, stream
     "repro_ssd_chunk_tc": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                            _I, _P),
     "repro_ssd_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
                       _P),
     # x, dt, A, B, C, dy_diag, dstates, dx, ddt, dA (per batch, chunk and
-    # head), dB, dC (per head), dtype, b, S, H, P, G, N, L, stream
-    "repro_ssd_chunk_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _L, _L, _I, _I, _I, _I, _I, _P),
+    # head), dB, dC (per head), b, S, H, P, G, N, L, stream
+    "repro_ssd_chunk_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _L, _L, _I, _I, _I, _I, _I, _P),
+    "repro_ssd_chunk_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _L, _L, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

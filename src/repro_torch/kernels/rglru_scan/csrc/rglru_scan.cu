@@ -30,6 +30,13 @@
 // sequence and in any extension of it. With one chunk (S <= T) only the
 // third launch runs.
 //
+// 1 - a^2 is formed from a rounded square (__fmul_rn), as the plain version
+// forms it: near a = 1 the difference cancels, and the fused multiply-add
+// the compiler would make of it moved h on long memory (a^8 in [0.9,
+// 0.999]) by 0.19 of the card's limit against the plain version, where the
+// rounded square leaves 0.018, the chunked carry's association
+// (tests/test_torch_rglru_error.py).
+//
 // Loads: a warp's 32 lanes are 32 neighbouring channels at one t (one
 // 128-byte line), and they do not depend on h, so they are issued kAhead
 // steps at a time, one group ahead of the group being computed.
@@ -78,7 +85,7 @@ __device__ __forceinline__ float scan_steps(const float* __restrict__ xp,
     for (int j = 0; j < kAhead; ++j) {
       if (t + j >= t1) break;
       const float a = expf(cur.la[j]);
-      const float xg = sqrtf(fmaxf(1.f - a * a, 1e-12f)) * cur.x[j];
+      const float xg = sqrtf(fmaxf(1.f - __fmul_rn(a, a), 1e-12f)) * cur.x[j];
       h = a * h + xg;
       if (op) op[(t + j) * W] = h;
       if (prod) *prod *= a;

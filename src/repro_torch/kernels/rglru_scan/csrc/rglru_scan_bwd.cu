@@ -1,5 +1,5 @@
 // Backward of the RG-LRU linear recurrence for Hopper (sm_90a), chunked over
-// time. Plain C interface.
+// time, in one pass. Plain C interface.
 //
 // The gradient of repro/models/rglru.py:82 rglru_scan_assoc (what jax.grad
 // differentiates in the JAX package's training step), computed through the
@@ -18,23 +18,39 @@
 //   dlog_a_t = da_t a_t,
 // and writes dx_in and dlog_a as fp32 (B, S, W).
 //
-// The forward's three-launch chunked design, run backwards in time. The
-// adjoint carried from the steps after a chunk into it is g = a_t delta_t of
-// the chunk's successor's first step, and a chunk maps its carry-in c to
-// its carry-out as c -> (prod_t a_t) c + e. So, over nc = ceil(S / T)
-// chunks of T steps (ops.py::CHUNK, 128):
-//   1. rglru_bwd_chunk_kernel, chunks 1 .. nc - 1: the chunk's reverse scan
-//      from a zero carry, writing its decay product and its carry-out e to
-//      scratch (2, B, nc - 1, W) (chunk 0's carry-out is never needed);
-//   2. rglru_bwd_carry_kernel, one thread per (batch, channel): fold the
-//      aggregates from the last chunk back, c = prod_k c + e_k, writing each
-//      chunk's carry-in over the slot of its successor's e;
-//   3. rglru_bwd_scan_kernel, every chunk: the reverse scan from its
-//      carry-in (0 for the last chunk), writing dx_in and dlog_a.
-// The carries fold in a fixed order (no look-back, no atomics) and every
-// thread walks its steps in one order, so a launch repeats bit for bit and
-// a batch row's gradient depends only on that row's inputs: an LFLR replay
-// is bit-exact. With one chunk (S <= T) only the third launch runs.
+// Chunks of T steps (ops.py::CHUNK, 128, whatever S is). The adjoint
+// carried into a stretch of steps from the steps after it is g = a_t
+// delta_t of the next step, and a stretch maps its carry-in c to its
+// carry-out as c -> (prod_t a_t) c + e. One block of four warps per (chunk,
+// batch row, 32 channels), warp w on the chunk's steps 32 w .. 32 w + 31:
+//   1. each warp stages its steps of log_a and dh, then of x_in and
+//      h_{t-1}, into shared memory by cp.async (each input read once: 24
+//      bytes an element with the writes, the bound's count);
+//   2. each warp scans its steps back in time from a zero carry: its decay
+//      product prod_w and carry-out e_w (a_t kept in shared memory);
+//   3. warp 0 waits for the chunk's carry-in c, which the block of chunk
+//      k + 1 publishes (0 for the last chunk), folds c_w = c, then
+//      c = fmaf(prod_w, c, e_w) from the last warp to the first -- the
+//      fold rglru_scan.cu's carry launch makes forwards -- and publishes
+//      the result, chunk k - 1's carry-in;
+//   4. each warp re-scans its steps from c_w out of shared memory, writing
+//      dx_in and dlog_a.
+// Four warps a block, 64 KB of shared memory: three blocks, twelve warps,
+// on an SM, where one warp a chunk would leave three to run the
+// step-by-step chain.
+// Blocks take chunks from the last to the first by a ticket: an atomic
+// counter decides only which block takes which (chunk, row, channels), and
+// no value is summed by an atomic. A block waits only on the block of the
+// chunk after its own, whose ticket is smaller: that block took its ticket,
+// so it runs or has run, and it waits on nothing later. So the wait cannot
+// deadlock, whatever the card keeps resident. Each carry is one 64-bit word
+// of the wrapper's scratch, the call's epoch in its high half and the value
+// in its low half, so a word of an earlier call never reads as this one's
+// and the scratch needs no reset launch; the counter's base (the tickets of
+// earlier calls) comes from the wrapper too. The carries fold in a fixed
+// order and every thread walks its steps in one order, so a launch repeats
+// bit for bit, and a batch row's gradient depends only on that row's
+// inputs: an LFLR replay is bit-exact.
 //
 // 1 - a^2 is formed from a rounded square (__fmul_rn), as the plain version
 // forms it: near a = 1 the difference cancels, and a fused multiply-add
@@ -42,176 +58,189 @@
 //
 // Bound on the H100: the function reads 16 bytes per element (x_in, log_a,
 // h, dh) and writes 8 (dx_in, dlog_a), about twenty operations each --
-// memory-bound, 24 B S W bytes at 3.35 TB/s. This design reads log_a and dh
-// twice: 32 bytes per element, plus the aggregates (about 2/T of that).
+// memory-bound, 24 B S W bytes at 3.35 TB/s; this design moves that, plus
+// one h row per chunk and the carries (8 bytes per chunk and channel).
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // channels per block
-constexpr int kAhead = 8;      // time steps per load group
+constexpr int kLanes = 32;         // channels per block
+constexpr int kWarps = 4;          // stretches of a chunk, one per warp
+constexpr int kT = 128;            // the chunk (ops.py::CHUNK)
+constexpr int kSub = kT / kWarps;  // a warp's steps
 
-struct Group {
-  float la[kAhead];
-  float dh[kAhead];
-  float x[kAhead];   // the third launch only
-  float hp[kAhead];  // h_{t-1}, the third launch only
+struct Smem {
+  float a[kT][kLanes];             // log_a, then a = exp(log_a)
+  float dh[kT][kLanes];
+  float x[kT][kLanes];             // x_in
+  float hp[kT][kLanes];            // h_{t-1}
+  float prod[kWarps][kLanes];      // each stretch's decay product,
+  float e[kWarps][kLanes];         // carry-out from a zero carry-in,
+  float cin[kWarps][kLanes];       // and carry-in
+  unsigned long long ticket;
 };
 
-// steps t, t - 1, ..., t - kAhead + 1 of one channel (pointers at its t = 0),
-// zeros below lo
-template <bool kFull>
-__device__ __forceinline__ void load_back(const float* __restrict__ xp,
-                                          const float* __restrict__ ap,
-                                          const float* __restrict__ hp,
-                                          const float* __restrict__ gp, long long t,
-                                          long long lo, long long W, Group& g) {
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j) {
-    const long long u = t - j;
-    const bool in = u >= lo;
-    g.la[j] = in ? __ldg(ap + u * W) : 0.f;
-    g.dh[j] = in ? __ldg(gp + u * W) : 0.f;
-    if (kFull) {
-      g.x[j] = in ? __ldg(xp + u * W) : 0.f;
-      g.hp[j] = in && u > 0 ? __ldg(hp + (u - 1) * W) : 0.f;
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+// rows [j0, j1) of one (B, S, W) input (src at the block's (b, t0, first
+// channel)) into dst's rows; rows whose step t0 + j - shift is below 0 and
+// channels past W are zeros. vec: 16-byte copies (W % 4 == 0, aligned)
+__device__ __forceinline__ void stage(float (*dst)[kLanes], const float* src, int j0, int j1,
+                                      long long W, long long ch0, long long t0, int shift,
+                                      bool vec, int lane) {
+  if (vec) {
+    for (int e = lane; e < (j1 - j0) * 8; e += kLanes) {
+      const int j = j0 + e / 8, q = 4 * (e % 8);
+      const bool ok = ch0 + q < W && t0 + j - shift >= 0;
+      cp_async(&dst[j][q], ok ? src + (j - shift) * W + q : src, 16, ok);
+    }
+  } else {
+    for (int j = j0; j < j1; ++j) {
+      const bool ok = ch0 + lane < W && t0 + j - shift >= 0;
+      cp_async(&dst[j][lane], ok ? src + (j - shift) * W + lane : src, 4, ok);
     }
   }
 }
 
-// the adjoint through steps [t0, t1) of one channel, walking back from
-// t1 - 1 with carry-in g (a_{t1} delta_{t1}); returns the carry-out
-// a_{t0} delta_{t0}. kFull: also write dx_in and dlog_a (dxp, dlp at the
-// channel's t = 0); else multiply each a_t into *prod.
-template <bool kFull>
-__device__ __forceinline__ float adjoint_steps(const float* __restrict__ xp,
-                                               const float* __restrict__ ap,
-                                               const float* __restrict__ hp,
-                                               const float* __restrict__ gp,
-                                               float* __restrict__ dxp,
-                                               float* __restrict__ dlp, long long t0,
-                                               long long t1, long long W, float g,
-                                               float* prod) {
-  Group cur, nxt;
-  load_back<kFull>(xp, ap, hp, gp, t1 - 1, t0, W, cur);
-  for (long long t = t1 - 1; t >= t0; t -= kAhead) {
-    load_back<kFull>(xp, ap, hp, gp, t - kAhead, t0, W, nxt);   // zeros past t0
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const long long u = t - j;
-      if (u < t0) break;
-      const float a = expf(cur.la[j]);
-      const float d = cur.dh[j] + g;
-      if (kFull) {
-        const float om = 1.f - __fmul_rn(a, a);
-        const float s = sqrtf(fmaxf(om, 1e-12f));
-        const float ds = om > 1e-12f ? -a / s : 0.f;            // d s / d a
-        const float da = d * cur.hp[j] + (d * cur.x[j]) * ds;
-        dxp[u * W] = d * s;
-        dlp[u * W] = da * a;
-      } else {
-        *prod *= a;
-      }
-      g = a * d;
-    }
-    cur = nxt;
+__global__ void __launch_bounds__(kLanes * kWarps)
+rglru_bwd_kernel(const float* __restrict__ x_in, const float* __restrict__ log_a,
+                 const float* __restrict__ h, const float* __restrict__ dh,
+                 float* __restrict__ dx_in, float* __restrict__ dlog_a,
+                 unsigned long long* __restrict__ hand, long long B, long long S, long long W,
+                 unsigned long long base, unsigned epoch, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  // the ticket: chunks from the last to the first, each over every (batch
+  // row, 32 channels)
+  if (threadIdx.x == 0) sm.ticket = atomicAdd(hand, 1ULL) - base;
+  __syncthreads();
+  const long long ticket = static_cast<long long>(sm.ticket);
+  const long long nc = (S + kT - 1) / kT, wb = (W + kLanes - 1) / kLanes;
+  const long long k = nc - 1 - ticket / (B * wb), rest = ticket % (B * wb);
+  const long long b = rest / wb, ch0 = (rest % wb) * kLanes, c = ch0 + lane;
+  const bool valid = c < W;
+  const long long t0 = k * kT;
+  const int n = static_cast<int>(min(S, t0 + kT) - t0);
+  const int j0 = min(n, warp * kSub), j1 = min(n, j0 + kSub);   // the warp's steps
+  const long long at = b * S * W + t0 * W + ch0;    // (b, t0, the block's channels)
+
+  // ---- 1. stage: log_a and dh (group 0), x_in and h_{t-1} (group 1)
+  stage(sm.a, log_a + at, j0, j1, W, ch0, t0, 0, vec, lane);
+  stage(sm.dh, dh + at, j0, j1, W, ch0, t0, 0, vec, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage(sm.x, x_in + at, j0, j1, W, ch0, t0, 0, vec, lane);
+  stage(sm.hp, h + at, j0, j1, W, ch0, t0, 1, vec, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncwarp();
+
+  // ---- 2. the warp's steps from a zero carry: prod and e
+  float prod = 1.f, g = 0.f;
+#pragma unroll 8
+  for (int j = j1 - 1; j >= j0; --j) {
+    const float a = expf(sm.a[j][lane]);
+    sm.a[j][lane] = a;
+    const float d = sm.dh[j][lane] + g;
+    prod *= a;
+    g = a * d;
   }
-  return g;
-}
+  sm.prod[warp][lane] = prod;
+  sm.e[warp][lane] = g;
+  __syncthreads();
 
-__global__ void __launch_bounds__(kThreads)
-rglru_bwd_chunk_kernel(const float* __restrict__ log_a, const float* __restrict__ dh,
-                       float* __restrict__ agg, long long B, long long S, long long W,
-                       long long T) {
-  const long long c = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= W) return;
-  const long long m = blockIdx.y, k = m + 1, b = blockIdx.z, nc1 = gridDim.y;
-  const long long base = b * S * W + c;
-  float prod = 1.f;
-  const float e = adjoint_steps<false>(nullptr, log_a + base, nullptr, dh + base, nullptr,
-                                       nullptr, k * T, min(S, (k + 1) * T), W, 0.f, &prod);
-  const long long o = (b * nc1 + m) * W + c;
-  agg[o] = prod;
-  agg[B * nc1 * W + o] = e;
-}
-
-// over the aggregates of chunks nc - 1 .. 1 (slot m holds chunk m + 1's):
-// c := prod_{m+1} c + e_{m+1}, written over e's slot m -- the carry-in of
-// chunk m
-__global__ void __launch_bounds__(kThreads)
-rglru_bwd_carry_kernel(float* __restrict__ agg, long long B, long long W, long long nc1) {
-  const long long c = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= W) return;
-  const long long b = blockIdx.y;
-  const float* prod = agg + b * nc1 * W + c;
-  float* end = agg + (B + b) * nc1 * W + c;
-  float g = 0.f;
-  for (long long m0 = nc1 - 1; m0 >= 0; m0 -= kAhead) {
-    float p[kAhead], e[kAhead];
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const bool in = m0 - j >= 0;
-      p[j] = in ? prod[(m0 - j) * W] : 0.f;
-      e[j] = in ? end[(m0 - j) * W] : 0.f;
+  // ---- 3. the hand-off (warp 0): the chunk's carry-in, each stretch's,
+  //      then chunk k - 1's
+  if (warp == 0 && valid) {
+    unsigned long long* slot = hand + 1 + (b * nc + k) * W + c;   // chunk k's carry-in
+    float cin = 0.f;
+    if (k + 1 < nc) {
+      unsigned long long v;
+      do {
+        v = load_word(slot);
+      } while (static_cast<unsigned>(v >> 32) != epoch);
+      cin = __uint_as_float(static_cast<unsigned>(v));
     }
 #pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      if (m0 - j < 0) break;
-      g = fmaf(p[j], g, e[j]);
-      end[(m0 - j) * W] = g;
+    for (int w = kWarps - 1; w >= 0; --w) {
+      sm.cin[w][lane] = cin;
+      cin = fmaf(sm.prod[w][lane], cin, sm.e[w][lane]);
     }
+    if (k > 0)
+      store_word(slot - W, (static_cast<unsigned long long>(epoch) << 32) | __float_as_uint(cin));
   }
-}
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
 
-__global__ void __launch_bounds__(kThreads)
-rglru_bwd_scan_kernel(const float* __restrict__ x_in, const float* __restrict__ log_a,
-                      const float* __restrict__ h, const float* __restrict__ dh,
-                      const float* __restrict__ agg, float* __restrict__ dx_in,
-                      float* __restrict__ dlog_a, long long B, long long S, long long W,
-                      long long T) {
-  const long long c = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= W) return;
-  const long long k = blockIdx.y, b = blockIdx.z, nc1 = gridDim.y - 1;
-  // carry-in: a delta of the next chunk's first step (0 after the last)
-  const float g = k < nc1 ? agg[(B + b) * nc1 * W + k * W + c] : 0.f;
-  const long long base = b * S * W + c;
-  adjoint_steps<true>(x_in + base, log_a + base, h + base, dh + base, dx_in + base,
-                      dlog_a + base, k * T, min(S, (k + 1) * T), W, g, nullptr);
+  // ---- 4. the re-scan from the warp's carry-in
+  if (!valid) return;
+  g = sm.cin[warp][lane];
+  float* dxp = dx_in + at + lane;
+  float* dlp = dlog_a + at + lane;
+#pragma unroll 8
+  for (int j = j1 - 1; j >= j0; --j) {
+    const float a = sm.a[j][lane];
+    const float d = sm.dh[j][lane] + g;
+    const float om = 1.f - __fmul_rn(a, a);
+    const float s = sqrtf(fmaxf(om, 1e-12f));
+    const float ds = om > 1e-12f ? -a / s : 0.f;            // d s / d a
+    const float da = d * sm.hp[j][lane] + (d * sm.x[j][lane]) * ds;
+    dxp[j * W] = d * s;
+    dlp[j * W] = da * a;
+    g = a * d;
+  }
 }
 
 }  // namespace
 
 // x_in, log_a, h, dh, dx_in, dlog_a: contiguous fp32 (B, S, W) on one
-// device; agg: fp32 scratch of 2 B (nc - 1) W values, nc = ceil(S / T)
-// (unused when nc is 1). The Python wrapper has checked shapes, types,
-// devices and contiguity.
+// device; hand: the wrapper's scratch of 1 + B nc W 64-bit words, nc =
+// ceil(S / T) (word 0 the ticket counter, at `base` before this call; the
+// rest carries, none of them holding `epoch`). The Python wrapper has
+// checked shapes, types, devices and contiguity; T must be the kernel's
+// chunk, 128.
 extern "C" int repro_rglru_scan_bwd(const void* x_in, const void* log_a, const void* h,
-                                    const void* dh, void* dx_in, void* dlog_a, void* agg,
+                                    const void* dh, void* dx_in, void* dlog_a, void* hand,
                                     long long B, long long S, long long W, long long T,
-                                    void* stream) {
-  if (B < 1 || S < 1 || W < 1 || T < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nc = (S + T - 1) / T;
-  if (nc > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned wb = static_cast<unsigned>((W + kThreads - 1) / kThreads);
-  const float* la = static_cast<const float*>(log_a);
-  const float* g = static_cast<const float*>(dh);
-  float* sc = static_cast<float*>(agg);
-  if (nc > 1) {
-    rglru_bwd_chunk_kernel<<<dim3(wb, static_cast<unsigned>(nc - 1),
-                                  static_cast<unsigned>(B)), kThreads, 0, st>>>(
-        la, g, sc, B, S, W, T);
-    cudaError_t err = cudaGetLastError();
+                                    unsigned long long base, unsigned epoch, void* stream) {
+  if (B < 1 || S < 1 || W < 1 || T != kT || epoch == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (S + kT - 1) / kT * B * ((W + kLanes - 1) / kLanes);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rglru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(Smem)));
     if (err != cudaSuccess) return static_cast<int>(err);
-    rglru_bwd_carry_kernel<<<dim3(wb, static_cast<unsigned>(B)), kThreads, 0, st>>>(
-        sc, B, W, nc - 1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
   }
-  rglru_bwd_scan_kernel<<<dim3(wb, static_cast<unsigned>(nc), static_cast<unsigned>(B)),
-                          kThreads, 0, st>>>(
-      static_cast<const float*>(x_in), la, static_cast<const float*>(h), g, sc,
-      static_cast<float*>(dx_in), static_cast<float*>(dlog_a), B, S, W, T);
+  const auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const bool vec = W % 4 == 0 && aligned(x_in) && aligned(log_a) && aligned(h) && aligned(dh);
+  rglru_bwd_kernel<<<static_cast<unsigned>(blocks), kLanes * kWarps, sizeof(Smem),
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x_in), static_cast<const float*>(log_a),
+      static_cast<const float*>(h), static_cast<const float*>(dh),
+      static_cast<float*>(dx_in), static_cast<float*>(dlog_a),
+      static_cast<unsigned long long*>(hand), B, S, W, base, epoch, vec);
   return static_cast<int>(cudaGetLastError());
 }

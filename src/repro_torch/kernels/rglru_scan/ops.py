@@ -1,12 +1,15 @@
 """Wrappers of the RG-LRU scan kernels, chunked over time in chunks of
 ``CHUNK`` steps: the forward (``csrc/rglru_scan.cu``), its backward
-(``csrc/rglru_scan_bwd.cu``) and :class:`RGLRUScan`, the two as one
-autograd Function.
+(``csrc/rglru_scan_bwd.cu``, one pass whose blocks hand the adjoint's carry
+from chunk to chunk through :class:`_HandOff`'s scratch) and
+:class:`RGLRUScan`, the two as one autograd Function.
 
 A tensor on the CPU goes to the plain version (``ref.py``); a CUDA tensor
 goes to the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -15,6 +18,7 @@ from ..build import (check_device, check_launch, check_no_grad, count_launch,
 from .ref import rglru_scan_backward_ref, rglru_scan_ref
 
 CHUNK = 128                     # steps per chunk, whatever the length
+LANES = 32                      # channels per block of the backward kernel
 
 
 def _check(name: str, *tensors: torch.Tensor) -> str:
@@ -37,11 +41,44 @@ def _check(name: str, *tensors: torch.Tensor) -> str:
 
 
 def _scratch(x: torch.Tensor) -> torch.Tensor:
-    """Two values (decay product, end state or adjoint) per (batch, chunk
-    but one, channel)."""
+    """The forward's chunk aggregates: two values (decay product, end
+    state) per (batch, chunk but one, channel)."""
     B, S, W = x.shape
     nc = -(-S // CHUNK)
     return torch.empty(2 * B * (nc - 1) * W, dtype=torch.float32, device=x.device)
+
+
+class _HandOff:
+    """The backward kernel's scratch on one (device, stream): word 0 is the
+    ticket counter, then one carry word per (batch row, chunk, channel),
+    the call's epoch in its high half. Calls on one stream run in order, so
+    each takes the tickets after the last one's (``issued``) and a new
+    epoch, and the scratch is zeroed only when it grows: there is no reset
+    launch."""
+
+    _all: dict = {}
+    _lock = threading.Lock()
+
+    def __init__(self, words: int, device):
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.issued = 0               # tickets taken by earlier calls
+        self.epoch = 0                # the last call's
+
+    @classmethod
+    def launch(cls, x: torch.Tensor, words: int, blocks: int, fn) -> int:
+        """``fn(scratch pointer, base, epoch)`` → the launcher's code, with
+        the scratch of ``x``'s device and current stream grown to
+        ``words``; the tickets and the epoch advance only on a launch."""
+        key = (x.device, stream_of(x))
+        with cls._lock:
+            hand = cls._all.get(key)
+            if hand is None or hand.words.numel() < words:
+                hand = cls._all[key] = cls(words, x.device)
+            rc = fn(hand.words.data_ptr(), hand.issued, hand.epoch + 1)
+            if not rc:
+                hand.issued += blocks
+                hand.epoch += 1
+            return rc
 
 
 def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
@@ -72,10 +109,13 @@ def rglru_scan_bwd(x_in: torch.Tensor, log_a: torch.Tensor, h: torch.Tensor,
         return rglru_scan_backward_ref(x_in, log_a, h, dh)
     B, S, W = x_in.shape
     dx_in, dlog_a = torch.empty_like(x_in), torch.empty_like(x_in)
-    rc = library().repro_rglru_scan_bwd(
-        x_in.data_ptr(), log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-        dx_in.data_ptr(), dlog_a.data_ptr(), _scratch(x_in).data_ptr(),
-        B, S, W, CHUNK, stream_of(x_in))
+    nc = -(-S // CHUNK)
+    rc = _HandOff.launch(
+        x_in, 1 + B * nc * W, nc * B * -(-W // LANES),
+        lambda hand, base, epoch: library().repro_rglru_scan_bwd(
+            x_in.data_ptr(), log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+            dx_in.data_ptr(), dlog_a.data_ptr(), hand, B, S, W, CHUNK, base,
+            epoch, stream_of(x_in)))
     check_launch("rglru_scan_bwd", rc)
     count_launch(rglru_scan_bwd)
     return dx_in, dlog_a

@@ -1,5 +1,6 @@
 // Backward of the Mamba-2 SSD intra-chunk function for Hopper (sm_90a), in
-// fp32 on the CUDA cores. Plain C interface.
+// fp32 on the CUDA cores, for fp32 x, B, C (bf16 ones take
+// ssd_chunk_bwd_tc.cu: ops.py::plan_bwd picks by dtype). Plain C interface.
 //
 // The gradient of repro/models/ssm.py:89 ssd_chunked (what jax.grad
 // differentiates in the JAX package's training step) through its
@@ -22,8 +23,6 @@
 //   dA     = sum_k dabar_k dt_k (this block's part).
 // dB and dC come out per head (b, S, H, N), dA per (batch, chunk, head);
 // ops.py sums them over the heads of a group and into A, in a fixed order.
-// x, B and C are bf16 or fp32, as ops.py::plan routes the forward; every
-// value is widened and computed in fp32.
 //
 // Shared memory: one pass would hold B, C, M, dy, xd, dS and the masked
 // dM e^{...} (Q) at once, ~350 KB in fp32 at the largest tile (L 128, P 64,
@@ -52,7 +51,6 @@
 // (batch, chunk) G N L (L + 1) + H (2 P L (L + 1) + 2 N L (L + 1) + 4 L P N)
 // operations (chip_smoke.py counts them at each shape). This design computes
 // C B^T per head, D twice and the full squares.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -77,8 +75,6 @@ constexpr int kSmem2 = 2 * kL * kLdN + 2 * kL * kLdP + 2 * kL;
 constexpr size_t kSmem1Bytes = kSmem1 * sizeof(float);
 constexpr size_t kSmem2Bytes = kSmem2 * sizeof(float);
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -131,17 +127,16 @@ __device__ __forceinline__ void stage_decay(const Chunk& k, const float* __restr
 }
 
 // the group's B and C rows (ld kLdN), zero-padded to kL x kN
-template <typename T>
-__device__ __forceinline__ void stage_bc(const Chunk& k, const T* __restrict__ Bm,
-                                         const T* __restrict__ Cm, int G, int N, int L,
+__device__ __forceinline__ void stage_bc(const Chunk& k, const float* __restrict__ Bm,
+                                         const float* __restrict__ Cm, int G, int N, int L,
                                          float* Bs, float* Cs) {
   for (int e = k.tid; e < kL * kN; e += kThreads) {
     const int j = e / kN, n = e % kN;
     float bv = 0.f, cv = 0.f;
     if (j < L && n < N) {
       const long long off = ((k.t0 + j) * G + k.g) * N + n;
-      bv = widen(Bm[off]);
-      cv = widen(Cm[off]);
+      bv = (Bm[off]);
+      cv = (Cm[off]);
     }
     Bs[j * kLdN + n] = bv;
     Cs[j * kLdN + n] = cv;
@@ -158,12 +153,11 @@ __device__ __forceinline__ void stage_dy(const Chunk& k, const float* __restrict
 }
 
 // xd = x dt (ld kLdP), zero-padded; dts must be staged
-template <typename T>
-__device__ __forceinline__ void stage_xd(const Chunk& k, const T* __restrict__ x, int H,
+__device__ __forceinline__ void stage_xd(const Chunk& k, const float* __restrict__ x, int H,
                                          int P, int L, const float* dts, float* Xs) {
   for (int e = k.tid; e < kL * kP; e += kThreads) {
     const int j = e / kP, q = e % kP;
-    Xs[j * kLdP + q] = (j < L && q < P) ? widen(x[((k.t0 + j) * H + k.h) * P + q]) * dts[j]
+    Xs[j * kLdP + q] = (j < L && q < P) ? (x[((k.t0 + j) * H + k.h) * P + q]) * dts[j]
                                         : 0.f;
   }
 }
@@ -191,11 +185,10 @@ __device__ __forceinline__ void dy_xd(const Chunk& k, const float* Ys, const flo
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ A, const T* __restrict__ Bm,
-                  const T* __restrict__ Cm, const float* __restrict__ dy,
+ssd_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const float* __restrict__ Bm,
+                  const float* __restrict__ Cm, const float* __restrict__ dy,
                   const float* __restrict__ dS, float* __restrict__ dx,
                   float* __restrict__ ddt, float* __restrict__ dA, float* __restrict__ dB,
                   long long S, int H, int P, int G, int N, int L) {
@@ -306,7 +299,7 @@ ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const bool in = j < L && p < P;
         const long long off = ((k.t0 + j) * H + k.h) * P + p;
         const float xbar = fmaf(w, uu[r][u], xb[r][u]);
-        const float xv = in ? widen(x[off]) : 0.f;
+        const float xv = in ? (x[off]) : 0.f;
         xdt = fmaf(xv, xbar, xdt);
         wdt = fmaf(xv * dtj, uu[r][u], wdt);
         if (in) dx[off] = dtj * xbar;
@@ -405,11 +398,10 @@ ssd_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ A, const T* __restrict__ Bm,
-                   const T* __restrict__ Cm, const float* __restrict__ dy,
+ssd_bwd_dbc_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   const float* __restrict__ Cm, const float* __restrict__ dy,
                    float* __restrict__ dB, float* __restrict__ dC, long long S, int H,
                    int P, int G, int N, int L) {
   extern __shared__ float4 smem4[];
@@ -515,18 +507,17 @@ ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* dy, const void* dS, void* dx, void* ddt, void* dA, void* dB,
            void* dC, long long b, long long S, int H, int P, int G, int N, int L,
            cudaStream_t st) {
-  static bool opted_in = false;        // one flag per element type
+  static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(ssd_bwd_dx_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(ssd_bwd_dx_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(kSmem1Bytes));
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ssd_bwd_dbc_kernel<T>,
+      err = cudaFuncSetAttribute(ssd_bwd_dbc_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kSmem2Bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -534,19 +525,19 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   }
   const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(S / L),
                   static_cast<unsigned>(b));
-  const T* xt = static_cast<const T*>(x);
-  const T* Bt = static_cast<const T*>(Bm);
-  const T* Ct = static_cast<const T*>(Cm);
+  const float* xt = static_cast<const float*>(x);
+  const float* Bt = static_cast<const float*>(Bm);
+  const float* Ct = static_cast<const float*>(Cm);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   const float* dyf = static_cast<const float*>(dy);
-  ssd_bwd_dx_kernel<T><<<grid, kThreads, kSmem1Bytes, st>>>(
+  ssd_bwd_dx_kernel<<<grid, kThreads, kSmem1Bytes, st>>>(
       xt, dtf, Af, Bt, Ct, dyf, static_cast<const float*>(dS), static_cast<float*>(dx),
       static_cast<float*>(ddt), static_cast<float*>(dA), static_cast<float*>(dB), S, H, P,
       G, N, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_dbc_kernel<T><<<grid, kThreads, kSmem2Bytes, st>>>(
+  ssd_bwd_dbc_kernel<<<grid, kThreads, kSmem2Bytes, st>>>(
       xt, dtf, Af, Bt, Ct, dyf, static_cast<float*>(dB), static_cast<float*>(dC), S, H, P,
       G, N, L);
   return static_cast<int>(cudaGetLastError());
@@ -554,26 +545,19 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
 
 }  // namespace
 
-// x (b, S, H, P), B, C (b, S, G, N) in one element type (dtype 0: fp32, 1:
-// bf16); dt (b, S, H), A (H,), dy (b, S, H, P) and dS (b, S / L, H, P, N)
-// fp32. Outputs, fp32: dx (b, S, H, P), ddt (b, S, H), dA (b, S / L, H),
-// dB and dC (b, S, H, N). All contiguous on one device; the Python wrapper
-// has checked shapes, types and devices, L <= 128, P <= 64, N <= 128,
-// S % L == 0 and H % G == 0.
-extern "C" int repro_ssd_chunk_bwd(const void* x, const void* dt, const void* A,
-                                   const void* Bm, const void* Cm, const void* dy,
-                                   const void* dS, void* dx, void* ddt, void* dA, void* dB,
-                                   void* dC, int dtype, long long b, long long S, int H,
-                                   int P, int G, int N, int L, void* stream) {
+// x (b, S, H, P), B, C (b, S, G, N), dt (b, S, H), A (H,), dy (b, S, H, P)
+// and dS (b, S / L, H, P, N) fp32. Outputs, fp32: dx (b, S, H, P), ddt (b,
+// S, H), dA (b, S / L, H), dB and dC (b, S, H, N). All contiguous on one
+// device; the Python wrapper has checked shapes, types and devices,
+// L <= 128, P <= 64, N <= 128, S % L == 0 and H % G == 0.
+extern "C" int repro_ssd_chunk_bwd_f32(const void* x, const void* dt, const void* A,
+                                       const void* Bm, const void* Cm, const void* dy,
+                                       const void* dS, void* dx, void* ddt, void* dA,
+                                       void* dB, void* dC, long long b, long long S, int H,
+                                       int P, int G, int N, int L, void* stream) {
   if (b < 1 || b > 65535 || L < 1 || L > kL || S % L || S / L > 65535 || P < 1 ||
       P > kP || N < 1 || N > kN || G < 1 || H % G || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, dy, dS, dx, ddt, dA, dB, dC, b, S, H, P, G, N, L,
-                         st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, dy, dS, dx, ddt, dA, dB, dC, b, S, H, P,
-                                 G, N, L, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, dt, A, Bm, Cm, dy, dS, dx, ddt, dA, dB, dC, b, S, H, P, G, N, L,
+                static_cast<cudaStream_t>(stream));
 }

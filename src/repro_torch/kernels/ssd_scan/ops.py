@@ -1,5 +1,6 @@
 """Wrappers of the SSD intra-chunk kernels (``csrc/*.cu``), of their
-backward (``csrc/ssd_chunk_bwd.cu``) and of the chunked scan around them;
+backward (``csrc/ssd_chunk_bwd_tc.cu``, ``csrc/ssd_chunk_bwd.cu``) and of
+the chunked scan around them;
 :class:`SSDIntraChunk` is the forward and the backward as one autograd
 Function, which :func:`ssd_scan` takes when a gradient is needed.
 
@@ -13,8 +14,13 @@ kernel from the dtype alone:
 - ``ssd_f32`` (``csrc/ssd_f32.cu``): fp32, on the CUDA cores (TF32 would not
   hold fp32 results to 1e-4).
 
-The backward (``ssd_chunk_bwd``) takes either dtype and computes in fp32 on
-the CUDA cores.
+The backward (``ssd_chunk_bwd``) has two as well, chosen by
+:func:`plan_bwd` from the dtype alone:
+
+- ``ssd_chunk_bwd_tc`` (``csrc/ssd_chunk_bwd_tc.cu``): x, B, C in bf16 (every
+  train step's), on the tensor cores with the same hi + lo split;
+- ``ssd_chunk_bwd_f32`` (``csrc/ssd_chunk_bwd.cu``): fp32, on the CUDA
+  cores.
 """
 from __future__ import annotations
 
@@ -28,12 +34,18 @@ from .ref import (check_scan_shapes, ssd_inter_chunk,
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128   # the kernels' tiles
 MAX_GRID = 65535                # batch and chunk count ride grid y and z
 KERNELS = ("ssd_chunk_tc", "ssd_f32")
+BWD_KERNELS = ("ssd_chunk_bwd_tc", "ssd_chunk_bwd_f32")
 
 
 def plan(dtype: torch.dtype) -> str:
     """The kernel that x, B, C of this dtype take: a choice by dtype, not a
     fallback."""
     return "ssd_chunk_tc" if dtype == torch.bfloat16 else "ssd_f32"
+
+
+def plan_bwd(dtype: torch.dtype) -> str:
+    """The backward kernel that x, B, C of this dtype take, as :func:`plan`."""
+    return "ssd_chunk_bwd_tc" if dtype == torch.bfloat16 else "ssd_chunk_bwd_f32"
 
 
 def _check(kind: str, name: str, x, dt, A, B, C, chunk: int) -> int:
@@ -49,6 +61,9 @@ def _check(kind: str, name: str, x, dt, A, B, C, chunk: int) -> int:
     if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
         raise ValueError(f"{name}: inputs must be contiguous")
     if kind == "cuda":
+        if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+            raise ValueError(f"{name}: x, B, C must be 16-byte aligned (the "
+                             "kernels stage bf16 rows as 16-byte vectors)")
         b, s, _, p = x.shape
         if L > MAX_CHUNK or p > MAX_HEAD_DIM or B.shape[3] > MAX_STATE:
             raise ValueError(f"{name}: chunk {L}, head_dim {p} or state "
@@ -75,9 +90,6 @@ def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     kernel = plan(x.dtype)
-    if kernel == "ssd_chunk_tc" and any(t.data_ptr() % 16 for t in (x, B, C)):
-        raise ValueError("ssd_scan: x, B, C must be 16-byte aligned (the "
-                         "kernel stages rows as 16-byte vectors)")
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     states = torch.empty((b, s // L, h, p, n), dtype=torch.float32,
                          device=x.device)
@@ -93,10 +105,10 @@ def ssd_chunk_bwd(x, dt, A, B, C, chunk: int, dy_diag, dstates):
     """The vector-Jacobian product of :func:`ssd_intra_chunk` over chunks
     of ``L = min(chunk, s)`` steps: its inputs and the gradients of its
     outputs, ``dy_diag`` (b, s, h, p) and ``dstates`` (b, s/L, h, p, n) fp32
-    → ``(dx, ddt, dA, dB, dC)`` fp32 in the inputs' shapes. The kernel gives
-    dB and dC per head and dA per (batch, chunk, head); they are summed here
-    over the heads of each group and into A, in a fixed order (no
-    atomics)."""
+    → ``(dx, ddt, dA, dB, dC)`` fp32 in the inputs' shapes, through the
+    kernel :func:`plan_bwd` picks. The kernels give dB and dC per head and
+    dA per (batch, chunk, head); they are summed here over the heads of
+    each group and into A, in a fixed order (no atomics)."""
     kind = check_device("ssd_chunk_bwd", x, dt, A, B, C, dy_diag, dstates)
     L = _check(kind, "ssd_chunk_bwd", x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
@@ -117,13 +129,14 @@ def ssd_chunk_bwd(x, dt, A, B, C, chunk: int, dy_diag, dstates):
     dx, ddt = torch.empty((b, s, h, p), **f32), torch.empty((b, s, h), **f32)
     dA = torch.empty((b, nc, h), **f32)
     dB, dC = torch.empty((b, s, h, n), **f32), torch.empty((b, s, h, n), **f32)
-    rc = library().repro_ssd_chunk_bwd(
+    kernel = plan_bwd(x.dtype)
+    rc = getattr(library(), f"repro_{kernel}")(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         dy_diag.data_ptr(), dstates.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), DTYPE_CODES[x.dtype],
-        b, s, h, p, g, n, L, stream_of(x))
-    check_launch("ssd_chunk_bwd", rc)
-    count_launch(ssd_chunk_bwd)
+        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, s, h, p, g, n, L,
+        stream_of(x))
+    check_launch(kernel, rc)
+    count_launch(ssd_chunk_bwd, kernel)
     per_group = (b, s, g, h // g, n)
     return (dx, ddt, dA.sum((0, 1)), dB.view(per_group).sum(3),
             dC.view(per_group).sum(3))
@@ -135,7 +148,8 @@ class SSDIntraChunk(torch.autograd.Function):
     :func:`ssd_intra_chunk` call (the kernel ``plan`` picks, counted on
     :func:`ssd_scan`) and saves its inputs; the backward one
     :func:`ssd_chunk_bwd` call (the kernel on a CUDA tensor, the plain
-    version on the CPU), its x, B and C gradients cast to their dtype."""
+    version on the CPU; the kernel ``plan_bwd`` picks on the card), its x,
+    B and C gradients cast to their dtype."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int):
@@ -167,4 +181,5 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 128) -> torch.Tensor:
 
 ssd_scan.launches = 0                 # wrapper calls that launched a kernel
 ssd_scan.kernel_launches = dict.fromkeys(KERNELS, 0)
-ssd_chunk_bwd.launches = 0            # calls that launched the backward kernel
+ssd_chunk_bwd.launches = 0            # calls that launched a backward kernel
+ssd_chunk_bwd.kernel_launches = dict.fromkeys(BWD_KERNELS, 0)

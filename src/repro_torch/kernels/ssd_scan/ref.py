@@ -8,8 +8,9 @@ Recurrence per head: ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t``,
 
 * :func:`ssd_intra_chunk_ref` — what the kernel computes, in einsums;
 * :func:`ssd_intra_chunk_backward_ref` — its gradient, by autograd;
-* :func:`ssd_inter_chunk` — the recurrence over chunk states and the
-  off-diagonal term, which stay in torch beside the kernel;
+* :func:`ssd_inter_chunk` — the recurrence over chunk states (linear in
+  the chunks) and the off-diagonal term, which stay in torch beside the
+  kernel;
 * :func:`ssd_scan_ref` — the two together, the whole chunked scan;
 * :func:`ssd_naive_ref` — the per-token recurrence (the tests' oracle).
 """
@@ -70,33 +71,64 @@ def ssd_intra_chunk_backward_ref(x, dt, A, B, C, L: int, dy_diag, dstates):
         return torch.autograd.grad(outs, leaves, (dy_diag.float(), dstates.float()))
 
 
-def ssd_inter_chunk(y_diag, states, dt, A, C, L: int) -> torch.Tensor:
-    """The rest of the chunked scan, fp32: each chunk's incoming state from
-    the chunk states (``h_c = exp(total_{c-1}) h_{c-1} + states_{c-1}``,
-    written as one product with the chunk-level decay matrix, as in the
-    Mamba-2 paper's minimal SSD), then ``y = y_diag + exp(cum_l) C_l ·
-    h_c`` → (b, s, h, p) fp32. C stays per group: heads of one group share
-    it without a copy per head.
+BLOCK = 32      # chunk states a decay-matrix product spans, at most
 
-    The decay matrix is (b, h, nc, nc) over ``nc = s / L`` chunks: memory
-    and work grow as nc², where the reference's ``lax.scan`` over chunk
-    states is O(nc). It is meant for the port's paths (nc ≤ 32: prefill at
-    4096 steps, serving at ≤ 1024). At mamba2's widths its memory stays
-    below the prefill logits' (h nc² against nc L V elements per batch row)
-    up to nc ≈ 80 000, but its work reaches half the layer's projections at
-    nc ≈ 3900 (500k steps): a long-context prefill needs the sequential or
-    a blocked recurrence."""
-    b, s, h, p = y_diag.shape
-    g, n = C.shape[2], C.shape[3]
-    cum = torch.cumsum(_chunks(dt.float() * A.float(), L), dim=2)   # (b,c,L,h)
-    chunk_sum = cum[:, :, -1].transpose(1, 2)                       # (b,h,c)
-    upto = torch.cumsum(chunk_sum, dim=2)            # decay through chunk c
+
+def _chunk_inputs(chunk_sum, states):
+    """Each chunk's incoming state from a zero start over the chunks given:
+    ``h_c = sum_{d < c} exp(chunk_sum_{d+1} + ... + chunk_sum_{c-1})
+    states_d``, as one product with the chunk-level decay matrix, as in the
+    Mamba-2 paper's minimal SSD. chunk_sum (b, h, c), states (b, c, h, p,
+    n) → (b, c, h, p, n)."""
+    upto = torch.cumsum(chunk_sum, dim=-1)           # decay through chunk c
     # chunk c starts from chunk c' < c's state decayed over chunks c'+1 … c-1
     seg = (upto - chunk_sum)[..., :, None] - upto[..., None, :]
     nc = seg.shape[-1]
     before = torch.ones(nc, nc, dtype=torch.bool, device=seg.device).tril(-1)
     carry = torch.exp(seg.masked_fill(~before, float("-inf")))     # (b,h,c,c')
-    h_in = torch.einsum("bhcd,bdhpn->bchpn", carry, states)
+    return torch.einsum("bhcd,bdhpn->bchpn", carry, states)
+
+
+def ssd_inter_chunk(y_diag, states, dt, A, C, L: int) -> torch.Tensor:
+    """The rest of the chunked scan, fp32: each chunk's incoming state from
+    the chunk states (``h_c = exp(total_{c-1}) h_{c-1} + states_{c-1}``),
+    then ``y = y_diag + exp(cum_l) C_l · h_c`` → (b, s, h, p) fp32. C stays
+    per group: heads of one group share it without a copy per head.
+
+    Memory and work grow linearly in the ``nc = s / L`` chunks. Up to
+    ``BLOCK`` chunks the incoming states are one decay-matrix product
+    (:func:`_chunk_inputs`: (b, h, nc, nc) decays, no Python loop; every
+    path of the port has nc ≤ 32). Past it the chunks go in blocks of
+    ``BLOCK``: the decay-matrix product inside each block (all blocks in one
+    product) and, between blocks, the reference's sequential carry
+    ``h = exp(total) h + states`` over the last chunk of each, one step a
+    block — the blocked recurrence a long-context prefill needs."""
+    b, s, h, p = y_diag.shape
+    g, n = C.shape[2], C.shape[3]
+    cum = torch.cumsum(_chunks(dt.float() * A.float(), L), dim=2)   # (b,c,L,h)
+    chunk_sum = cum[:, :, -1].transpose(1, 2)                       # (b,h,c)
+    nc = chunk_sum.shape[-1]
+    if nc <= BLOCK:
+        h_in = _chunk_inputs(chunk_sum, states)
+    else:
+        nb = -(-nc // BLOCK)
+        pad = nb * BLOCK - nc                # zero chunks after the last
+        cs = torch.nn.functional.pad(chunk_sum, (0, pad)).reshape(b, h, nb, BLOCK)
+        st = torch.nn.functional.pad(states, (0, 0, 0, 0, 0, 0, 0, pad))
+        st = st.reshape(b, nb, BLOCK, h, p, n)
+        local = _chunk_inputs(cs.transpose(1, 2).reshape(b * nb, h, BLOCK),
+                              st.reshape(b * nb, BLOCK, h, p, n))
+        local = local.reshape(b, nb, BLOCK, h, p, n)
+        # decay from the block's start to each chunk's
+        into = torch.exp(torch.cumsum(cs, dim=-1) - cs)     # (b,h,nb,BLOCK)
+        carry = torch.zeros_like(local[:, 0, 0])            # (b,h,p,n)
+        blocks = []
+        for k in range(nb):
+            blk = local[:, k] + into[:, :, k].transpose(1, 2)[..., None, None] * carry[:, None]
+            blocks.append(blk)
+            carry = (blk[:, -1] * torch.exp(cs[:, :, k, -1])[..., None, None]
+                     + st[:, k, -1])
+        h_in = torch.stack(blocks, dim=1).reshape(b, nb * BLOCK, h, p, n)[:, :nc]
     h_in = h_in.reshape(b, nc, g, h // g, p, n)
     y_off = torch.einsum("bclgn,bcgrpn->bclgrp", _chunks(C.float(), L), h_in)
     y_off = y_off.reshape(b, nc, L, h, p) * torch.exp(cum)[..., None]

@@ -1521,6 +1521,93 @@ def test_ssd_chunk_bwd_repeats_bit_for_bit(cuda):
         assert not torch.equal(a[i][1], c[i][1])
 
 
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_takes_the_route_its_dtype_picks(cuda, case, dtype):
+    """bf16 x, B, C launch ``ssd_chunk_bwd_tc`` (the tensor cores), fp32
+    ones ``ssd_chunk_bwd_f32``, one launch a call and no other kernel; the
+    gradients repeat bit for bit."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+    from repro_torch.kernels.ssd_scan.ops import plan_bwd
+    rng = np.random.default_rng(18)
+    ins = _ssd_bwd_inputs(rng, case, dtype, cuda)
+    before = dict(ssd_chunk_bwd.kernel_launches)
+    a = ssd_chunk_bwd(*ins)
+    moved = {k: n - before[k] for k, n in ssd_chunk_bwd.kernel_launches.items()
+             if n != before[k]}
+    assert moved == {plan_bwd(dtype): 1}
+    assert all(torch.equal(x, y) for x, y in zip(a, ssd_chunk_bwd(*ins)))
+
+
+def test_ssd_chunk_bwd_tc_head_ignores_its_tile_and_the_other_rows(cuda):
+    """On the tensor-core route a block takes a tile of heads of one group
+    (6 of this shape's 12 a group on an H100): a head's dx, ddt and dA do
+    not move when every other head of its group (its tile among them)
+    changes, and a batch row's dx, ddt, dB, dC do not move when the other
+    rows change. What LFLR on ``train_ssm`` rests on."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+    rng = np.random.default_rng(19)
+    case = (2, 2048, 24, 64, 2, 128, 128)
+    ins = _ssd_bwd_inputs(rng, case, torch.bfloat16, cuda)
+    a = ssd_chunk_bwd(*ins)
+    new = _ssd_bwd_inputs(rng, case, torch.bfloat16, cuda)
+    heads = list(ins)
+    for i, axis in ((0, 2), (1, 2), (6, 2), (7, 2)):    # x, dt, dy, dstates
+        heads[i] = ins[i].clone()
+        heads[i].narrow(axis, 1, 11).copy_(new[i].narrow(axis, 1, 11))
+    heads[2] = ins[2].clone()
+    heads[2][1:12] = new[2][1:12]                        # A
+    b = ssd_chunk_bwd(*heads)
+    assert torch.equal(a[0][:, :, 0], b[0][:, :, 0])
+    assert torch.equal(a[1][:, :, 0], b[1][:, :, 0])
+    assert torch.equal(a[2][0], b[2][0])
+    assert not torch.equal(a[0][:, :, 1], b[0][:, :, 1])
+    rows = list(ins)
+    for i in (0, 1, 3, 4, 6, 7):
+        rows[i] = ins[i].clone()
+        rows[i][1:] = new[i][1:]
+    c = ssd_chunk_bwd(*rows)
+    for i in (0, 1, 3, 4):
+        assert torch.equal(a[i][0], c[i][0])
+        assert not torch.equal(a[i][1], c[i][1])
+
+
+@pytest.mark.parametrize("memory", ["short", "long"])
+@pytest.mark.parametrize("S", [1, 100, 4100, 32768])
+def test_rglru_scan_bwd_one_pass_at_any_length(cuda, S, memory):
+    """The one-pass backward (chunks handed on by ticket) from one step to
+    the reference's 32k prefill: against the plain reverse loop (1e-4 of the
+    largest |want| plus 1e-4 of each), repeating bit for bit, and batch row
+    0's gradient unmoved by the other rows."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_backward_ref, rglru_scan_bwd
+    rng = np.random.default_rng(S)
+    shape = (3, S, 96)
+    ins = _scan_bwd_inputs(rng, shape, memory, cuda)
+    got = rglru_scan_bwd(*ins)
+    for g, w in zip(got, rglru_scan_backward_ref(*ins)):
+        assert _within(g, w)
+    assert all(torch.equal(x, y) for x, y in zip(got, rglru_scan_bwd(*ins)))
+    other = [t.clone() for t in ins]
+    for t, new in zip(other, _scan_bwd_inputs(rng, (2, S, 96), memory, cuda)):
+        t[1:] = new
+    assert all(torch.equal(x[0], y[0]) for x, y in zip(got, rglru_scan_bwd(*other)))
+
+
+def test_rglru_scan_long_memory_error_is_the_chunk_association(cuda):
+    """The forward kernel forms 1 - a² from a rounded square, as the plain
+    version: on long memory (a^8 in [0.9, 0.999]) at 2 x 4096 x 2560 what
+    remains is the chunked carry's association, under a tenth of the limit
+    (the fused square read 0.232; tests/test_torch_rglru_error.py splits
+    it)."""
+    rng = np.random.default_rng(21)
+    shape = (2, 4096, 2560)
+    x_in = _randn(rng, shape, torch.float32, cuda)
+    log_a = _scan_log_a(rng, shape, "long", cuda)
+    want = rglru_scan_ref(x_in, log_a)
+    err = ((rglru_scan(x_in, log_a) - want).abs() / (1e-4 + 1e-4 * want.abs())).max()
+    assert err.item() < 0.1
+
+
 def test_scan_functions_take_only_the_kernels_on_the_card(cuda, monkeypatch):
     """RGLRUScan and ssd_scan (through SSDIntraChunk) under autograd on CUDA
     tensors reach the backward kernels, with the plain backward versions

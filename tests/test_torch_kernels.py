@@ -221,7 +221,8 @@ def test_kernel_sources_cover_both_kernels():
     names = sorted(p.name for p in build.sources())
     assert names == ["fault_probe.cu", "flash_decode.cu", "flash_f32.cu",
                      "flash_forward.cu", "rglru_scan.cu", "rglru_scan_bwd.cu",
-                     "ssd_chunk_bwd.cu", "ssd_chunk_tc.cu", "ssd_f32.cu"]
+                     "ssd_chunk_bwd.cu", "ssd_chunk_bwd_tc.cu", "ssd_chunk_tc.cu",
+                     "ssd_f32.cu"]
     for fn in (flash_attention, probe_rows, rglru_scan, rglru_scan_bwd, ssd_scan,
                ssd_chunk_bwd):
         assert isinstance(fn.launches, int)
@@ -229,7 +230,8 @@ def test_kernel_sources_cover_both_kernels():
                                     "flash_verify", "flash_forward", "flash_f32",
                                     "probe_rows", "probe_tree", "rglru_scan",
                                     "rglru_scan_bwd", "ssd_scan", "ssd_chunk_tc",
-                                    "ssd_f32", "ssd_chunk_bwd"}
+                                    "ssd_f32", "ssd_chunk_bwd", "ssd_chunk_bwd_tc",
+                                    "ssd_chunk_bwd_f32"}
     exported = set()
     for src in build.sources():
         exported |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
@@ -252,9 +254,12 @@ def test_launch_signatures_are_64_bit_where_they_index():
     assert build.SIGNATURES["repro_probe_rows"][2] is L
     assert build.SIGNATURES["repro_rglru_scan"][4:8] == (L,) * 4  # B, S, W, T
     assert build.SIGNATURES["repro_rglru_scan_bwd"][7:11] == (L,) * 4
+    # the backward's ticket base counts every ticket the scratch issued
+    assert build.SIGNATURES["repro_rglru_scan_bwd"][11] is ctypes.c_ulonglong
     for name in ("repro_ssd_chunk_tc", "repro_ssd_f32"):
         assert build.SIGNATURES[name][7:9] == (L, L)                  # b, S
-    assert build.SIGNATURES["repro_ssd_chunk_bwd"][13:15] == (L, L)
+    for name in ("repro_ssd_chunk_bwd_tc", "repro_ssd_chunk_bwd_f32"):
+        assert build.SIGNATURES[name][12:14] == (L, L)                # b, S
     # decode: B, T, ..., seq_kv, splits, keys_per_split
     dec = build.SIGNATURES["repro_flash_decode"]
     assert dec[5:7] == (L, L) and dec[12] is L and dec[14] is L

@@ -9,6 +9,8 @@ package's scans, inputs from numpy seeds:
 * ``rglru_mixer``'s parameter gradients against ``jax.grad`` of the JAX
   mixer on the smoke recurrentgemma-2b config (its associative and its
   sequential scan);
+* the one-pass backward kernel's order of work, emulated, against the
+  plain reverse loop;
 * the wrappers' refusals: the raw forward refuses a tensor that needs a
   gradient, the backward wrapper what its kernel does not take.
 
@@ -92,6 +94,74 @@ def test_scan_vjp_matches_jax(shape, kind):
         for g, w in zip(got, want):
             assert np.isfinite(g.numpy()).all()
             assert _excess(g.numpy(), w, SCAN_TOL) <= 1, scan.__name__
+
+
+def _fma(a, b, c):
+    """fmaf in float32 (the product exact in float64, one rounding)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _one_pass_backward(x_in, log_a, h, dh, drop_carry=False):
+    """``csrc/rglru_scan_bwd.cu``'s order of work, in torch: chunks of
+    ``CHUNK`` steps, each in four stretches of 32 (one warp each); each
+    stretch scanned back from a zero carry (its decay product and
+    carry-out); from the last chunk to the first, the carry-in handed on
+    between blocks folded through the stretches, fmaf(prod, c, e); each
+    stretch re-scanned from its carry-in. ``drop_carry`` hands every block
+    a zero carry-in (a lost hand-off)."""
+    from repro_torch.kernels.rglru_scan.ops import CHUNK
+    a = torch.exp(log_a)
+    om = 1.0 - a * a
+    s = torch.sqrt(torch.clamp(om, min=1e-12))
+    ds = torch.where(om > 1e-12, -a / s, 0.0)
+    hp = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    S, sub = a.shape[1], CHUNK // 4
+    dx, dla = torch.empty_like(a), torch.empty_like(a)
+    cin = torch.zeros_like(a[:, 0])
+    for t0 in reversed(range(0, S, CHUNK)):
+        spans = [(u, min(S, u + sub)) for u in range(t0, min(S, t0 + CHUNK), sub)]
+        agg = []
+        for lo, hi in spans:
+            prod, g = torch.ones_like(cin), torch.zeros_like(cin)
+            for t in range(hi - 1, lo - 1, -1):
+                d = dh[:, t] + g
+                prod = prod * a[:, t]
+                g = a[:, t] * d
+            agg.append((prod, g))
+        c = torch.zeros_like(cin) if drop_carry else cin
+        starts = []
+        for prod, e in reversed(agg):
+            starts.append(c)
+            c = _fma(prod, c, e)
+        cin = c
+        for (lo, hi), g in zip(spans, reversed(starts)):
+            for t in range(hi - 1, lo - 1, -1):
+                d = dh[:, t] + g
+                dx[:, t] = d * s[:, t]
+                dla[:, t] = (d * hp[:, t] + (d * x_in[:, t]) * ds[:, t]) * a[:, t]
+                g = a[:, t] * d
+    return dx, dla
+
+
+@pytest.mark.parametrize("kind", ["init", "long", "clamp"])
+@pytest.mark.parametrize("shape", [(2, 300, 16), (1, 1000, 32)])
+def test_one_pass_hand_off_holds_the_backward_tolerance(shape, kind):
+    """The one-pass backward kernel's association (stretches of 32 steps,
+    chunks of 128 handed on from the last to the first), emulated in fp32,
+    against the plain reverse loop: within the card's limit (1e-4 of the
+    largest |want| plus 1e-4 of each). A lost hand-off (every block's
+    carry-in zero) is not."""
+    rng = np.random.default_rng(sum(shape) + 3 * len(kind))
+    x = _t(rng.standard_normal(shape))
+    log_a = _t(_log_a(rng, shape, kind))
+    dh = _t(rng.standard_normal(shape))
+    h = rglru_scan_ref(x, log_a)
+    want = rglru_scan_backward_ref(x, log_a, h, dh)
+    limit = lambda w: 1e-4 * w.abs().max() + 1e-4 * w.abs()  # noqa: E731
+    excess = lambda got: max(((g - w).abs() / limit(w)).max().item()  # noqa: E731
+                             for g, w in zip(got, want))
+    assert excess(_one_pass_backward(x, log_a, h, dh)) <= 1
+    assert excess(_one_pass_backward(x, log_a, h, dh, drop_carry=True)) > 1
 
 
 def test_clamped_steps_get_no_gradient_through_the_gate():

@@ -5,7 +5,8 @@ mamba2-2.7b config (2 SSD layers, d_model 64, d_inner 128 over 8 heads of
 * the SSD kernel's plain version against the JAX Pallas ``ssd_intra_chunk``
   (interpret mode): y_diag and the chunk states;
 * the port's ``ssd_scan`` against the JAX ``ssd_scan`` (Pallas, interpret
-  mode), ``ssd_chunked`` and ``ssd_naive_ref``;
+  mode), ``ssd_chunked`` and ``ssd_naive_ref``; its chunk-state recurrence
+  past 32 chunks (96 and 1024);
 * ``mamba2_mixer`` (through the scan) and ``mamba2_decode`` over several
   steps, with the state carried across the cache bridge;
 * the prefill step's logits and its error word, clean and with a NaN in the
@@ -33,6 +34,7 @@ from repro_torch.core.errors import ErrorCode
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.ssd_scan import (ssd_intra_chunk, ssd_intra_chunk_ref,
                                           ssd_naive_ref, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ref import ssd_inter_chunk
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.ssm import mamba2_decode, mamba2_mixer
 from repro_torch.weights import cache_from_jax, cache_to_numpy, params_from_jax
@@ -180,6 +182,63 @@ def test_no_nan_from_the_masked_decay():
     assert bool(torch.isfinite(got).all())
     _close(got.numpy(), jssm.ssd_naive_ref(*[jnp.asarray(a) for a in
                                              (x, dt, A, B, C)]), SCAN_TOL)
+
+
+# ------------------------------------------------- the chunk-state recurrence
+def _decay_matrix_inter_chunk(y_diag, states, dt, A, C, L):
+    """The inter-chunk part as one product with the (b, h, nc, nc) chunk
+    decay matrix, written out: the form ``ssd_inter_chunk`` keeps up to
+    ``BLOCK`` chunks."""
+    b, s, h, p = y_diag.shape
+    g, n = C.shape[2], C.shape[3]
+    nc = s // L
+    cum = torch.cumsum((dt.float() * A.float()).reshape(b, nc, L, h), dim=2)
+    chunk_sum = cum[:, :, -1].transpose(1, 2)
+    upto = torch.cumsum(chunk_sum, dim=2)
+    seg = (upto - chunk_sum)[..., :, None] - upto[..., None, :]
+    before = torch.ones(nc, nc, dtype=torch.bool).tril(-1)
+    carry = torch.exp(seg.masked_fill(~before, float("-inf")))
+    h_in = torch.einsum("bhcd,bdhpn->bchpn", carry, states)
+    h_in = h_in.reshape(b, nc, g, h // g, p, n)
+    y_off = torch.einsum("bclgn,bcgrpn->bclgrp", C.float().reshape(b, nc, L, g, n), h_in)
+    y_off = y_off.reshape(b, nc, L, h, p) * torch.exp(cum)[..., None]
+    return y_diag + y_off.reshape(b, s, h, p)
+
+
+@pytest.mark.parametrize("nc", [1, 8, 32])
+def test_inter_chunk_is_the_decay_matrix_product_up_to_a_block(nc):
+    """Up to ``BLOCK`` (32) chunks the inter-chunk part runs the decay-matrix
+    product it always ran, bit for bit (every path of the port has nc <=
+    32, so no measured bit moves)."""
+    case = (2, 4 * nc, 6, 8, 3, 8, 4)
+    x, dt, A, B, C = _t(*_inputs(case, seed=nc))
+    y_diag, states = ssd_intra_chunk(x, dt, A, B, C, 4)
+    want = _decay_matrix_inter_chunk(y_diag, states, dt, A, C, 4)
+    assert torch.equal(ssd_inter_chunk(y_diag, states, dt, A, C, 4), want)
+
+
+def test_inter_chunk_past_a_block_matches_the_jax_scan():
+    """96 chunks (three blocks of 32: the blocked recurrence) against the
+    JAX ``ssd_scan`` (its Pallas kernel in interpret mode and its sequential
+    ``lax.scan`` over chunk states) and ``ssd_chunked``; fp32, 2e-4."""
+    case = (1, 192, 2, 4, 1, 4, 2)
+    x, dt, A, B, C = _inputs(case, seed=96)
+    got = ssd_scan(*_t(x, dt, A, B, C), chunk=2)
+    jin = [jnp.asarray(a) for a in (x, dt, A, B, C)]
+    _close(got.numpy(), jax_ssd_scan(*jin, chunk=2), SCAN_TOL)
+    _close(got.numpy(), jssm.ssd_chunked(*jin, chunk=2), SCAN_TOL)
+
+
+def test_inter_chunk_at_1024_chunks_is_linear():
+    """1024 chunks (32 blocks) against the JAX ``ssd_chunked`` and the
+    per-token ``ssd_naive_ref``; fp32, 2e-4. The decay-matrix form would
+    hold 1024 x 1024 decays per head; the blocked one 32 per chunk."""
+    case = (1, 2048, 2, 2, 1, 2, 2)
+    x, dt, A, B, C = _inputs(case, seed=1024)
+    got = ssd_scan(*_t(x, dt, A, B, C), chunk=2)
+    jin = [jnp.asarray(a) for a in (x, dt, A, B, C)]
+    _close(got.numpy(), jssm.ssd_chunked(*jin, chunk=2), SCAN_TOL)
+    _close(got.numpy(), ssd_naive_ref(*_t(x, dt, A, B, C)).numpy(), SCAN_TOL)
 
 
 def _hi_lo(t):
