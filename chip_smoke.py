@@ -208,8 +208,10 @@ seconds since the script started, when the line was printed):
    layer, one probe, a clean word, its time and peak memory;
 16a. train_rg — phase 11g's kernel checks, clean and LFLR runs for
    recurrentgemma-2b at its published width cut to ``TRAIN_RG_LAYERS`` (15
-   of 26: five periods of RG-LRU, RG-LRU, sliding; 1.82 G parameters), a
-   fresh seeded model alone on the card: the flash forward with lse and
+   of 26: five periods of RG-LRU, RG-LRU, sliding; 1.82 G parameters),
+   from a fresh seeded model's weights copied to the host (the model freed
+   before the runs, so the train states are alone on the card): the flash
+   forward with lse and
    FlashAttention's gradients at 10/1 heads of D 256, window 2048, the
    probe over the 256000 x 2560 embedding gradient and ``probe_tree`` over
    the model's 167 gradient leaves (the fp32 ``lam`` among them); then one
@@ -230,8 +232,10 @@ seconds since the script started, when the line was printed):
    naming the route ``plan_bwd`` picked, against autograd through the plain
    intra-chunk function, with its control and two launches bit-equal; and
    the probe over the full ``ssm`` state;
-18. serve_ssm  — phase 4 for full-width mamba2-2.7b (64 SSD layers, bf16,
-   seeded random weights), the recurrentgemma model freed first, on the
+18. serve_ssm  — phase 4 for mamba2-2.7b at full width cut to
+   ``SSM_SERVE_LAYERS`` (32 of its 64 SSD layers, since the encoder's and
+   the VLM's train phases came, for the run's time; bf16, seeded random
+   weights), the recurrentgemma model freed first, on the
    first 6 of the 16 requests (cut to 8 when the paged phases came and to
    6 when the MoE phases came, to keep the run's time);
 19. lflr_ssm   — phase 5 for mamba2-2.7b: the NaN goes into the slots'
@@ -265,10 +269,12 @@ seconds since the script started, when the line was printed):
 26. kernels_moe — flash decode at qwen3-moe-30b-a3b's head layout (8 slots,
    32/4 heads of 128: group 8, the full 1024-entry cache) against its plain
    version, with its controls, time, bound and the library call's time;
-27. serve_moe, lflr_moe — phases 4 and 5 for full-width qwen3-moe-30b-a3b
-   (48 layers, each attention and a 128-expert top-8 MoE with capacity
-   buffers, untied unembedding; 61 GB of bf16 weights seeded on the card,
-   leaf by leaf), the gemma3 model freed first, on the first 6 requests
+27. serve_moe, lflr_moe — phases 4 and 5 for qwen3-moe-30b-a3b at full
+   width cut to ``MOE_SERVE_LAYERS`` (24 of its 48 layers since the
+   encoder's and the VLM's train phases came, for the run's time; each
+   attention and a 128-expert top-8 MoE with capacity buffers, untied
+   unembedding; 31 GB of bf16 weights at 24 layers, 61 GB at 48, seeded on
+   the card leaf by leaf), the gemma3 model freed first, on the first 6 requests
    and one with an 8-token prompt (cut from 8 for the run's time, as the
    group phases were): the NaN goes into one MoE layer's K cache, LFLR's
    streams equal the clean run's bit for bit. The MoE forward drops tokens
@@ -278,7 +284,7 @@ seconds since the script started, when the line was printed):
    fraction, at least 8 served positions). The gate runs first, in fp32,
    on the model cut to 4 layers at full width: the served tokens within
    ``FORWARD_GAP_TOL`` of the forward's argmax and the same experts
-   chosen at every layer and position. At full depth in bf16 routing
+   chosen at every layer and position. At the served depth in bf16 routing
    near-ties part the two (reported: where they part, the router's gap
    there, the logit gaps), and the decode loop's argmax must be the served
    stream. The line adds the init's time and peak memory and each run's
@@ -336,7 +342,25 @@ seconds since the script started, when the line was printed):
    on the card through ``make_prefill_step`` from 2 x 4096 frame
    embeddings: flash forward once per layer, non-causal at head_dim 80; a
    NaN in one frame of row 0 makes every logit row of that row non-finite
-   and leaves row 1's finite. An encoder has no decode: no serve phase.
+   and leaves row 1's finite. An encoder has no decode: no serve phase;
+35. train_hubert, train_vlm — phase 16a for full-width hubert-xlarge (48
+   of 48 layers, 0.945 G parameters: frame-embedding batches, no tokens)
+   and for llama-3.2-vision-11b cut to ``TRAIN_VLM_LAYERS`` (5 of 40: one
+   period of its pattern, 4 self-attention layers and 1 cross, widths as
+   published, 2.14 G parameters; batches with 1601 image embeddings a
+   row), each from a seeded model whose weights go to the host before the
+   runs, the VLM's cross gates set to ``TRAIN_GATE``: the flash forward
+   with lse and FlashAttention's gradients at hubert's 16/16 heads of 80,
+   non-causal, and at the VLM's 32/8 heads of 128, causal, and over its
+   1601 image keys, non-causal; the probes over each embedding's gradient
+   and each gradient tree; per step ``flash_forward`` 48 and 5 times and
+   one ``probe_tree``, one host sync, finite losses, the LFLR run
+   bit-equal, the peak under ``TRAIN_PEAK_GB``; for the VLM, the first
+   step's gradient non-zero and finite in each cross layer's wq, wk, wv
+   and wo (exactly zero at the seeded gates). The batches are drawn before
+   the runs and their draw timed apart;
+36. run — the run's seconds so far. Every phase line carries ``seconds``:
+   its own, or the time since the line before it.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failure exits non-zero before the last line is printed.
@@ -425,6 +449,12 @@ ELASTIC_RTOL = 1e-5
 # with the forward on at least MOE_FORWARD_MIN positions of a prefix whose
 # forward drops no token
 MOE_ARCH, MOE_REQUESTS, MOE_FORWARD_MIN = "qwen3-moe-30b-a3b", 6, 8
+# the serve paths cut in depth (never in width) for the run's time when the
+# encoder's and the VLM's train phases came: qwen3-moe-30b-a3b to 24 of its
+# 48 layers and mamba2-2.7b to 32 of its 64 (their serve and LFLR phases
+# took 98 and 72 s of a 1076 s run on a slow host); the decode steps are
+# host-bound, so their time follows the depth
+MOE_SERVE_LAYERS, SSM_SERVE_LAYERS = 24, 32
 # the LayerNorm and partial-rotary architectures, last, each alone on the
 # card, on MOE_REQUESTS requests (chatglm3 and phi3.5-moe with one short
 # request more: its stream held to the forward); phi3.5-moe at its
@@ -514,6 +544,16 @@ TRAIN_DIVERGENCE = 1e5
 # 64 layers, 1.73 G. Every train phase's peak must stay under
 # TRAIN_PEAK_GB (the card holds 80 GB)
 TRAIN_RG_LAYERS, TRAIN_SSM_LAYERS, TRAIN_PEAK_GB = 15, 40, 80.0
+# the encoder's and the VLM's train phases: hubert-xlarge whole (48 layers,
+# 0.945 G parameters), llama-3.2-vision-11b cut to one period of its
+# published pattern (4 self-attention layers and 1 cross; 2.14 G parameters,
+# 1.05 G of them the untied embedding and unembedding) at its published
+# widths, 1601 image tokens a row; the cut phases keep their starting
+# weights on the host, so no seeded model stays on the card beside the
+# three train states. TRAIN_GATE is what both cross gates are set to after
+# the seeded init, in every run: at the init's 0, tanh(0) = 0 gives every
+# weight of a cross layer an exactly zero gradient
+TRAIN_VLM_LAYERS, TRAIN_GATE = 5, 0.5
 # the training forward's row lse against the plain one: fp32 sums in another
 # order, exp2 in place of exp (abs, rel); a control with one key dropped
 # moves the last row's lse by ~0.04 and must exceed it
@@ -532,9 +572,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_LAST_PHASE = [START]
+
+
 def emit(obj: dict) -> None:
+    """Prints one JSON line; a phase line gains ``t_s`` (seconds since the
+    start) and, unless it carries its own, ``seconds`` (since the previous
+    phase line: the phase's time, the model builds and checks before it
+    included)."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - START}
+        now = time.perf_counter()
+        obj = {"seconds": now - _LAST_PHASE[0], **obj, "t_s": now - START}
+        _LAST_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1137,7 +1186,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     if len(clean) != n + short or bad:
         fail(f"{names[0]}: {len(clean)} answers, not OK or short: {bad}")
     steps = WINDOW * m.windows
-    recurrent = model.state_leaf is not None
+    probes = 1 + len(model.state_leaves)
     # per window step: flash once per attention layer, through the decode
     # kernel; the probe over the logits, and over the recurrent state where
     # there is one; no scan. Speculating: spec_launches
@@ -1147,11 +1196,11 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     else:
         expected.update({"flash_attention": len(model.attn_layers) * steps,
                          "flash_decode": len(model.attn_layers) * steps,
-                         "probe_rows": (2 if recurrent else 1) * steps})
+                         "probe_rows": probes * steps})
     if launches != expected:
         fail(f"{names[0]}: kernel launches {launches} != {expected} "
              f"({len(model.attn_layers)} attention layers, "
-             f"{'2 probes' if recurrent else '1 probe'} x {steps} window steps)")
+             f"{probes} probes x {steps} window steps)")
     if syncs != 2 * m.windows:
         fail(f"{names[0]}: {syncs} host syncs for {m.windows} windows (2 per "
              "window expected)")
@@ -1231,7 +1280,7 @@ def phase_serve(torch, card: str, model, init_s: float, names=("serve", "lflr"),
     if state["slot"] is None:
         fail(f"{names[1]}: the poisoned slot owned no page")
     # recurrent state: the state probe's STATE_FAULT; KV: non-finite logits
-    code = ErrorCode.STATE_FAULT if recurrent else ErrorCode.NONFINITE_LOSS
+    code = ErrorCode.STATE_FAULT if model.state_leaves else ErrorCode.NONFINITE_LOSS
     latched = [f for f in fm.faults if f.code & int(code)]
     if not latched or state["slot"] not in latched[0].slots:
         fail(f"{names[1]}: the probe did not latch {code.name} on slot "
@@ -2130,31 +2179,41 @@ def phase_elastic(torch, card: str) -> None:
 
 def train_kernels(torch, cfg, leaf_specs) -> dict:
     """The train path's kernels at its shapes (``cfg``'s heads, B x S =
-    ``TRAIN_B x TRAIN_S``): where ``cfg`` has attention layers, the flash
-    forward with its row lse (``flash_forward``, at the sliding layers'
-    window where it has them) against the plain lse and its own output
-    without lse, and FlashAttention's gradients against autograd through
-    the plain version; the probe over the largest gradient leaf (the vocab
-    x d_model embedding, 151936 x 2048 in bf16 for qwen3), and the tree
-    probe over a gradient tree of ``leaf_specs`` (each leaf's shape and
-    dtype); each timed beside its bound, its plain version and the library
-    call."""
+    ``TRAIN_B x TRAIN_S``): where ``cfg`` has self-attention layers, the
+    flash forward with its row lse (``flash_forward``; causal, at the
+    sliding layers' window where it has them, or bidirectional for an
+    encoder), and where it has ``cross`` layers the same over its
+    ``img_tokens`` image keys, non-causal — each against the plain lse and
+    its own output without lse, and FlashAttention's gradients against
+    autograd through the plain version; the probe over the largest
+    gradient leaf (the vocab x d_model embedding, 151936 x 2048 in bf16 for
+    qwen3), and the tree probe over a gradient tree of ``leaf_specs`` (each
+    leaf's shape and dtype); each timed beside its bound, its plain version
+    and the library call."""
     out = {}
     kinds = set(cfg.pattern_layers)
     if kinds & {"attn", "sliding"}:
         out["flash_train_forward"] = flash_train_row(
-            torch, cfg, cfg.sliding_window if "sliding" in kinds else 0)
+            torch, cfg, cfg.sliding_window if "sliding" in kinds else 0,
+            causal=cfg.causal)
+    if "cross" in kinds:
+        out["flash_train_forward_cross"] = flash_train_row(
+            torch, cfg, 0, causal=False, keys=cfg.img_tokens)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     out["probe_grad_embed"] = probe_grad_embed(torch, cfg, gen)
     out["probe_grad_tree"] = probe_grad_tree(torch, leaf_specs, gen)
     return out
 
 
-def flash_train_row(torch, cfg, window: int) -> dict:
+def flash_train_row(torch, cfg, window: int, *, causal: bool = True,
+                    keys: int = TRAIN_S) -> dict:
     """:func:`train_kernels`' flash row: the forward with lse and
-    FlashAttention's gradients at ``cfg``'s heads, causal, at ``window``
-    (0: none; the library call is causal alone, the same mask while
-    ``TRAIN_S`` is at most the window)."""
+    FlashAttention's gradients at ``cfg``'s heads, ``TRAIN_S`` query rows
+    over ``keys`` keys (a cross layer's image tokens), causal or not, at
+    ``window`` (0: none; the library call is causal alone, the same mask
+    while ``TRAIN_S`` is at most the window). The controls: the lse with
+    the last key dropped, and the gradients against a mask shifted by one
+    key (causal) or against the causal mask where the route has none."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
@@ -2166,22 +2225,21 @@ def flash_train_row(torch, cfg, window: int) -> dict:
     rng = np.random.default_rng(SEED + 7)
     randn = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-    B, S = TRAIN_B, TRAIN_S
+    B, S, T = TRAIN_B, TRAIN_S, keys
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    q, k, v = randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    mask = dict(causal=causal, window=window)
     before = dict(flash_attention.kernel_launches)
-    got, lse = flash_attention(q, k, v, zero, causal=True, window=window, lse=True)
+    got, lse = flash_attention(q, k, v, zero, **mask, lse=True)
     moved = [n for n, c in flash_attention.kernel_launches.items() if c != before[n]]
-    want, want_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, window=window,
-                              return_lse=True)
+    want, want_lse = sdpa_ref(q, k, v, q_offset=zero, **mask, return_lse=True)
     a, r = LSE_TOL
     lse_excess = ((lse - want_lse).abs() / (a + r * want_lse.abs())).max().item()
-    _, short_lse = sdpa_ref(q, k, v, q_offset=zero, causal=True, window=window,
-                            seq_kv=S - 1, return_lse=True)
+    _, short_lse = sdpa_ref(q, k, v, q_offset=zero, **mask, seq_kv=T - 1,
+                            return_lse=True)
     lse_control = ((lse - short_lse).abs() / (a + r * short_lse.abs())).max().item()
-    same_out = torch.equal(got, flash_attention(q, k, v, zero, causal=True,
-                                                window=window))
+    same_out = torch.equal(got, flash_attention(q, k, v, zero, **mask))
     err = (got.float() - want.float()).abs().max().item()
     excess = flash_excess(got, want)
     if not (moved == ["flash_forward"] and same_out and lse_excess <= 1 < lse_control
@@ -2193,30 +2251,33 @@ def flash_train_row(torch, cfg, window: int) -> dict:
     # backward) against autograd through the plain version in fp32
     do = randn(B, S, Hq, D)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    grads = torch.autograd.grad(FlashAttention.apply(*leaves, True, window, 2048,
+    grads = torch.autograd.grad(FlashAttention.apply(*leaves, causal, window, 2048,
                                                      2048), leaves, do)
     ga, gr = TRAIN_GRAD_TOL
 
-    def grad_excess(offset):
+    def grad_excess(**kw):
         f = [t.float().requires_grad_() for t in (q, k, v)]
-        ref = torch.autograd.grad(sdpa_ref(*f, q_offset=offset, causal=True,
-                                           window=window), f, do.float())
+        ref = torch.autograd.grad(sdpa_ref(*f, **kw), f, do.float())
         return [((g.float() - w).abs() / (ga * w.abs().max() + gr * w.abs())).max().item()
                 for g, w in zip(grads, ref)]
 
-    g_excess, g_control = grad_excess(zero), grad_excess(zero + 1)
+    g_excess = grad_excess(q_offset=zero, **mask)
+    g_control = grad_excess(q_offset=zero + 1 if causal else zero, causal=True,
+                            window=window)
     if not (max(g_excess) <= 1 < min(g_control)):
         fail(f"FlashAttention gradients dq, dk, dv: {g_excess} x the limit; "
-             f"against the shifted mask {g_control} (each must exceed 1)")
-    nbytes = 2 * B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2 + B * S * Hq * 4 + 4 * B
-    flops = 4 * Hq * D * B * S * (S + 1) // 2
+             f"against the {'shifted' if causal else 'causal'} mask {g_control} "
+             "(each must exceed 1)")
+    nbytes = 2 * B * S * Hq * D * 2 + 2 * B * T * Hkv * D * 2 + B * S * Hq * 4 + 4 * B
+    flops = (4 * Hq * D * B * S * (S + 1) // 2 if causal
+             else 4 * Hq * D * B * S * T)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    qkv = copies(lambda: (randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)),
-                 B * S * (Hq + 2 * Hkv) * D * 2)
+    qkv = copies(lambda: (randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)),
+                 B * (S * Hq + 2 * T * Hkv) * D * 2)
     heads_first = lambda *ts: tuple(t.transpose(1, 2) for t in ts)  # noqa: E731
     row = {
-        "shape": f"q {B}x{S}x{Hq}x{D}, kv {B}x{S}x{Hkv}x{D} bf16, causal, "
-                 f"window {window}, with lse",
+        "shape": f"q {B}x{S}x{Hq}x{D}, kv {B}x{T}x{Hkv}x{D} bf16, "
+                 f"{'causal' if causal else 'not causal'}, window {window}, with lse",
         "kernel": "flash_forward", "source": f"{FLASH_CSRC}/flash_forward.cu",
         "max_abs_err": err, "tol": FLASH_TOL, "err_over_tol": excess,
         "lse_max_abs_err": (lse - want_lse).abs().max().item(),
@@ -2224,16 +2285,17 @@ def flash_train_row(torch, cfg, window: int) -> dict:
         "lse_over_tol": lse_excess, "lse_one_key_dropped_over_tol": lse_control,
         "out_equal_without_lse": same_out,
         "grad_tol": f"{ga} x max + {gr} rel", "grad_over_tol": g_excess,
-        "grad_shifted_mask_over_tol": g_control, "timing_copies": len(qkv),
+        ("grad_shifted_mask_over_tol" if causal else "grad_causal_mask_over_tol"):
+            g_control, "timing_copies": len(qkv),
         "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
-            q, k, v, zero, causal=True, window=window, lse=True), qkv),
+            q, k, v, zero, **mask, lse=True), qkv),
         # one call per copy: ~40 launches a call, and the device queues
         # about 1000
         "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
-            q, k, v, q_offset=zero, causal=True, window=window, return_lse=True),
+            q, k, v, q_offset=zero, **mask, return_lse=True),
             qkv, launches=len(qkv)),
         "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
-            *t, is_causal=True, enable_gqa=True), [heads_first(*t) for t in qkv]),
+            *t, is_causal=causal, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
     del q, k, v, do, leaves, grads, qkv
     return row
@@ -2387,19 +2449,26 @@ def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
 
 
 def phase_train(torch, card: str, model, name: str = "train", *,
-                full: bool = True, line=None) -> tuple:
-    """Full-width training on the card (module docstring 11g, 16a, 20a):
-    runs of ``TRAIN_STEPS`` steps of ``ResilientExecutor`` over
-    ``make_train_step``, each from a fresh copy of ``model``'s weights (the
-    serving model is not changed) with zero moments: clean (one sync a
-    step, each kernel's launches a step by the layers' kinds, finite
-    losses) and LFLR (bit-equal to a clean run over the kept batches),
-    after the train path's attention and probe kernels at its shapes
-    (:func:`train_kernels`). ``full`` (qwen3's phase) adds a profiled step
-    and the faulted run; the recurrent stacks' phases leave those to
-    qwen3's (the fault decisions do not depend on the architecture: the
-    CPU tests hold them to the reference for every stack). The train
-    setup has the allocator grow its segments in place
+                full: bool = True, line=None, start=None) -> tuple:
+    """Full-width training on the card (module docstring 11g, 16a, 20a,
+    35): runs of ``TRAIN_STEPS`` steps of ``ResilientExecutor`` over
+    ``make_train_step``, each from fresh params (``start()``; default a
+    copy of ``model``'s weights, the serving model not changed) with zero
+    moments: clean (one sync a step, each kernel's launches a step by the
+    layers' kinds, finite losses) and LFLR (bit-equal to a clean run over
+    the kept batches), after the train path's attention and probe kernels
+    at its shapes (:func:`train_kernels`). The batches are drawn once into
+    pinned host memory, before the runs (the host's numpy draw timed
+    apart: ``batch_draw_s``), and copied to the card as each step takes
+    one.
+    ``model`` may be a skeleton on the ``meta`` device when ``start`` is
+    given. Where the stack has ``cross`` layers, the gradient of the first
+    step (from ``start()`` on the first batch) must reach every cross
+    layer's attention weights, non-zero and finite. ``full`` (qwen3's
+    phase) adds a profiled step and the faulted run; the other stacks'
+    phases leave those to qwen3's (the fault decisions do not depend on the
+    architecture: the CPU tests hold them to the reference for every
+    stack). The train setup has the allocator grow its segments in place
     (``launch.train.grow_segments``); the phase sets it back to fixed
     segments when it ends, so the serving phases allocate as they did
     before. ``line`` adds keys to the phase's line. Returns ``(kernel
@@ -2410,10 +2479,10 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     from repro_torch.core.device_channel import readback
     from repro_torch.core.recovery import RecoveryPolicy
     from repro_torch.core.resilient import snapshot
-    from repro_torch.data.pipeline import DataIterator, make_batch
+    from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import launch_counts, probe_tree, reset_launch_counts
     from repro_torch.kernels.fault_probe.ops import MAX_LEAVES
-    from repro_torch.launch.steps import make_reset_opt_fn
+    from repro_torch.launch.steps import make_loss_and_grads, make_reset_opt_fn
     from repro_torch.launch.train import build_train_setup, grow_segments
     from repro_torch.optim import init_opt_state
     from repro_torch.tree import tree_leaves
@@ -2431,20 +2500,52 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated() / 1e9
+    dev = torch.device("cuda")
+    grow_segments()
+    # on a meta skeleton the setup's state is shapes only
     _, step_fn, state, pipe, opt_cfg = build_train_setup(
         cfg, batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED, model=model,
         probe_cfg=ProbeConfig(loss_divergence_threshold=TRAIN_DIVERGENCE))
     n_leaves = len(state["params"])
     state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
-    weights = {n: p.detach().clone() for n, p in list(model.named_parameters())[:3]}
     del state
+    serving = model.device.type == "cuda"
+    weights = ({n: p.detach().clone() for n, p in list(model.named_parameters())[:3]}
+               if serving else {})
+    start = start or (lambda: train_params(model))
+    # the batches, drawn once in pinned host memory (the VLM's image
+    # embeddings are 105 MB a step: kept off the card), each copied to the
+    # card as a step takes it, as the pipeline's iterator copies it
+    t0 = time.perf_counter()
+    host_batches = [{k: v.pin_memory() for k, v in make_batch(pipe.cfg, i, "cpu").items()}
+                    for i in range(TRAIN_STEPS)]
+    batch_draw_s = time.perf_counter() - t0
+
+    def batch(i: int) -> dict:
+        return {k: v.to(dev, non_blocking=True) for k, v in host_batches[i].items()}
 
     def fresh():
-        """The run's start: a copy of the model's weights, zero moments."""
-        params = train_params(model)
+        """The run's start: ``start()``'s params, zero moments."""
+        params = start()
         return {"params": params, "opt": init_opt_state(params),
-                "step": torch.zeros((), dtype=torch.int32, device=model.device),
-                "lr_scale": torch.ones((), dtype=torch.float32, device=model.device)}
+                "step": torch.zeros((), dtype=torch.int32, device=dev),
+                "lr_scale": torch.ones((), dtype=torch.float32, device=dev)}
+
+    extra = dict(line or {})
+    cross = [l for l, b in enumerate(cfg.pattern_layers) if b == "cross"]
+    if cross:
+        # a control: at the seeded gates (0) these gradients are exactly 0
+        _, grads, _ = make_loss_and_grads(cfg)(start(), batch(0))
+        cross_grads = {f"blocks.{l}.attn.{w}": grads[f"blocks.{l}.attn.{w}"]
+                       for l in cross for w in ("wq", "wk", "wv", "wo")}
+        finite = all(bool(torch.isfinite(g).all()) for g in cross_grads.values())
+        extra["cross_grad_abs_max"] = {n: g.float().abs().max().item()
+                                       for n, g in cross_grads.items()}
+        del grads, cross_grads
+        if not finite or not all(extra["cross_grad_abs_max"].values()):
+            fail(f"{name}: the first step's cross-layer gradients "
+                 f"{extra['cross_grad_abs_max']} (finite {finite}): each must "
+                 "be finite and non-zero")
 
     losses = []
 
@@ -2458,9 +2559,8 @@ def phase_train(torch, card: str, model, name: str = "train", *,
                                config=ExecutorConfig(good_state_interval=TRAIN_GOOD_INTERVAL),
                                reset_opt_fn=make_reset_opt_fn(cfg))
         losses.clear()
-        return ex.run(fresh(), DataIterator(pipe.cfg, device=model.device),
-                      TRAIN_STEPS, faults=FaultSchedule(
-                          [FaultSpec(step=s, kind=k) for s, k in plan]))
+        return ex.run(fresh(), map(batch, range(TRAIN_STEPS)), TRAIN_STEPS,
+                      faults=FaultSchedule([FaultSpec(step=s, kind=k) for s, k in plan]))
 
     # 1. clean: one host sync a step (the port's counter, and torch's sync
     #    debug mode counting every synchronising call), the kernels' launches
@@ -2516,10 +2616,9 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     snapshot_ms = (time.perf_counter() - t0) * 1e3
     del snap, state, log
     t_parts["clean"] = time.perf_counter()
-    stragglers, extra = 0, dict(line or {})
+    stragglers = 0
     if full:
-        extra["profile"] = train_profile(torch, step_fn, fresh(),
-                                         make_batch(pipe.cfg, 0, model.device), ms_step)
+        extra["profile"] = train_profile(torch, step_fn, fresh(), batch(0), ms_step)
         t_parts["profile"] = time.perf_counter()
 
         # 2. faulted: the reference policy's decisions, the constant the CPU
@@ -2542,7 +2641,7 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     acts = [(e.step, e.action) for e in log.faults()]
     clean = fresh()
     for i in TRAIN_LFLR_KEPT:
-        clean, _, _ = step_fn(clean, make_batch(pipe.cfg, i, model.device), 0)
+        clean, _, _ = step_fn(clean, batch(i), 0)
     a, b = tree_leaves(state), tree_leaves(clean)
     equal = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
     unequal = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
@@ -2558,6 +2657,7 @@ def phase_train(torch, card: str, model, name: str = "train", *,
                  and not any(p.requires_grad for p in model.parameters()))
     if not untouched:
         fail(f"{name}: the serving model's weights changed or require a gradient")
+    del host_batches
     if peak >= TRAIN_PEAK_GB:
         fail(f"{name}: peak {peak} GB, not under {TRAIN_PEAK_GB}")
     gc.collect()
@@ -2567,6 +2667,7 @@ def phase_train(torch, card: str, model, name: str = "train", *,
           "seq": TRAIN_S, "steps": TRAIN_STEPS, "leaves": n_leaves,
           "ms_per_step_median": ms_step, "ms_per_step": step_ms,
           "tokens_per_s": TRAIN_B * TRAIN_S / (ms_step / 1e3),
+          "batch_draw_s": batch_draw_s,
           "clean_run_s": clean_s, "syncs_per_step": syncs / TRAIN_STEPS,
           "probe_leaves_copied": copies,
           "torch_syncs": torch_syncs, "torch_sync_sites": dict(sync_sites),
@@ -2586,11 +2687,16 @@ def phase_train(torch, card: str, model, name: str = "train", *,
 
 def phase_train_cut(torch, card: str, arch: str, name: str, layers: int) -> dict:
     """:func:`phase_train`'s clean and LFLR runs for ``arch`` at its
-    published width cut to ``layers`` layers, a fresh model seeded alone on
-    the card (the serving model freed first), freed after; its line says
-    the cut and the init's peak. Returns ``(kernel rows, the clean run's
-    launches)``."""
+    published width cut to ``layers`` layers (all of them for hubert-xlarge),
+    from a fresh seeded model (the serving model freed first) whose weights
+    — its cross gates set to ``TRAIN_GATE`` where it has them — are copied
+    to the host; the model is freed before the runs, which start from that
+    copy (no seeded model stays beside the train states). The line says the
+    cut, the parameter count and the init's peak. Returns ``(kernel rows,
+    the clean run's launches)``."""
     from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.weights import train_params
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2601,8 +2707,22 @@ def phase_train_cut(torch, card: str, arch: str, name: str, layers: int) -> dict
     model, line["init_s"] = build_model(torch, cfg)
     line["params_g"] = sum(p.numel() for p in model.parameters()) / 1e9
     line["init_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    kern, launches = phase_train(torch, card, model, name, full=False, line=line)
+    with torch.no_grad():
+        gates = [g for blk in model.blocks for g in (blk.gate_attn, blk.gate_mlp)
+                 if g is not None]
+        for g in gates:
+            g.fill_(TRAIN_GATE)
+    if gates:
+        line["cross_gates"] = TRAIN_GATE
+    host = {n: t.cpu().pin_memory() for n, t in train_params(model).items()}
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = lambda: {n: t.to("cuda", non_blocking=True)  # noqa: E731
+                     for n, t in host.items()}
+    kern, launches = phase_train(torch, card, Model(cfg, device="meta", seed=None),
+                                 name, full=False, line=line, start=start)
+    del host
     gc.collect()
     torch.cuda.empty_cache()
     return kern, launches
@@ -2730,7 +2850,7 @@ def phase_lflr_engine(torch, card: str, model, name: str, conf: dict,
     out, m = run["answers"], run["metrics"]
     if not run["injected"]:
         fail(f"{name}: no decoding slot to poison")
-    code = (ErrorCode.STATE_FAULT if model.state_leaf is not None
+    code = (ErrorCode.STATE_FAULT if model.state_leaves
             else ErrorCode.NONFINITE_LOSS)
     latched = [f for f in m.faults if f.code & int(code)]
     if not latched or state["slot"] not in latched[0].slots:
@@ -3778,9 +3898,9 @@ def phase_kernels_moe(torch, card: str) -> dict:
 
 
 def phase_moe(torch, card: str) -> dict:
-    """Full-width qwen3-moe-30b-a3b (48 layers of attention and a 128-expert
-    top-8 MoE, untied unembedding; 61 GB of bf16 weights seeded on the card,
-    leaf by leaf) alone on the card: ``serve_moe`` and ``lflr_moe`` through
+    """qwen3-moe-30b-a3b at full width cut to ``MOE_SERVE_LAYERS`` of its
+    48 layers of attention and a 128-expert top-8 MoE (untied unembedding;
+    bf16 weights seeded on the card, leaf by leaf) alone on the card: ``serve_moe`` and ``lflr_moe`` through
     :func:`phase_serve` on the first ``MOE_REQUESTS`` requests and one with
     a ``SHORT_PROMPT``-token prompt (the KV fault in one MoE layer's attention
     cache, LFLR streams bit-equal to the clean run's; the short request's
@@ -3797,12 +3917,14 @@ def phase_moe(torch, card: str) -> dict:
 
     fp32 = check_moe_fp32_stream(torch, get_config(MOE_ARCH))
     torch.cuda.reset_peak_memory_stats()
-    model, init_s = build_model(torch, get_config(MOE_ARCH))
+    model, init_s = build_model(torch, get_config(MOE_ARCH).replace(
+        num_layers=MOE_SERVE_LAYERS))
     cfg = model.cfg
     init_peak = torch.cuda.max_memory_allocated() / 1e9
     paths, clean = phase_serve(torch, card, model, init_s, ("serve_moe", "lflr_moe"),
                                n=MOE_REQUESTS, short=1,
                                line={"init_peak_mem_gb": init_peak,
+                                     "layers": f"{MOE_SERVE_LAYERS} of 48",
                                      "forward_check_fp32": fp32})
     rows = {}
     for name in ("stepwise", "blocking"):
@@ -4376,12 +4498,14 @@ def main() -> None:
                                               "train_rg", TRAIN_RG_LAYERS)
 
     kern_ssm = phase_kernels_ssm(torch, card)
-    model, init_s = build_model(torch, get_config("mamba2-2.7b"))
+    model, init_s = build_model(torch, get_config("mamba2-2.7b").replace(
+        num_layers=SSM_SERVE_LAYERS))
     # the first 6 requests only (cut from 8, one per slot, when the MoE
     # phases came, for the run's time: the first 6 drop the 225- and
     # 254-token prompts, 200 steps against 318)
     serve_ssm, _ = phase_serve(torch, card, model, init_s, ("serve_ssm", "lflr_ssm"),
-                               n=MOE_REQUESTS)
+                               n=MOE_REQUESTS,
+                               line={"layers": f"{SSM_SERVE_LAYERS} of 64"})
     prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
     del model                                     # free mamba2 before its training
     kern_train_ssm, train_ssm = phase_train_cut(torch, card, "mamba2-2.7b",
@@ -4419,6 +4543,11 @@ def main() -> None:
     kern_vlm = phase_kernels_vlm(torch, card)
     moe_paths.update(phase_vlm(torch, card))
     moe_paths.update(phase_hubert(torch, card))
+    kern_train_hubert, train_hubert = phase_train_cut(
+        torch, card, HUBERT_ARCH, "train_hubert", get_config(HUBERT_ARCH).num_layers)
+    kern_train_vlm, train_vlm = phase_train_cut(torch, card, VLM_ARCH, "train_vlm",
+                                                TRAIN_VLM_LAYERS)
+    emit({"phase": "run", "seconds": time.perf_counter() - START})
     paths = {**serve_paths,
              **{f"engines_{e}": c for e, c in engines["launches"].items()},
              **serve_paged, "engines_paged": engines_paged,
@@ -4427,7 +4556,8 @@ def main() -> None:
              **serve_g3_paged,
              **serve_rg, "prefill_rg": prefill_rg, "train_rg": train_rg,
              **serve_ssm, "prefill_ssm": prefill_ssm, "train_ssm": train_ssm,
-             **serve_g3, "prefill_g3": prefill_g3, **moe_paths}
+             **serve_g3, "prefill_g3": prefill_g3, **moe_paths,
+             "train_hubert": train_hubert, "train_vlm": train_vlm}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}  # noqa: E731
     emit({"kernels": [
         kernel_entry(
@@ -4439,6 +4569,9 @@ def main() -> None:
              "flash_forward": kern["flash_forward"],
              "flash_train_forward": kern_train["flash_train_forward"],
              "flash_train_forward_rg": kern_train_rg["flash_train_forward"],
+             "flash_train_forward_hubert": kern_train_hubert["flash_train_forward"],
+             "flash_train_forward_vlm": kern_train_vlm["flash_train_forward"],
+             "flash_train_forward_vlm_cross": kern_train_vlm["flash_train_forward_cross"],
              "flash_f32_decode": kern["flash_f32_decode"],
              "flash_f32_forward": kern["flash_f32_forward"],
              "flash_ring_decode": kern_rg["flash_ring_decode"],
@@ -4464,7 +4597,9 @@ def main() -> None:
              "probe_grad_embed": kern_train["probe_grad_embed"],
              "probe_grad_tree": kern_train["probe_grad_tree"],
              **{f"{n}_{tag}": k[n] for tag, k in (("rg", kern_train_rg),
-                                                  ("ssm", kern_train_ssm))
+                                                  ("ssm", kern_train_ssm),
+                                                  ("hubert", kern_train_hubert),
+                                                  ("vlm", kern_train_vlm))
                 for n in ("probe_grad_embed", "probe_grad_tree")},
              **{n: r for n, r in kern_arch.items() if n.startswith("probe_")},
              **{n: r for n, r in kern_vlm.items() if n.startswith("probe_")}},

@@ -2,8 +2,10 @@
 
 The port of ``repro/data/pipeline.py``. Every batch is a pure function of
 (seed, step, shard), drawn by the same numpy generator as the JAX package's,
-so the tokens are bit-equal to its; they are handed over as int32 tensors on
-the consumer's device (pinned and copied without a host sync on a card).
+so the arrays are bit-equal to its; they are handed over as tensors on the
+consumer's device (pinned and copied without a host sync on a card): int32
+tokens and labels, and for the ``audio`` and ``vlm`` families fp32 frame or
+image embeddings (the modality frontends are stubs, as in the JAX package).
 The iterator's state is one integer that travels inside checkpoints; after
 an elastic shrink the surviving hosts re-shard the stream by changing
 ``num_shards``/``shard`` only.
@@ -46,14 +48,13 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def make_batch(cfg: PipelineConfig, step: int, device=None) -> dict:
-    """Pure function of (config, step): ``{"labels", "tokens"}`` int32
-    ``(batch, seq)`` on ``device`` (``cuda`` unless the caller passes
-    another)."""
-    if cfg.family != "lm":
-        raise NotImplementedError(
-            f"{cfg.family!r} batches (frame / patch embeddings) are not "
-            "ported: ROADMAP Queue 1, item 14c (training the VLM and the "
-            "encoder)")
+    """Pure function of (config, step), on ``device`` (``cuda`` unless the
+    caller passes another): int32 ``labels`` ``(batch, seq)``, then by
+    family ``tokens`` (``lm``, ``vlm``) or fp32 frame embeddings
+    ``inputs_embeds (batch, seq, d_model)`` (``audio``: no tokens), and for
+    ``vlm`` fp32 image embeddings ``img_embeds (batch, img_tokens,
+    d_model)`` of scale 0.02 — each drawn after the tokens from the same
+    generator, in the JAX package's order."""
     device = resolve_device(device)
     rng = _batch_rng(cfg, step)
     B, S, V = cfg.batch_size, cfg.seq_len, cfg.vocab_size
@@ -65,8 +66,16 @@ def make_batch(cfg: PipelineConfig, step: int, device=None) -> dict:
     tokens = tokens.astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[:, -1] = tokens[:, 0]
-    return {"labels": _to_device(labels, device),
-            "tokens": _to_device(tokens, device)}
+    batch = {"labels": _to_device(labels, device)}
+    if cfg.family == "audio":
+        emb = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        batch["inputs_embeds"] = _to_device(emb, device)
+    else:
+        batch["tokens"] = _to_device(tokens, device)
+    if cfg.family == "vlm":
+        img = rng.standard_normal((B, cfg.img_tokens, cfg.d_model)) * 0.02
+        batch["img_embeds"] = _to_device(img.astype(np.float32), device)
+    return batch
 
 
 @dataclass

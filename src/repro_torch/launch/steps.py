@@ -56,7 +56,11 @@ def make_loss_and_grads(cfg):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
             loss, aux = skeleton.loss(leaves, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            # a leaf the loss never reads (an encoder's token embedding, fed
+            # frame embeddings) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return (loss.detach(), dict(zip(leaves, grads)),
                 {k: v.detach() for k, v in aux.items()})
 
@@ -70,10 +74,13 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
 
     ``state`` is ``{"params", "opt": {"m", "v"}, "step", "lr_scale"}`` (the
     JAX package's tree: dicts of tensors in its flatten order, the scalars
-    0-d tensors); ``batch`` ``{"tokens", "labels"}`` on the same device;
+    0-d tensors); ``batch`` ``{"tokens", "labels"}`` (or, by family,
+    ``inputs_embeds`` for the tokens, ``img_embeds`` beside them) on the
+    same device;
     ``inject`` an int or an int32 0-d device tensor of ``INJ_*`` bits. The
     word is the in-band device channel: the loss, the whole gradient stream
-    (one ``probe_tree`` launch over every leaf) and the input tokens,
+    (one ``probe_tree`` launch over every leaf) and the input tokens
+    (where the batch has them),
     OR-combined into one int32 that the host's DeviceFuture turns into the paper's
     exceptions; for an MoE config also the router probe over the dropped
     fraction (ROUTER_OVERFLOW). The injections, the probes, the AdamW update
@@ -93,13 +100,18 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
         if not torch.is_tensor(inject):
             inject = torch.full((), int(inject), dtype=torch.int32,
                                 device=state["step"].device)
-        tokens = inject_batch(batch["tokens"], inject)
-        loss, grads, aux = loss_and_grads(state["params"],
-                                          {**batch, "tokens": tokens})
+        # an audio batch has frame embeddings and no tokens: no bad-data
+        # injection and no data probe, as in the JAX package
+        tokens = batch.get("tokens")
+        if tokens is not None:
+            tokens = inject_batch(tokens, inject)
+            batch = {**batch, "tokens": tokens}
+        loss, grads, aux = loss_and_grads(state["params"], batch)
         loss = inject_loss(loss, inject)
         grads = inject_grads(grads, inject)
         dropped = aux["dropped_fraction"]
-        word = step_probe(loss, grads, tokens=tokens, vocab_size=cfg.vocab_size,
+        word = step_probe(loss, grads, tokens=tokens,
+                          vocab_size=cfg.vocab_size if tokens is not None else None,
                           router_dropped=dropped if cfg.is_moe else None,
                           cfg=probe_cfg)
         with torch.no_grad():
@@ -146,8 +158,8 @@ def make_decode_step(model: Model):
     def step(cache, token, pos):
         logits = model.decode_step(token, cache, pos)
         word = logits_probe(logits[:, 0]).amax()
-        if model.state_leaf is not None:
-            word = word | state_probe(cache[model.state_leaf]).amax()
+        for leaf in model.state_leaves:
+            word = word | state_probe(cache[leaf]).amax()
         return logits, word
 
     return step
@@ -164,17 +176,17 @@ def make_slot_decode_step(model: Model):
 
     The word is per slot — the logits probe kernel reduces each slot's row —
     which is what makes per-sequence LFLR possible. A model with recurrent
-    state ORs in the state word over the updated state leaf, ``h`` or
+    state ORs in the state word over each updated state leaf, ``h`` and/or
     ``ssm`` (the JAX decode step's ``state_probe`` over the leaves its
-    ``_recurrent_states`` picks; never ``conv``), one more probe launch per
-    step.
+    ``_recurrent_states`` picks; never a convolution's), one more probe
+    launch per leaf a step.
     """
 
     def step(caches, tokens, pos):
         logits = model.decode_step(tokens[:, None], caches, pos)[:, 0]
         words = logits_probe(logits)
-        if model.state_leaf is not None:
-            words = words | state_probe(caches[model.state_leaf])
+        for leaf in model.state_leaves:
+            words = words | state_probe(caches[leaf])
         return logits, words
 
     return step

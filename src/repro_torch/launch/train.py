@@ -10,7 +10,9 @@ deterministic pipeline + the paper's technique (in-band error channel →
 DeviceFuture → RecoveryPolicy) + async checkpointing. ``--smoke`` (the
 default) uses the reduced config, ``--full`` the published one; the run is
 on the card unless ``--device cpu``. Every stack trains: attention, the
-RG-LRU (recurrentgemma-2b) and the SSD (mamba2-2.7b). ``--divergence``
+RG-LRU (recurrentgemma-2b), the SSD (mamba2-2.7b), the encoder
+(hubert-xlarge, from frame embeddings) and the VLM (llama-3.2-vision-11b,
+with image embeddings), each from its family's batches. ``--divergence``
 sets the loss above which a step reads DIVERGENCE (the reference's 50 by
 default; recurrentgemma-2b's smoke loss starts near 62, its seeded
 full-width one near 2550).

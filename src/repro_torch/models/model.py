@@ -20,12 +20,14 @@ pair of leaves per attention kind, so a stack may hold several:
   reads and never writes (zeros in a fresh cache, as the JAX package's:
   its serving never fills them), all in the model dtype;
 - the recurrent layers' state in fp32, ``h`` ``(batch, rglru layers,
-  lru_width)`` or ``ssm`` ``(batch, ssd layers, heads, head_dim,
+  lru_width)`` and/or ``ssm`` ``(batch, ssd layers, heads, head_dim,
   state_dim)``, and their last ``width - 1`` convolution inputs ``conv``
-  ``(batch, recurrent layers, width - 1, channels)`` in the model dtype. The
+  ``(batch, recurrent layers, width - 1, channels)`` in the model dtype (in
+  a stack of both kinds, whose convolutions differ in width and channels,
+  ``conv`` is the RG-LRU layers' and ``conv_ssd`` the SSD layers'). The
   recurrent state is slot-major, so one probe launch over
-  ``state.view(batch, -1)`` gives every slot's state word over all its
-  layers.
+  ``state.view(batch, -1)`` gives every slot's state word over all the
+  layers of its kind.
 
 Layer ``l`` reads row ``cache_index[l]`` of its leaves: its index among the
 layers that share them.
@@ -59,15 +61,25 @@ CACHE_LAYOUT = {"k": CacheLeaf(1, 0), "v": CacheLeaf(1, 0),
                 "k_ring": CacheLeaf(1, 0), "v_ring": CacheLeaf(1, 0),
                 "k_cross": CacheLeaf(1, 0), "v_cross": CacheLeaf(1, 0),
                 "h": CacheLeaf(0, 1), "ssm": CacheLeaf(0, 1),
-                "conv": CacheLeaf(0, 1)}
+                "conv": CacheLeaf(0, 1), "conv_ssd": CacheLeaf(0, 1)}
 
 # each attention kind's K and V leaves
 KV_LEAVES = {"attn": ("k", "v"), "sliding": ("k_ring", "v_ring"),
              "cross": ("k_cross", "v_cross")}
 # each block kind's cache leaves, port name -> the JAX layer cache's name
+# (a recurrent kind's state leaf first, then its convolution's)
 BLOCK_LEAVES = {**{b: {k: "k", v: "v"} for b, (k, v) in KV_LEAVES.items()},
                 "rglru": {"h": "h", "conv": "conv"},
                 "ssd": {"ssm": "ssm", "conv": "conv"}}
+
+
+def block_leaves(cfg: ModelConfig) -> dict:
+    """:data:`BLOCK_LEAVES` for ``cfg``'s stack: in a stack of both
+    recurrent kinds the SSD layers' convolution inputs are ``conv_ssd``
+    (their width and channels differ from the RG-LRU layers')."""
+    if not {"rglru", "ssd"} <= set(cfg.pattern_layers):
+        return BLOCK_LEAVES
+    return {**BLOCK_LEAVES, "ssd": {"ssm": "ssm", "conv_ssd": "conv"}}
 
 
 def slot_layer_view(cache: dict, name: str) -> torch.Tensor:
@@ -135,25 +147,23 @@ class Model(nn.Module):
         super().__init__()
         for b in cfg.pattern_layers:
             check_block_kind(b)
-        rec_kinds = {b for b in cfg.pattern_layers if b in RECURRENT_STATE}
-        if len(rec_kinds) > 1:
-            raise NotImplementedError(
-                "two recurrent block kinds in one stack (two conv widths) "
-                "is not ported: ROADMAP Queue 1, item 14")
         pin_matmul_precision()
         self.cfg = cfg
-        # the recurrent layers' state leaf, "h" (rglru), "ssm" (ssd) or None:
-        # what the state probe reads and a state fault poisons (never
-        # "conv", as in the JAX package)
-        self.state_leaf = RECURRENT_STATE.get(next(iter(rec_kinds), None))
+        # the recurrent layers' state leaves, "h" (rglru) and/or "ssm"
+        # (ssd), in RECURRENT_STATE's order: what the state probe reads and
+        # a state fault poisons (never a convolution's, as in the JAX
+        # package)
+        self.state_leaves = tuple(leaf for b, leaf in RECURRENT_STATE.items()
+                                  if b in cfg.pattern_layers)
         self.attn_layers = [l for l, b in enumerate(cfg.pattern_layers)
                             if b in ATTN_KINDS]
         self.recurrent_layers = [l for l, b in enumerate(cfg.pattern_layers)
                                  if b in RECURRENT_STATE]
         # layer l's decode cache: row cache_index[l] of its kind's leaves
-        # (BLOCK_LEAVES), counted among the layers that share them
+        # (block_leaves), counted among the layers that share them
+        self.block_leaves = block_leaves(cfg)
         self.cache_index = [
-            sum(BLOCK_LEAVES[b2] == BLOCK_LEAVES[b]
+            sum(self.block_leaves[b2] == self.block_leaves[b]
                 for b2 in cfg.pattern_layers[:l])
             for l, b in enumerate(cfg.pattern_layers)]
         self.device = resolve_device(device)
@@ -258,18 +268,21 @@ class Model(nn.Module):
         return out, {"dropped_fraction": total / n_ffn}
 
     def loss(self, params: dict, batch: dict):
-        """``(loss, aux)``: the training loss of ``batch`` (``tokens``,
-        ``labels``, optional ``loss_mask``) under ``params``, a dict of every
+        """``(loss, aux)``: the training loss of ``batch`` (``labels``, and
+        ``tokens`` or the frame embeddings ``inputs_embeds``, optional
+        ``img_embeds`` and ``loss_mask``) under ``params``, a dict of every
         parameter by its ``named_parameters`` name (a train state's
         ``"params"``), and :meth:`forward`'s aux, as the JAX package's
         ``loss`` returns them. The forward runs on those tensors through
         ``torch.func.functional_call``, so gradients reach them and this
         model's own weights are neither read nor touched (its parameters
-        never require a gradient, and may lie on the ``meta`` device)."""
+        never require a gradient, and may lie on the ``meta`` device). The
+        embeddings are inputs: no gradient reaches them."""
         return torch.func.functional_call(
-            self, params, (batch["tokens"],),
+            self, params, (batch.get("tokens"),),
             {"labels": batch["labels"], "loss_mask": batch.get("loss_mask"),
-             "with_aux": True},
+             "inputs_embeds": batch.get("inputs_embeds"),
+             "img_embeds": batch.get("img_embeds"), "with_aux": True},
             strict=True)
 
     # ------------------------------------------------------------------- decode
@@ -285,16 +298,17 @@ class Model(nn.Module):
                          cfg.num_kv_heads, cfg.resolved_head_dim)
                 k, v = KV_LEAVES[kind]
                 cache[k], cache[v] = zeros(*shape), zeros(*shape)
-        n = len(self.recurrent_layers)
-        if self.state_leaf == "h":
-            w = cfg.resolved_lru_width
+        if "h" in self.state_leaves:
+            n, w = cfg.pattern_layers.count("rglru"), cfg.resolved_lru_width
             cache["h"] = zeros(batch, n, w, dtype=torch.float32)
             cache["conv"] = zeros(batch, n, CONV_WIDTH - 1, w)
-        elif self.state_leaf == "ssm":
+        if "ssm" in self.state_leaves:
+            n = cfg.pattern_layers.count("ssd")
+            _, conv = self.block_leaves["ssd"]
             cache["ssm"] = zeros(batch, n, cfg.ssm_nheads, cfg.ssm_head_dim,
                                  cfg.ssm_state_dim, dtype=torch.float32)
-            cache["conv"] = zeros(batch, n, cfg.ssm_conv_width - 1,
-                                  conv_dim(cfg))
+            cache[conv] = zeros(batch, n, cfg.ssm_conv_width - 1,
+                                conv_dim(cfg))
         return cache
 
     def kv_capacity(self, kind: str, max_len: int) -> int:
@@ -335,7 +349,8 @@ class Model(nn.Module):
             zeros = torch.zeros_like(pos)
         for blk, j in zip(self.blocks[:layers], self.cache_index[:layers]):
             if blk.btype in RECURRENT_STATE:
-                state = (cache[self.state_leaf][:, j], cache["conv"][:, j])
+                rec, conv = self.block_leaves[blk.btype]
+                state = (cache[rec][:, j], cache[conv][:, j])
             elif blk.btype == "cross":
                 state = (cache["k_cross"][j], cache["v_cross"][j], zeros)
             else:

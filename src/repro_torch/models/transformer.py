@@ -71,17 +71,15 @@ class Block(nn.Module):
     for an MoE config, ``moe`` (the other None). A ``layernorm`` config's
     norms carry ``norm1_bias``/``norm2_bias`` (None for ``rmsnorm``). An
     ``ssd`` block has no ``norm2`` and no FFN (all None), as in the JAX
-    package. A ``cross`` block adds ``gate_attn`` and ``gate_mlp``, 0-d
-    fp32 zeros (None elsewhere)."""
+    package. A config with ``d_ff`` 0 and no MoE builds ``norm2`` and no
+    FFN: the block adds zeros in its place, as the JAX package's does. A
+    ``cross`` block adds ``gate_attn`` and ``gate_mlp``, 0-d fp32 zeros
+    (None elsewhere)."""
 
     def __init__(self, cfg, btype: str, *, device, dtype, generator=None):
         super().__init__()
         check_block_kind(btype)
         has_mlp = btype in MLP_BLOCKS
-        if has_mlp and not (cfg.is_moe or cfg.d_ff):
-            raise NotImplementedError(
-                f"{btype!r} blocks without an MLP are not ported yet: "
-                "ROADMAP Queue 1, item 14 (remaining architectures)")
         self.btype = btype
         self.norm1, self.norm1_bias = norm_params(cfg, device)
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -93,7 +91,8 @@ class Block(nn.Module):
             self.attn = Attention(cfg, **kw)
         self.norm2, self.norm2_bias = (norm_params(cfg, device) if has_mlp
                                        else (None, None))
-        self.mlp = MLP(cfg, **kw) if has_mlp and not cfg.is_moe else None
+        self.mlp = (MLP(cfg, **kw) if has_mlp and cfg.d_ff and not cfg.is_moe
+                    else None)
         self.moe = MoE(cfg, **kw) if has_mlp and cfg.is_moe else None
         for name in GATES:
             setattr(self, name, nn.Parameter(
@@ -108,10 +107,12 @@ def _window(p: Block, cfg) -> int:
 def _ffn(p: Block, h: torch.Tensor, cfg, with_aux: bool):
     """The MLP or MoE sub-block: ``(out, dropped_fraction)``, the fraction a
     0-d fp32 tensor for MoE with ``with_aux``, else None (the MLP drops
-    nothing)."""
+    nothing); zeros for a block with neither (``d_ff`` 0)."""
     if p.moe is not None:
         out, aux = apply_moe(p.moe, h, cfg, with_aux=with_aux)
         return out, (aux["dropped_fraction"] if with_aux else None)
+    if p.mlp is None:
+        return torch.zeros_like(h), None
     return apply_mlp(p.mlp, h, cfg.mlp_kind), None
 
 

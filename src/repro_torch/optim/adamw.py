@@ -81,13 +81,21 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt_state: dict,
     bc2 = 1.0 - torch.pow(cfg.b2, t)
 
     def upd(p, g, m, v):
-        gf = (g.float() * scale).to(g.dtype).float()
-        m_ = cfg.b1 * m + (1 - cfg.b1) * gf
-        v_ = cfg.b2 * v + (1 - cfg.b2) * torch.square(gf)
-        mh = m_ / bc1
-        vh = v_ / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m_, v_
+        # the ops of b1 m + (1 - b1) g, b2 v + (1 - b2) g², m̂ / (√v̂ + eps)
+        # + wd p and p - lr delta, each into a temporary of this leaf's
+        # (in place where it is one): at most three fp32 copies of the leaf
+        # live beside the new moments, not a dozen (a 525 M-element
+        # embedding's temporaries are 2.1 GB each)
+        gf = torch.mul(g.float(), scale).to(g.dtype).float()
+        m_ = torch.mul(m, cfg.b1)
+        m_ += torch.mul(gf, 1 - cfg.b1)
+        v_ = torch.mul(v, cfg.b2)
+        v_ += torch.square(gf).mul_(1 - cfg.b2)
+        del gf
+        delta = torch.div(m_, bc1)
+        delta /= torch.div(v_, bc2).sqrt_().add_(cfg.eps)
+        delta += torch.mul(p.float(), cfg.weight_decay)
+        return torch.sub(p.float(), delta.mul_(lr)).to(p.dtype), m_, v_
 
     new_p, new_m, new_v = {}, {}, {}
     for name, p in params.items():

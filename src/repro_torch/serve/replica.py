@@ -99,6 +99,7 @@ from ..launch.steps import (make_cache_prefill, make_decode_window,
                             make_speculative_decode_window)
 from ..models.model import (KV_LEAVES, Model, insert_cache_slot,
                             reset_cache_slot, slot_layer_view)
+from ..models.transformer import RECURRENT_STATE
 from ..obs.trace import NULL_TRACER, Tracer
 from .config import EngineConfig
 from .metrics import ServeMetrics
@@ -524,10 +525,12 @@ class Replica:
                 return None
             slot = int(rng.choice(active)) if rng is not None else active[0]
         model, layers = self.model, self.state_fault_layers()
-        if model.state_leaf is not None:
-            rows = [model.cache_index[l] for l in layers]
-            state = slot_layer_view(self.caches, model.state_leaf)
-            state[(slot, rows) + (0,) * (state.dim() - 2)] = float("nan")
+        if model.state_leaves:
+            for l in layers:
+                state = slot_layer_view(
+                    self.caches, RECURRENT_STATE[self.cfg.pattern_layers[l]])
+                state[(slot, model.cache_index[l]) + (0,) * (state.dim() - 2)] = (
+                    float("nan"))
             return slot
         (l,) = layers
         name = KV_LEAVES[self.cfg.pattern_layers[l]][0]
@@ -573,7 +576,7 @@ class Replica:
         """The layers :meth:`inject_state_fault` poisons, from the config
         and ``max_len`` alone (no device read)."""
         model, cfg = self.model, self.cfg
-        if model.state_leaf is not None:
+        if model.state_leaves:
             n_scan = cfg.num_periods * cfg.period
             return [l for l in model.recurrent_layers
                     if l >= n_scan or (cfg.num_periods and l < cfg.period)]

@@ -13,10 +13,11 @@ the slot-stacked serve cache (``(S, n_per, 1, ...)`` and ``(S, 1, ...)``,
 ``slots=True``), against the port's cache: ``k``/``v`` ``(full layers, B,
 max_len, Hkv, D)``, ``k_ring``/``v_ring`` ``(sliding layers, B, ring, Hkv,
 D)``, ``k_cross``/``v_cross`` ``(cross layers, B, img_tokens, Hkv, D)``, the
-recurrent state ``h`` ``(B, rglru layers, w)`` or ``ssm`` ``(B, ssd
-layers, H, P, N)``, and ``conv`` ``(B, recurrent layers, 3, channels)``. A
-JAX layer cache names its K/V ``k``/``v`` whatever the layer's kind; the
-port's leaf for each is :data:`~repro_torch.models.model.BLOCK_LEAVES`'s.
+recurrent state ``h`` ``(B, rglru layers, w)`` and/or ``ssm`` ``(B, ssd
+layers, H, P, N)``, and ``conv`` ``(B, recurrent layers, 3, channels)``
+(``conv_ssd`` for the SSD layers of a stack of both kinds). A JAX layer
+cache names its K/V ``k``/``v`` whatever the layer's kind; the port's leaf
+for each is :func:`~repro_torch.models.model.block_leaves`'s.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays and go back as
 float32 arrays (exact: every bfloat16 is a float32).
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
-from .models.model import BLOCK_LEAVES, CACHE_LAYOUT, Model, resolve_device
+from .models.model import CACHE_LAYOUT, Model, block_leaves, resolve_device
 from .models.transformer import GATES
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -45,10 +46,10 @@ def _mlp_names(cfg: ModelConfig) -> tuple:
 
 def _ffn(cfg: ModelConfig) -> tuple[str, tuple]:
     """The FFN's key in both trees and its leaves: ``mlp``, or ``moe`` with
-    its router."""
+    its router; no leaves for a config without either (``d_ff`` 0)."""
     if cfg.is_moe:
         return "moe", ("router",) + _mlp_names(cfg)
-    return "mlp", _mlp_names(cfg)
+    return "mlp", (_mlp_names(cfg) if cfg.d_ff else ())
 
 
 def _mixer(cfg: ModelConfig, btype: str) -> tuple[str, tuple]:
@@ -160,8 +161,9 @@ def params_to_numpy(model: Model) -> dict:
         if blk.norm2 is not None:
             key, names = _ffn(cfg)
             layer["norm2"] = _norm_numpy(blk, cfg, "norm2")
-            layer[key] = {n: _to_numpy(getattr(getattr(blk, key), n))
-                          for n in names}
+            if names:
+                layer[key] = {n: _to_numpy(getattr(getattr(blk, key), n))
+                              for n in names}
         layers.append(layer)
     tree = {"embed": {"embedding": _to_numpy(model.embed)},
             "stack": _stack(layers, cfg, lambda xs: np.stack(xs)),
@@ -381,14 +383,14 @@ def cache_from_jax(tree: dict, cfg: ModelConfig, *, slots: bool = False,
         select = lambda leaf, c: np.asarray(leaf)[:, c, 0]  # noqa: E731
     else:
         select = lambda leaf, c: np.asarray(leaf)[c]  # noqa: E731
-    per_layer = []
+    per_layer, leaves = [], block_leaves(cfg)
     for path, b in zip(_layer_paths(cfg), cfg.pattern_layers):
         lc = _layer(tree, path, select)
         if path[0] == "rest" and slots:
             lc = {k: np.asarray(v)[:, 0] for k, v in lc.items()}
         # every leaf (B, ...), under the port's name
         per_layer.append({ours: lc[theirs]
-                          for ours, theirs in BLOCK_LEAVES[b].items()})
+                          for ours, theirs in leaves[b].items()})
     cache = {}
     for name, leaf in CACHE_LAYOUT.items():
         # in layer order, so row j of a leaf is the j-th layer holding it
@@ -402,10 +404,10 @@ def cache_to_numpy(cache: dict, cfg: ModelConfig, *, slots: bool = False) -> dic
     """Inverse of :func:`cache_from_jax`: the JAX cache tree, as numpy."""
     arrays = {name: _to_numpy(t) for name, t in cache.items()}
     index = dict.fromkeys(arrays, 0)
-    layers = []
+    layers, leaves = [], block_leaves(cfg)
     for b in cfg.pattern_layers:
         lc = {}
-        for ours, theirs in BLOCK_LEAVES[b].items():
+        for ours, theirs in leaves[b].items():
             row = np.take(arrays[ours], index[ours],
                           axis=CACHE_LAYOUT[ours].layer_axis)
             index[ours] += 1

@@ -21,7 +21,10 @@ and, for the ``qk_norm`` variant, the q/k norms drawn away from ones:
   KV fault (K of layer 0, as the JAX replica's), the port's LFLR streams
   bit-equal to its clean run's, a slot's cross leaves zero again after its
   reset (or the blocking engine's insert), and the stepwise and blocking
-  engines bit-equal to the window engine.
+  engines bit-equal to the window engine;
+* the paged replica (self-attention K/V in the pool, cross leaves dense, as
+  the JAX replica pages them) against the JAX paged replica and bit-equal
+  to the port's contiguous engine, clean and faulted.
 
 Tolerance 1e-4 (absolute, as ``test_torch_model.py``: logits of magnitude
 ~5-50, float32 on both sides, other reduction orders); the streams as
@@ -361,3 +364,26 @@ def test_engines_bit_equal_window(conf):
     win, _ = _serve(_port_replica(), Request, traffic)
     assert all(r.status == OK for r in step.values())
     assert _tokens(step) == _tokens(win)
+
+
+PAGED = dict(paged=True, page_size=8)
+
+
+@pytest.mark.parametrize("inject_at", [None, 3], ids=["steady", "faulted"])
+def test_paged_replica_matches_jax_and_contiguous(inject_at):
+    """The JAX replica pages a cross stack: its self-attention K/V
+    (capacity ``max_len``) go into the pool, its cross leaves (capacity
+    ``img_tokens``) stay dense. The port's paged replica pages the same
+    leaves; its streams and fault records are the JAX paged replica's, and
+    bit-equal to its own contiguous engine's."""
+    traffic = _traffic()
+    jrep, prep = _jax_replica(**PAGED), _port_replica(**PAGED)
+    assert [n for n in prep.caches if prep.layout.is_paged_path(n)] == ["k", "v"]
+    ref, jslot = _serve(jrep, JaxRequest, traffic, inject_at=inject_at)
+    got, slot = _serve(prep, Request, traffic, inject_at=inject_at)
+    contiguous, _ = _serve(_port_replica(), Request, traffic, inject_at=inject_at)
+    assert slot == jslot and (slot is None) == (inject_at is None)
+    assert _records(prep) == _records(jrep)
+    assert all(r.status == OK for r in got.values())
+    assert _tokens(got) == _tokens(contiguous)
+    _assert_streams_match(_env(), ref, got, traffic)

@@ -1028,6 +1028,89 @@ def test_flash_function_gradients_on_the_card(cuda):
         assert ((g.float() - w).abs() <= 1e-2 * w.abs().max() + 2.0 ** -6 * w.abs()).all()
 
 
+# the encoder's and the VLM's training routes at their train shapes (B 4 x
+# S 256): (S, T, Hq, Hkv, D, causal) — hubert's bidirectional self-attention
+# at head_dim 80, the VLM's causal self-attention and its cross-attention
+# over 1601 image keys (the last tile ragged)
+TRAIN_ROUTES = [(256, 256, 16, 16, 80, False), (256, 256, 32, 8, 128, True),
+                (256, 1601, 32, 8, 128, False)]
+
+
+@pytest.mark.parametrize("route", TRAIN_ROUTES)
+def test_flash_lse_and_gradients_on_the_train_routes(cuda, route):
+    """flash_forward's row lse on the non-causal, T != S and D 80 routes
+    against the plain one (1e-5 of |lse| + 1e-5: fp32 sums in another
+    order), its output bit-equal to the launch without lse and within 2
+    bf16 ulps of the plain one; FlashAttention's gradients against autograd
+    through the plain forward in fp32 (1e-2 of the largest value plus 2
+    bf16 ulps of each, as at the causal shapes)."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    S, T, Hq, Hkv, D, causal = route
+    rng = np.random.default_rng(T)
+    q = _randn(rng, (4, S, Hq, D), torch.bfloat16, cuda)
+    k, v = (_randn(rng, (4, T, Hkv, D), torch.bfloat16, cuda) for _ in range(2))
+    do = _randn(rng, (4, S, Hq, D), torch.bfloat16, cuda)
+    zero = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = flash_attention.kernel_launches["flash_forward"]
+    out, lse = flash_attention(q, k, v, zero, causal=causal, lse=True)
+    assert flash_attention.kernel_launches["flash_forward"] == before + 1
+    want_out, want_lse = sdpa_ref(q, k, v, q_offset=zero, causal=causal,
+                                  return_lse=True)
+    assert ((lse - want_lse).abs() <= 1e-5 + 1e-5 * want_lse.abs()).all()
+    assert torch.equal(out, flash_attention(q, k, v, zero, causal=causal))
+    assert (out.float() - want_out.float()).abs().max().item() <= 1.6e-2
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(FlashAttention.apply(*leaves, causal, 0, 2048, 2048),
+                              leaves, do)
+    f = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(sdpa_ref(*f, q_offset=zero, causal=causal), f,
+                               do.float())
+    for g, w in zip(got, want):
+        assert ((g.float() - w).abs() <= 1e-2 * w.abs().max() + 2.0 ** -6 * w.abs()).all()
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "llama-3.2-vision-11b"])
+def test_family_train_lflr_equals_clean_on_the_card(cuda, arch):
+    """The smoke encoder (frame embeddings) and VLM (image embeddings, its
+    cross gates set to 0.5) trained on the card: flash once per layer a
+    step (fp32: the ``flash_f32`` route), one host sync a step; nan_grad
+    at 3 (skip) and 8
+    (restore), bit-equal on every leaf to a clean run over the kept
+    batches."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
+                                  ResilientExecutor)
+    from repro_torch.core.device_channel import readback
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_reset_opt_fn
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.tree import tree_leaves
+
+    cfg = smoke_config(arch)
+    _, step_fn, state0, pipe, _ = build_train_setup(cfg, batch_size=2, seq_len=16,
+                                                    device=cuda)
+    for name, t in state0["params"].items():
+        if name.endswith(("gate_attn", "gate_mlp")):
+            t.fill_(0.5)
+    ex = ResilientExecutor(step_fn, config=ExecutorConfig(good_state_interval=5),
+                           reset_opt_fn=make_reset_opt_fn(cfg))
+    before = readback.count
+    reset_launch_counts()
+    state, log = ex.run(state0, pipe, 12, faults=FaultSchedule(
+        [FaultSpec(step=3, kind="nan_grad"), FaultSpec(step=8, kind="nan_grad")]))
+    assert launch_counts()["flash_attention"] == 12 * cfg.num_layers
+    assert readback.count == before + 12
+    assert [(e.step, e.action) for e in log.faults()] == [(3, "skip_batch"),
+                                                           (8, "restore_good")]
+    clean = state0
+    for i in (0, 1, 2, 4, 5, 9, 10, 11):
+        clean, _, word = step_fn(clean, make_batch(pipe.cfg, i, cuda), 0)
+        assert int(word) == 0
+    assert all(a.device.type == "cuda" and torch.equal(a, b)
+               for a, b in zip(tree_leaves(state), tree_leaves(clean)))
+
+
 def test_embed_lookup_backward_is_deterministic_on_the_card(cuda):
     """The embedding gradient (sorted runs, segment sums) repeats bit for
     bit on the card and equals the CPU's sequential index_add_."""

@@ -259,7 +259,7 @@ def test_lflr_bit_equal_clean(env, mode):
     faulted, slot = _serve(rep, Request, traffic, inject_at=3)
     assert slot is not None
     first = rep.metrics.faults[0]
-    code = (ErrorCode.STATE_FAULT if rep.model.state_leaf
+    code = (ErrorCode.STATE_FAULT if rep.model.state_leaves
             else ErrorCode.NONFINITE_LOSS)
     assert first.code & int(code) and first.slots == (slot,)
     assert sum(r.retries for r in faulted.values()) == 1
@@ -355,10 +355,10 @@ def test_decode_step_word_folds_the_batch(env):
     tok = torch.tensor([[1], [2]], dtype=torch.int32)
     logits, word = step(cache, tok, 0)
     assert logits.shape == (2, 1, cfg.vocab_size) and int(word) == 0
-    leaf = model.state_leaf or ("k" if "k" in cache else "k_ring")
+    leaf = (model.state_leaves or ("k" if "k" in cache else "k_ring",))[0]
     slot_layer_view(cache, leaf)[1] = float("nan")
     _, word = step(cache, tok, 1)
-    want = ErrorCode.NONFINITE_LOSS | (ErrorCode.STATE_FAULT if model.state_leaf else 0)
+    want = ErrorCode.NONFINITE_LOSS | (ErrorCode.STATE_FAULT if model.state_leaves else 0)
     assert int(word) == int(want)
 
 

@@ -4,8 +4,8 @@ For each module below, every public name the reference module defines
 (top-level functions, classes and assignments; a package's re-exports), and
 every public attribute and dataclass field of each class both define, must
 exist in the port, except the names listed in ``ABSENT``: each waits for
-the ROADMAP item that ports its mode (11 tensor parallel, 14 the
-remaining architectures, 15b the dry-run and roofline tools) or has no meaning
+the ROADMAP item that ports its mode (11 tensor parallel, 15b the dry-run
+and roofline tools) or has no meaning
 without JAX (the reason is given).
 Whole modules of the training path that wait are in ``WAITING``.
 

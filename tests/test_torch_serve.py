@@ -242,7 +242,7 @@ def test_inject_state_fault_poisons_what_jax_poisons(env):
     0; gemma3: of layer 5, its first full layer)."""
     cfg = env[1]
     prep = _assert_same_poison(env, ENGINE["max_len"])
-    hit = prep.caches[prep.model.state_leaf or "k"]
+    hit = prep.caches[(prep.model.state_leaves or ("k",))[0]]
     assert int(torch.isnan(hit).sum()) == (
         4 if cfg.name == "recurrentgemma-2b" else 1)
     if cfg.name == "gemma3-1b":
