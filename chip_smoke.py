@@ -183,11 +183,12 @@ seconds since the script started, when the line was printed):
    the RG-LRU scan at (2, 4096, 2560) with a control (one step's log_a
    halved) that must exceed the limit, and again on long-memory log_a,
    where a control in chunk 0 must exceed it after chunk 1; the scan's
-   backward (``rglru_scan_bwd``) at that shape and at the train shape (4 x
-   256 x 2560; one pass, chunks handed on by ticket) against its plain
+   backward (``rglru_scan_bwd``) at that shape, at the train shape (4 x
+   256 x 2560) and at the microbatch's (2 x 256 x 2560; one pass, chunks
+   handed on by ticket) against its plain
    reverse loop, a control (one step's log_a halved) outside the limit, two
    launches bit-equal, the forward's states
-   it reads held to the plain scan at both shapes, and on long-memory
+   it reads held to the plain scan at each shape, and on long-memory
    log_a with a control in the last chunk that must exceed the limit over
    the chunks before the last two; flash decode
    over ring caches that wrap, the sliding-window flash forward at S 4096,
@@ -206,28 +207,45 @@ seconds since the script started, when the line was printed):
 16. prefill_rg — ``make_prefill_step`` at B 2, S 4096 (twice the sliding
    window): the scan kernel once per RG-LRU layer, flash once per sliding
    layer, one probe, a clean word, its time and peak memory;
-16a. train_rg — phase 11g's kernel checks, clean and LFLR runs for
-   recurrentgemma-2b at its published width cut to ``TRAIN_RG_LAYERS`` (15
-   of 26: five periods of RG-LRU, RG-LRU, sliding; 1.82 G parameters),
-   from a fresh seeded model's weights copied to the host (the model freed
-   before the runs, so the train states are alone on the card): the flash
-   forward with lse and
-   FlashAttention's gradients at 10/1 heads of D 256, window 2048, the
-   probe over the 256000 x 2560 embedding gradient and ``probe_tree`` over
-   the model's 167 gradient leaves (the fp32 ``lam`` among them); then one
-   host sync a step, per step the scan and its
-   backward 10 times each, the flash forward 5 times and one
-   ``probe_tree``; finite losses; the LFLR run bit-equal to a clean run
-   over the kept batches; the peak under ``TRAIN_PEAK_GB``. The faulted
-   run and the profile are qwen3's alone (the decisions do not depend on
-   the architecture; the CPU tests hold every stack's to the reference);
+16a. train_levers — the train step's ``microbatch`` and ``ce_chunk``
+   levers on recurrentgemma-2b at its published width cut to one period
+   (``LEVERS_LAYERS``, 3 layers), B 4 x S 256, one state and one batch:
+   the flash lse forward and FlashAttention's gradients at the
+   microbatch's one row, then the loss and gradients of ``microbatch=4,
+   ce_chunk=64`` and of ``ce_chunk=96`` (a ragged last chunk) within
+   ``TRAIN_GRAD_TOL`` of the plain step's, another batch's gradients as
+   the control; one step of each: word 0, flash's lse route, the scan and
+   its backward launched k times the plain step's, ``probe_tree`` once;
+   ``nan_grad`` and ``bad_data`` under the levers give the plain step's
+   words;
+16b. train_rg — phase 11g's kernel checks, clean and LFLR runs for
+   recurrentgemma-2b at its published width cut to ``TRAIN_RG_LAYERS`` (18
+   of 26: six periods of RG-LRU, RG-LRU, sliding; 2.06 G parameters), the
+   step built with the levers (``TRAIN_MICROBATCH`` 2, ``TRAIN_CE_CHUNK``
+   128), from a fresh seeded model's weights copied to the host (the model
+   freed before the runs, so the train states are alone on the card): the
+   flash forward with lse and FlashAttention's gradients at 10/1 heads of
+   D 256, window 2048, at the microbatch's rows, the probe over the 256000
+   x 2560 embedding gradient and ``probe_tree`` over the model's 200
+   gradient leaves (the fp32 ``lam`` among them); then one host sync a
+   step, per step the scan and its backward 12 x 2 times each, the flash
+   forward 6 x 2 times and one ``probe_tree``; finite losses; the LFLR run
+   bit-equal to a clean run over the kept batches; the peak under
+   ``TRAIN_PEAK_GB``; the line's ``mfu`` (6 N D over the median step at
+   the card's dense bf16 peak) and the dry run of the same step
+   (``launch/dryrun.py``, run beside the card in a process of its own from
+   the start): its FLOPs, and its peak within 2x of the measured one. The
+   faulted run and the profile are qwen3's alone (the decisions do not
+   depend on the architecture; the CPU tests hold every stack's to the
+   reference);
 17. kernels_ssm — the SSD intra-chunk kernel and the whole scan at
    mamba2-2.7b's prefill shape and at a shape with groups over heads and
    fewer steps than the chunk (bf16: the tensor-core route), and at the
    prefill shape in fp32 (the ``ssd_f32`` route), and at the train shape
-   (4 x 256, nc 2), each with a control that must exceed the limit (one
-   step's dt changed); the SSD backward (``ssd_chunk_bwd``) at the
-   prefill and the train shapes in bf16 (``ssd_chunk_bwd_tc``, the tensor
+   (4 x 256, nc 2) and the microbatch's (2 x 256), each with a control
+   that must exceed the limit (one step's dt changed); the SSD backward
+   (``ssd_chunk_bwd``) at the prefill, the train and the microbatch's
+   shapes in bf16 (``ssd_chunk_bwd_tc``, the tensor
    cores) and at the train shape in fp32 (``ssd_chunk_bwd_f32``), each row
    naming the route ``plan_bwd`` picked, against autograd through the plain
    intra-chunk function, with its control and two launches bit-equal; and
@@ -242,11 +260,11 @@ seconds since the script started, when the line was printed):
    ``ssm`` state and the state probe must latch STATE_FAULT;
 20. prefill_ssm — ``make_prefill_step`` at B 2, S 4096: the SSD tensor-core
    kernel once per layer, one probe, a clean word, its time and peak memory;
-20a. train_ssm — phase 16a for mamba2-2.7b cut to ``TRAIN_SSM_LAYERS`` (40
-   of 64 layers, 1.73 G parameters; no attention, so the probes' checks
-   alone, ``probe_tree`` over its 482 leaves): per step the SSD
-   tensor-core kernel and its tensor-core backward 40 times each and one
-   ``probe_tree``;
+20a. train_ssm — phase 16b for mamba2-2.7b cut to ``TRAIN_SSM_LAYERS`` (48
+   of 64 layers, 2.06 G parameters; no attention, so the probes' checks
+   alone, ``probe_tree`` over its 578 leaves): per step the SSD
+   tensor-core kernel and its tensor-core backward 48 x 2 times each and
+   one ``probe_tree``;
 21. kernels_g3 — flash and the probe at gemma3-1b's shapes (4/1 heads of
    256): decode over the full cache and over the 512-entry ring, wrapped,
    the sliding (window 512) and the full forward at 2 × 4096, the probe
@@ -343,7 +361,7 @@ seconds since the script started, when the line was printed):
    embeddings: flash forward once per layer, non-causal at head_dim 80; a
    NaN in one frame of row 0 makes every logit row of that row non-finite
    and leaves row 1's finite. An encoder has no decode: no serve phase;
-35. train_hubert, train_vlm — phase 16a for full-width hubert-xlarge (48
+35. train_hubert, train_vlm — phase 16b for full-width hubert-xlarge (48
    of 48 layers, 0.945 G parameters: frame-embedding batches, no tokens)
    and for llama-3.2-vision-11b cut to ``TRAIN_VLM_LAYERS`` (5 of 40: one
    period of its pattern, 4 self-attention layers and 1 cross, widths as
@@ -536,14 +554,28 @@ TRAIN_LFLR_KEPT = (0, 1, 2, 4, 5, 9, 10, 11)
 # that order: 1e5 stays above every clean step and far below a spiked one
 # (spike_loss multiplies the loss by 1e6)
 TRAIN_DIVERGENCE = 1e5
-# the recurrent stacks' train phases: each at its published width, cut to
-# the depth whose reckoned peak (10 B a parameter for the params and the
-# two fp32 moments, three such states live at once, plus the model and the
-# gradients) stays under about 70 GB: recurrentgemma-2b to 5 whole periods
-# of (RG-LRU, RG-LRU, sliding), 1.82 G parameters; mamba2-2.7b to 40 of its
-# 64 layers, 1.73 G. Every train phase's peak must stay under
-# TRAIN_PEAK_GB (the card holds 80 GB)
-TRAIN_RG_LAYERS, TRAIN_SSM_LAYERS, TRAIN_PEAK_GB = 15, 40, 80.0
+# the recurrent stacks' train phases: each at its published width with the
+# train step's levers on (TRAIN_MICROBATCH slices of the batch, the loss in
+# sequence chunks of TRAIN_CE_CHUNK), cut to the depth whose reckoned peak
+# stays under TRAIN_PEAK_GB with 8 GB to spare. The peak is
+# the train states', not the activations' (B 4 x S 256 is 1024 tokens): 10
+# B a parameter for the params and the two fp32 moments, three such states
+# live at once (the executor's known-good snapshot, the step's input and
+# its output), and the fp32 gradient sums, 34 B a parameter: full depth,
+# 2.68 G and 2.70 G parameters, would need about 91 GB. So
+# recurrentgemma-2b runs 6 whole periods of (RG-LRU, RG-LRU, sliding),
+# 2.06 G parameters, and mamba2-2.7b 48 of its 64 layers, 2.06 G (70.15
+# and 70.20 GB at microbatch 4, 70.25 and 70.30 at 2: the least k, 2, is
+# taken). Every train phase's peak must stay under TRAIN_PEAK_GB (the card
+# holds 80 GB)
+TRAIN_RG_LAYERS, TRAIN_SSM_LAYERS, TRAIN_PEAK_GB = 18, 48, 80.0
+TRAIN_MICROBATCH, TRAIN_CE_CHUNK = 2, 128
+# the levers' phase: recurrentgemma-2b at its published width, one period
+# (2 RG-LRU layers, 1 sliding), B 4 x S 256 from one state and one batch:
+# microbatch 4 with the loss in chunks of 64, and chunks of 96 alone (the
+# last chunk ragged: 64 positions and 32 of padding), each against the
+# plain step
+LEVERS_LAYERS, LEVERS_MB, LEVERS_CE, LEVERS_CE_RAGGED = 3, 4, 64, 96
 # the encoder's and the VLM's train phases: hubert-xlarge whole (48 layers,
 # 0.945 G parameters), llama-3.2-vision-11b cut to one period of its
 # published pattern (4 self-attention layers and 1 cross; 2.14 G parameters,
@@ -2177,9 +2209,10 @@ def phase_elastic(torch, card: str) -> None:
           "cpu_wall_s": walls["cpu"], "kernels": 0})
 
 
-def train_kernels(torch, cfg, leaf_specs) -> dict:
+def train_kernels(torch, cfg, leaf_specs, batch: int = TRAIN_B) -> dict:
     """The train path's kernels at its shapes (``cfg``'s heads, B x S =
-    ``TRAIN_B x TRAIN_S``): where ``cfg`` has self-attention layers, the
+    ``batch x TRAIN_S``, ``batch`` the microbatch's rows under the
+    ``microbatch`` lever): where ``cfg`` has self-attention layers, the
     flash forward with its row lse (``flash_forward``; causal, at the
     sliding layers' window where it has them, or bidirectional for an
     encoder), and where it has ``cross`` layers the same over its
@@ -2195,10 +2228,10 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
     if kinds & {"attn", "sliding"}:
         out["flash_train_forward"] = flash_train_row(
             torch, cfg, cfg.sliding_window if "sliding" in kinds else 0,
-            causal=cfg.causal)
+            causal=cfg.causal, batch=batch)
     if "cross" in kinds:
         out["flash_train_forward_cross"] = flash_train_row(
-            torch, cfg, 0, causal=False, keys=cfg.img_tokens)
+            torch, cfg, 0, causal=False, keys=cfg.img_tokens, batch=batch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     out["probe_grad_embed"] = probe_grad_embed(torch, cfg, gen)
     out["probe_grad_tree"] = probe_grad_tree(torch, leaf_specs, gen)
@@ -2206,10 +2239,10 @@ def train_kernels(torch, cfg, leaf_specs) -> dict:
 
 
 def flash_train_row(torch, cfg, window: int, *, causal: bool = True,
-                    keys: int = TRAIN_S) -> dict:
+                    keys: int = TRAIN_S, batch: int = TRAIN_B) -> dict:
     """:func:`train_kernels`' flash row: the forward with lse and
-    FlashAttention's gradients at ``cfg``'s heads, ``TRAIN_S`` query rows
-    over ``keys`` keys (a cross layer's image tokens), causal or not, at
+    FlashAttention's gradients at ``cfg``'s heads, ``batch`` x ``TRAIN_S``
+    query rows over ``keys`` keys (a cross layer's image tokens), causal or not, at
     ``window`` (0: none; the library call is causal alone, the same mask
     while ``TRAIN_S`` is at most the window). The controls: the lse with
     the last key dropped, and the gradients against a mask shifted by one
@@ -2225,7 +2258,7 @@ def flash_train_row(torch, cfg, window: int, *, causal: bool = True,
     rng = np.random.default_rng(SEED + 7)
     randn = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
-    B, S, T = TRAIN_B, TRAIN_S, keys
+    B, S, T = batch, TRAIN_S, keys
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -2289,11 +2322,11 @@ def flash_train_row(torch, cfg, window: int, *, causal: bool = True,
             g_control, "timing_copies": len(qkv),
         "kernel_ms": time_ms(torch, lambda q, k, v: flash_attention(
             q, k, v, zero, **mask, lse=True), qkv),
-        # one call per copy: ~40 launches a call, and the device queues
-        # about 1000
+        # one call per copy, at most 20 (the microbatch's small copies
+        # number 48): ~40 launches a call, and the device queues about 1000
         "plain_ms": time_ms(torch, lambda q, k, v: sdpa_ref(
             q, k, v, q_offset=zero, **mask, return_lse=True),
-            qkv, launches=len(qkv)),
+            qkv[:20], launches=min(len(qkv), 20)),
         "library_ms": time_ms(torch, lambda *t: F.scaled_dot_product_attention(
             *t, is_causal=causal, enable_gqa=True), [heads_first(*t) for t in qkv]),
         "bound_ms": b_ms, "bound_by": b_by}
@@ -2449,8 +2482,9 @@ def train_profile(torch, step_fn, state, batch, ms_step: float) -> dict:
 
 
 def phase_train(torch, card: str, model, name: str = "train", *,
-                full: bool = True, line=None, start=None) -> tuple:
-    """Full-width training on the card (module docstring 11g, 16a, 20a,
+                full: bool = True, line=None, start=None, levers=None,
+                dryrun=None) -> tuple:
+    """Full-width training on the card (module docstring 11g, 16b, 20a,
     35): runs of ``TRAIN_STEPS`` steps of ``ResilientExecutor`` over
     ``make_train_step``, each from fresh params (``start()``; default a
     copy of ``model``'s weights, the serving model not changed) with zero
@@ -2471,8 +2505,16 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     stack). The train setup has the allocator grow its segments in place
     (``launch.train.grow_segments``); the phase sets it back to fixed
     segments when it ends, so the serving phases allocate as they did
-    before. ``line`` adds keys to the phase's line. Returns ``(kernel
-    rows, the clean run's launches)``."""
+    before. ``line`` adds keys to the phase's line. ``levers``
+    (``{"microbatch": k, "ce_chunk": c}``) builds the step with
+    ``make_train_step``'s levers: each kernel of the forward and backward
+    then launches k times a step, the probe once, and the flash row is
+    held at the microbatch's rows. ``dryrun()``, where given, returns the
+    dry run's record of the same step (``launch/dryrun.py::run_cell``):
+    its peak must lie within 2x of the measured one either way. The line
+    gives ``mfu``: ``model_flops_for`` (6 N D) over the median step's time
+    at the card's dense bf16 peak. Returns ``(kernel rows, the clean run's
+    launches)``."""
     from repro_torch.core import (ExecutorConfig, FaultSchedule, FaultSpec,
                                   ResilientExecutor)
     from repro_torch.core.detect import ProbeConfig
@@ -2482,9 +2524,12 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import launch_counts, probe_tree, reset_launch_counts
     from repro_torch.kernels.fault_probe.ops import MAX_LEAVES
-    from repro_torch.launch.steps import make_loss_and_grads, make_reset_opt_fn
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import (make_loss_and_grads, make_reset_opt_fn,
+                                          make_train_step)
     from repro_torch.launch.train import build_train_setup, grow_segments
     from repro_torch.optim import init_opt_state
+    from repro_torch.roofline.analysis import PEAK_FLOPS_BF16, model_flops_for
     from repro_torch.tree import tree_leaves
     from repro_torch.weights import train_params
 
@@ -2493,8 +2538,10 @@ def phase_train(torch, card: str, model, name: str = "train", *,
 
     t_parts = {"start": time.perf_counter()}
     cfg = model.cfg
+    k = max((levers or {}).get("microbatch", 0), 1)
     kern = train_kernels(torch, cfg, [(tuple(p.shape), p.dtype)
-                                      for p in model.parameters()])
+                                      for p in model.parameters()],
+                         batch=TRAIN_B // k)
     t_parts["kernels"] = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2503,9 +2550,12 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     dev = torch.device("cuda")
     grow_segments()
     # on a meta skeleton the setup's state is shapes only
+    probe_cfg = ProbeConfig(loss_divergence_threshold=TRAIN_DIVERGENCE)
     _, step_fn, state, pipe, opt_cfg = build_train_setup(
         cfg, batch_size=TRAIN_B, seq_len=TRAIN_S, seed=SEED, model=model,
-        probe_cfg=ProbeConfig(loss_divergence_threshold=TRAIN_DIVERGENCE))
+        probe_cfg=probe_cfg)
+    if levers:
+        step_fn = make_train_step(cfg, opt_cfg, probe_cfg, **levers)
     n_leaves = len(state["params"])
     state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
     del state
@@ -2592,14 +2642,19 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     # table of MAX_LEAVES), no probe_rows
     expected = dict.fromkeys(launches, 0)
     n_rg, n_ssd = cfg.pattern_layers.count("rglru"), cfg.pattern_layers.count("ssd")
-    expected.update(flash_attention=TRAIN_STEPS * len(model.attn_layers),
-                    flash_forward=TRAIN_STEPS * len(model.attn_layers),
-                    rglru_scan=TRAIN_STEPS * n_rg, rglru_scan_bwd=TRAIN_STEPS * n_rg,
-                    ssd_scan=TRAIN_STEPS * n_ssd, ssd_chunk_bwd=TRAIN_STEPS * n_ssd,
+    # (under the microbatch lever, each forward and backward kernel k
+    # times a step)
+    n_attn = len(model.attn_layers)
+    expected.update(flash_attention=TRAIN_STEPS * k * n_attn,
+                    flash_forward=TRAIN_STEPS * k * n_attn,
+                    rglru_scan=TRAIN_STEPS * k * n_rg,
+                    rglru_scan_bwd=TRAIN_STEPS * k * n_rg,
+                    ssd_scan=TRAIN_STEPS * k * n_ssd,
+                    ssd_chunk_bwd=TRAIN_STEPS * k * n_ssd,
                     probe_tree=TRAIN_STEPS * math.ceil(n_leaves / MAX_LEAVES))
     if n_ssd:
-        expected[ssd_plan(model.dtype)] = TRAIN_STEPS * n_ssd
-        expected[ssd_plan_bwd(model.dtype)] = TRAIN_STEPS * n_ssd
+        expected[ssd_plan(model.dtype)] = TRAIN_STEPS * k * n_ssd
+        expected[ssd_plan_bwd(model.dtype)] = TRAIN_STEPS * k * n_ssd
     ok = [e.step for e in log.events if e.kind == "ok"]
     if (ok != list(range(TRAIN_STEPS)) or int(readback(state["step"])) != TRAIN_STEPS
             or syncs != TRAIN_STEPS or torch_syncs != TRAIN_STEPS
@@ -2660,6 +2715,27 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     del host_batches
     if peak >= TRAIN_PEAK_GB:
         fail(f"{name}: peak {peak} GB, not under {TRAIN_PEAK_GB}")
+    model_flops = model_flops_for(cfg, ShapeConfig(name, TRAIN_S, TRAIN_B, "train"))
+    extra.update(model_flops=model_flops, peak_flops_bf16=PEAK_FLOPS_BF16,
+                 mfu=model_flops / (ms_step / 1e3) / PEAK_FLOPS_BF16)
+    if levers:
+        extra.update(microbatch=k, ce_chunk=levers.get("ce_chunk", 0))
+    if dryrun:
+        rec = dryrun()
+        if not rec.get("ok"):
+            fail(f"{name}: the dry run of its step failed: {rec.get('error')}\n"
+                 f"{rec.get('traceback')}")
+        est = rec["memory"]["peak_live_bytes"] / 1e9
+        extra["dryrun"] = {
+            "peak_gb": est, "measured_over_estimate": peak / est,
+            "flops": rec["flops"], "flops_over_model_flops": rec["flops"] / model_flops,
+            "boundary_bytes": rec["boundary_bytes"],
+            "roofline_bound_ms": max(rec["roofline"][k] for k in (
+                "compute_s", "memory_s", "collective_s")) * 1e3,
+            "dominant": rec["roofline"]["dominant"], "count_s": rec["total_s"]}
+        if not 0.5 <= peak / est <= 2.0:
+            fail(f"{name}: measured peak {peak} GB against the dry run's {est} GB: "
+                 "not within 2x")
     gc.collect()
     torch.cuda.empty_cache()
     grow_segments(False)
@@ -2685,15 +2761,17 @@ def phase_train(torch, card: str, model, name: str = "train", *,
     return kern, launches
 
 
-def phase_train_cut(torch, card: str, arch: str, name: str, layers: int) -> dict:
+def phase_train_cut(torch, card: str, arch: str, name: str, layers: int, *,
+                    levers=None, dryrun=None) -> dict:
     """:func:`phase_train`'s clean and LFLR runs for ``arch`` at its
     published width cut to ``layers`` layers (all of them for hubert-xlarge),
     from a fresh seeded model (the serving model freed first) whose weights
     — its cross gates set to ``TRAIN_GATE`` where it has them — are copied
     to the host; the model is freed before the runs, which start from that
     copy (no seeded model stays beside the train states). The line says the
-    cut, the parameter count and the init's peak. Returns ``(kernel rows,
-    the clean run's launches)``."""
+    cut, the parameter count and the init's peak. ``levers`` and ``dryrun``
+    go to :func:`phase_train`. Returns ``(kernel rows, the clean run's
+    launches)``."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.weights import train_params
@@ -2721,11 +2799,168 @@ def phase_train_cut(torch, card: str, arch: str, name: str, layers: int) -> dict
     start = lambda: {n: t.to("cuda", non_blocking=True)  # noqa: E731
                      for n, t in host.items()}
     kern, launches = phase_train(torch, card, Model(cfg, device="meta", seed=None),
-                                 name, full=False, line=line, start=start)
+                                 name, full=False, line=line, start=start,
+                                 levers=levers, dryrun=dryrun)
     del host
     gc.collect()
     torch.cuda.empty_cache()
     return kern, launches
+
+
+def phase_train_levers(torch, card: str) -> tuple:
+    """The train step's levers on the card: recurrentgemma-2b at its
+    published width cut to one period (``LEVERS_LAYERS``), B ``TRAIN_B`` x
+    S ``TRAIN_S``, one state and one batch. The loss and the gradients of
+    ``microbatch=LEVERS_MB, ce_chunk=LEVERS_CE`` and of
+    ``ce_chunk=LEVERS_CE_RAGGED`` (a ragged last chunk) against the plain
+    step's, within ``TRAIN_GRAD_TOL`` of each leaf (the plain gradients are
+    bf16, the microbatches' fp32 sums of bf16 slices: the tolerance's two
+    ulps and 1% of the largest cover their rounding), with a control: the
+    plain gradients of another batch must exceed it. One step of each
+    (counts set to 0 just before): word 0, and the flash lse forward, the
+    RG-LRU scan and its backward k times the plain step's launches,
+    ``probe_tree`` once. ``nan_grad`` and ``bad_data`` under the levers
+    give the plain step's words. The flash lse forward and FlashAttention's
+    gradients are held at the microbatch's one row first. Returns ``(kernel
+    rows, the levers' step's launches)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.detect import ProbeConfig
+    from repro_torch.core.device_channel import readback
+    from repro_torch.core.faults import INJ_BAD_DATA, INJ_NAN_GRAD
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import (accumulate_grads, make_loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.weights import train_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("recurrentgemma-2b")
+    line = {"layers": f"{LEVERS_LAYERS} of {cfg.num_layers}"}
+    cfg = cfg.replace(num_layers=LEVERS_LAYERS)
+    model, line["init_s"] = build_model(torch, cfg)
+    kern = {"flash_train_forward": flash_train_row(
+        torch, cfg, cfg.sliding_window, batch=TRAIN_B // LEVERS_MB)}
+    params = train_params(model)
+    del model
+    pipe = PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                          batch_size=TRAIN_B, seed=SEED)
+    batch, other = make_batch(pipe, 0, "cuda"), make_batch(pipe, 1, "cuda")
+    variants = {"plain": {}, "levers": {"microbatch": LEVERS_MB, "ce_chunk": LEVERS_CE},
+                "ragged": {"ce_chunk": LEVERS_CE_RAGGED}}
+
+    def grads_of(kw, b):
+        loss_and_grads = make_loss_and_grads(cfg, kw.get("ce_chunk", 0))
+        if kw.get("microbatch", 0) > 1:
+            return accumulate_grads(loss_and_grads, params, b, kw["microbatch"])[:2]
+        return loss_and_grads(params, b)[:2]
+
+    want_loss, want = grads_of({}, batch)
+    excess = {}
+    for name in ("levers", "ragged"):
+        loss, got = grads_of(variants[name], batch)
+        excess[name] = {"loss": scaled_excess(loss, want_loss, TRAIN_GRAD_TOL),
+                        "grads": max(scaled_excess(got[n], want[n], TRAIN_GRAD_TOL)
+                                     for n in want)}
+        line[f"loss_{name}"] = loss.item()
+        del got
+    _, control = grads_of({}, other)
+    control = max(scaled_excess(control[n], want[n], TRAIN_GRAD_TOL) for n in want)
+    line["loss_plain"] = want_loss.item()
+    del want
+    if not (max(max(e.values()) for e in excess.values()) <= 1 < control):
+        fail(f"train_levers: losses and gradients over TRAIN_GRAD_TOL {excess} "
+             f"(each at most 1); another batch's gradients {control} (must exceed 1)")
+
+    state = {"params": params, "opt": init_opt_state(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda"),
+             "lr_scale": torch.ones((), dtype=torch.float32, device="cuda")}
+    probe_cfg = ProbeConfig(loss_divergence_threshold=TRAIN_DIVERGENCE)
+    launches, words, ms = {}, {}, {}
+    for name, kw in variants.items():
+        step = make_train_step(cfg, AdamWConfig(), probe_cfg, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        word = step(state, batch, 0)[2]
+        launches[name] = launch_counts()
+        words[name] = {"clean": int(readback(word))}
+        t0 = time.perf_counter()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        for inj, tag in ((INJ_NAN_GRAD, "nan_grad"), (INJ_BAD_DATA, "bad_data")):
+            if name != "ragged":
+                words[name][tag] = int(readback(step(state, batch, inj)[2]))
+    n_rg = cfg.pattern_layers.count("rglru")
+    n_attn = sum(b in ("attn", "sliding") for b in cfg.pattern_layers)
+
+    def expect(k):
+        out = dict.fromkeys(launches["plain"], 0)
+        out.update(flash_attention=k * n_attn, flash_forward=k * n_attn,
+                   rglru_scan=k * n_rg, rglru_scan_bwd=k * n_rg, probe_tree=1)
+        return out
+
+    want_launches = {"plain": expect(1), "levers": expect(LEVERS_MB), "ragged": expect(1)}
+    if (launches != want_launches or any(w["clean"] for w in words.values())
+            or words["levers"]["nan_grad"] != words["plain"]["nan_grad"]
+            or words["levers"]["bad_data"] != words["plain"]["bad_data"]
+            or not words["plain"]["nan_grad"] or not words["plain"]["bad_data"]):
+        fail(f"train_levers: launches {launches} (want {want_launches}); words {words} "
+             "(clean 0; nan_grad and bad_data non-zero and equal to the plain step's)")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_levers", "card": card, "model": cfg.name, **line,
+          "batch": TRAIN_B, "seq": TRAIN_S, "microbatch": LEVERS_MB,
+          "ce_chunk": LEVERS_CE, "ce_chunk_ragged": LEVERS_CE_RAGGED,
+          "tol": "{} x the largest |want| + {} rel, each leaf".format(*TRAIN_GRAD_TOL),
+          "over_tol": excess, "other_batch_grads_over_tol": control,
+          "words": words, "launches": launches, "ms_per_step": ms,
+          "kernels": kern})
+    return kern, launches["levers"]
+
+
+def start_dryruns(cells):
+    """Start the dry run of each ``(name, arch, layers)`` train step, B
+    ``TRAIN_B`` x S ``TRAIN_S`` with the levers ``TRAIN_MICROBATCH`` and
+    ``TRAIN_CE_CHUNK``, in a process of its own on the host's CPU (it runs
+    beside the card's phases: fake tensors, no card, no memory); returns
+    ``result(name)``, which waits for the process and gives that cell's
+    record. The process is killed if the run ends first."""
+    import atexit
+
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    code = (
+        "import json, sys, warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "from repro_torch.configs import ShapeConfig, get_config\n"
+        "from repro_torch.launch.dryrun import run_cell\n"
+        "cells, b, s, perf, out = json.loads(sys.argv[1])\n"
+        "recs = {name: run_cell(arch, ShapeConfig(name, s, b, 'train'), perf=perf,\n"
+        "                        config_override=get_config(arch).replace(num_layers=n))\n"
+        "        for name, arch, n in cells}\n"
+        "json.dump(recs, open(out, 'w'))\n")
+    perf = {"microbatch": TRAIN_MICROBATCH, "ce_chunk": TRAIN_CE_CHUNK}
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, "-c", code,
+                             json.dumps([cells, TRAIN_B, TRAIN_S, perf, out])], env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    recs = {}
+
+    def result(name: str) -> dict:
+        if not recs:
+            if proc.wait(timeout=900):
+                fail(f"the dry run's process exited with {proc.returncode}")
+            with open(out) as f:
+                recs.update(json.load(f))
+        return recs[name]
+
+    return result
 
 
 def phase_spec_deep(torch, card: str, model) -> dict:
@@ -3222,7 +3457,9 @@ def phase_kernels_rg(torch, card: str) -> dict:
         return max(scaled_excess(g[:, over], w[:, over], SCAN_BWD_TOL)
                    for g, w in zip(got, want))
 
-    for name, b, s in (("rglru_scan_bwd", B, S), ("rglru_scan_bwd_train", TRAIN_B, TRAIN_S)):
+    mb = TRAIN_B // TRAIN_MICROBATCH
+    for name, b, s in (("rglru_scan_bwd", B, S), ("rglru_scan_bwd_train", TRAIN_B, TRAIN_S),
+                       ("rglru_scan_bwd_microbatch", mb, TRAIN_S)):
         ins = make_bwd_for(0.9, 4.0, b, s)()
         # the forward kernel's states (ins[2]) against the plain scan, with
         # the same control as the backward's
@@ -3246,7 +3483,7 @@ def phase_kernels_rg(torch, card: str) -> dict:
                  f"bit: {repeat}; its forward {fwd_excess} x the limit, control "
                  f"{fwd_control} x (must exceed 1)")
         if s == TRAIN_S:
-            out["rglru_scan_train"] = {
+            out[name.replace("_bwd", "")] = {
                 "kernel": "rglru_scan", "shape": f"x_in, log_a {b}x{s}x{W} fp32",
                 "max_abs_err": fwd_err, "tol": f"{SCAN_TOL} abs + {SCAN_TOL} rel",
                 "err_over_tol": fwd_excess, "one_log_a_halved_over_tol": fwd_control}
@@ -3686,8 +3923,10 @@ def phase_kernels_ssm(torch, card: str) -> dict:
         return max(scaled_excess(g_, w_, SSD_TOL) for g_, w_ in zip(got, want))
 
     train_shape = (TRAIN_B, TRAIN_S, h, p, g, n)
+    mb_shape = (TRAIN_B // TRAIN_MICROBATCH, TRAIN_S, h, p, g, n)
     for name, shape, dtype in (("ssd_chunk_bwd", shape, torch.bfloat16),
                                ("ssd_chunk_bwd_train", train_shape, torch.bfloat16),
+                               ("ssd_chunk_bwd_microbatch", mb_shape, torch.bfloat16),
                                ("ssd_chunk_bwd_f32", train_shape, torch.float32)):
         b_, s_ = shape[:2]
         nc_ = s_ // min(L, s_)
@@ -3734,7 +3973,10 @@ def phase_kernels_ssm(torch, card: str) -> dict:
             "one_dt_doubled_over_tol": control, "repeats_bit_for_bit": repeat,
             "timing_copies": len(ins),
             "kernel_ms": time_ms(torch, ssd_chunk_bwd, ins),
-            "plain_ms": time_ms(torch, ssd_intra_chunk_backward_ref, ins, launches=8),
+            # at most 8 calls: the plain backward's launches, times the
+            # microbatch's many small copies, would outgrow the device queue
+            "plain_ms": time_ms(torch, ssd_intra_chunk_backward_ref, ins[:8],
+                                launches=8),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bound_counts": "operations: C B^T once per group, the causal half of "
                             "each L x L product, the state gradient's two L x P x N "
@@ -3753,6 +3995,12 @@ def phase_kernels_ssm(torch, card: str) -> dict:
         "shape": f"x {TRAIN_B}x{TRAIN_S}x{h}x{p} bf16, B, C {TRAIN_B}x{TRAIN_S}x{g}x{n} "
                  f"bf16, chunk {L}",
         **check("the train shape", (TRAIN_B, TRAIN_S, h, p, g, n), L)}
+    # -- at the microbatch's rows, as the train step launches it under the
+    #    microbatch lever
+    out["ssd_scan_microbatch"] = {
+        "shape": f"x {mb_shape[0]}x{TRAIN_S}x{h}x{p} bf16, B, C "
+                 f"{mb_shape[0]}x{TRAIN_S}x{g}x{n} bf16, chunk {L}",
+        **check("the microbatch shape", mb_shape, L)}
 
     # -- groups over heads, fewer steps than the chunk
     shape = (3, 96, 16, p, 4, n)
@@ -4446,6 +4694,11 @@ def main() -> None:
     phase_build()
     from repro_torch.configs import get_config
 
+    # the deep train phases' steps, counted on fake tensors beside the card
+    dryruns = start_dryruns([("train_rg", "recurrentgemma-2b", TRAIN_RG_LAYERS),
+                             ("train_ssm", "mamba2-2.7b", TRAIN_SSM_LAYERS)])
+    levers = {"microbatch": TRAIN_MICROBATCH, "ce_chunk": TRAIN_CE_CHUNK}
+
     kern = phase_kernels(torch, card)
     model, init_s = build_model(torch, get_config("qwen3-1.7b"))
     # the first 10 requests only (cut from 16 when the train phase came, for
@@ -4494,8 +4747,10 @@ def main() -> None:
     phase_lflr_stepwise_rg(torch, card, model)
     prefill_rg = phase_prefill(torch, card, model, "prefill_rg")
     del model                                     # free rg before its training
-    kern_train_rg, train_rg = phase_train_cut(torch, card, "recurrentgemma-2b",
-                                              "train_rg", TRAIN_RG_LAYERS)
+    kern_levers, train_levers = phase_train_levers(torch, card)
+    kern_train_rg, train_rg = phase_train_cut(
+        torch, card, "recurrentgemma-2b", "train_rg", TRAIN_RG_LAYERS, levers=levers,
+        dryrun=lambda: dryruns("train_rg"))
 
     kern_ssm = phase_kernels_ssm(torch, card)
     model, init_s = build_model(torch, get_config("mamba2-2.7b").replace(
@@ -4508,8 +4763,9 @@ def main() -> None:
                                line={"layers": f"{SSM_SERVE_LAYERS} of 64"})
     prefill_ssm = phase_prefill(torch, card, model, "prefill_ssm")
     del model                                     # free mamba2 before its training
-    kern_train_ssm, train_ssm = phase_train_cut(torch, card, "mamba2-2.7b",
-                                                "train_ssm", TRAIN_SSM_LAYERS)
+    kern_train_ssm, train_ssm = phase_train_cut(
+        torch, card, "mamba2-2.7b", "train_ssm", TRAIN_SSM_LAYERS, levers=levers,
+        dryrun=lambda: dryruns("train_ssm"))
 
     kern_g3 = phase_kernels_g3(torch, card)
     model, init_s = build_model(torch, get_config("gemma3-1b"))
@@ -4554,7 +4810,8 @@ def main() -> None:
              **spec_paths, **group_paths, **fuzz_paths, **multihost_paths,
              "train": train_launches,
              **serve_g3_paged,
-             **serve_rg, "prefill_rg": prefill_rg, "train_rg": train_rg,
+             **serve_rg, "prefill_rg": prefill_rg, "train_levers": train_levers,
+             "train_rg": train_rg,
              **serve_ssm, "prefill_ssm": prefill_ssm, "train_ssm": train_ssm,
              **serve_g3, "prefill_g3": prefill_g3, **moe_paths,
              "train_hubert": train_hubert, "train_vlm": train_vlm}
@@ -4568,6 +4825,7 @@ def main() -> None:
              "flash_verify": kern["flash_verify"],
              "flash_forward": kern["flash_forward"],
              "flash_train_forward": kern_train["flash_train_forward"],
+             "flash_train_forward_levers": kern_levers["flash_train_forward"],
              "flash_train_forward_rg": kern_train_rg["flash_train_forward"],
              "flash_train_forward_hubert": kern_train_hubert["flash_train_forward"],
              "flash_train_forward_vlm": kern_train_vlm["flash_train_forward"],
@@ -4612,8 +4870,9 @@ def main() -> None:
             {p: c["rglru_scan"] + c["rglru_scan_bwd"] for p, c in paths.items()},
             kern_rg["rglru_scan"],
             {n: kern_rg[n] for n in ("rglru_scan", "rglru_scan_long_memory",
-                                     "rglru_scan_train",
+                                     "rglru_scan_train", "rglru_scan_microbatch",
                                      "rglru_scan_bwd", "rglru_scan_bwd_train",
+                                     "rglru_scan_bwd_microbatch",
                                      "rglru_scan_bwd_long_memory")},
             launches_by_kernel={k: by_path(k) for k in ("rglru_scan", "rglru_scan_bwd")}),
         kernel_entry(
@@ -4624,9 +4883,11 @@ def main() -> None:
             {"ssd_scan": kern_ssm["ssd_scan"],
              "ssd_scan_groups": kern_ssm["ssd_scan_groups"],
              "ssd_scan_train": kern_ssm["ssd_scan_train"],
+             "ssd_scan_microbatch": kern_ssm["ssd_scan_microbatch"],
              "ssd_f32": kern_ssm["ssd_f32"],
              "ssd_chunk_bwd": kern_ssm["ssd_chunk_bwd"],
              "ssd_chunk_bwd_train": kern_ssm["ssd_chunk_bwd_train"],
+             "ssd_chunk_bwd_microbatch": kern_ssm["ssd_chunk_bwd_microbatch"],
              "ssd_chunk_bwd_f32": kern_ssm["ssd_chunk_bwd_f32"]},
             launches_by_kernel={k: by_path(k) for k in (
                 "ssd_chunk_tc", "ssd_f32", "ssd_chunk_bwd", "ssd_chunk_bwd_tc",

@@ -1,2 +1,9 @@
-from .base import ModelConfig  # noqa: F401
-from .registry import ARCHS, get_config, smoke_config  # noqa: F401
+from .base import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
+from .registry import (  # noqa: F401
+    ARCHS,
+    SMOKE_SHAPE,
+    all_cells,
+    cell_skip_reason,
+    get_config,
+    smoke_config,
+)

@@ -1,4 +1,4 @@
-# Trimmed copy of repro/configs/base.py: ModelConfig with the fields and derived values the port reads.
+# Copy of repro/configs/base.py: ModelConfig, its parameter counts, the shape cells.
 """Model/config schema shared by all assigned architectures.
 
 One frozen dataclass describes any member of the five families (dense / MoE / VLM /
@@ -108,5 +108,84 @@ class ModelConfig:
     def remainder_layers(self) -> tuple[str, ...]:
         return self.pattern_layers[self.num_periods * self.period:]
 
+    # sub-quadratic? (decides long_500k applicability)
+    @property
+    def subquadratic(self) -> bool:
+        return all(b in ("sliding", "rglru", "ssd") or b == "attn" and False
+                   for b in self.block_pattern) or not any(
+            b in ("attn", "cross") for b in self.block_pattern)
+
+    @property
+    def has_global_attention(self) -> bool:
+        return any(b in ("attn", "cross") for b in self.block_pattern)
+
+    def params_count(self) -> int:
+        """Analytic parameter count (for 6·N·D roofline maths)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        nh, nkv = self.num_heads, self.num_kv_heads
+        counts = {"embed": self.vocab_size * d}
+        if not self.tie_embeddings:
+            counts["unembed"] = self.vocab_size * d
+        per = {
+            "attn": d * nh * hd + 2 * d * nkv * hd + nh * hd * d,
+            "sliding": d * nh * hd + 2 * d * nkv * hd + nh * hd * d,
+            "cross": d * nh * hd + 2 * d * nkv * hd + nh * hd * d,
+            "ssd": (2 * d * self.d_inner                      # x, z proj
+                    + 2 * d * self.ssm_ngroups * self.ssm_state_dim  # B, C
+                    + d * self.ssm_nheads                    # dt
+                    + self.d_inner * d),                     # out
+            "rglru": (2 * d * self.resolved_lru_width
+                      + 2 * self.resolved_lru_width ** 2 // max(self.lru_heads or self.num_heads, 1)
+                      + self.resolved_lru_width * d),
+        }
+        total = sum(counts.values())
+        for b in self.pattern_layers:
+            total += per[b]
+            if b in ("attn", "sliding", "cross") or b == "rglru":
+                if self.is_moe:
+                    gate = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+                    total += (d * self.num_experts  # router
+                              + self.num_experts * gate * d * self.d_ff)
+                elif self.d_ff:
+                    gate = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+                    total += gate * d * self.d_ff
+        return total
+
+    def active_params_count(self) -> int:
+        """MoE: params touched per token (6·N_active·D)."""
+        if not self.is_moe:
+            return self.params_count()
+        d = self.d_model
+        gate = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+        dense_total = self.params_count() - sum(
+            self.num_experts * gate * d * self.d_ff
+            for b in self.pattern_layers if b in ("attn", "sliding", "cross"))
+        active_ff = sum(
+            self.num_experts_per_tok * gate * d * self.d_ff
+            for b in self.pattern_layers if b in ("attn", "sliding", "cross"))
+        return dense_total + active_ff
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str                       # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -1,10 +1,11 @@
-# Trimmed copy of repro/configs/registry.py: every architecture, no cell table.
-"""Architecture registry: full configs and reduced smoke configs."""
+# Copy of repro/configs/registry.py: every architecture, the cell table, the smoke configs.
+"""Architecture registry: full configs, reduced smoke configs, cell applicability."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig
 from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma3_1b import CONFIG as gemma3_1b
 from .hubert_xlarge import CONFIG as hubert_xlarge
@@ -36,6 +37,25 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+# ------------------------------------------------------------- cell applicability
+def cell_skip_reason(arch: str, shape: str) -> Optional[str]:
+    """None if the (arch, shape) cell runs; otherwise the documented skip reason."""
+    cfg = get_config(arch)
+    sh = SHAPES[shape]
+    if cfg.is_encoder and sh.kind == "decode":
+        return "encoder-only: no decode step"
+    if shape == "long_500k" and cfg.block_pattern == ("attn",):
+        return "pure full attention: long_500k needs sub-quadratic attention"
+    if shape == "long_500k" and arch == "llama-3.2-vision-11b":
+        return "full self-attention backbone: long_500k needs sub-quadratic attention"
+    return None
+
+
+def all_cells() -> list[tuple[str, str, Optional[str]]]:
+    return [(a, s, cell_skip_reason(a, s)) for a in ARCHS for s in SHAPES]
+
+
+# ------------------------------------------------------------------ smoke configs
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config: small widths, few experts, tiny vocab —
     the same overrides as the JAX package's ``smoke_config``, so both
@@ -66,3 +86,6 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.family == "vlm":
         overrides.update(img_tokens=8)
     return cfg.replace(**overrides)
+
+
+SMOKE_SHAPE = ShapeConfig("smoke", seq_len=32, global_batch=2, kind="train")

@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -170,6 +170,22 @@ def library() -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
                 _lib = lib
     return _lib
+
+
+# where a wrapper's plain version stands in for its kernel (a tensor on the
+# CPU, a fake one in the dry run), it runs through run_plain; the dry run's
+# dispatch counter (roofline/dispatch.py) sets this hook to count the
+# kernel's inputs and outputs in place of the plain version's ops
+PLAIN_HOOK: Optional[Callable] = None
+
+
+def run_plain(wrapper, fn, *args, **kwargs):
+    """A kernel wrapper's CPU branch: ``fn(*args, **kwargs)``, its plain
+    version, or ``PLAIN_HOOK(wrapper, fn, args, kwargs)`` where a hook is
+    set."""
+    if PLAIN_HOOK is None:
+        return fn(*args, **kwargs)
+    return PLAIN_HOOK(wrapper, fn, args, kwargs)
 
 
 def count_launch(wrapper, kernel: Optional[str] = None) -> None:

@@ -19,7 +19,7 @@ import torch
 
 from ...tree import tree_leaves
 from ..build import (DTYPE_CODES, check_device, check_launch, count_launch,
-                     library, stream_of)
+                     library, run_plain, stream_of)
 from .ref import probe_rows_ref, probe_tree_ref
 
 MAX_ROWS = 2 ** 31 - 1          # rows cross the C boundary as an int
@@ -58,8 +58,9 @@ def probe_rows(x: torch.Tensor, threshold: float, *, nonfinite_code: int,
         raise ValueError("probe_rows: x must be contiguous")
     _check_codes("probe_rows", nonfinite_code, overflow_code)
     if kind == "cpu":
-        return probe_rows_ref(x, threshold, nonfinite_code=nonfinite_code,
-                              overflow_code=overflow_code)
+        return run_plain(probe_rows, probe_rows_ref, x, threshold,
+                         nonfinite_code=nonfinite_code,
+                         overflow_code=overflow_code)
     rows, cols = x.shape
     out = torch.empty((rows,), dtype=torch.int32, device=x.device)
     rc = library().repro_probe_rows(
@@ -156,8 +157,9 @@ def probe_tree(tree, threshold: float, *, nonfinite_code: int,
         probed = [leaf.contiguous() for leaf in probed]
     segments = tree_segments(probed)
     if kind == "cpu":
-        return probe_tree_ref(leaves, threshold, nonfinite_code=nonfinite_code,
-                              overflow_code=overflow_code)
+        return run_plain(probe_tree, probe_tree_ref, leaves, threshold,
+                         nonfinite_code=nonfinite_code,
+                         overflow_code=overflow_code)
     out = torch.empty((), dtype=torch.int32, device=leaves[0].device)
     if not segments:
         return out.zero_()

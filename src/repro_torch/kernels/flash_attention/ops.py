@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import torch
 
 from ..build import (DTYPE_CODES, check_device, check_launch, check_no_grad,
-                     count_launch, library, stream_of)
+                     count_launch, library, run_plain, stream_of)
 from .ref import flash_backward, sdpa_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernels are instantiated for these
@@ -128,8 +128,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q[:, s:s + 1].contiguous(), k, v, q_offset + s, causal=causal,
             seq_kv=seq_kv) for s in range(S)], dim=1)
     if kind == "cpu":
-        return sdpa_ref(q, k, v, q_offset=q_offset, causal=causal,
-                        window=window, seq_kv=seq_kv, return_lse=lse)
+        return run_plain(flash_attention, sdpa_ref, q, k, v, q_offset=q_offset,
+                         causal=causal, window=window, seq_kv=seq_kv,
+                         return_lse=lse)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads rows as 16-byte vectors)")

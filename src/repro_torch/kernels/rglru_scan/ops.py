@@ -14,7 +14,7 @@ import threading
 import torch
 
 from ..build import (check_device, check_launch, check_no_grad, count_launch,
-                     library, stream_of)
+                     library, run_plain, stream_of)
 from .ref import rglru_scan_backward_ref, rglru_scan_ref
 
 CHUNK = 128                     # steps per chunk, whatever the length
@@ -89,7 +89,7 @@ def rglru_scan(x_in: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
     kind = _check("rglru_scan", x_in, log_a)
     check_no_grad("rglru_scan", x_in, log_a)
     if kind == "cpu":
-        return rglru_scan_ref(x_in, log_a)
+        return run_plain(rglru_scan, rglru_scan_ref, x_in, log_a)
     B, S, W = x_in.shape
     out = torch.empty_like(x_in)
     rc = library().repro_rglru_scan(x_in.data_ptr(), log_a.data_ptr(),
@@ -106,7 +106,8 @@ def rglru_scan_bwd(x_in: torch.Tensor, log_a: torch.Tensor, h: torch.Tensor,
     forward returned and their gradient ``dh``, all fp32 (B, S, W) →
     ``(dx_in, dlog_a)`` fp32 (B, S, W)."""
     if _check("rglru_scan_bwd", x_in, log_a, h, dh) == "cpu":
-        return rglru_scan_backward_ref(x_in, log_a, h, dh)
+        return run_plain(rglru_scan_bwd, rglru_scan_backward_ref, x_in, log_a,
+                         h, dh)
     B, S, W = x_in.shape
     dx_in, dlog_a = torch.empty_like(x_in), torch.empty_like(x_in)
     nc = -(-S // CHUNK)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..build import (DTYPE_CODES, check_device, check_launch, check_no_grad,
-                     count_launch, library, stream_of)
+                     count_launch, library, run_plain, stream_of)
 from .ref import (check_scan_shapes, ssd_inter_chunk,
                   ssd_intra_chunk_backward_ref, ssd_intra_chunk_ref)
 
@@ -86,7 +86,7 @@ def ssd_intra_chunk(x, dt, A, B, C, chunk: int):
     check_no_grad("ssd_scan", x, dt, A, B, C)
     L = _check(kind, "ssd_scan", x, dt, A, B, C, chunk)
     if kind == "cpu":
-        return ssd_intra_chunk_ref(x, dt, A, B, C, L)
+        return run_plain(ssd_scan, ssd_intra_chunk_ref, x, dt, A, B, C, L)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     kernel = plan(x.dtype)
@@ -124,7 +124,8 @@ def ssd_chunk_bwd(x, dt, A, B, C, chunk: int, dy_diag, dstates):
     if not (dy_diag.is_contiguous() and dstates.is_contiguous()):
         raise ValueError("ssd_chunk_bwd: dy_diag and dstates must be contiguous")
     if kind == "cpu":
-        return ssd_intra_chunk_backward_ref(x, dt, A, B, C, L, dy_diag, dstates)
+        return run_plain(ssd_chunk_bwd, ssd_intra_chunk_backward_ref, x, dt, A,
+                         B, C, L, dy_diag, dstates)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty((b, s, h, p), **f32), torch.empty((b, s, h), **f32)
     dA = torch.empty((b, nc, h), **f32)

@@ -3,7 +3,8 @@ slot), the decode windows (plain, fused with prompt chunks, and
 speculative), the cache-building prefills (chunked and whole) and the
 full-sequence prefill step.
 
-The port of ``repro/launch/steps.py:120 make_train_step``, ``:997
+The port of ``repro/launch/steps.py:120 make_train_step`` (with its
+``microbatch`` and ``ce_chunk`` levers), ``:997
 make_reset_opt_fn``, ``:226 make_decode_step``, ``:244
 make_slot_decode_step``, ``:271 _paged_slot_step``, ``:404
 make_decode_window``, ``:491 make_prefill_decode_window``, ``:594
@@ -39,7 +40,7 @@ from ..optim import AdamWConfig, adamw_update, reset_moments
 from .paging import PagedLayout
 
 
-def make_loss_and_grads(cfg):
+def make_loss_and_grads(cfg, ce_chunk: int = 0):
     """``(params, batch) → (loss, grads, aux)``: the training loss of
     ``batch`` under a train state's ``params``, its gradient, a dict in
     ``params``' order, and ``{"dropped_fraction"}`` (the MoE layers' mean,
@@ -49,13 +50,14 @@ def make_loss_and_grads(cfg):
     themselves never require a gradient. Every block kind trains: the
     attention gradient goes through ``FlashAttention``, the RG-LRU's through
     ``RGLRUScan`` and the SSD's through ``SSDIntraChunk``, each a kernel
-    forward with a kernel (or, for attention, plain recompute) backward."""
+    forward with a kernel (or, for attention, plain recompute) backward.
+    ``ce_chunk`` chunks the loss over the sequence (:meth:`Model.loss`)."""
     skeleton = Model(cfg, device="meta", seed=None)
 
     def loss_and_grads(params: dict, batch: dict):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
-            loss, aux = skeleton.loss(leaves, batch)
+            loss, aux = skeleton.loss(leaves, batch, ce_chunk=ce_chunk)
             # a leaf the loss never reads (an encoder's token embedding, fed
             # frame embeddings) gets zeros, as jax.grad gives it
             grads = torch.autograd.grad(loss, list(leaves.values()),
@@ -65,6 +67,30 @@ def make_loss_and_grads(cfg):
                 {k: v.detach() for k, v in aux.items()})
 
     return loss_and_grads
+
+
+def accumulate_grads(loss_and_grads, params: dict, batch: dict, k: int):
+    """The JAX package's gradient accumulation over ``k`` microbatches:
+    every batch key cut into ``k`` slices of ``B // k`` rows (the last
+    ``B % k`` rows take no part), the slices run in order, and ``loss / k``,
+    each gradient ``g.float() / k`` and ``dropped_fraction / k`` summed
+    from fp32 zeros. Returns ``(loss, fp32 grads, aux)`` as
+    ``loss_and_grads`` does. Each slice's gradients are freed before the
+    next slice runs: the fp32 sums and one slice's activations are live."""
+    n = batch["labels"].shape[0] // k
+    acc = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for name, p in params.items()}
+    loss = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
+    dropped = torch.zeros_like(loss)
+    for i in range(k):
+        part = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
+        loss_i, grads, aux = loss_and_grads(params, part)
+        for name, g in grads.items():
+            acc[name].add_(g.float() / k)
+        del grads
+        loss = loss + loss_i / k
+        dropped = dropped + aux["dropped_fraction"] / k
+    return loss, acc, {"dropped_fraction": dropped}
 
 
 def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
@@ -86,15 +112,17 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
     fraction (ROUTER_OVERFLOW). The injections, the probes, the AdamW update
     and the metrics (``loss``, ``grad_norm``, ``lr``, ``dropped_fraction``)
     all stay on the device: no host sync. ``state`` is left as it was, so
-    the executor may discard the step. The JAX package's ``microbatch`` and ``ce_chunk`` levers wait for
-    ROADMAP Queue 1, item 15b.
+    the executor may discard the step.
+
+    The JAX package's ``PerfOptions`` levers: ``microbatch=k > 1``
+    accumulates the gradient over ``k`` slices of the batch
+    (:func:`accumulate_grads`; the tokens are injected into the whole batch
+    first, and the injections, the probe and AdamW take the fp32 sums),
+    ``ce_chunk`` chunks the loss over the sequence (:meth:`Model.loss`).
     """
-    if microbatch > 1 or ce_chunk:
-        raise NotImplementedError(
-            "microbatch and ce_chunk are not ported: ROADMAP Queue 1, item 15b")
     opt_cfg = opt_cfg or AdamWConfig()
     probe_cfg = probe_cfg or ProbeConfig()
-    loss_and_grads = make_loss_and_grads(cfg)
+    loss_and_grads = make_loss_and_grads(cfg, ce_chunk)
 
     def train_step(state, batch, inject):
         if not torch.is_tensor(inject):
@@ -106,7 +134,11 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
         if tokens is not None:
             tokens = inject_batch(tokens, inject)
             batch = {**batch, "tokens": tokens}
-        loss, grads, aux = loss_and_grads(state["params"], batch)
+        if microbatch > 1:
+            loss, grads, aux = accumulate_grads(loss_and_grads, state["params"],
+                                                batch, microbatch)
+        else:
+            loss, grads, aux = loss_and_grads(state["params"], batch)
         loss = inject_loss(loss, inject)
         grads = inject_grads(grads, inject)
         dropped = aux["dropped_fraction"]

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def dense_init(shape, *, generator: torch.Generator, device, dtype,
@@ -243,9 +244,33 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
-def chunked_cross_entropy(x, labels, unembed_fn, chunk: int):
-    """The JAX package's sequence-chunked CE (never the whole (B, S, V)
-    logits): not ported — ROADMAP Queue 1, item 15b (``ce_chunk``)."""
-    raise NotImplementedError(
-        "chunked cross-entropy (ce_chunk) is not ported: ROADMAP Queue 1, "
-        "item 15b")
+def chunked_cross_entropy(x: torch.Tensor, labels: torch.Tensor, unembed_fn,
+                          chunk: int) -> torch.Tensor:
+    """The mean CE without the whole (B, S, V) fp32 logits: the sequence
+    split into chunks of ``chunk`` positions (the last padded with zero
+    rows that count for nothing), each chunk's logits ``unembed_fn(x_chunk)``
+    and its summed NLL under a non-reentrant checkpoint (the backward
+    recomputes the logits), the sums added in chunk order and divided by
+    ``B * S``, as the JAX package's scan. ``unembed_fn`` may close over
+    tensors: the recompute runs it again on the same ones."""
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    valid = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        valid = F.pad(valid, (0, pad))
+
+    def chunk_nll(xch, lch, vch):
+        logits = unembed_fn(xch)                   # (B, chunk, V) fp32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, lch.long()[..., None], dim=-1)[..., 0]
+        return torch.sum((logz - gold) * vch)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S + pad, chunk):
+        total = total + torch.utils.checkpoint.checkpoint(
+            chunk_nll, x[:, c:c + chunk], labels[:, c:c + chunk],
+            valid[:, c:c + chunk], use_reentrant=False)
+    return total / (B * S)

@@ -41,8 +41,9 @@ import torch.nn as nn
 
 from ..configs.base import ModelConfig
 from .attention import cache_write_index, ring_write_index
-from .layers import (_rounded, apply_norm, dense_init, embed_lookup,
-                     embed_tokens, rope_tables, softmax_cross_entropy, unembed)
+from .layers import (_rounded, apply_norm, chunked_cross_entropy, dense_init,
+                     embed_lookup, embed_tokens, rope_tables,
+                     softmax_cross_entropy, unembed)
 from .rglru import CONV_WIDTH
 from .ssm import conv_dim
 from .transformer import (ATTN_KINDS, RECURRENT_STATE, Block,
@@ -213,7 +214,7 @@ class Model(nn.Module):
                 loss_mask: Optional[torch.Tensor] = None, *,
                 inputs_embeds: Optional[torch.Tensor] = None,
                 img_embeds: Optional[torch.Tensor] = None,
-                with_aux: bool = False):
+                with_aux: bool = False, ce_chunk: int = 0):
         """Full-sequence forward: tokens (B, S) → fp32 logits (B, S, V);
         causal, or bidirectional for an encoder (``cfg.causal`` False).
 
@@ -232,7 +233,11 @@ class Model(nn.Module):
         from the live weight cast to fp32 — not from ``unembed_f32``, the
         serving copy made once and detached — so the unembedding (and a
         tied embedding through both uses) gets its gradient. :meth:`loss`
-        calls it on a train state's params.
+        calls it on a train state's params. With ``ce_chunk``, that loss is
+        :func:`~repro_torch.models.layers.chunked_cross_entropy` over
+        sequence chunks of ``ce_chunk`` positions (the JAX package's
+        ``loss(ce_chunk=...)``): no (B, S, V) logits, and ``loss_mask`` not
+        read, as there.
 
         ``with_aux=True`` returns ``(logits or loss, {"dropped_fraction"})``:
         the MoE layers' dropped fractions summed and divided by the layers
@@ -256,6 +261,13 @@ class Model(nn.Module):
                        bias=self.final_norm_bias)
         if not train:
             out = unembed(x, self.unembed_f32, softcap=cfg.logit_softcap)
+        elif ce_chunk:
+            # the fp32 weight is cast once, here, inside the functional call:
+            # each chunk's recompute in the backward reads this tensor
+            w = self.unembed_weight().float()
+            out = chunked_cross_entropy(
+                x, labels, lambda xc: unembed(xc, w, softcap=cfg.logit_softcap),
+                ce_chunk)
         else:
             logits = unembed(x, self.unembed_weight().float(),
                              softcap=cfg.logit_softcap)
@@ -267,7 +279,7 @@ class Model(nn.Module):
                  torch.zeros((), device=x.device, dtype=torch.float32))
         return out, {"dropped_fraction": total / n_ffn}
 
-    def loss(self, params: dict, batch: dict):
+    def loss(self, params: dict, batch: dict, *, ce_chunk: int = 0):
         """``(loss, aux)``: the training loss of ``batch`` (``labels``, and
         ``tokens`` or the frame embeddings ``inputs_embeds``, optional
         ``img_embeds`` and ``loss_mask``) under ``params``, a dict of every
@@ -277,12 +289,14 @@ class Model(nn.Module):
         ``torch.func.functional_call``, so gradients reach them and this
         model's own weights are neither read nor touched (its parameters
         never require a gradient, and may lie on the ``meta`` device). The
-        embeddings are inputs: no gradient reaches them."""
+        embeddings are inputs: no gradient reaches them. ``ce_chunk`` chunks
+        the loss over the sequence, as :meth:`forward` says."""
         return torch.func.functional_call(
             self, params, (batch.get("tokens"),),
             {"labels": batch["labels"], "loss_mask": batch.get("loss_mask"),
              "inputs_embeds": batch.get("inputs_embeds"),
-             "img_embeds": batch.get("img_embeds"), "with_aux": True},
+             "img_embeds": batch.get("img_embeds"), "with_aux": True,
+             "ce_chunk": ce_chunk},
             strict=True)
 
     # ------------------------------------------------------------------- decode

@@ -1771,6 +1771,59 @@ def test_recurrent_train_lflr_equals_clean_on_the_card(cuda, arch):
                for a, b in zip(tree_leaves(state), tree_leaves(clean)))
 
 
+@pytest.mark.parametrize("arch,layers", [("recurrentgemma-2b", 3), ("mamba2-2.7b", 1)])
+def test_train_levers_on_the_card(cuda, arch, layers):
+    """The train step's levers at the train shape (B 4 x S 256) on a
+    full-width stack of one period (recurrentgemma: 2 RG-LRU layers, 1
+    sliding) or one SSD layer: ``microbatch=4, ce_chunk=64`` against the
+    plain step from one state and batch — the loss and each gradient
+    within 1% of the leaf's largest plus 2 bf16 ulps (the plain gradients
+    are bf16, the levers' fp32 sums of four bf16 slices), word 0; each
+    forward and backward kernel launched 4 times the plain step's, the
+    probe once."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.detect import ProbeConfig
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import (accumulate_grads, make_loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.weights import train_params
+
+    cfg = get_config(arch).replace(num_layers=layers)
+    params = train_params(Model(cfg, device=cuda, seed=0))
+    batch = make_batch(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                      batch_size=4), 0, cuda)
+    loss, grads, _ = make_loss_and_grads(cfg)(params, batch)
+    lev_loss, lev, _ = accumulate_grads(make_loss_and_grads(cfg, 64), params, batch, 4)
+
+    def excess(got, want):
+        want = want.float()
+        limit = 1e-2 * want.abs().max() + 2.0 ** -6 * want.abs()
+        return ((got.float() - want).abs() / limit).max().item()
+
+    assert excess(lev_loss, loss) <= 1
+    assert max(excess(lev[n], grads[n]) for n in grads) <= 1
+    state = {"params": params, "opt": init_opt_state(params),
+             "step": torch.zeros((), dtype=torch.int32, device=cuda),
+             "lr_scale": torch.ones((), device=cuda)}
+    counts = {}
+    for k, kw in ((1, {}), (4, {"microbatch": 4, "ce_chunk": 64})):
+        step = make_train_step(cfg, AdamWConfig(),
+                               ProbeConfig(loss_divergence_threshold=1e5), **kw)
+        reset_launch_counts()
+        _, _, word = step(state, batch, 0)
+        counts[k] = launch_counts()
+        assert int(word) == 0
+    for name in ("flash_forward", "rglru_scan", "rglru_scan_bwd", "ssd_scan",
+                 "ssd_chunk_bwd"):
+        assert counts[4][name] == 4 * counts[1][name]
+    assert counts[1]["rglru_scan_bwd"] + counts[1]["ssd_chunk_bwd"] == (
+        cfg.pattern_layers.count("rglru") + cfg.pattern_layers.count("ssd"))
+    assert counts[1]["probe_tree"] == counts[4]["probe_tree"] == 1
+
+
 def test_train_setup_grows_segments_on_the_card(cuda):
     """On the card, ``build_train_setup`` has the caching allocator grow its
     segments in place (``grow_segments``), as ``expandable_segments`` does:

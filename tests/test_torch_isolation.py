@@ -1,7 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-its GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_serve.py``)
-imports ``jax`` or the JAX package ``repro``; and its entry
-points run on the card unless the caller asks for the CPU — without a card
+its scripts (``chip_smoke.py``, ``scripts/profile_torch_serve.py``,
+``scripts/trace_tool_torch.py``, ``scripts/fuzz_torch.py``) imports
+``jax`` or the JAX package ``repro``; and its entry points run on the card unless the caller asks for the CPU — without a card
 they raise instead of running on the CPU."""
 import ast
 import pathlib
@@ -24,8 +24,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "profile_torch_serve.py"]
+    return files + [ROOT / "chip_smoke.py"] + [
+        ROOT / "scripts" / f"{name}.py"
+        for name in ("profile_torch_serve", "trace_tool_torch", "fuzz_torch")]
 
 
 def _imports(path):

@@ -4,9 +4,8 @@ For each module below, every public name the reference module defines
 (top-level functions, classes and assignments; a package's re-exports), and
 every public attribute and dataclass field of each class both define, must
 exist in the port, except the names listed in ``ABSENT``: each waits for
-the ROADMAP item that ports its mode (11 tensor parallel, 15b the dry-run
-and roofline tools) or has no meaning
-without JAX (the reason is given).
+the ROADMAP item that ports its mode (11 tensor parallel) or has no
+meaning without JAX (the reason is given).
 Whole modules of the training path that wait are in ``WAITING``.
 
 The modules are the host-side ones, whose API the port keeps. The model,
@@ -41,26 +40,14 @@ MODULES = (
     "obs/__init__.py", "obs/trace.py", "obs/postmortem.py",
     "fuzz/__init__.py", "fuzz/trajectory.py", "fuzz/coverage.py",
     "fuzz/mutator.py", "fuzz/runner.py", "fuzz/campaign.py",
+    "roofline/analysis.py", "launch/dryrun.py",
 )
 
 _TP = "ROADMAP item 11 (tensor parallel)"
-_DRYRUN = "ROADMAP item 15b (dry run and roofline)"
 _SERVE_ENUM = ("JAX-only: jitted factories; the port's replica runs "
                "slot_enum / window_enum directly")
 
 ABSENT = {
-    "configs/__init__.py": {
-        "SHAPES": _DRYRUN, "SMOKE_SHAPE": _DRYRUN, "ShapeConfig": _DRYRUN,
-        "all_cells": _DRYRUN, "cell_skip_reason": _DRYRUN},
-    "configs/base.py": {
-        "SHAPES": _DRYRUN, "ShapeConfig": _DRYRUN,
-        "ModelConfig.params_count": _DRYRUN,
-        "ModelConfig.active_params_count": _DRYRUN,
-        "ModelConfig.subquadratic": _DRYRUN,
-        "ModelConfig.has_global_attention": _DRYRUN},
-    "configs/registry.py": {
-        "SMOKE_SHAPE": _DRYRUN, "all_cells": _DRYRUN,
-        "cell_skip_reason": _DRYRUN},
     "core/__init__.py": {"make_enumerate_fn": _TP},
     "core/detect.py": {
         "ProbeConfig.use_kernel": ("JAX-only: the reference's serve probes "
@@ -90,6 +77,11 @@ ABSENT = {
 # waits in them with its item
 WAITING = {
     "optim/compress.py": "ROADMAP item 11 (compressed_psum, a collective)",
+    "roofline/hlo.py": ("ROADMAP item 11 (parse_collectives: one card runs no "
+                        "collective; op_histogram and estimate_hbm_bytes live "
+                        "in roofline/dispatch.py, over aten ops)"),
+    "launch/mesh.py": ("ROADMAP item 11 (the 16x16 and 2x16x16 TPU pod meshes "
+                       "need the sharding rules; the dry run runs one card)"),
 }
 
 

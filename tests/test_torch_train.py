@@ -54,8 +54,7 @@ from repro_torch.data import pipeline
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention,
                                                  flash_backward, sdpa_ref)
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.steps import (make_loss_and_grads, make_reset_opt_fn,
-                                      make_train_step)
+from repro_torch.launch.steps import make_loss_and_grads, make_reset_opt_fn
 from repro_torch.models import Model
 from repro_torch.models.layers import EmbedLookup
 from repro_torch.tree import tree_leaves
@@ -483,14 +482,10 @@ def test_training_leaves_the_model_as_it_was():
         model, train_params(trained))(tokens))
 
 
-def test_train_step_refuses_what_is_not_ported():
-    """microbatch and ce_chunk wait for item 15b; every block kind trains:
-    the recurrent stacks take a clean step whose gradient reaches every
-    leaf, their recurrences' parameters included."""
-    with pytest.raises(NotImplementedError, match="15b"):
-        make_train_step(smoke_config(ARCH), microbatch=2)
-    with pytest.raises(NotImplementedError, match="15b"):
-        make_train_step(smoke_config(ARCH), ce_chunk=8)
+def test_recurrent_stacks_train_every_leaf():
+    """Every block kind trains: the recurrent stacks take a clean step
+    whose gradient reaches every leaf, their recurrences' parameters
+    included (the levers: ``tests/test_torch_train_levers.py``)."""
     for arch, leaf in (("recurrentgemma-2b", "blocks.0.rglru.lam"),
                        ("mamba2-2.7b", "blocks.0.ssd.A_log")):
         cfg = smoke_config(arch)
